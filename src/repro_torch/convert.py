@@ -1,0 +1,74 @@
+"""Carry a chain's state between packages: ``MCState`` <-> numpy leaves.
+
+The dict's keys are the leaf names of the reference's ``MCState`` pytree
+(``src_table.keys``, ``slabs.cnt``, ``n_rows``, ...), 18 int32 arrays in all,
+so a state learned by either package can be continued by the other.  This
+module sees numpy arrays only, never another framework's types.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.hashtable import HashTable
+from repro_torch.core.mcprioq import MCConfig, MCState, resolve_device
+from repro_torch.core.slab import Slabs
+
+_NESTED = {"src_table": HashTable, "slabs": Slabs}
+
+LEAF_NAMES = tuple(
+    f"{field}.{sub}" if field in _NESTED else field
+    for field in MCState._fields
+    for sub in (_NESTED[field]._fields if field in _NESTED else (None,))
+)
+
+
+def state_to_numpy(state: MCState) -> Dict[str, np.ndarray]:
+    """Every leaf of ``state`` as a numpy array, keyed by leaf name."""
+    out = {}
+    for name in LEAF_NAMES:
+        leaf = state
+        for part in name.split("."):
+            leaf = getattr(leaf, part)
+        out[name] = leaf.detach().cpu().numpy().copy()
+    return out
+
+
+def state_from_numpy(leaves: Dict[str, np.ndarray], cfg: MCConfig,
+                     device=None) -> MCState:
+    """Build an ``MCState`` on ``device`` (default: the GPU, as ``init``)
+    from numpy leaves, checking names, dtypes and shapes against ``cfg``."""
+    dev = resolve_device(device)
+    missing = sorted(set(LEAF_NAMES) - set(leaves))
+    extra = sorted(set(leaves) - set(LEAF_NAMES))
+    if missing or extra:
+        raise ValueError(f"state leaves do not match: missing {missing}, "
+                         f"unexpected {extra}")
+    n, c = cfg.num_rows, cfg.capacity
+    h = cfg.resolved_dst_table_size() if cfg.use_dst_hash else 1
+    table = (cfg.resolved_table_size(),)
+    shapes = {"src_table.keys": table, "src_table.vals": table,
+              "slabs.dst": (n, c), "slabs.cnt": (n, c), "slabs.tot": (n,),
+              "slabs.order": (n, c), "dh_keys": (n, h), "dh_vals": (n, h)}
+
+    def leaf(name: str) -> torch.Tensor:
+        arr = np.asarray(leaves[name])
+        if arr.dtype != np.int32:
+            raise TypeError(f"leaf {name} must be int32, got {arr.dtype}")
+        want = shapes.get(name, ())
+        if arr.shape != want:
+            raise ValueError(f"leaf {name} has shape {arr.shape}, "
+                             f"config wants {want}")
+        return torch.from_numpy(np.array(arr, order="C", copy=True)).to(dev)
+
+    fields = {}
+    for field in MCState._fields:
+        if field in _NESTED:
+            cls = _NESTED[field]
+            fields[field] = cls(*(leaf(f"{field}.{sub}") for sub in cls._fields))
+        else:
+            fields[field] = leaf(field)
+    return MCState(**fields)

@@ -1,0 +1,554 @@
+"""MCPrioQ: online sparse Markov chain with priority-ordered edge queries.
+
+Counterpart of ``repro.core.mcprioq`` on torch tensors.
+
+Data layout
+-----------
+  * src hash table  : node-id -> row index into the slabs (open addressing)
+  * slabs           : per-row stable edge slots (dst, cnt) + ``order`` perm
+  * two counters    : per-edge ``cnt`` and per-row ``tot``; probability is
+                      ``cnt/tot`` computed at query time (paper §II.3)
+  * optional dst hash: per-row table dst -> slot (paper §II.2); its fields
+                      are carried in the state, its maintenance is not in
+                      this slice (``use_dst_hash=True`` raises).
+
+Update semantics (paper §II.A, batched)
+---------------------------------------
+A batch of B transitions runs through a three-stage pipeline:
+  * **pre-aggregation**: the batch is sorted by (src, dst) and duplicate
+    edges are summed into one item each, so B raw transitions collapse to U
+    unique edges before either path runs.
+  * **update of edge** (normal case): the edge already exists — a fused
+    batched increment via :func:`repro_torch.kernels.ops.slab_update`.
+  * **new edge** (rare case): new-edge items are stable-partitioned to a
+    ``max_new_per_batch`` prefix and handled by one deterministic sequential
+    pass (:func:`repro_torch.kernels.ops.slow_path`) that allocates
+    rows/slots and applies Space-Saving tail replacement when a row is full.
+    Edges past the prefix are counted in ``deferred_new`` (the caller may
+    resubmit).
+Afterwards ``sort_passes`` odd-even passes (``ops.oddeven_sort``) restore
+approximate order — the paper's lock-free bubble sort.
+
+Every function returns a new ``MCState`` and never writes into a tensor of
+the state it was given: a reader may go on holding the old one.  On a CUDA
+state ``update_batch`` and the queries launch their kernels without any
+device->host synchronisation.
+
+Kernel dispatch is selected by ``MCConfig.impl`` (``auto``/``ref``/``cuda``).
+``update_batch_reference`` keeps the O(B) sequential semantics as an oracle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import hashtable as ht
+from repro_torch.core import slab as sl
+from repro_torch.core.hashtable import EMPTY, TOMB, HashTable
+from repro_torch.core.slab import Slabs
+from repro_torch.kernels import ops
+
+__all__ = [
+    "EMPTY", "TOMB", "HashTable", "Slabs", "MCConfig", "MCState",
+    "resolve_device", "init", "lookup_rows", "update_batch", "update_batch_reference", "query_impl",
+    "query_threshold", "query_topk", "decay", "maybe_decay",
+    "check_invariants", "maintenance_stats", "counter_stats",
+]
+
+_IMPLS = ("auto", "ref", "cuda")
+
+
+def _next_pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+@dataclasses.dataclass(frozen=True)
+class MCConfig:
+    """Static configuration (hashable)."""
+
+    num_rows: int = 1024          # max distinct src nodes tracked
+    capacity: int = 128           # max out-degree tracked per src (C)
+    table_size: int = 0           # src hash slots; 0 -> 4 * num_rows pow2
+    max_probes: int = 64
+    sort_passes: int = 1          # odd-even passes per update batch
+    use_dst_hash: bool = False    # paper's optional dst->slot hash table
+    dst_table_size: int = 0       # per-row; 0 -> 4 * capacity pow2
+    max_new_per_batch: int = 0    # slow-path prefix; 0 = unbounded (batch)
+    impl: str = "auto"            # kernel dispatch: auto | ref | cuda
+    # inference path: fused in-kernel row gather vs pre-ordered rows;
+    # 0 = auto-pick the walk's chunk count from capacity
+    fused_query: bool = True
+    query_chunks: int = 0
+    # maintenance: 0 = stop-the-world decay; R > 0 = rolling decay that
+    # halves one R-row block per call (bounded per-call work)
+    decay_block_rows: int = 0
+    # full dst-hash rebuild once decay tombstones exceed this fraction of
+    # the total dst-hash capacity (num_rows * dst_table_size)
+    dh_rebuild_fraction: float = 0.25
+
+    def __post_init__(self):
+        if self.impl not in _IMPLS:
+            raise ValueError(f"impl must be one of {_IMPLS}, got {self.impl!r}")
+        if self.use_dst_hash:
+            raise NotImplementedError(
+                "use_dst_hash=True is not ported yet: the per-row dst-hash "
+                "maintenance (_dh_set/_dh_del/_dh_rebuild_all/_dh_repair_rows) "
+                "belongs to the dst-hash slice of the port")
+        if not self.fused_query:
+            raise NotImplementedError(
+                "fused_query=False is not ported yet: the kernel over "
+                "pre-ordered rows (cdf_query) belongs to the dst-hash slice "
+                "of the port")
+
+    def resolved_table_size(self) -> int:
+        return self.table_size or _next_pow2(4 * self.num_rows)
+
+    def resolved_dst_table_size(self) -> int:
+        return self.dst_table_size or _next_pow2(4 * self.capacity)
+
+    def resolved_max_new(self, batch: int) -> int:
+        if self.max_new_per_batch <= 0:
+            return batch
+        return min(self.max_new_per_batch, batch)
+
+    def resolved_decay_rows(self) -> int:
+        """Rows decayed per call: the block size, clamped to the table."""
+        if self.decay_block_rows <= 0:
+            return self.num_rows
+        return min(self.decay_block_rows, self.num_rows)
+
+
+class MCState(NamedTuple):
+    src_table: HashTable   # node-id -> row
+    slabs: Slabs
+    n_rows: torch.Tensor      # int32[]   allocated rows
+    # optional per-row dst hash (one-column arrays while it is disabled)
+    dh_keys: torch.Tensor     # int32[N, H]
+    dh_vals: torch.Tensor     # int32[N, H]
+    # observability counters (drops are the price of fixed shapes)
+    dropped_rows: torch.Tensor    # srcs dropped because num_rows exhausted
+    dropped_probes: torch.Tensor  # items dropped on probe-window overflow
+    evictions: torch.Tensor       # Space-Saving tail replacements
+    deferred_new: torch.Tensor    # new edges past the max_new_per_batch prefix
+    route_dropped: torch.Tensor   # items dropped on routing-bucket overflow
+    # maintenance state + observability
+    decay_cursor: torch.Tensor    # next row block for rolling decay
+    decay_steps: torch.Tensor     # decay calls applied (blocks, not sweeps)
+    dh_rebuilds: torch.Tensor     # full dst-hash rebuilds triggered
+    dh_tombstones: torch.Tensor   # live decay tombstones across all row hashes
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the GPU, and only the GPU: no silent CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch.core.init: no CUDA device is available and no "
+                "device was given; pass device='cpu' to run the plain "
+                "versions on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def init(cfg: MCConfig, device=None) -> MCState:
+    """Empty chain on ``device`` (default: the current CUDA device; raises
+    when there is none)."""
+    dev = resolve_device(device)
+    n, c = cfg.num_rows, cfg.capacity
+    h = cfg.resolved_dst_table_size() if cfg.use_dst_hash else 1
+
+    def int32(value: int) -> torch.Tensor:
+        return torch.full((), value, dtype=torch.int32, device=dev)
+
+    return MCState(
+        src_table=ht.make(cfg.resolved_table_size(), device=dev),
+        slabs=sl.make(n, c, device=dev),
+        n_rows=int32(0),
+        dh_keys=torch.full((n, h), EMPTY, dtype=torch.int32, device=dev),
+        dh_vals=torch.full((n, h), EMPTY, dtype=torch.int32, device=dev),
+        dropped_rows=int32(0),
+        dropped_probes=int32(0),
+        evictions=int32(0),
+        deferred_new=int32(0),
+        route_dropped=int32(0),
+        decay_cursor=int32(0),
+        decay_steps=int32(0),
+        dh_rebuilds=int32(0),
+        dh_tombstones=int32(0),
+    )
+
+
+def _device_of(state: MCState) -> torch.device:
+    return state.slabs.cnt.device
+
+
+def _to_state_device(state: MCState, x, dtype) -> torch.Tensor:
+    """Input given as a tensor, numpy array or list, as ``dtype`` on the
+    state's device."""
+    return torch.as_tensor(x, device=_device_of(state)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# lookups
+# ---------------------------------------------------------------------------
+
+
+def lookup_rows(state: MCState, src: torch.Tensor, cfg: MCConfig):
+    """Batched src -> row. Returns ``(rows[B], found[B])``; row 0 when missing.
+
+    Routed through the shared open-addressing probe kernel (``ops.ht_find``
+    via ``lookup_batch``): one launch at the head of every query and update.
+    """
+    rows, found = ht.lookup_batch(state.src_table, src, cfg.max_probes,
+                                  impl=cfg.impl)
+    return torch.where(found, rows, 0), found
+
+
+def _find_slots(state: MCState, rows: torch.Tensor, dst: torch.Tensor,
+                cfg: MCConfig):
+    """Batched (row, dst) -> slot by row scan (paper §II.2); the dst-hash
+    branch (``ops.dh_find``) belongs to a later slice."""
+    del cfg
+    return sl.find_slot(state.slabs, rows.to(torch.int64), dst)
+
+
+# ---------------------------------------------------------------------------
+# update
+# ---------------------------------------------------------------------------
+
+
+def _aggregate_batch(src, dst, w, active):
+    """Collapse in-batch duplicates: B items -> U unique (src, dst) edges.
+
+    Sorts the batch by (inactive, src, dst) — inactive items sink to the
+    tail — and sums weights into the first occurrence (*head*) of each
+    unique edge.  Returns ``(src, dst, w, head, pos)`` in sorted order where
+    ``head`` marks the unique-edge representatives, ``pos`` is each head
+    edge's first-occurrence position in the original batch (for
+    arrival-order tie-breaks downstream); non-head slots carry
+    ``src = dst = -1`` and ``w = 0``.
+
+    The three sort keys are packed into one int64 (active ids are
+    non-negative int32; inactive items, whose ids may be negative, all get
+    the same key above every active one — their relative order reaches no
+    output).  The sort is stable, so the head of a segment is also its
+    earliest arrival.
+    """
+    b = src.shape[0]
+    key = (src.to(torch.int64) << 31) | dst.to(torch.int64)
+    key = torch.where(active, key, 1 << 62)
+    perm = torch.sort(key, stable=True).indices
+    src_s, dst_s, w_s, act_s = src[perm], dst[perm], w[perm], active[perm]
+    first = torch.ones_like(act_s)
+    first[1:] = (src_s[1:] != src_s[:-1]) | (dst_s[1:] != dst_s[:-1])
+    head = act_s & first
+    # segment id of each item = index of its head
+    seg = (torch.cumsum(head, dim=0) - 1).clamp(0, max(b - 1, 0))
+    sums = torch.zeros_like(w_s).index_add_(0, seg, torch.where(act_s, w_s, 0))
+    u_w = torch.where(head, sums[seg], 0).to(w.dtype)
+    u_src = torch.where(head, src_s, -1)
+    u_dst = torch.where(head, dst_s, -1)
+    u_pos = torch.where(head, perm, b).to(torch.int32)
+    return u_src, u_dst, u_w, head, u_pos
+
+
+def _take_new_prefix(src, dst, w, pos, new_mask, limit: int):
+    """Stable-partition new-edge items to the front, truncated to ``limit``.
+
+    Ties inside the partition break by ``pos`` (original arrival order), so
+    a tight ``max_new_per_batch`` admits the earliest-arriving new edges
+    instead of starving high node-ids.  Returns ``(src[limit], dst[limit],
+    w[limit], mask[limit], overflow)`` where ``overflow`` counts new edges
+    that did not fit in the prefix.
+    """
+    b = src.shape[0]
+    key = (~new_mask).to(torch.int64) * (b + 1) + pos.to(torch.int64)
+    perm = torch.sort(key, stable=True).indices[:limit]
+    p_mask = new_mask[perm]
+    overflow = (new_mask.sum() - p_mask.sum()).to(torch.int32)
+    return src[perm], dst[perm], w[perm], p_mask, overflow
+
+
+def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig) -> MCState:
+    """Sequential insert pass for new edges / new rows (the paper's rare
+    case), through the kernel layer (``ops.slow_path``).
+
+    Deterministic (batch order), fully masked — inactive items are no-ops.
+    """
+    counters = torch.stack([state.n_rows, state.dropped_rows,
+                            state.dropped_probes, state.evictions])
+    slabs = state.slabs
+    keys, vals, dst_slab, cnt, tot, counters = ops.slow_path(
+        state.src_table.keys, state.src_table.vals, slabs.dst, slabs.cnt,
+        slabs.tot, slabs.order, counters, src, dst, w, active,
+        max_probes=cfg.max_probes, impl=cfg.impl)
+    return state._replace(
+        src_table=HashTable(keys, vals),
+        slabs=Slabs(dst_slab, cnt, tot, slabs.order),
+        n_rows=counters[0], dropped_rows=counters[1],
+        dropped_probes=counters[2], evictions=counters[3])
+
+
+def _batch_inputs(state: MCState, src, dst, weights, mask):
+    src = _to_state_device(state, src, torch.int32)
+    dst = _to_state_device(state, dst, torch.int32)
+    w = (torch.ones_like(src) if weights is None
+         else _to_state_device(state, weights, torch.int32))
+    m = (torch.ones_like(src, dtype=torch.bool) if mask is None
+         else _to_state_device(state, mask, torch.bool))
+    return src, dst, w, m & (src >= 0) & (dst >= 0)
+
+
+def update_batch(
+    state: MCState,
+    src,
+    dst,
+    weights=None,
+    mask=None,
+    *,
+    cfg: MCConfig,
+) -> MCState:
+    """Apply a batch of transitions ``src[i] -> dst[i]`` (paper §II.A).
+
+    Pipeline: pre-aggregate duplicates, fused fast-path increment
+    (``ops.slab_update``), bounded sequential slow path for new edges
+    (``ops.slow_path``; an empty pass is one short launch), then
+    ``cfg.sort_passes`` odd-even passes (``ops.oddeven_sort``).
+    """
+    src, dst, w, m = _batch_inputs(state, src, dst, weights, mask)
+    b = src.shape[0]
+
+    # (1) pre-aggregate: B items -> U unique edges (duplicates never pay a
+    # slow-path step again)
+    u_src, u_dst, u_w, u_act, u_pos = _aggregate_batch(src, dst, w, m)
+
+    # (2) classify against the pre-state: edge exists <=> fast
+    rows0, found_src0 = lookup_rows(state, u_src, cfg)
+    _, found_d0 = _find_slots(state, rows0, u_dst, cfg)
+    fast = u_act & found_src0 & found_d0
+
+    # (3) fast path: fused batched increment through the kernel layer (the
+    # batched equivalent of the paper's atomic fetch-add)
+    slabs = state.slabs
+    cnt, tot = ops.slab_update(
+        torch.where(fast, rows0, -1), u_dst, u_w,
+        slabs.dst, slabs.cnt, slabs.tot, impl=cfg.impl)
+    state = state._replace(slabs=Slabs(slabs.dst, cnt, tot, slabs.order))
+
+    # (4) slow path: new edges only, partitioned to a bounded prefix so the
+    # sequential pass is O(max_new)
+    new_mask = u_act & ~fast
+    limit = cfg.resolved_max_new(b)
+    p_src, p_dst, p_w, p_mask, overflow = _take_new_prefix(
+        u_src, u_dst, u_w, u_pos, new_mask, limit)
+    state = state._replace(deferred_new=state.deferred_new + overflow)
+    state = _slow_path(state, p_src, p_dst, p_w, p_mask, cfg)
+
+    # (5) lock-free bubble sort, through the kernel layer
+    if cfg.sort_passes:
+        slabs = state.slabs
+        order = ops.oddeven_sort(slabs.cnt, slabs.order,
+                                 passes=cfg.sort_passes, impl=cfg.impl)
+        state = state._replace(
+            slabs=Slabs(slabs.dst, slabs.cnt, slabs.tot, order))
+    return state
+
+
+def update_batch_reference(
+    state: MCState,
+    src,
+    dst,
+    weights=None,
+    mask=None,
+    *,
+    cfg: MCConfig,
+) -> MCState:
+    """Pre-kernel oracle for :func:`update_batch` (the seed implementation).
+
+    Inline scatter-add fast path + an O(B) sequential slow path that walks
+    every batch item.  Kept as the semantic ground truth for equivalence
+    tests; ``max_new_per_batch`` is deliberately ignored here.
+    """
+    src, dst, w, m = _batch_inputs(state, src, dst, weights, mask)
+
+    # classify against the pre-state: edge exists <=> fast
+    rows0, found_src0 = lookup_rows(state, src, cfg)
+    slots0, found_d0 = _find_slots(state, rows0, dst, cfg)
+    fast = m & found_src0 & found_d0
+
+    # fast path: scatter-add (duplicates aggregate, like contended atomics)
+    add_w = torch.where(fast, w, 0)
+    slabs = state.slabs
+    rows64 = rows0.to(torch.int64)
+    flat = rows64 * cfg.capacity + slots0.to(torch.int64)
+    cnt = slabs.cnt.clone().view(-1).index_add_(0, flat, add_w).view_as(slabs.cnt)
+    tot = slabs.tot.clone().index_add_(0, rows64, add_w)
+    state = state._replace(slabs=Slabs(slabs.dst, cnt, tot, slabs.order))
+
+    # slow path: everything else, sequential + masked
+    state = _slow_path(state, src, dst, w, m & ~fast, cfg)
+
+    # lock-free bubble sort, vectorised
+    slabs = state.slabs
+    order = sl.oddeven_passes(slabs.cnt, slabs.order, cfg.sort_passes)
+    return state._replace(slabs=Slabs(slabs.dst, slabs.cnt, slabs.tot, order))
+
+
+# ---------------------------------------------------------------------------
+# inference
+# ---------------------------------------------------------------------------
+
+
+def query_impl(state: MCState, src, threshold, cfg: MCConfig, max_items: int):
+    """Shared inference dispatch: ``ops.ht_find`` probe +
+    ``ops.cdf_query_fused`` (in-kernel row gather and walk).
+    ``threshold=None`` is top-k mode (every live item)."""
+    src = _to_state_device(state, src, torch.int32)
+    rows, found = lookup_rows(state, src, cfg)
+    return ops.cdf_query_fused(
+        rows, found, state.slabs.cnt, state.slabs.dst, state.slabs.order,
+        state.slabs.tot, threshold, max_items=max_items,
+        chunks=cfg.query_chunks, impl=cfg.impl)
+
+
+def query_threshold(
+    state: MCState,
+    src,
+    threshold: float,
+    *,
+    cfg: MCConfig,
+    max_items: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Items in descending probability until cumulative prob >= threshold.
+
+    Returns ``(dsts[B, max_items], probs[B, max_items], n_needed[B])`` where
+    entries past ``n_needed`` are EMPTY/0.  ``n_needed`` is the paper's
+    CDF^-1(t): how many items a reader must touch.  Unknown srcs yield 0.
+    """
+    return query_impl(state, src, threshold, cfg, max_items)
+
+
+def query_topk(state: MCState, src, *, cfg: MCConfig, k: int = 8):
+    """Top-k edges by (approximate) probability. ``(dsts[B,k], probs[B,k])``.
+
+    Top-k is the kernel's explicit ``threshold=None`` mode (keep every live
+    item), sharing the fused CDF walk.
+    """
+    dk, pk, _ = query_impl(state, src, None, cfg, k)
+    return dk, pk
+
+
+# ---------------------------------------------------------------------------
+# decay (paper §II.C) — incremental maintenance
+# ---------------------------------------------------------------------------
+
+
+def decay(state: MCState, *, cfg: MCConfig) -> MCState:
+    """§II.C decay through the kernel layer (``ops.decay_sort``).
+
+    Stop-the-world (``decay_block_rows == 0``): halve every counter, evict
+    dead edges and compact the whole table.  Rolling mode
+    (``decay_block_rows == R``): halve only the cursor's R-row block and
+    advance the cursor, so a serving system amortises maintenance across
+    steps — per-call kernel work scales with R, not ``num_rows``, and readers
+    see the paper's approximately-correct mid-maintenance state.  Reading the
+    cursor costs one device->host synchronisation per call.
+    """
+    n = cfg.num_rows
+    r = cfg.resolved_decay_rows()
+    slabs = state.slabs
+    one = torch.ones_like(state.decay_steps)
+    if r >= n:  # stop-the-world: one full-table dispatch
+        cnt, dst, order, tot = ops.decay_sort(
+            slabs.cnt, slabs.dst, slabs.order, impl=cfg.impl)
+        return state._replace(
+            slabs=Slabs(dst, cnt, tot, order),
+            decay_steps=state.decay_steps + one)
+
+    n_blocks = -(-n // r)
+    cur = int(state.decay_cursor) % n_blocks
+    # last block is clamped so every call touches exactly r rows (it overlaps
+    # the previous block when r does not divide n; halving is not idempotent
+    # per row — kept as the reference has it)
+    row0 = min(cur * r, n - r)
+    block = slice(row0, row0 + r)
+    cnt2, dst2, ord2, tot2 = ops.decay_sort(
+        slabs.cnt[block], slabs.dst[block], slabs.order[block], impl=cfg.impl)
+    new = Slabs(*(x.clone() for x in slabs))
+    new.dst[block] = dst2
+    new.cnt[block] = cnt2
+    new.tot[block] = tot2
+    new.order[block] = ord2
+    return state._replace(
+        slabs=new,
+        decay_cursor=torch.full_like(state.decay_cursor, cur + 1),
+        decay_steps=state.decay_steps + one)
+
+
+def maybe_decay(state: MCState, *, cfg: MCConfig, total_threshold: int) -> MCState:
+    """Decay when any row total exceeds ``total_threshold`` (paper §II.C
+    suggests decaying "at some threshold over the number of total
+    transitions").  In rolling mode each trigger halves one block; the
+    threshold keeps firing until the offending row's block comes around.
+    Reading the trigger costs one device->host synchronisation per call."""
+    if bool((state.slabs.tot > total_threshold).any()):
+        return decay(state, cfg=cfg)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# invariant checks (used by tests and the smoke script)
+# ---------------------------------------------------------------------------
+
+
+def check_invariants(state: MCState, cfg: Optional[MCConfig] = None) -> dict:
+    del cfg  # the dst-hash clause belongs to a later slice
+    slabs = state.slabs
+    cap = slabs.order.shape[1]
+    order_ok = (torch.sort(slabs.order, dim=1).values
+                == torch.arange(cap, dtype=torch.int32,
+                                device=slabs.order.device)).all()
+    tot_ok = (slabs.tot == slabs.cnt.sum(dim=1).to(torch.int32)).all()
+    free_ok = ((slabs.cnt == 0) == (slabs.dst == EMPTY)).all()
+    nonneg = (slabs.cnt >= 0).all()
+    return {
+        "order_is_permutation": bool(order_ok),
+        "tot_matches_cnt_sum": bool(tot_ok),
+        "free_slots_consistent": bool(free_ok),
+        "counts_nonnegative": bool(nonneg),
+        "sorted_fraction": float(sl.sorted_fraction(slabs.cnt, slabs.order)),
+    }
+
+
+def maintenance_stats(state: MCState) -> dict:
+    """Maintenance observability counters, host-side ints."""
+    return {
+        "decay_steps": int(state.decay_steps),
+        "decay_cursor": int(state.decay_cursor),
+        "dh_rebuilds": int(state.dh_rebuilds),
+        "dh_tombstones": int(state.dh_tombstones),
+    }
+
+
+_COUNTER_FIELDS = ("n_rows", "dropped_rows", "dropped_probes", "evictions",
+                   "deferred_new", "route_dropped", "decay_steps",
+                   "dh_rebuilds", "dh_tombstones")
+
+
+def counter_stats(state: MCState) -> dict:
+    """Every additive observability counter as a host-side int.
+
+    Counters are summed over any leading dims, so the same helper reads a
+    local ``MCState`` and a stacked per-shard state.  ``decay_cursor`` is a
+    position, not a count, and is deliberately excluded.  The sums are
+    stacked into one tensor and cross to the host in ONE device->host copy.
+    """
+    vals = torch.stack(
+        [getattr(state, f).sum() for f in _COUNTER_FIELDS]).tolist()
+    return {f: int(v) for f, v in zip(_COUNTER_FIELDS, vals)}

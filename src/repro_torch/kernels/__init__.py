@@ -1,0 +1,17 @@
+"""CUDA kernels for the paper's compute hot spots, with their plain versions.
+
+  * :mod:`repro_torch.kernels.probe`       — shared open-addressing probe:
+                                             flat src table (§II.1) + per-row
+                                             dst hash (§II.2)
+  * :mod:`repro_torch.kernels.slab_update` — fused batched edge increment (§II.A)
+  * :mod:`repro_torch.kernels.oddeven`     — lock-free bubble sort (§II.2)
+  * :mod:`repro_torch.kernels.cdf_gather`  — fused row-gather + CDF walk (§II.B)
+  * :mod:`repro_torch.kernels.cdf_query`   — chunking rule of the walk
+  * :mod:`repro_torch.kernels.slow_path`   — sequential new-edge pass (§II.A)
+
+Public API lives in :mod:`repro_torch.kernels.ops` (backend dispatch);
+``ref.py`` holds the plain PyTorch version each kernel is held against;
+``csrc/`` the CUDA C++ sources, built at first use by ``_build.py``.
+"""
+
+from repro_torch.kernels import ops  # noqa: F401

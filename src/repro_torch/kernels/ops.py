@@ -1,0 +1,142 @@
+"""Public entry points of the kernel layer: backend dispatch.
+
+Counterpart of ``repro.kernels.ops``.  ``impl='cuda'`` launches the
+hand-written CUDA kernel (and raises on CPU tensors), ``impl='ref'`` runs the
+plain PyTorch version on whatever device the tensors are on, ``impl='auto'``
+picks the kernel for CUDA tensors and the plain version for CPU tensors.
+A kernel that fails to build or launch raises; nothing falls back to the
+plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cdf_gather as _cg
+from repro_torch.kernels import cdf_query as _cdf
+from repro_torch.kernels import oddeven as _oe
+from repro_torch.kernels import probe as _pr
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import slab_update as _su
+from repro_torch.kernels import slow_path as _sp
+
+_IMPLS = ("auto", "ref", "cuda")
+
+
+def _use_ref(impl: str, x: torch.Tensor) -> bool:
+    """Validate ``impl`` and decide the dispatch from where ``x`` lives."""
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(
+            f"impl='cuda' needs CUDA tensors, got a tensor on {x.device}")
+    return impl == "ref" or not x.is_cuda
+
+
+# ---------------------------------------------------------------------------
+
+
+def oddeven_sort(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
+                 impl: str = "auto") -> torch.Tensor:
+    """k odd-even passes over every slab row; returns the new order
+    permutation (slabs themselves never move)."""
+    if _use_ref(impl, cnt):
+        return _ref.oddeven_sort_ref(cnt, order, passes)
+    return _oe.oddeven_cuda(cnt, order, passes=passes)
+
+
+def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
+                dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+                *, impl: str = "auto"):
+    """Fast-path batched increments; returns (cnt', tot').
+    rows < 0 = padding/inactive items."""
+    if _use_ref(impl, cnt):
+        _, cnt2, tot2, _ = _ref.slab_update_ref(rows, dsts, w, dst_slab, cnt, tot)
+        return cnt2, tot2
+    return _su.slab_update_cuda(rows, dsts, w, dst_slab, cnt, tot)
+
+
+def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+               *, impl: str = "auto"):
+    """§II.C decay: halve counters, evict dead edges, fully re-sort.
+
+    The compaction sort composes the odd-even kernel with C/2+1 passes (a
+    full odd-even transposition network sorts any input).  Returns (cnt',
+    dst', order', tot') with evicted slots at the order tail.
+    """
+    new_cnt = cnt >> 1
+    new_dst = torch.where(new_cnt == 0, -1, dst).to(torch.int32)
+    new_tot = new_cnt.sum(dim=1).to(torch.int32)
+    passes = cnt.shape[1] // 2 + 1
+    new_order = oddeven_sort(new_cnt, order, passes=passes, impl=impl)
+    return new_cnt, new_dst, new_order, new_tot
+
+
+def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
+            dh_keys: torch.Tensor, dh_vals: torch.Tensor,
+            *, max_probes: int = 64, impl: str = "auto"):
+    """Batched per-row dst-hash lookup: ``(slots[B], found[B] bool)``.
+
+    The paper's §II.2 dst -> slot tables through the shared probe kernel;
+    rows < 0 are padding.  Semantics are the core linear probe
+    (``hashtable.lookup``).
+    """
+    if _use_ref(impl, dh_keys):
+        return _ref.dh_find_ref(rows, dsts, dh_keys, dh_vals, max_probes)
+    slots, found = _pr.probe_find_cuda(rows, dsts, dh_keys, dh_vals,
+                                       max_probes=max_probes)
+    return slots, found.to(torch.bool)
+
+
+def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
+            tab_vals: torch.Tensor, *, max_probes: int = 64,
+            impl: str = "auto"):
+    """Batched flat-table lookup: ``(vals[B], found[B] bool)``.
+
+    The src node-id -> row probe at the head of every query and update
+    (paper §II.1): the flat table is the N = 1 case of the shared probe
+    kernel.  ``hashtable.lookup_batch`` routes here when an impl is given.
+    """
+    rows = torch.zeros_like(keys_q)
+    return dh_find(rows, keys_q, tab_keys.unsqueeze(0), tab_vals.unsqueeze(0),
+                   max_probes=max_probes, impl=impl)
+
+
+def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
+                    cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+                    tot: torch.Tensor, threshold, *, max_items: int = 16,
+                    chunks: int = 0, topk: bool = False, impl: str = "auto"):
+    """Fused inference: in-kernel row gather + CDF walk (cdf_gather.py).
+
+    Takes pre-resolved rows[B] (0 where missing) + found[B] and the raw slab
+    arrays; only queried rows are touched.  ``threshold=None`` (or
+    ``topk=True``) is top-k mode.  ``chunks`` is validated and otherwise
+    changes nothing: every chunking of the integer walk gives the same bits.
+    """
+    topk = topk or threshold is None
+    _cdf.auto_chunks(cnt.shape[1], chunks)
+    threshold = None if topk else threshold
+    if _use_ref(impl, cnt):
+        return _ref.cdf_query_fused_ref(rows, found, cnt, dst, order, tot,
+                                        threshold, max_items)
+    return _cg.cdf_query_fused_cuda(rows, found.to(torch.int32), cnt, dst,
+                                    order, tot, threshold, max_items=max_items)
+
+
+def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+              dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+              order: torch.Tensor, counters: torch.Tensor,
+              src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+              active: torch.Tensor, *, max_probes: int = 64,
+              impl: str = "auto"):
+    """Sequential new-edge pass (row allocation, slot allocation,
+    Space-Saving replacement) over items ``src/dst/w[L]`` where ``active``;
+    ``counters[4]`` = (n_rows, dropped_rows, dropped_probes, evictions).
+    Returns fresh ``(tab_keys, tab_vals, dst_slab, cnt, tot, counters)``."""
+    if _use_ref(impl, cnt):
+        return _ref.slow_path_ref(tab_keys, tab_vals, dst_slab, cnt, tot,
+                                  order, counters, src, dst, w, active,
+                                  max_probes)
+    return _sp.slow_path_cuda(tab_keys, tab_vals, dst_slab, cnt, tot, order,
+                              counters, src, dst, w, active.to(torch.int32),
+                              max_probes=max_probes)

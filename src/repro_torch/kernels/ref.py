@@ -1,0 +1,248 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+Counterpart of ``repro.kernels.ref``.  Each function is the semantic ground
+truth of one CUDA kernel; kernels must match exactly, integer outputs and
+float32 probabilities alike (the only float ops, ``t * tot`` and
+``cnt / tot``, are per-row/per-item and association-free).  They run on any
+device; on the CPU they are what the kernel wrappers dispatch to.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import hashtable as ht
+from repro_torch.core import slab as sl
+from repro_torch.core.hashtable import EMPTY, first_true
+
+
+def oddeven_ref(c_ord: torch.Tensor, order: torch.Tensor, passes: int):
+    """k odd-even passes over counts-in-order + the order permutation.
+
+    c_ord[N, C] are the counts *already gathered into order position* (the
+    kernel-side layout); order[N, C] the slot permutation. Returns the pair
+    after ``passes`` full (even+odd) sweeps, descending target.
+    """
+    c_ord = c_ord.clone()
+    order = order.clone()
+    cap = c_ord.shape[1]
+    for _ in range(passes):
+        for start in (0, 1):
+            m = (cap - start) // 2
+            if m <= 0:
+                continue
+            left = slice(start, start + 2 * m, 2)
+            right = slice(start + 1, start + 1 + 2 * m, 2)
+            left_c, right_c = c_ord[:, left], c_ord[:, right]
+            left_o, right_o = order[:, left], order[:, right]
+            swap = left_c < right_c
+            nl_c = torch.where(swap, right_c, left_c)
+            nr_c = torch.where(swap, left_c, right_c)
+            nl_o = torch.where(swap, right_o, left_o)
+            nr_o = torch.where(swap, left_o, right_o)
+            c_ord[:, left] = nl_c
+            c_ord[:, right] = nr_c
+            order[:, left] = nl_o
+            order[:, right] = nr_o
+    return c_ord, order
+
+
+def oddeven_sort_ref(cnt: torch.Tensor, order: torch.Tensor, passes: int):
+    """What the odd-even kernel computes from the raw slab arrays: gather the
+    counts into order position once, run the passes, return the new order."""
+    _, new_order = oddeven_ref(sl.gather_cols(cnt, order), order, passes)
+    return new_order
+
+
+def slab_update_ref(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
+                    dst: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor):
+    """Fast-path batched edge increment (paper §II.A.2, existing edges only).
+
+    For each item i: find slot of dsts[i] in row rows[i]; if present add w[i]
+    to cnt and tot.  Items whose edge is absent are no-ops (the caller sends
+    them down the slow path).  rows < 0 marks padding.
+    """
+    active = rows >= 0
+    safe_rows = rows.clamp(min=0).to(torch.int64)
+    hit = dst[safe_rows] == dsts.unsqueeze(1)          # [B, C]
+    slot, any_hit = first_true(hit, dim=1)
+    found = any_hit & active
+    slot = torch.where(any_hit, slot, 0)
+    addw = torch.where(found, w, 0).to(cnt.dtype)
+    cap = cnt.shape[1]
+    cnt = cnt.clone().view(-1).index_add_(0, safe_rows * cap + slot, addw).view_as(cnt)
+    tot = tot.clone().index_add_(0, safe_rows, addw)
+    return dst, cnt, tot, found
+
+
+def probe_find_ref(rows: torch.Tensor, keys_q: torch.Tensor,
+                   keys: torch.Tensor, vals: torch.Tensor, max_probes: int):
+    """Batched open-addressing probe (the shared lookup oracle).
+
+    rows[B] select a table out of keys/vals[N, H]; rows < 0 marks padding.
+    Covers both the per-row dst hash (paper §II.2, N = slab rows) and the
+    flat src table (paper §II.1, N = 1).  Returns ``(slots[B], found[B])``
+    with slot EMPTY when missing.
+
+    Semantics are the core scalar probe (``hashtable.lookup``: scan from the
+    home slot, stop at the key or the first EMPTY, give up after
+    ``max_probes``), as one (B, max_probes) window gather + min-reductions
+    over probe positions.
+    """
+    h = keys.shape[1]
+    safe_rows = rows.clamp(min=0).to(torch.int64)
+    kq = keys_q.to(torch.int64)
+    h0 = ht.hash_u32(keys_q) & (h - 1)
+    p = torch.arange(max_probes, dtype=torch.int64, device=keys.device)
+    idx = (h0.unsqueeze(1) + p) & (h - 1)                      # (B, P)
+    win = keys[safe_rows.unsqueeze(1), idx].to(torch.int64)    # (B, P)
+    key_p, _ = first_true(win == kq.unsqueeze(1), dim=1)
+    empty_p, _ = first_true(win == EMPTY, dim=1)
+    found = (key_p < empty_p) & (rows >= 0)
+    slot_idx = (h0 + key_p.clamp(max=max_probes - 1)) & (h - 1)
+    slots = vals[safe_rows, slot_idx]
+    return torch.where(found, slots, EMPTY).to(torch.int32), found
+
+
+# the dst-hash entry point is the same probe; kept under its §II.2 name
+dh_find_ref = probe_find_ref
+
+
+def _needed_walk(c_ord: torch.Tensor, totf: torch.Tensor, threshold):
+    """The integer walk shared by every CDF oracle: which priority positions
+    a reader needs, and how many (CDF^-1).  ``threshold=None`` is top-k mode
+    (every live item).  The prefix sums are exact int32; the comparison is
+    ``float32(prefix_before) < float32(t) * float32(tot)``."""
+    if threshold is None:
+        needed = c_ord > 0
+    else:
+        cum = torch.cumsum(c_ord, dim=1, dtype=torch.int32)
+        before = (cum - c_ord).to(torch.float32)
+        t32 = torch.full((), float(threshold), dtype=torch.float32,
+                         device=c_ord.device)
+        needed = (before < (t32 * totf).unsqueeze(1)) & (c_ord > 0)
+    return needed, needed.sum(dim=1).to(torch.int32)
+
+
+def _pad_items(dk: torch.Tensor, pk: torch.Tensor, max_items: int):
+    """Pad the emission window out to ``max_items`` when it exceeds C, so
+    the plain path returns the same (B, max_items) shape the kernels allocate
+    (entries past C are always EMPTY/0 — a row has at most C items)."""
+    pad = max_items - dk.shape[1]
+    if pad > 0:
+        dk = torch.nn.functional.pad(dk, (0, pad), value=EMPTY)
+        pk = torch.nn.functional.pad(pk, (0, pad), value=0.0)
+    return dk, pk
+
+
+def cdf_query_ref(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,
+                  threshold, max_items: int):
+    """Cumulative-probability threshold query (paper §II.B).
+
+    c_ord/d_ord[B, C]: counts/dsts gathered in descending-priority order
+    (zeros for missing rows). Returns (dsts[B,k], probs[B,k], n_needed[B]).
+
+    ``threshold=None`` is top-k mode: keep every live item (no threshold
+    test).  The cumulative walk runs in exact integer count space —
+    ``needed[j] = (sum(cnt[<j]) < t * tot) & (cnt[j] > 0)`` — so the result
+    is independent of how a kernel chunks the walk.
+    """
+    totf = tot.clamp(min=1).to(torch.float32)
+    needed, n_needed = _needed_walk(c_ord, totf, threshold)
+    k = min(max_items, c_ord.shape[1])
+    keep = needed[:, :k]
+    pk_raw = c_ord[:, :k].to(torch.float32) / totf.unsqueeze(1)
+    dk = torch.where(keep, d_ord[:, :k], EMPTY).to(torch.int32)
+    pk = torch.where(keep, pk_raw, 0.0)
+    dk, pk = _pad_items(dk, pk, max_items)
+    return dk, pk, n_needed
+
+
+def cdf_query_fused_ref(rows: torch.Tensor, found: torch.Tensor,
+                        cnt: torch.Tensor, dst: torch.Tensor,
+                        order: torch.Tensor, tot: torch.Tensor,
+                        threshold, max_items: int):
+    """Fused row-gather + CDF walk (plain version of ``cdf_gather.py``).
+
+    rows[B] are pre-resolved row indices (0 where missing), found[B] the
+    src-lookup mask; cnt/dst/order[N, C], tot[N] are the raw slab arrays.
+    One combined linear-index gather pulls counts straight into priority
+    order; dsts/probs are only gathered for the ``max_items`` emission window
+    instead of all C (``n_needed`` still walks every count).
+    """
+    r = rows.clamp(min=0).to(torch.int64)
+    cap = cnt.shape[1]
+    flat = r.unsqueeze(1) * cap + order[r].to(torch.int64)  # [B, C] linear slots
+    found = found.to(torch.bool)
+    c_ord = torch.where(found.unsqueeze(1), cnt.reshape(-1)[flat], 0).to(torch.int32)
+    totf = tot[r].clamp(min=1).to(torch.float32)
+    needed, n_needed = _needed_walk(c_ord, totf, threshold)
+    k = min(max_items, cap)
+    keep = needed[:, :k]
+    d_k = dst.reshape(-1)[flat[:, :k]]                 # emission window only
+    p_k = c_ord[:, :k].to(torch.float32) / totf.unsqueeze(1)
+    dk = torch.where(keep, d_k, EMPTY).to(torch.int32)
+    pk = torch.where(keep, p_k, 0.0)
+    dk, pk = _pad_items(dk, pk, max_items)
+    return dk, pk, n_needed
+
+
+def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                  dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+                  order: torch.Tensor, counters: torch.Tensor,
+                  src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                  active: torch.Tensor, max_probes: int):
+    """Sequential insert pass for new edges / new rows (the paper's rare case).
+
+    Deterministic (batch order); inactive items are no-ops.  For each active
+    item: look the src up or allocate the next row (``counters[0]`` =
+    ``n_rows``; a full table counts ``dropped_rows`` = ``counters[1]``, an
+    exhausted probe window ``dropped_probes`` = ``counters[2]``); then find
+    the dst's slot, else the first free slot, else replace the order tail
+    (Space-Saving: the newcomer inherits the victim's count; ``evictions`` =
+    ``counters[3]``).  A later item sees the rows and slots an earlier one
+    made.  Returns fresh ``(tab_keys, tab_vals, dst_slab, cnt, tot,
+    counters)``; the inputs are not written.
+    """
+    tab_keys, tab_vals = tab_keys.clone(), tab_vals.clone()
+    dst_slab, cnt, tot = dst_slab.clone(), cnt.clone(), tot.clone()
+    n_cap = cnt.shape[0]
+    n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
+    table = ht.HashTable(tab_keys, tab_vals)
+    slabs = sl.Slabs(dst_slab, cnt, tot, order)
+    for i in torch.nonzero(active).flatten().tolist():
+        s, d, wi = src[i], dst[i], w[i]
+        # --- src row (lookup or allocate) -------------------------------
+        row0, found_src = ht.lookup(table, s, max_probes)
+        if bool(found_src):
+            row = int(row0)
+        elif n_rows >= n_cap:
+            dropped_rows += 1
+            continue
+        else:
+            slot, ok = ht.insert_probe(tab_keys, s, max_probes)
+            if not bool(ok):
+                dropped_probes += 1
+                continue
+            row = n_rows
+            tab_keys[int(slot)] = s
+            tab_vals[int(slot)] = row
+            n_rows += 1
+        # --- dst slot (find / free / Space-Saving tail replace) ---------
+        slot_eq, found_d = sl.find_slot(slabs, row, d)
+        slot_free, has_free = sl.free_slot(slabs, row)
+        if bool(found_d):
+            slot, base = int(slot_eq), cnt[row, int(slot_eq)]
+        elif bool(has_free):
+            slot, base = int(slot_free), 0
+        else:
+            slot = int(sl.tail_slot(slabs, row))
+            base = cnt[row, slot]
+            evictions += 1
+        cnt[row, slot] = base + wi
+        dst_slab[row, slot] = d
+        tot[row] += wi
+    new_counters = torch.tensor(
+        [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32
+    ).to(counters.device)
+    return tab_keys, tab_vals, dst_slab, cnt, tot, new_counters

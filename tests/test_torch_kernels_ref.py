@@ -1,0 +1,216 @@
+"""Each plain PyTorch kernel version of repro_torch.kernels against the JAX
+oracle (impl='ref') AND the JAX Pallas kernel in interpret mode
+(impl='pallas'), same numpy inputs, tolerance zero.  On the CPU the port's
+ops dispatch to these plain versions."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import mcprioq as jmc
+from repro.kernels import ops as jops
+from repro_torch import convert
+from repro_torch.core import mcprioq as tmc
+from repro_torch.kernels import ops as tops
+
+from torch_parity import assert_same, jax_state_leaves, to_jax, to_torch
+
+JAX_IMPLS = ["ref", "pallas"]
+
+
+def _rand_slabs(rng, n, c, density=0.7):
+    cnt = ((rng.random((n, c)) < density) * rng.integers(1, 1000, (n, c))).astype(np.int32)
+    dst = np.where(cnt > 0, rng.integers(0, 10_000, (n, c)), -1).astype(np.int32)
+    tot = cnt.sum(axis=1).astype(np.int32)
+    order = np.argsort(-cnt, axis=1, kind="stable").astype(np.int32)
+    return dst, cnt, tot, order
+
+
+def _both_impls(name, jax_impl, *inputs, **static):
+    """ops.<name> of both packages on the same inputs: JAX under ``jax_impl``
+    (once), the port under 'auto' (CPU tensors -> plain version) and 'ref'."""
+    want = getattr(jops, name)(*to_jax(list(inputs)), impl=jax_impl, **static)
+    for timpl in ("auto", "ref"):
+        got = getattr(tops, name)(*to_torch(list(inputs)), impl=timpl, **static)
+        assert_same(want, got, f"{name}[jax {jax_impl} / torch {timpl}]")
+
+
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("n,c", [(8, 16), (7, 5), (5, 1), (16, 33)])
+@pytest.mark.parametrize("passes", [1, 2, 5])
+def test_oddeven_sort(jax_impl, n, c, passes):
+    rng = np.random.default_rng(n * 1000 + c + passes)
+    cnt = rng.integers(0, 6, (n, c)).astype(np.int32)
+    order = np.stack([rng.permutation(c) for _ in range(n)]).astype(np.int32)
+    _both_impls("oddeven_sort", jax_impl, cnt, order, passes=passes)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("n,c,batch", [(8, 16, 32), (7, 5, 19), (32, 8, 64)])
+def test_slab_update(jax_impl, n, c, batch):
+    rng = np.random.default_rng(n + c + batch)
+    dst, cnt, tot, _ = _rand_slabs(rng, n, c)
+    dst[0, :] = np.where(cnt[0] > 0, 77, -1)             # duplicate dsts: first slot
+    rows = rng.integers(-1, n, batch).astype(np.int32)   # -1 = padding
+    pick = rng.integers(0, c, batch)
+    dsts = dst[np.maximum(rows, 0), pick]
+    absent = rng.random(batch) < 0.25
+    dsts = np.where(absent, 54321, dsts).astype(np.int32)
+    rows[:4], dsts[:4] = rows[4:8], dsts[4:8]            # duplicate items add up
+    w = rng.integers(1, 9, batch).astype(np.int32)
+    _both_impls("slab_update", jax_impl, rows, dsts, w, dst, cnt, tot)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("n,c", [(8, 16), (6, 5), (4, 1)])
+def test_decay_sort(jax_impl, n, c):
+    rng = np.random.default_rng(n * 3 + c)
+    dst, cnt, _, order = _rand_slabs(rng, n, c)
+    cnt = np.minimum(cnt, rng.integers(1, 5, (n, c))).astype(np.int32) * (cnt > 0)
+    _both_impls("decay_sort", jax_impl, cnt.astype(np.int32), dst, order)
+
+
+def _dh_tables(rng, n, h, max_probes, fill, delete_frac):
+    """Per-row tables built with the port's own insert/delete, so chains hold
+    tombstones and wrap around the end of a small table."""
+    from repro_torch.core import hashtable as tht
+    keys = np.full((n, h), -1, np.int32)
+    vals = np.full((n, h), -1, np.int32)
+    members = []
+    for r in range(n):
+        tab = tht.make(h, device="cpu")
+        ks = rng.choice(500, size=fill, replace=False).astype(np.int32)
+        for i, k in enumerate(ks):
+            tab, _, _ = tht.insert(tab, int(k), i, max_probes)
+        for k in ks[rng.random(fill) < delete_frac]:
+            tab, _ = tht.delete(tab, int(k), max_probes)
+        keys[r], vals[r] = tab.keys.numpy(), tab.vals.numpy()
+        members.append(ks)
+    return keys, vals, members
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("n,h,max_probes,fill,delete_frac", [
+    (4, 32, 32, 12, 0.0),
+    (3, 16, 8, 14, 0.5),     # tombstone chains, short window
+    (2, 8, 16, 7, 0.4),      # window wraps the table
+    (5, 64, 4, 40, 0.9),     # tombstone-saturated windows
+])
+def test_dh_find_and_ht_find(jax_impl, n, h, max_probes, fill, delete_frac):
+    rng = np.random.default_rng(n * h + max_probes)
+    keys, vals, members = _dh_tables(rng, n, h, max_probes, fill, delete_frac)
+    batch = 48
+    rows = rng.integers(-1, n, batch).astype(np.int32)    # -1 = padding
+    q = np.array([rng.choice(members[max(r, 0)]) for r in rows], np.int32)
+    q = np.where(rng.random(batch) < 0.3, rng.integers(0, 600, batch), q).astype(np.int32)
+    _both_impls("dh_find", jax_impl, rows, q, keys, vals, max_probes=max_probes)
+    _both_impls("ht_find", jax_impl, q, keys[0], vals[0], max_probes=max_probes)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("n,c,max_items", [(16, 128, 16), (9, 5, 8), (8, 256, 4), (4, 1, 2)])
+def test_cdf_query_fused(jax_impl, n, c, max_items):
+    rng = np.random.default_rng(n + c)
+    dst, cnt, tot, order = _rand_slabs(rng, n, c, density=0.5)
+    cnt[1, :] = 0                                        # a known but empty row
+    dst[1, :] = -1
+    tot[1] = 0
+    batch = 24
+    rows = rng.integers(0, n, batch).astype(np.int32)
+    found = rng.random(batch) < 0.8                      # unknown srcs
+    rows = np.where(found, rows, 0).astype(np.int32)
+    for threshold in (0.0, 0.5, 0.9, 1.0, None):
+        # every chunking at one threshold and in top-k mode, auto elsewhere
+        chunk_choices = (0, 1, 2, 4) if threshold in (0.5, None) else (0,)
+        for chunks in chunk_choices:
+            if chunks and c % chunks:
+                continue
+            _both_impls("cdf_query_fused", jax_impl, rows, found, cnt, dst,
+                        order, tot, threshold=threshold, max_items=max_items,
+                        chunks=chunks)
+    # topk=True with a threshold given is top-k mode as well
+    _both_impls("cdf_query_fused", jax_impl, rows, found, cnt, dst, order, tot,
+                threshold=0.5, max_items=max_items, topk=True)
+
+
+def test_cdf_query_fused_chunkings_identical_and_bad_chunks_raise():
+    rng = np.random.default_rng(5)
+    dst, cnt, tot, order = _rand_slabs(rng, 8, 16)
+    args = [torch.from_numpy(x) for x in
+            (np.arange(8, dtype=np.int32), np.ones(8, bool), cnt, dst, order, tot)]
+    base = tops.cdf_query_fused(*args, 0.7, max_items=6, chunks=0)
+    for chunks in (1, 2, 4, 8, 16):
+        assert_same(base, tops.cdf_query_fused(*args, 0.7, max_items=6,
+                                               chunks=chunks), f"chunks={chunks}")
+    for bad in (3, 5, 32):
+        with pytest.raises(ValueError, match="must divide capacity"):
+            tops.cdf_query_fused(*args, 0.7, max_items=6, chunks=bad)
+        with pytest.raises(ValueError, match="must divide capacity"):
+            jops.cdf_query_fused(*(jnp.asarray(a.numpy()) for a in args), 0.7,
+                                 max_items=6, chunks=bad, impl="ref")
+
+
+@pytest.mark.parametrize("impl", ["pallas", "triton", "", "CUDA"])
+def test_unknown_impl_raises_value_error(impl):
+    x = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="impl must be one of"):
+        tops.oddeven_sort(x, x, impl=impl)
+
+
+def test_impl_cuda_on_cpu_tensors_raises():
+    x = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tops.oddeven_sort(x, x, impl="cuda")
+
+
+# ---------------------------------------------------------------------------
+# slow path: against the reference's lax.scan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("num_rows,capacity,table_size,max_probes,seed", [
+    (16, 4, 0, 64, 0),     # rows and slots run out: dropped_rows, evictions
+    (64, 8, 16, 2, 1),     # tiny table, short window: dropped_probes
+    (32, 3, 0, 8, 2),
+])
+def test_slow_path_matches_reference_scan(num_rows, capacity, table_size,
+                                          max_probes, seed):
+    rng = np.random.default_rng(seed)
+    jcfg = jmc.MCConfig(num_rows=num_rows, capacity=capacity,
+                        table_size=table_size, max_probes=max_probes,
+                        impl="ref")
+    tcfg = tmc.MCConfig(**dataclasses.asdict(jcfg))
+    jstate = jmc.init(jcfg)
+    tstate = tmc.init(tcfg, device="cpu")
+    for step in range(4):
+        n_items = 40
+        src = rng.integers(0, 40, n_items).astype(np.int32)
+        dst = rng.integers(0, 12, n_items).astype(np.int32)
+        w = rng.integers(1, 5, n_items).astype(np.int32)
+        active = rng.random(n_items) < 0.8
+        jstate = jmc._slow_path(jstate, jnp.asarray(src), jnp.asarray(dst),
+                                jnp.asarray(w), jnp.asarray(active), jcfg)
+        tstate = tmc._slow_path(tstate, torch.from_numpy(src),
+                                torch.from_numpy(dst), torch.from_numpy(w),
+                                torch.from_numpy(active), tcfg)
+        assert_same(jstate, tstate, f"slow path step {step}")
+        # order only changes in the sort: give both the same new order
+        order = np.stack([rng.permutation(capacity) for _ in range(num_rows)]).astype(np.int32)
+        jstate = jstate._replace(slabs=jstate.slabs._replace(order=jnp.asarray(order)))
+        tstate = tstate._replace(slabs=tstate.slabs._replace(order=torch.from_numpy(order)))
+    stats = tmc.counter_stats(tstate)
+    assert stats["n_rows"] > 0
+    if table_size:
+        assert stats["dropped_probes"] > 0
+    else:
+        assert stats["dropped_rows"] > 0 and stats["evictions"] > 0
+    # the state crosses between the packages unchanged
+    assert_same(jstate, convert.state_from_numpy(jax_state_leaves(jstate), tcfg, "cpu"),
+                "state_from_numpy")

@@ -1,0 +1,63 @@
+"""The first slice of the port as a whole: repro_torch.core.mcprioq against
+repro.core.mcprioq on the CPU.  The same seeded stream goes through both;
+after EVERY batch all 18 MCState leaves and the query answers are equal
+(tolerance zero, int32 and float32 alike)."""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from repro.core import mcprioq as jmc
+from repro_torch import convert
+from repro_torch.core import mcprioq as tmc
+
+from torch_parity import (CHAIN_CONFIGS as CONFIGS, assert_same,
+                          chain_configs as _configs, chain_stream as _stream,
+                          opt as _opt)
+
+
+def _queries(jstate, tstate, jcfg, tcfg, srcs, what):
+    for t, k in ((0.5, 4), (0.9, 16), (1.0, 3)):
+        assert_same(
+            jmc.query_threshold(jstate, jnp.asarray(srcs), t, cfg=jcfg, max_items=k),
+            tmc.query_threshold(tstate, srcs, t, cfg=tcfg, max_items=k),
+            f"{what} query_threshold t={t} k={k}")
+    assert_same(jmc.query_topk(jstate, jnp.asarray(srcs), cfg=jcfg, k=5),
+                tmc.query_topk(tstate, srcs, cfg=tcfg, k=5), f"{what} query_topk")
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_stream_state_and_answers_equal_after_every_batch(name):
+    jcfg, tcfg = _configs(name)
+    jstate, tstate = jmc.init(jcfg), tmc.init(tcfg, device="cpu")
+    assert_same(jstate, tstate, "init")
+    assert len(convert.state_to_numpy(tstate)) == 18
+    probe = np.arange(-2, 70, dtype=np.int32)
+    jax_maybe_decay = jax.jit(functools.partial(
+        jmc.maybe_decay, cfg=jcfg, total_threshold=40))
+    for i, (src, dst, weights, mask) in enumerate(_stream(seed=len(name))):
+        jstate = jmc.update_batch(jstate, jnp.asarray(src), jnp.asarray(dst),
+                                  _opt(weights, jnp.asarray), _opt(mask, jnp.asarray),
+                                  cfg=jcfg)
+        tstate = tmc.update_batch(tstate, src, dst, weights, mask, cfg=tcfg)
+        assert_same(jstate, tstate, f"{name} batch {i} update_batch")
+        jstate = jax_maybe_decay(jstate)
+        tstate = tmc.maybe_decay(tstate, cfg=tcfg, total_threshold=40)
+        if i in (20, 21, 22, 35):      # explicit decays: walks the cursor
+            jstate, tstate = jmc.decay(jstate, cfg=jcfg), tmc.decay(tstate, cfg=tcfg)
+        assert_same(jstate, tstate, f"{name} batch {i} decay")
+        _queries(jstate, tstate, jcfg, tcfg, probe, f"{name} batch {i}")
+    stats = tmc.counter_stats(tstate)
+    assert stats == jmc.counter_stats(jstate)
+    assert tmc.maintenance_stats(tstate) == jmc.maintenance_stats(jstate)
+    assert stats["dropped_rows"] > 0 and stats["evictions"] > 0
+    assert stats["decay_steps"] > 4
+    if tcfg.max_new_per_batch:
+        assert stats["deferred_new"] > 0
+    jinv, tinv = jmc.check_invariants(jstate, jcfg), tmc.check_invariants(tstate, tcfg)
+    assert jinv == tinv
+    assert all(v for k, v in tinv.items() if k != "sorted_fraction")

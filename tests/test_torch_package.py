@@ -1,0 +1,182 @@
+"""Package-level contracts of the port: it imports without jax or repro, it
+never falls back to the CPU or from a kernel to its plain version, and every
+kernel module carries its wrapper, plain version, launch count and CUDA
+source (checked by reading the files: nothing can be compiled without nvcc)."""
+
+import ast
+import importlib
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import mcprioq as tmc
+from repro_torch.kernels import _build, ops
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNELS = {
+    # module: (wrapper, plain version, .cu file, C entry point)
+    "probe": ("probe_find_cuda", "probe_find_ref", "probe.cu", "mcq_probe_find"),
+    "slab_update": ("slab_update_cuda", "slab_update_ref", "slab_update.cu",
+                    "mcq_slab_update"),
+    "oddeven": ("oddeven_cuda", "oddeven_sort_ref", "oddeven.cu", "mcq_oddeven"),
+    "cdf_gather": ("cdf_query_fused_cuda", "cdf_query_fused_ref", "cdf_gather.cu",
+                   "mcq_cdf_query_fused"),
+    "slow_path": ("slow_path_cuda", "slow_path_ref", "slow_path.cu", "mcq_slow_path"),
+}
+
+
+def _module_names():
+    return [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+
+
+def test_every_module_imports_without_jax_or_the_reference_package():
+    names = _module_names()
+    assert "repro_torch.kernels.ops" in names and "repro_torch.convert" in names
+    script = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("name", _module_names())
+def test_no_source_file_mentions_jax_or_repro_imports(name):
+    path = Path(importlib.import_module(name).__file__)
+    for node in ast.walk(ast.parse(path.read_text())):
+        mods = []
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        for mod in mods:
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "triton"), (path, mod)
+
+
+def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
+    assert not torch.cuda.is_available(), "this test describes a machine without a GPU"
+    cfg = tmc.MCConfig(num_rows=8, capacity=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmc.init(cfg)
+    state = tmc.init(cfg, device="cpu")
+    assert state.slabs.cnt.device.type == "cpu"
+    assert all(getattr(state, f).dtype == torch.int32 and getattr(state, f).dim() == 0
+               for f in tmc._COUNTER_FIELDS + ("decay_cursor",))
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, v: ops.oddeven_sort(x, x, impl="cuda"),
+    lambda x, v: ops.slab_update(v, v, v, x, x, v, impl="cuda"),
+    lambda x, v: ops.decay_sort(x, x, x, impl="cuda"),
+    lambda x, v: ops.dh_find(v, v, x, x, impl="cuda"),
+    lambda x, v: ops.ht_find(v, v, v, impl="cuda"),
+    lambda x, v: ops.cdf_query_fused(v, v, x, x, x, v, 0.5, impl="cuda"),
+    lambda x, v: ops.slow_path(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
+])
+def test_impl_cuda_on_cpu_tensors_raises(call):
+    x = torch.zeros((4, 4), dtype=torch.int32)
+    v = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        call(x, v)
+
+
+@pytest.mark.parametrize("module", list(KERNELS))
+def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    wrapper = getattr(mod, KERNELS[module][0])
+    x = torch.zeros((4, 4), dtype=torch.int32)
+    v = torch.zeros((4,), dtype=torch.int32)
+    args = {"probe": (v, v, x, x), "slab_update": (v, v, v, x, x, v),
+            "oddeven": (x, x), "cdf_gather": (v, v, x, x, x, v, 0.5),
+            "slow_path": (v, v, x, x, v, x, v, v, v, v, v)}[module]
+    before = mod.launches
+    with pytest.raises(ValueError, match="takes CUDA"):
+        wrapper(*args)
+    assert mod.launches == before
+
+
+def test_state_on_cpu_with_impl_cuda_raises_in_update_and_query():
+    cfg = tmc.MCConfig(num_rows=8, capacity=4, impl="cuda")
+    state = tmc.init(cfg, device="cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tmc.update_batch(state, [1, 2], [3, 4], cfg=cfg)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tmc.query_threshold(state, [1], 0.5, cfg=cfg)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "triton", "vmap", ""])
+def test_config_rejects_unknown_impl(impl):
+    with pytest.raises(ValueError, match="impl must be one of"):
+        tmc.MCConfig(impl=impl)
+
+
+@pytest.mark.parametrize("kw", [dict(use_dst_hash=True), dict(fused_query=False)])
+def test_options_of_later_slices_raise_not_implemented(kw):
+    with pytest.raises(NotImplementedError, match="slice"):
+        tmc.MCConfig(**kw)
+
+
+@pytest.mark.parametrize("module", list(KERNELS))
+def test_kernel_module_has_wrapper_plain_version_count_and_source(module):
+    wrapper, plain, cu, entry = KERNELS[module]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert callable(getattr(mod, wrapper)) and callable(getattr(mod, plain))
+    assert isinstance(mod.launches, int)
+    assert "Replaces" in mod.__doc__ and "Bound on this card" in mod.__doc__
+    source = (_build.CSRC / cu).read_text()
+    assert re.search(rf'extern "C" int {entry}\(', source), entry
+    assert "__global__" in source and "<<<" in source
+    assert entry in _build.SIGNATURES
+    # the count moves only where the kernel is launched
+    text = Path(mod.__file__).read_text()
+    assert text.count("launches += 1") == 1
+    assert text.index("_build.launch(") < text.index("launches += 1")
+    # one argument type per C parameter
+    params = re.search(rf'extern "C" int {entry}\((.*?)\)', source, re.S).group(1)
+    assert len(params.split(",")) == len(_build.SIGNATURES[entry])
+
+
+def test_build_is_keyed_by_sources_and_targets_sm_90a(tmp_path):
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    cu, cuh = _build.sources()
+    assert {p.name for p in cu} == {k[2] for k in KERNELS.values()}
+    assert {p.name for p in cuh} == {"common.cuh", "cdf_walk.cuh"}
+    assert re.fullmatch(r"[0-9a-f]{16}", _build.source_hash())
+    assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert not any("torch" in line for p in cu + cuh
+                   for line in p.read_text().splitlines() if line.startswith("#include"))
+
+
+def test_chip_smoke_parses_and_imports_nothing_of_the_reference():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add((node.module or "").split(".")[0])
+    assert "repro_torch" in imported
+    assert not imported & {"jax", "jaxlib", "repro"}
+
+
+def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
