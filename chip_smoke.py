@@ -17,12 +17,25 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 transitions, then rounds of update + threshold query + top-k
                 query + maintenance, with launch counts read around the
                 rounds and no device->host synchronisation allowed inside
-                ``update_batch`` and the queries; then each kernel at the
-                shapes and data that path gave it, against its plain version
-                (equal) and timed beside its bound;
-  4. parity   — the whole path at a small configuration, once with the CUDA
+                ``update_batch`` and the queries; then the same queries
+                through the unfused read (``fused_query=False``), equal to
+                the fused answers, with its own launch counts; then each
+                kernel at the shapes and data that path gave it, against its
+                plain version (equal) and timed beside its bound;
+  4. drafter  — the speculative drafter at full width: a chain of 2**20
+                contexts x 64 slots behind an ``EpochStore``, a learner loop
+                (acquire -> observe 64 x 1,025 tokens -> maintain -> publish)
+                and a reader loop (acquire -> draft 4,096 windows at k=4 and
+                k=8 -> candidates -> release), tokens from a 152,064-token
+                vocabulary; launch counts around the rounds; the decaying
+                learner step and the candidates equal to the plain versions',
+                ``draft`` equal to ``draft_reference``; then every kernel of
+                the path at the shapes and data it gave them, against its
+                plain version (equal) and timed beside its bound;
+  5. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
-                every query answer equal after every batch.
+                every query answer equal after every batch; the same for the
+                unfused read and for a small drafter stream, drafts included.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -32,6 +45,9 @@ it exits non-zero at once.  The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -45,7 +61,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "parity")
+PHASES = ("device", "kernels", "main", "drafter", "parity")
 
 
 def say(*parts):
@@ -75,6 +91,28 @@ def time_ms(fn, reps=10, warm=2, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def call_ms(fn, reps=20, busy_cycles=4_000_000):
+    """Two medians of ``fn()`` by CUDA events, in turns: ``device`` — a spin
+    kernel (~2 ms) is queued first, so the host has launched the whole call
+    before the device reaches it and the events see device time only;
+    ``idle`` — on an idle device, so the events also see the host's launch
+    time: the latency a caller waits."""
+    device, idle = [], []
+    for _ in range(reps):
+        for busy, out in ((True, device), (False, idle)):
+            torch.cuda.synchronize()
+            if busy:
+                torch.cuda._sleep(busy_cycles)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return statistics.median(device), statistics.median(idle)
 
 
 def flat(outputs):
@@ -187,6 +225,7 @@ def small_kernel_checks(gen):
         torch.cuda.synchronize()
         compare(name, got, fn(*args, impl="ref", **kw))
         checked += 1
+        return got
 
     for c in (1, 5, 32, 96, 128):
         n = 37
@@ -224,6 +263,21 @@ def small_kernel_checks(gen):
                     both(f"cdf C={c} B={batch} k={max_items} t={t}",
                          ops.cdf_query_fused, rows, found, cnt2, dst2, order,
                          tot2, t, max_items=max_items)
+        # cdf over pre-ordered rows, as _ordered_rows gathers them: unknown
+        # srcs zeroed, a known all-zero row, ragged batches
+        for batch in (0, 1, 45):
+            rows = randint(gen, 0, n, (batch,)).long()
+            rows[:1] = 1
+            found = torch.rand(batch, generator=gen, device="cuda") < 0.8
+            ordr = order[rows].long()
+            c_ord = torch.where(found.unsqueeze(1),
+                                torch.gather(cnt2[rows], 1, ordr), 0)
+            d_ord = torch.gather(dst2[rows], 1, ordr)
+            for max_items in (1, 16, c + 3):
+                for t in (0.0, 0.5, 0.9, 1.0, None):
+                    both(f"cdf_query C={c} B={batch} k={max_items} t={t}",
+                         ops.cdf_query, c_ord, d_ord, tot2[rows], t,
+                         max_items=max_items)
 
     # probe: tombstone chains, wrap-around, saturated windows, padding rows
     for n, h, max_probes, fill, delete_frac in (
@@ -263,8 +317,61 @@ def small_kernel_checks(gen):
             st = mc._slow_path(st, src, dsts, w, active, cfg)
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
+    walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
-        f"(torch.equal) in all")
+        f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
+
+
+def small_walk_checks(gen, both):
+    """The draft walk on chains learned on the card, with a share of their
+    src keys tombstoned (small tables: chains wrap) and a few order heads
+    pointing at a slot whose count is 0; windows of learned contexts (dead
+    ends mid-walk come from the stream's noise) and unknown ones, read as
+    strided views of wider contexts."""
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import speculative as spec
+    from repro_torch.kernels import ops
+    vocab, seqs, length = 40, 6, 96
+    walk_ok = 0
+    for order_n, table_size in ((1, 0), (2, 0), (2, 64), (3, 64)):
+        ncfg = spec.NGramConfig(order=order_n, mc=mc.MCConfig(
+            num_rows=48, capacity=8, table_size=table_size, max_probes=16,
+            sort_passes=2, impl="cuda"))
+        succ = randint(gen, 0, vocab, (vocab,))
+        toks = torch.empty((seqs, length), dtype=torch.int32, device="cuda")
+        toks[:, 0] = randint(gen, 0, vocab, (seqs,))
+        for i in range(1, length):
+            keep = torch.rand(seqs, generator=gen, device="cuda") < 0.9
+            toks[:, i] = torch.where(keep, succ[toks[:, i - 1].long()],
+                                     randint(gen, 0, vocab, (seqs,)))
+        chain = spec.observe(spec.init(ncfg), toks, cfg=ncfg).chain
+        table = chain.src_table
+        live = table.keys[table.keys >= 0]
+        dead = torch.rand(live.numel(), generator=gen, device="cuda") < 0.2
+        for key in live[dead].tolist():
+            table, _ = ht.delete(table, key, ncfg.mc.max_probes)
+        cnt = chain.slabs.cnt.clone()
+        stale = randint(gen, 0, ncfg.mc.num_rows, (6,)).long()
+        cnt[stale, chain.slabs.order[stale, 0].long()] = 0
+        span = torch.arange(8, device="cuda")
+        for k in (1, 4, 8):
+            for batch in (0, 1, 77):
+                pos = randint(gen, 8, length, (batch,)).long()
+                seq = randint(gen, 0, seqs, (batch,)).long()
+                ctx = toks[seq.unsqueeze(1), pos.unsqueeze(1) - 8 + span]
+                unknown = torch.rand(batch, generator=gen, device="cuda") < 0.1
+                ctx = torch.where(unknown.unsqueeze(1), ctx + 5000, ctx)
+                _, ok = both(f"draft_walk order={order_n} "
+                             f"T={table.keys.numel()} k={k} B={batch}",
+                             ops.draft_walk, ctx[:, -order_n:], table.keys,
+                             table.vals, cnt, chain.slabs.dst,
+                             chain.slabs.order[:, 0], k=k,
+                             max_probes=ncfg.mc.max_probes)
+                walk_ok += int(ok.sum())
+    if walk_ok == 0:
+        raise AssertionError("draft_walk checks: no lane ever drafted a token")
+    return walk_ok
 
 
 # ---------------------------------------------------------------------------
@@ -301,9 +408,28 @@ class Traffic:
 
 
 def kernel_modules():
-    from repro_torch.kernels import cdf_gather, oddeven, probe, slab_update, slow_path
+    from repro_torch.kernels import (cdf_gather, cdf_query, oddeven, probe,
+                                     slab_update, slow_path, walk)
     return {"probe_find": probe, "slab_update": slab_update, "oddeven": oddeven,
-            "cdf_query_fused": cdf_gather, "slow_path": slow_path}
+            "cdf_query_fused": cdf_gather, "slow_path": slow_path,
+            "cdf_query": cdf_query, "draft_walk": walk}
+
+
+@contextlib.contextmanager
+def launch_window(label, need):
+    """Every kernel's launch count is set to 0 on entry and read on exit into
+    the yielded dict; fails if a kernel in ``need`` was never launched."""
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    launches = {}
+    yield launches
+    torch.cuda.synchronize()
+    launches.update({name: mod.launches for name, mod in mods.items()})
+    say(f"[{label}] kernel launches: {launches}")
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: path never launched {missing}")
 
 
 def no_sync(fn, *args, **kw):
@@ -323,6 +449,10 @@ def timed(times, key, fn, *args, **kw):
     end.record()
     times.setdefault(key, []).append((start, end))
     return out
+
+
+MAIN_KERNELS = ("probe_find", "slab_update", "oddeven", "cdf_query_fused",
+                "slow_path")
 
 
 def phase_main(seed, warm_seconds, rounds):
@@ -354,25 +484,22 @@ def phase_main(seed, warm_seconds, rounds):
         f"n_rows {stats['n_rows']} deferred_new {stats['deferred_new']}")
 
     # measured rounds: launch counts are read around exactly this block
-    mods = kernel_modules()
-    for mod in mods.values():
-        mod.launches = 0
     times = {}
     decay_threshold = 64
-    for _ in range(rounds):
-        src, dst = traffic.batch(BATCH)
-        q = traffic.srcs(QUERIES)
-        state = timed(times, "update_batch", no_sync, core.update_batch,
-                      state, src, dst, cfg=cfg)
-        answers = timed(times, "query_threshold", no_sync, core.query_threshold,
-                        state, q, 0.9, cfg=cfg, max_items=16)
-        top = timed(times, "query_topk", no_sync, core.query_topk, state, q,
-                    cfg=cfg, k=8)
-        state = timed(times, "maybe_decay", core.maybe_decay, state, cfg=cfg,
-                      total_threshold=decay_threshold)
-    state = timed(times, "decay", core.decay, state, cfg=cfg)
-    torch.cuda.synchronize()
-    launches = {name: mod.launches for name, mod in mods.items()}
+    with launch_window("main", MAIN_KERNELS) as launches:
+        for _ in range(rounds):
+            src, dst = traffic.batch(BATCH)
+            q = traffic.srcs(QUERIES)
+            state = timed(times, "update_batch", no_sync, core.update_batch,
+                          state, src, dst, cfg=cfg)
+            answers = timed(times, "query_threshold", no_sync,
+                            core.query_threshold, state, q, 0.9, cfg=cfg,
+                            max_items=16)
+            top = timed(times, "query_topk", no_sync, core.query_topk, state,
+                        q, cfg=cfg, k=8)
+            state = timed(times, "maybe_decay", core.maybe_decay, state,
+                          cfg=cfg, total_threshold=decay_threshold)
+        state = timed(times, "decay", core.decay, state, cfg=cfg)
 
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in times.items()}
@@ -386,10 +513,30 @@ def phase_main(seed, warm_seconds, rounds):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"[main] counters {core.counter_stats(state)}")
     say(f"[main] maintenance {core.maintenance_stats(state)}")
-    say(f"[main] kernel launches in the rounds: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
+
+    # the unfused read on the same state and srcs: the same answers, through
+    # _ordered_rows + the kernel over pre-ordered rows
+    cfg_u = dataclasses.replace(cfg, fused_query=False)
+    with launch_window("main/unfused", ("probe_find", "cdf_query")) as unfused:
+        for _ in range(rounds):
+            ans_u = no_sync(core.query_threshold, state, q, 0.9, cfg=cfg_u,
+                            max_items=16)
+            top_u = no_sync(core.query_topk, state, q, cfg=cfg_u, k=8)
+    launches["cdf_query"] = unfused["cdf_query"]
+    compare("query_threshold unfused vs fused", ans_u,
+            core.query_threshold(state, q, 0.9, cfg=cfg, max_items=16))
+    compare("query_topk unfused vs fused", top_u,
+            core.query_topk(state, q, cfg=cfg, k=8))
+    calls = {
+        "query_threshold": lambda c: core.query_threshold(state, q, 0.9, cfg=c,
+                                                          max_items=16),
+        "query_topk": lambda c: core.query_topk(state, q, cfg=c, k=8)}
+    for key, call in calls.items():
+        times_ms = [call_ms(lambda c=c: no_sync(call, c)) for c in (cfg, cfg_u)]
+        say(f"[main] {key} fused / unfused: device {times_ms[0][0]:.4f} / "
+            f"{times_ms[1][0]:.4f} ms, latency on an idle device "
+            f"{times_ms[0][1]:.4f} / {times_ms[1][1]:.4f} ms (medians of 20, "
+            f"in turns); answers equal")
 
     # beside the rounds: a batch whose edges all exist already (no new edge,
     # so the sequential pass is empty) — the chain's steady state
@@ -476,10 +623,55 @@ def bound(bytes_moved, operations):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def main_shape_kernels(state, cfg, traffic, launches):
+def kernel_entry(entries, launches, flush, name, module, source, replaces, run,
+                 bytes_moved, operations, plain_reps=3, library=None):
+    """Hold ``run("cuda")`` against ``run("ref")`` (equal), time both and the
+    library call beside the bound, and append the kernel's line."""
+    got = run("cuda")
+    torch.cuda.synchronize()
+    want = run("ref")
+    err = compare(name, got, want)
+    del got, want
+    ms = time_ms(lambda: run("cuda"), reps=10, warm=2, flush=flush)
+    plain_ms = time_ms(lambda: run("ref"), reps=plain_reps,
+                       warm=1 if plain_reps > 1 else 0, flush=flush)
+    library_ms = None if library is None else time_ms(library, flush=flush)
+    bound_ms, bound_by = bound(bytes_moved, operations)
+    entries.append({
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": replaces, "launches": launches[module],
+        "max_abs_err": err, "max_abs_diff": err, "equal": True,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms})
+    say(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; equal")
+
+
+def walk_length(c_ord, tot, t):
+    """Positions of each pre-ordered row the walk must read: up to where the
+    prefix crosses t * tot; all C in top-k mode or where it never crosses."""
+    from repro_torch.core.hashtable import first_true
+    b, c = c_ord.shape
+    if t is None:
+        return torch.full((b,), c, dtype=torch.int64, device=c_ord.device)
+    t32 = torch.tensor(t, dtype=torch.float32, device=c_ord.device)
+    tcnt = t32 * tot.clamp(min=1).to(torch.float32)
+    cum = torch.cumsum(c_ord, dim=1, dtype=torch.int32).to(torch.float32)
+    first, _ = first_true(cum >= tcnt.unsqueeze(1), dim=1)
+    return (first + 1).clamp(max=c)
+
+
+def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
+                       reads=((0.9, 16), (None, 8)), unfused=True):
     """Recreate the inputs ``update_batch``/``query_*``/``decay`` hand each
-    kernel (same functions, this state, one more batch), hold the kernel
-    against its plain version on them, and time both."""
+    kernel (same functions, this state, one more batch ``src -> dst`` and the
+    query srcs ``q``), hold the kernel against its plain version on them, and
+    time both.  ``reads`` are the (threshold or None for top-k, max_items) of
+    the path's queries; ``path`` tags the entries of a path other than the
+    main one."""
     from repro_torch.core import mcprioq as mc
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref
@@ -490,41 +682,21 @@ def main_shape_kernels(state, cfg, traffic, launches):
     h = table.keys.shape[0]
     entries = []
 
-    def entry(name, module, source, replaces, run, bytes_moved, operations,
-              plain_reps=3, library=None):
-        got = run("cuda")
-        torch.cuda.synchronize()
-        want = run("ref")
-        err = compare(name, got, want)
-        del got, want
-        ms = time_ms(lambda: run("cuda"), reps=10, warm=2, flush=flush)
-        plain_ms = time_ms(lambda: run("ref"), reps=plain_reps,
-                           warm=1 if plain_reps > 1 else 0, flush=flush)
-        library_ms = None if library is None else time_ms(library, flush=flush)
-        bound_ms, bound_by = bound(bytes_moved, operations)
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "launches": launches[module],
-            "max_abs_err": err, "max_abs_diff": err, "equal": True,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
-        say(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), library "
-            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; equal")
+    def entry(kernel, variant, *args, **kw):
+        tags = [tag for tag in (path, variant) if tag]
+        label = f"{kernel}[{', '.join(tags)}]" if tags else kernel
+        kernel_entry(entries, launches, flush, label, kernel, *args, **kw)
 
     # inputs as update_batch makes them
-    src, dst = traffic.batch(BATCH)
-    w = torch.ones_like(src)
-    m = torch.ones_like(src, dtype=torch.bool)
+    src, dst, w, m = mc._batch_inputs(state, src, dst, None, None)
+    batch, queries = src.shape[0], q.shape[0]
     u_src, u_dst, u_w, u_act, u_pos = mc._aggregate_batch(src, dst, w, m)
     rows0, found_src0 = mc.lookup_rows(state, u_src, cfg)
     _, found_d0 = mc._find_slots(state, rows0, u_dst, cfg)
     fast = u_act & found_src0 & found_d0
     fast_rows = torch.where(fast, rows0, -1)
     p_src, p_dst, p_w, p_mask, _ = mc._take_new_prefix(
-        u_src, u_dst, u_w, u_pos, u_act & ~fast, cfg.resolved_max_new(BATCH))
+        u_src, u_dst, u_w, u_pos, u_act & ~fast, cfg.resolved_max_new(batch))
 
     # probe: B keys + rows in, 2 B out; the chain each query must read
     p = torch.arange(cfg.max_probes, device="cuda")
@@ -532,29 +704,27 @@ def main_shape_kernels(state, cfg, traffic, launches):
     stop = mc.ht.first_true((win == u_src.unsqueeze(1)) | (win == -1), dim=1)[0] \
         .clamp(max=cfg.max_probes - 1) + 1
     chain_reads = int(stop.sum()) + int(found_src0.sum())
-    entry("probe_find", "probe_find", "probe.cu",
-          "src/repro/kernels/probe.py:105",
+    entry("probe_find", None, "probe.cu", "src/repro/kernels/probe.py:105",
           lambda impl: ops.ht_find(u_src, table.keys, table.vals,
                                    max_probes=cfg.max_probes, impl=impl),
-          bytes_moved=4 * (4 * BATCH + chain_reads),
-          operations=12 * BATCH + 3 * chain_reads)
+          bytes_moved=4 * (4 * batch + chain_reads),
+          operations=12 * batch + 3 * chain_reads)
     del win, stop
 
     # slab_update: cnt/tot copied (read + write), items in, scanned row prefixes
     hit_slot = mc.ht.first_true(slabs.dst[rows0.long()] == u_dst.unsqueeze(1),
                                 dim=1)[0] + 1
     scanned = int(torch.where(fast, hit_slot, 0).sum())
-    entry("slab_update", "slab_update", "slab_update.cu",
+    entry("slab_update", None, "slab_update.cu",
           "src/repro/kernels/slab_update.py:75",
           lambda impl: ops.slab_update(fast_rows, u_dst, u_w, slabs.dst,
                                        slabs.cnt, slabs.tot, impl=impl),
-          bytes_moved=4 * (2 * n * c + 2 * n + 3 * BATCH + scanned + 2 * int(fast.sum())),
-          operations=2 * scanned + 4 * BATCH)
+          bytes_moved=4 * (2 * n * c + 2 * n + 3 * batch + scanned + 2 * int(fast.sum())),
+          operations=2 * scanned + 4 * batch)
     del hit_slot
 
     # oddeven at the update's shape: cnt + order in, order out
-    entry("oddeven", "oddeven", "oddeven.cu",
-          "src/repro/kernels/oddeven.py:67",
+    entry("oddeven", None, "oddeven.cu", "src/repro/kernels/oddeven.py:67",
           lambda impl: ops.oddeven_sort(slabs.cnt, slabs.order,
                                         passes=cfg.sort_passes, impl=impl),
           bytes_moved=4 * 3 * n * c,
@@ -565,8 +735,7 @@ def main_shape_kernels(state, cfg, traffic, launches):
     blk_cnt = (slabs.cnt[:r] >> 1).contiguous()
     blk_ord = slabs.order[:r].contiguous()
     blk_c_ord = torch.gather(blk_cnt, 1, blk_ord.long())
-    entry("oddeven[decay_sort]", "oddeven", "oddeven.cu",
-          "src/repro/kernels/oddeven.py:67",
+    entry("oddeven", "decay_sort", "oddeven.cu", "src/repro/kernels/oddeven.py:67",
           lambda impl: ops.oddeven_sort(blk_cnt, blk_ord, passes=c // 2 + 1,
                                         impl=impl),
           bytes_moved=4 * 3 * r * c,
@@ -574,29 +743,46 @@ def main_shape_kernels(state, cfg, traffic, launches):
           library=lambda: torch.sort(-blk_c_ord, dim=1, stable=True))
 
     # fused query: threshold and top-k; per known src the positions it needs
-    q = traffic.srcs(QUERIES)
     q_rows, q_found = mc.lookup_rows(state, q, cfg)
-    for label, t, k in (("cdf_query_fused", 0.9, 16), ("cdf_query_fused[topk]", None, 8)):
+    for t, k in reads:
         _, _, nn = ref.cdf_query_fused_ref(q_rows, q_found, slabs.cnt, slabs.dst,
                                            slabs.order, slabs.tot, t, k)
         known = int(q_found.sum())
         walked = known * c if t is None else int(nn.sum())
         emitted = int(nn.clamp(max=k).sum())
-        entry(label, "cdf_query_fused", "cdf_gather.cu",
+        entry("cdf_query_fused", "topk" if t is None else None, "cdf_gather.cu",
               "src/repro/kernels/cdf_gather.py:95",
               lambda impl, t=t, k=k: ops.cdf_query_fused(
                   q_rows, q_found, slabs.cnt, slabs.dst, slabs.order, slabs.tot,
                   t, max_items=k, chunks=cfg.query_chunks, impl=impl),
-              bytes_moved=4 * (2 * QUERIES + known + 2 * walked + emitted
-                               + QUERIES * (2 * k + 1)),
-              operations=8 * walked + 4 * QUERIES * k)
+              bytes_moved=4 * (2 * queries + known + 2 * walked + emitted
+                               + queries * (2 * k + 1)),
+              operations=8 * walked + 4 * queries * k)
+
+    # the unfused read: the pre-ordered rows _ordered_rows hands the kernel
+    if unfused:
+        c_u, d_u, tot_u, _ = mc._ordered_rows(state, q, cfg)
+        for t, k in reads:
+            _, _, nn = ref.cdf_query_ref(c_u, d_u, tot_u, t, k)
+            walked = int(walk_length(c_u, tot_u, t).sum())
+            emitted = int(nn.clamp(max=k).sum())
+            entry("cdf_query", "topk" if t is None else None, "cdf_query.cu",
+                  "src/repro/kernels/cdf_query.py:154",
+                  lambda impl, t=t, k=k: ops.cdf_query(
+                      c_u, d_u, tot_u, t, max_items=k, chunks=cfg.query_chunks,
+                      impl=impl),
+                  bytes_moved=4 * (walked + emitted + queries
+                                   + queries * (2 * k + 1)),
+                  operations=8 * walked + 4 * queries * k)
+        del c_u, d_u, tot_u
 
     # slow path: tables copied (read + write), items in; one dependent chain
     counters = torch.stack([state.n_rows, state.dropped_rows,
                             state.dropped_probes, state.evictions])
     n_active = int(p_mask.sum())
-    say(f"[kernels] slow_path input: {n_active} active of {p_mask.numel()} items")
-    entry("slow_path", "slow_path", "slow_path.cu",
+    say(f"[kernels] slow_path{f' [{path}]' if path else ''} input: {n_active} "
+        f"active of {p_mask.numel()} items")
+    entry("slow_path", None, "slow_path.cu",
           "src/repro/core/mcprioq.py:311",
           lambda impl: ops.slow_path(table.keys, table.vals, slabs.dst,
                                      slabs.cnt, slabs.tot, slabs.order, counters,
@@ -610,17 +796,291 @@ def main_shape_kernels(state, cfg, traffic, launches):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the whole path, kernels vs plain versions, on the card
+# phase 4: the speculative drafter at full width
+# ---------------------------------------------------------------------------
+
+VOCAB = 152_064          # qwen2-7b's vocabulary (src/repro/configs/qwen2_7b.py)
+DRAFT_SEQS, DRAFT_LEN = 64, 1_025   # 65,536 transitions per observe
+WINDOWS = 4_096
+DRAFTER_KERNELS = ("draft_walk", "probe_find", "slab_update", "oddeven",
+                   "slow_path", "cdf_query_fused")
+
+
+class TokenTraffic:
+    """``token_stream``'s structure made on the device: a hidden table of 4
+    successors per token, 20 % uniform noise, every sequence starting from a
+    uniform token."""
+
+    def __init__(self, seed, vocab=VOCAB):
+        self.vocab = vocab
+        self.gen = torch.Generator(device="cuda")
+        self.gen.manual_seed(seed)
+        self.succ = randint(self.gen, 0, vocab, (vocab, 4))
+
+    def batch(self, seqs=DRAFT_SEQS, length=DRAFT_LEN):
+        """int32[seqs, length].  Token t is ``succ[token t-1, pick]`` or
+        noise; the recurrence is solved by parallel sweeps over all
+        positions — a position is final once every position back to its
+        run's noise token is — repeated until a sweep changes nothing."""
+        pick = randint(self.gen, 0, 4, (seqs, length)).long()
+        noise = randint(self.gen, 0, self.vocab, (seqs, length))
+        fixed = torch.rand((seqs, length), generator=self.gen, device="cuda") < 0.2
+        fixed[:, 0] = True
+        toks = noise
+        while True:
+            for _ in range(8):
+                prev = torch.roll(toks, 1, dims=1).long()
+                toks = torch.where(fixed, noise, self.succ[prev, pick])
+            prev = torch.roll(toks, 1, dims=1).long()
+            if torch.equal(toks, torch.where(fixed, noise, self.succ[prev, pick])):
+                return toks
+
+    def contexts(self, toks, n=WINDOWS, width=8, unknown=0.06):
+        """n contexts of ``width`` tokens cut from ``toks`` at random places;
+        a share ``unknown`` of them replaced by uniform tokens (contexts the
+        chain never saw)."""
+        seq = randint(self.gen, 0, toks.shape[0], (n,)).long()
+        end = randint(self.gen, width, toks.shape[1] + 1, (n,)).long()
+        span = torch.arange(-width, 0, device="cuda")
+        ctx = toks[seq.unsqueeze(1), end.unsqueeze(1) + span]
+        fresh = torch.rand(n, generator=self.gen, device="cuda") < unknown
+        return torch.where(fresh.unsqueeze(1),
+                           randint(self.gen, 0, self.vocab, (n, width)), ctx)
+
+
+def walk_work(window, toks, oks, keys, max_probes):
+    """What a draft walk over these inputs must read: (table slots probed,
+    steps whose probe found the context, steps run).  A lane runs its steps
+    up to and including the one that fails."""
+    from repro_torch.core import hashtable as ht
+    b, k = toks.shape
+    order = window.shape[1]
+    t_size = keys.shape[0]
+    seq = torch.cat([window, toks], dim=1)
+    run = (oks.to(torch.int64).sum(dim=1) + 1).clamp(max=k)
+    p = torch.arange(max_probes, device="cuda")
+    probed = found_steps = 0
+    for s in range(k):
+        live = run > s
+        src = ht.ctx_window_hash(seq[:, s:s + order])
+        win = keys[((ht.hash_u32(src) & (t_size - 1)).unsqueeze(1) + p) & (t_size - 1)]
+        key_p = ht.first_true(win == src.unsqueeze(1), dim=1)[0]
+        empty_p = ht.first_true(win == -1, dim=1)[0]
+        stop = torch.minimum(key_p, empty_p).clamp(max=max_probes - 1) + 1
+        probed += int(stop[live].sum())
+        found_steps += int((live & (key_p < empty_p)).sum())
+    return probed, found_steps, int(run.sum())
+
+
+def phase_drafter(seed, warm_seconds, rounds, profile=False):
+    from repro_torch import core
+    from repro_torch.core import speculative as spec
+    from repro_torch.core.epoch import EpochStore
+    from repro_torch.kernels import ops
+    cfg = spec.NGramConfig(order=2, decay_threshold=1 << 18, mc=core.MCConfig(
+        num_rows=2 ** 20, capacity=64, sort_passes=1, decay_block_rows=1024,
+        max_new_per_batch=8192))
+    traffic = TokenTraffic(seed + 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    store = EpochStore(spec.init(cfg))
+    say(f"[drafter] {cfg}")
+    say(f"[drafter] table {cfg.mc.resolved_table_size()} slots; state "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB resident; "
+        f"vocabulary {VOCAB}, {DRAFT_SEQS} x {DRAFT_LEN} tokens per observe, "
+        f"{WINDOWS} windows per draft")
+    times = {}
+
+    def learn(toks, ncfg=cfg, key="observe"):
+        snap = store.acquire()
+        try:
+            st = timed(times, key, no_sync, spec.observe, snap.state, toks,
+                       cfg=ncfg)
+            st = timed(times, f"maintain{'' if ncfg is cfg else '[decay]'}",
+                       spec.maintain, st, cfg=ncfg)
+            store.publish(st)
+        finally:
+            store.release(snap)
+
+    def read(ctx):
+        """The reader loop; returns the state it read and its answers."""
+        snap = store.acquire()
+        try:
+            out = {k: no_sync(spec.draft, snap.state, ctx, cfg=cfg, k=k)
+                   for k in (4, 8)}
+            out["candidates"] = no_sync(spec.candidates, snap.state, ctx, 0.9,
+                                        cfg=cfg, max_items=8)
+            return snap.state, out
+        finally:
+            store.release(snap)
+
+    def current():
+        snap = store.acquire()
+        store.release(snap)
+        return snap.state
+
+    # warm-up: the learner loop for a fixed budget
+    t0 = time.perf_counter()
+    batches, gen_s = 0, 0.0
+    while time.perf_counter() - t0 < warm_seconds:
+        g0 = time.perf_counter()
+        toks = traffic.batch()
+        gen_s += time.perf_counter() - g0
+        learn(toks, key="warm-up")
+        batches += 1
+        if batches % 5 == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    stats = core.counter_stats(current().chain)
+    say(f"[drafter] warm-up: {batches} observe batches in "
+        f"{time.perf_counter() - t0:.1f} s (budget {warm_seconds} s, "
+        f"{gen_s:.1f} s of it making tokens); counters {stats}")
+    times.clear()
+
+    # measured rounds: learner and reader, launch counts around them
+    # a threshold low enough that the rolling decay fires, as the main
+    # phase's 64 does (lower if no row has grown past 64 yet)
+    low = dataclasses.replace(cfg, decay_threshold=min(
+        64, int(current().chain.slabs.tot.max()) - 1))
+    with launch_window("drafter", DRAFTER_KERNELS) as launches:
+        for _ in range(rounds):
+            toks = traffic.batch()
+            learn(toks)
+            ctx = traffic.contexts(toks)
+            state, out = read(ctx)
+        pre, decay_toks = current(), traffic.batch()
+        steps0 = core.maintenance_stats(pre.chain)["decay_steps"]
+        learn(decay_toks, ncfg=low)          # the rolling decay fires once
+    steps1 = core.maintenance_stats(current().chain)["decay_steps"]
+    if steps1 <= steps0:
+        raise AssertionError("drafter: the low-threshold maintain did not decay")
+    med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+           for k, v in times.items()}
+    say(f"[drafter] {rounds} rounds; median ms per call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items()))
+    ok4 = out[4][1]
+    trans = DRAFT_SEQS * (DRAFT_LEN - 1)
+    # the reader's calls on the snapshot it read, device time and latency
+    calls = {f"draft k={k}": functools.partial(spec.draft, state, ctx, cfg=cfg,
+                                               k=k) for k in (4, 8)}
+    calls["candidates"] = functools.partial(spec.candidates, state, ctx, 0.9,
+                                            cfg=cfg, max_items=8)
+    reader = {key: call_ms(lambda fn=fn: no_sync(fn)) for key, fn in calls.items()}
+    say("[drafter] reader calls, device / latency on an idle device (medians "
+        "of 20): " + ", ".join(f"{k} {d:.4f} / {i:.4f} ms"
+                               for k, (d, i) in reader.items()))
+    say(f"[drafter] observe {trans / med['observe'] * 1e3:.0f} transitions/s "
+        f"(device time, 20 rounds); draft k=4 "
+        f"{WINDOWS * 4 / reader['draft k=4'][0] * 1e3:.0f} drafted tokens/s, "
+        f"k=8 {WINDOWS * 8 / reader['draft k=8'][0] * 1e3:.0f}; candidates "
+        f"{WINDOWS / reader['candidates'][0] * 1e3:.0f} queries/s (device "
+        f"time); at the idle-device latency: "
+        f"{WINDOWS * 4 / reader['draft k=4'][1] * 1e3:.0f}, "
+        f"{WINDOWS * 8 / reader['draft k=8'][1] * 1e3:.0f} tokens/s and "
+        f"{WINDOWS / reader['candidates'][1] * 1e3:.0f} queries/s")
+    say(f"[drafter] ok drafts: {float(ok4.float().mean()):.4f} of k=4 steps, "
+        f"{float(out[8][1].float().mean()):.4f} of k=8 steps; first step ok "
+        f"for {float(ok4[:, 0].float().mean()):.4f} of windows; rolling decay "
+        f"{steps0} -> {steps1} blocks; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    chain = state.chain     # what the last round's reader read
+    say(f"[drafter] counters {core.counter_stats(current().chain)}")
+
+    # what came out is right: the decaying learner step again with the plain
+    # versions (every state leaf equal), the candidates of the plain versions,
+    # draft == draft_reference at full width, and the candidates well formed
+    plain = dataclasses.replace(low, mc=dataclasses.replace(low.mc, impl="ref"))
+    equal_states("drafter: observe + decaying maintain at full width",
+                 current().chain, spec.maintain(spec.observe(
+                     pre, decay_toks, cfg=plain), cfg=plain).chain)
+    del pre
+    compare("drafter: candidates impl=cuda vs ref at full width",
+            out["candidates"], spec.candidates(state, ctx, 0.9, cfg=plain,
+                                               max_items=8))
+    for k in (4, 8):
+        compare(f"draft k={k} vs draft_reference", out[k],
+                spec.draft_reference(state, ctx, cfg=cfg, k=k))
+    dk, pk, nn = out["candidates"]
+    if dk.shape != (WINDOWS, 8) or nn.shape != (WINDOWS,):
+        raise AssertionError("candidates have the wrong shape")
+    if not bool(torch.isfinite(pk).all()) or not bool(((pk >= 0) & (pk <= 1)).all()):
+        raise AssertionError("candidate probabilities are not in [0, 1]")
+    if not bool(ok4[:, 0].any()):
+        raise AssertionError("drafter: no window drafted a token")
+    say(f"[drafter] the decaying learner step's 18 state leaves and the "
+        f"candidates equal to the plain versions'; draft == draft_reference "
+        f"token for token at k=4 and k=8; candidates: {int((nn > 0).sum())}/"
+        f"{WINDOWS} known, mean n_needed {float(nn[nn > 0].float().mean()):.2f}")
+
+    # every kernel of the path at the drafter's shapes, against its plain
+    # version: the chain's kernels on one more observe batch and the
+    # candidates' srcs, then the walk on the last round's windows
+    toks = traffic.batch()
+    src = spec.context_ids(toks, cfg.order)[:, :-1].reshape(-1)
+    window = ctx[:, -cfg.order:]
+    entries = path_shape_kernels(
+        current().chain, cfg.mc, src, toks[:, 1:].reshape(-1),
+        spec.context_ids(window, cfg.order)[:, -1].contiguous(), launches,
+        path="drafter", reads=((0.9, 8),), unfused=False)
+    del toks, src
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    keys = chain.src_table.keys
+    for k in (4, 8):
+        probed, found_steps, steps = walk_work(window, out[k][0], out[k][1],
+                                               keys, cfg.mc.max_probes)
+        kernel_entry(
+            entries, launches, flush, f"draft_walk[k={k}]", "draft_walk",
+            "walk.cu", "src/repro/kernels/walk.py:123",
+            lambda impl, k=k: ops.draft_walk(
+                window, keys, chain.src_table.vals, chain.slabs.cnt,
+                chain.slabs.dst, chain.slabs.order[:, 0], k=k,
+                max_probes=cfg.mc.max_probes, impl=impl),
+            # window in; per step the probed slots, then value, order head,
+            # cnt and dst where the context was found; toks + ok out
+            bytes_moved=4 * (window.numel() + probed + 4 * found_steps)
+            + WINDOWS * k * 5,
+            operations=steps * (14 * cfg.order + 10) + 3 * probed)
+
+    if profile:
+        pool = []
+        for _ in range(5):       # tokens made before the window
+            toks = traffic.batch()
+            pool.append((toks, traffic.contexts(toks)))
+        rounds_left = iter(pool)
+
+        def drafter_round():
+            toks, ctx = next(rounds_left)
+            learn(toks)
+            read(ctx)
+        profile_window("drafter round (observe + maintain + 2 drafts + "
+                       "candidates)", drafter_round)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the whole path, kernels vs plain versions, on the card
 # ---------------------------------------------------------------------------
 
 
+def equal_states(label, a, b):
+    from repro_torch import convert
+    torch.cuda.synchronize()
+    la, lb = convert.state_to_numpy(a), convert.state_to_numpy(b)
+    for name in convert.LEAF_NAMES:
+        if not (la[name] == lb[name]).all():
+            raise AssertionError(f"{label}: leaf {name} differs between "
+                                 f"impl='cuda' and impl='ref'")
+
+
 def phase_parity(seed, batches=32):
-    import dataclasses
     from repro_torch import convert, core
     cfg_k = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
                           max_new_per_batch=192, decay_block_rows=128,
                           impl="cuda")
     cfg_p = dataclasses.replace(cfg_k, impl="ref")
+    unfused = [dataclasses.replace(c, fused_query=False, query_chunks=ch)
+               for c, ch in ((cfg_k, 0), (cfg_p, 2))]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     sk, sp = core.init(cfg_k), core.init(cfg_p)
@@ -639,29 +1099,73 @@ def phase_parity(seed, batches=32):
         sp = core.maybe_decay(sp, cfg=cfg_p, total_threshold=400)
         if i == batches // 2:
             sk, sp = core.decay(sk, cfg=cfg_k), core.decay(sp, cfg=cfg_p)
-        torch.cuda.synchronize()
-        lk, lp = convert.state_to_numpy(sk), convert.state_to_numpy(sp)
-        for name in convert.LEAF_NAMES:
-            if not (lk[name] == lp[name]).all():
-                raise AssertionError(f"parity: batch {i}: leaf {name} differs "
-                                     f"between impl='cuda' and impl='ref'")
+        equal_states(f"parity batch {i}", sk, sp)
         q = randint(gen, 0, nodes + 50, (300,))
-        compare(f"parity query_threshold batch {i}",
-                core.query_threshold(sk, q, 0.8, cfg=cfg_k, max_items=12),
+        fused = core.query_threshold(sk, q, 0.8, cfg=cfg_k, max_items=12)
+        fused_top = core.query_topk(sk, q, cfg=cfg_k, k=5)
+        compare(f"parity query_threshold batch {i}", fused,
                 core.query_threshold(sp, q, 0.8, cfg=cfg_p, max_items=12))
-        compare(f"parity query_topk batch {i}",
-                core.query_topk(sk, q, cfg=cfg_k, k=5),
+        compare(f"parity query_topk batch {i}", fused_top,
                 core.query_topk(sp, q, cfg=cfg_p, k=5))
+        # the unfused read, kernel and plain version, against the fused one
+        for cfg_u, st in zip(unfused, (sk, sp)):
+            compare(f"parity unfused query_threshold {cfg_u.impl} batch {i}",
+                    core.query_threshold(st, q, 0.8, cfg=cfg_u, max_items=12),
+                    fused)
+            compare(f"parity unfused query_topk {cfg_u.impl} batch {i}",
+                    core.query_topk(st, q, cfg=cfg_u, k=5), fused_top)
     stats = core.counter_stats(sk)
     say(f"[parity] {batches} batches at {cfg_k.num_rows}x{cfg_k.capacity}: all "
-        f"{len(convert.LEAF_NAMES)} state leaves and all query answers equal "
-        f"after every batch; counters {stats}")
+        f"{len(convert.LEAF_NAMES)} state leaves and all query answers, fused "
+        f"and unfused, equal after every batch; counters {stats}")
     for need in ("deferred_new", "evictions", "dropped_rows", "decay_steps"):
         if stats[need] <= 0:
             raise AssertionError(f"parity stream never exercised {need}")
     inv = core.check_invariants(sk, cfg_k)
     if not all(v for k, v in inv.items() if k != "sorted_fraction"):
         raise AssertionError(f"parity: invariants violated: {inv}")
+    parity_drafter(seed)
+
+
+def parity_drafter(seed, batches=24):
+    """A small drafter stream, kernels vs plain versions: every state leaf,
+    every draft and every candidate set equal after every batch."""
+    from repro_torch import core
+    from repro_torch.core import speculative as spec
+    ncfg_k = spec.NGramConfig(order=2, decay_threshold=40, mc=core.MCConfig(
+        num_rows=256, capacity=8, sort_passes=1, max_new_per_batch=96,
+        decay_block_rows=64, impl="cuda"))
+    ncfg_p = dataclasses.replace(ncfg_k, mc=dataclasses.replace(ncfg_k.mc,
+                                                                impl="ref"))
+    traffic = TokenTraffic(seed + 2, vocab=60)
+    sk, sp = spec.init(ncfg_k), spec.init(ncfg_p)
+    drafted = 0
+    for i in range(batches):
+        toks = traffic.batch(seqs=8, length=65)
+        sk = spec.maintain(spec.observe(sk, toks, cfg=ncfg_k), cfg=ncfg_k)
+        sp = spec.maintain(spec.observe(sp, toks, cfg=ncfg_p), cfg=ncfg_p)
+        equal_states(f"parity drafter batch {i}", sk.chain, sp.chain)
+        ctx = traffic.contexts(toks, n=200, width=4, unknown=0.1)
+        for k in (1, 4):
+            got = spec.draft(sk, ctx, cfg=ncfg_k, k=k)
+            compare(f"parity draft k={k} batch {i}", got,
+                    spec.draft(sp, ctx, cfg=ncfg_p, k=k))
+            compare(f"parity draft_reference k={k} batch {i}", got,
+                    spec.draft_reference(sk, ctx, cfg=ncfg_k, k=k))
+            drafted += int(got[1].sum())
+        compare(f"parity candidates batch {i}",
+                spec.candidates(sk, ctx, 0.9, cfg=ncfg_k, max_items=6),
+                spec.candidates(sp, ctx, 0.9, cfg=ncfg_p, max_items=6))
+    stats = core.counter_stats(sk.chain)
+    say(f"[parity] drafter: {batches} batches at {ncfg_k.mc.num_rows}x"
+        f"{ncfg_k.mc.capacity}: every state leaf, draft and candidate set "
+        f"equal after every batch; {drafted} ok draft steps; counters {stats}")
+    for need in ("evictions", "decay_steps"):
+        if stats[need] <= 0:
+            raise AssertionError(
+                f"parity drafter stream never exercised {need}: {stats}")
+    if drafted == 0:
+        raise AssertionError("parity drafter stream never drafted a token")
 
 
 # ---------------------------------------------------------------------------
@@ -673,11 +1177,12 @@ def main(argv=None):
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--warm-seconds", type=float, default=60.0,
-                    help="budget of the main path's warm-up stream")
+                    help="budget of the main path's warm-up stream; the "
+                         "drafter's is half of it")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="after the main phase, print device time by kernel "
-                         "(torch.profiler) over a few more rounds")
+                    help="after the main and drafter phases, print device time "
+                         "by kernel (torch.profiler) over a few more rounds")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -698,7 +1203,10 @@ def main(argv=None):
     if "main" in phases:
         state, cfg, traffic, launches, known = phase_main(
             args.seed, args.warm_seconds, args.rounds)
-        kernels = main_shape_kernels(state, cfg, traffic, launches)
+        src, dst = traffic.batch(BATCH)
+        kernels = path_shape_kernels(state, cfg, src, dst, traffic.srcs(QUERIES),
+                                     launches)
+        del src, dst
         if args.profile:
             from repro_torch import core
 
@@ -714,6 +1222,10 @@ def main(argv=None):
                            lambda: core.update_batch(state, *known[:2], None,
                                                      known[2], cfg=cfg))
         del state
+        torch.cuda.empty_cache()
+    if "drafter" in phases:
+        kernels += phase_drafter(args.seed, args.warm_seconds / 2,
+                                 args.rounds, args.profile)
         torch.cuda.empty_cache()
     if "parity" in phases:
         phase_parity(args.seed)

@@ -21,6 +21,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.device import resolve_device
+
 EMPTY = -1
 TOMB = -2
 
@@ -35,8 +37,11 @@ class HashTable(NamedTuple):
 
 
 def make(size: int, device=None) -> HashTable:
+    """Empty table on ``device`` (default: the current CUDA device; raises
+    when there is none)."""
     if size & (size - 1):
         raise ValueError(f"hash table size must be a power of two, got {size}")
+    device = resolve_device(device)
     return HashTable(
         keys=torch.full((size,), EMPTY, dtype=torch.int32, device=device),
         vals=torch.full((size,), EMPTY, dtype=torch.int32, device=device),

@@ -9,8 +9,8 @@ Data layout
   * two counters    : per-edge ``cnt`` and per-row ``tot``; probability is
                       ``cnt/tot`` computed at query time (paper §II.3)
   * optional dst hash: per-row table dst -> slot (paper §II.2); its fields
-                      are carried in the state, its maintenance is not in
-                      this slice (``use_dst_hash=True`` raises).
+                      are carried in the state, its maintenance belongs to
+                      the dst-hash slice (``use_dst_hash=True`` raises).
 
 Update semantics (paper §II.A, batched)
 ---------------------------------------
@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.core import hashtable as ht
 from repro_torch.core import slab as sl
+from repro_torch.core.device import resolve_device
 from repro_torch.core.hashtable import EMPTY, TOMB, HashTable
 from repro_torch.core.slab import Slabs
 from repro_torch.kernels import ops
@@ -100,11 +101,6 @@ class MCConfig:
                 "use_dst_hash=True is not ported yet: the per-row dst-hash "
                 "maintenance (_dh_set/_dh_del/_dh_rebuild_all/_dh_repair_rows) "
                 "belongs to the dst-hash slice of the port")
-        if not self.fused_query:
-            raise NotImplementedError(
-                "fused_query=False is not ported yet: the kernel over "
-                "pre-ordered rows (cdf_query) belongs to the dst-hash slice "
-                "of the port")
 
     def resolved_table_size(self) -> int:
         return self.table_size or _next_pow2(4 * self.num_rows)
@@ -144,18 +140,6 @@ class MCState(NamedTuple):
     dh_tombstones: torch.Tensor   # live decay tombstones across all row hashes
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the GPU, and only the GPU: no silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch.core.init: no CUDA device is available and no "
-                "device was given; pass device='cpu' to run the plain "
-                "versions on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
-
-
 def init(cfg: MCConfig, device=None) -> MCState:
     """Empty chain on ``device`` (default: the current CUDA device; raises
     when there is none)."""
@@ -189,9 +173,10 @@ def _device_of(state: MCState) -> torch.device:
 
 
 def _to_state_device(state: MCState, x, dtype) -> torch.Tensor:
-    """Input given as a tensor, numpy array or list, as ``dtype`` on the
-    state's device."""
-    return torch.as_tensor(x, device=_device_of(state)).to(dtype)
+    """Input given as a tensor, numpy array or list, as a contiguous
+    ``dtype`` tensor on the state's device (a strided view, such as one
+    column of a batch, is copied: the kernels take contiguous inputs)."""
+    return torch.as_tensor(x, device=_device_of(state)).to(dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -405,16 +390,38 @@ def update_batch_reference(
 # ---------------------------------------------------------------------------
 
 
+def _ordered_rows(state: MCState, src: torch.Tensor, cfg: MCConfig):
+    """Gather counts/dsts of each queried row in priority order.
+
+    The **unfused** layout transform (three O(B*C) gathers in plain torch)
+    kept as the baseline the fused path must match bit for bit
+    (``cfg.fused_query=False``): counts of unknown srcs are zeroed so the
+    walk's liveness test (``c > 0``) subsumes the ``found`` mask.
+    """
+    rows, found = lookup_rows(state, src, cfg)
+    r = rows.to(torch.int64)
+    order = state.slabs.order[r].to(torch.int64)              # [B, C]
+    c = torch.gather(state.slabs.cnt[r], 1, order)
+    d = torch.gather(state.slabs.dst[r], 1, order)
+    c = torch.where(found.unsqueeze(1), c, 0)
+    return c, d, state.slabs.tot[r], found
+
+
 def query_impl(state: MCState, src, threshold, cfg: MCConfig, max_items: int):
-    """Shared inference dispatch: ``ops.ht_find`` probe +
-    ``ops.cdf_query_fused`` (in-kernel row gather and walk).
+    """Shared inference dispatch: fused in-kernel row gather by default
+    (``ops.ht_find`` probe + ``ops.cdf_query_fused``), the unfused
+    ``_ordered_rows`` + ``ops.cdf_query`` pipeline otherwise.
     ``threshold=None`` is top-k mode (every live item)."""
     src = _to_state_device(state, src, torch.int32)
-    rows, found = lookup_rows(state, src, cfg)
-    return ops.cdf_query_fused(
-        rows, found, state.slabs.cnt, state.slabs.dst, state.slabs.order,
-        state.slabs.tot, threshold, max_items=max_items,
-        chunks=cfg.query_chunks, impl=cfg.impl)
+    if cfg.fused_query:
+        rows, found = lookup_rows(state, src, cfg)
+        return ops.cdf_query_fused(
+            rows, found, state.slabs.cnt, state.slabs.dst, state.slabs.order,
+            state.slabs.tot, threshold, max_items=max_items,
+            chunks=cfg.query_chunks, impl=cfg.impl)
+    c, d, tot, _ = _ordered_rows(state, src, cfg)
+    return ops.cdf_query(c, d, tot, threshold, max_items=max_items,
+                         chunks=cfg.query_chunks, impl=cfg.impl)
 
 
 def query_threshold(
@@ -430,6 +437,8 @@ def query_threshold(
     Returns ``(dsts[B, max_items], probs[B, max_items], n_needed[B])`` where
     entries past ``n_needed`` are EMPTY/0.  ``n_needed`` is the paper's
     CDF^-1(t): how many items a reader must touch.  Unknown srcs yield 0.
+    Runs through the kernel layer (``ops.cdf_query_fused`` /
+    ``ops.cdf_query`` per ``cfg.fused_query``).
     """
     return query_impl(state, src, threshold, cfg, max_items)
 
@@ -438,7 +447,7 @@ def query_topk(state: MCState, src, *, cfg: MCConfig, k: int = 8):
     """Top-k edges by (approximate) probability. ``(dsts[B,k], probs[B,k])``.
 
     Top-k is the kernel's explicit ``threshold=None`` mode (keep every live
-    item), sharing the fused CDF walk.
+    item), sharing the CDF walk of the threshold query.
     """
     dk, pk, _ = query_impl(state, src, None, cfg, k)
     return dk, pk

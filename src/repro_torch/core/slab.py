@@ -21,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.hashtable import EMPTY, first_true
 
 
@@ -32,6 +33,9 @@ class Slabs(NamedTuple):
 
 
 def make(num_rows: int, capacity: int, device=None) -> Slabs:
+    """Empty slabs on ``device`` (default: the current CUDA device; raises
+    when there is none)."""
+    device = resolve_device(device)
     return Slabs(
         dst=torch.full((num_rows, capacity), EMPTY, dtype=torch.int32,
                        device=device),

@@ -1,17 +1,19 @@
-"""Synthetic data: Zipf-distributed sparse Markov chains.
+"""Synthetic data: Zipf-distributed sparse Markov chains and token streams.
 
 The paper's workload model (§II.B): "oftentimes the edges follow a Zipf
 distribution".  ``MarkovGraphSampler`` builds a ground-truth random sparse
 graph with Zipf edge probabilities and samples transition streams from it —
 used by the parity and convergence tests (does MCPrioQ recover the true
-edge ranking?).  numpy only: the package's own copy of
-``repro.data.synthetic.MarkovGraphSampler``, same seeds, same streams.
+edge ranking?).  ``token_stream`` is an LM token stream with learnable
+bigram structure, what the n-gram drafter learns from.  numpy only: the
+package's own copy of ``repro.data.synthetic.MarkovGraphSampler`` and
+``token_stream``, same seeds, same streams.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -89,3 +91,25 @@ class MarkovGraphSampler:
             out[:, t] = cur
         return out
 
+
+def token_stream(vocab_size: int, batch: int, seq_len: int, seed: int = 0
+                 ) -> Iterator[dict]:
+    """LM token stream with learnable bigram structure: a hidden table gives
+    each token 4 likely successors, and 20 % of the tokens are uniform
+    noise.  Yields ``{"tokens": int32[batch, seq_len], "targets": the same
+    shifted by one}``."""
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, vocab_size, (vocab_size, 4)).astype(np.int32)
+    while True:
+        toks = np.empty((batch, seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, vocab_size, batch)
+        for t in range(1, seq_len + 1):
+            pick = rng.integers(0, 4, batch)
+            follow = succ[toks[:, t - 1], pick]
+            noise = rng.integers(0, vocab_size, batch)
+            use_noise = rng.random(batch) < 0.2
+            toks[:, t] = np.where(use_noise, noise, follow)
+        yield {
+            "tokens": toks[:, :-1],
+            "targets": toks[:, 1:],
+        }

@@ -6,8 +6,11 @@
   * :mod:`repro_torch.kernels.slab_update` — fused batched edge increment (§II.A)
   * :mod:`repro_torch.kernels.oddeven`     — lock-free bubble sort (§II.2)
   * :mod:`repro_torch.kernels.cdf_gather`  — fused row-gather + CDF walk (§II.B)
-  * :mod:`repro_torch.kernels.cdf_query`   — chunking rule of the walk
+  * :mod:`repro_torch.kernels.cdf_query`   — CDF walk over pre-ordered rows
+                                             (the unfused read) + chunking rule
   * :mod:`repro_torch.kernels.slow_path`   — sequential new-edge pass (§II.A)
+  * :mod:`repro_torch.kernels.walk`        — k-step greedy draft walk
+                                             (speculative decoding)
 
 Public API lives in :mod:`repro_torch.kernels.ops` (backend dispatch);
 ``ref.py`` holds the plain PyTorch version each kernel is held against;

@@ -43,6 +43,9 @@ SIGNATURES = {
                             _I, _I, _I, _P],
     "mcq_slow_path": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
                       _I, _I, _I, _P],
+    "mcq_cdf_query": [_P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
+    "mcq_draft_walk": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I,
+                       _I, _P, _P, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -143,8 +146,11 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
-def require_cuda_int32(name: str, **tensors) -> None:
-    """Every kernel takes contiguous int32 tensors on one CUDA device."""
+def require_cuda_int32(name: str, *, strided=(), **tensors) -> None:
+    """Every kernel takes contiguous int32 tensors on one CUDA device.  The
+    arguments named in ``strided`` may have a strided leading dimension (the
+    wrapper passes that stride to its kernel) but must be unit-stride along
+    their last."""
     device = None
     for arg, x in tensors.items():
         if not x.is_cuda:
@@ -153,7 +159,11 @@ def require_cuda_int32(name: str, **tensors) -> None:
                 f"tensors (use impl='ref' or 'auto' for CPU tensors)")
         if x.dtype != torch.int32:
             raise TypeError(f"{name}: {arg} must be int32, got {x.dtype}")
-        if not x.is_contiguous():
+        if arg in strided:
+            if x.dim() > 1 and x.shape[-1] > 1 and x.stride(-1) != 1:
+                raise ValueError(f"{name}: {arg} must be unit-stride along "
+                                 f"its last dim")
+        elif not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if device is None:
             device = x.device

@@ -1,19 +1,47 @@
-"""Chunking rule of the cumulative-probability walk (paper §II.B).
+"""CUDA kernel: CDF threshold walk over pre-ordered rows (paper §II.B), and
+the chunking rule of the walk.
 
-Counterpart of ``repro/kernels/cdf_query.py``.  This slice holds the part of
-it that the fused query path uses: :func:`auto_chunks`, which resolves and
-validates ``MCConfig.query_chunks``.  The walk itself is the device function
-in ``csrc/cdf_walk.cuh``, written so that the kernel over pre-ordered rows
-(``fused_query=False``, a later slice) can share it.
+Replaces the TPU kernel ``repro/kernels/cdf_query.py::cdf_query_pallas``
+(``_cdf_kernel`` with ``walk_chunks``): the unfused read
+(``MCConfig.fused_query=False``), whose rows ``c_ord/d_ord[B, C]`` were
+already gathered into priority order by ``mcprioq._ordered_rows``.  Per
+query, with an exact int32 running prefix,
+``needed[j] = (f32(prefix_before_j) < t * f32(max(tot, 1))) & (c_j > 0)``
+(top-k mode: ``c_j > 0``); emit ``d_j`` and ``c_j / tot`` for needed
+positions ``< max_items`` (EMPTY / 0.0 elsewhere); ``n_needed`` = needed
+positions over all C.
 
-On the GPU a warp walks 32 priority positions at a time whatever ``chunks``
-says: by the integer-walk contract every chunking gives the same bits, so the
-value only has to be valid.
+Bound on this card: bytes, and few of them — a query needs the counts up to
+where its prefix crosses the threshold (all C in top-k mode, and for an
+unknown src whose zeroed row never crosses), the dsts it emits, its ``tot``,
+and (8·max_items + 4) B of output.  The design gives each query a warp that
+walks 32 positions at a time with a warp scan and an int32 carry (the device
+function ``csrc/cdf_walk.cuh`` shared with the fused kernel) and leaves the
+loop once the carry has crossed the threshold.  The TPU kernel leaves a
+chunk only when every query of its 128-query block is done; here each query
+leaves on its own, and by the integer-walk contract the bits are the same.
+
+:func:`auto_chunks` resolves and validates ``MCConfig.query_chunks``.  On
+the GPU a warp walks 32 positions at a time whatever ``chunks`` says: every
+chunking gives the same bits, so the value only has to be valid.
+
+Source: ``csrc/cdf_query.cu`` (entry ``mcq_cdf_query``), walk in
+``csrc/cdf_walk.cuh``.  Plain version: :func:`cdf_query_ref`.
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import cdf_query_ref
+
+# the plain version is re-exported beside its kernel
+__all__ = ["auto_chunks", "cdf_query_cuda", "cdf_query_ref", "launches"]
+
 LANE_WIDTH = 128  # the reference's chunk unit: one chunk per 128 positions
+
+launches = 0  # kernel launches made by cdf_query_cuda in this process
 
 
 def auto_chunks(capacity: int, chunks: int) -> int:
@@ -30,3 +58,34 @@ def auto_chunks(capacity: int, chunks: int) -> int:
     if capacity % LANE_WIDTH == 0 and capacity > LANE_WIDTH:
         return capacity // LANE_WIDTH
     return 1
+
+
+def cdf_query_cuda(c_ord: torch.Tensor, d_ord: torch.Tensor,
+                   tot: torch.Tensor, threshold, *, max_items: int = 16):
+    """c_ord/d_ord: [B, C] counts/dsts in priority order (zeros where the
+    src is unknown), tot: [B].  ``threshold=None`` is top-k mode (the kernel
+    gets t = 0).  Returns (dsts[B, max_items], probs[B, max_items],
+    n_needed[B])."""
+    global launches
+    _build.require_cuda_int32("cdf_query_cuda", c_ord=c_ord, d_ord=d_ord,
+                              tot=tot)
+    if c_ord.dim() != 2 or c_ord.shape != d_ord.shape:
+        raise ValueError("cdf_query_cuda: c_ord/d_ord must be [B, C]")
+    if tot.shape != c_ord.shape[:1]:
+        raise ValueError("cdf_query_cuda: tot must be [B]")
+    if max_items < 1:
+        raise ValueError("cdf_query_cuda: max_items must be >= 1")
+    batch = c_ord.shape[0]
+    dev = c_ord.device
+    dk = torch.empty((batch, max_items), dtype=torch.int32, device=dev)
+    pk = torch.empty((batch, max_items), dtype=torch.float32, device=dev)
+    nn = torch.empty((batch,), dtype=torch.int32, device=dev)
+    if batch == 0:
+        return dk, pk, nn
+    topk = threshold is None
+    _build.launch("mcq_cdf_query", dev, c_ord.data_ptr(), d_ord.data_ptr(),
+                  tot.data_ptr(), 0.0 if topk else float(threshold), int(topk),
+                  dk.data_ptr(), pk.data_ptr(), nn.data_ptr(), batch,
+                  c_ord.shape[1], max_items)
+    launches += 1
+    return dk, pk, nn

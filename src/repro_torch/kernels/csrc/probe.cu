@@ -1,10 +1,11 @@
 // Batched open-addressing probe over a stack of tables keys/vals[N, H].
 //
-// One thread per query.  A query touches only its own probe chain: from the
-// home slot hash_u32(key) & (H-1) it walks at most max_probes slots (wrapping
-// with & (H-1)), stops at the key (found) or at the first EMPTY (missing) and
-// walks through TOMB.  rows[i] < 0 marks padding: slot EMPTY, found 0.
-#include "common.cuh"
+// One thread per query.  A query touches only its own probe chain (the loop
+// is mcq_probe_chain in probe.cuh, shared with the draft walk): from the home
+// slot hash_u32(key) & (H-1) it walks at most max_probes slots, stops at the
+// key (found) or at the first EMPTY (missing) and walks through TOMB.
+// rows[i] < 0 marks padding: slot EMPTY, found 0.
+#include "probe.cuh"
 
 __global__ void mcq_probe_find_kernel(const int32_t* __restrict__ rows,
                                       const int32_t* __restrict__ keys_q,
@@ -20,21 +21,11 @@ __global__ void mcq_probe_find_kernel(const int32_t* __restrict__ rows,
   int32_t slot = MCQ_EMPTY;
   int32_t hit = 0;
   if (row >= 0) {
-    const int32_t key = keys_q[i];
-    const uint32_t mask = static_cast<uint32_t>(table_size - 1);
-    const uint32_t h0 = mcq_hash_u32(key) & mask;
     const size_t base = static_cast<size_t>(row) * table_size;
-    for (int p = 0; p < max_probes; ++p) {
-      const uint32_t idx = (h0 + static_cast<uint32_t>(p)) & mask;
-      const int32_t k = tab_keys[base + idx];
-      // EMPTY first: probing for the EMPTY value itself is a miss
-      if (k == MCQ_EMPTY) break;
-      if (k == key) {
-        slot = tab_vals[base + idx];
-        hit = 1;
-        break;
-      }
-    }
+    hit = mcq_probe_chain(tab_keys + base, tab_vals + base, table_size,
+                          keys_q[i], max_probes, &slot)
+              ? 1
+              : 0;
   }
   slots[i] = slot;
   found[i] = hit;

@@ -19,6 +19,7 @@ from repro_torch.kernels import probe as _pr
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import slab_update as _su
 from repro_torch.kernels import slow_path as _sp
+from repro_torch.kernels import walk as _wk
 
 _IMPLS = ("auto", "ref", "cuda")
 
@@ -102,6 +103,25 @@ def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
                    max_probes=max_probes, impl=impl)
 
 
+def cdf_query(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,
+              threshold, *, max_items: int = 16, chunks: int = 0,
+              topk: bool = False, impl: str = "auto"):
+    """Threshold inference over pre-ordered rows (cdf_query.py).
+
+    ``c_ord/d_ord[B, C]`` are counts/dsts already in priority order (zeros
+    for unknown srcs), ``tot[B]`` the row totals.  ``threshold=None`` (or
+    ``topk=True``) is top-k mode.  ``chunks`` is validated and otherwise
+    changes nothing: every chunking of the integer walk gives the same bits.
+    """
+    topk = topk or threshold is None
+    _cdf.auto_chunks(c_ord.shape[1], chunks)
+    threshold = None if topk else threshold
+    if _use_ref(impl, c_ord):
+        return _ref.cdf_query_ref(c_ord, d_ord, tot, threshold, max_items)
+    return _cdf.cdf_query_cuda(c_ord, d_ord, tot, threshold,
+                               max_items=max_items)
+
+
 def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                     cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                     tot: torch.Tensor, threshold, *, max_items: int = 16,
@@ -121,6 +141,26 @@ def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                                         threshold, max_items)
     return _cg.cdf_query_fused_cuda(rows, found.to(torch.int32), cnt, dst,
                                     order, tot, threshold, max_items=max_items)
+
+
+def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,
+               ht_vals: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
+               ord0: torch.Tensor, *, k: int = 4, max_probes: int = 64,
+               impl: str = "auto"):
+    """One-shot k-step greedy draft walk (walk.py).
+
+    window[B, order] recent tokens; the chain snapshot (src table + slabs +
+    order heads ``ord0[N]``, e.g. the strided view ``slabs.order[:, 0]``) is
+    read-only during a draft, so the whole k-step walk is one launch.
+    Returns ``(toks[B, k], ok[B, k] bool)``.
+    """
+    if _use_ref(impl, cnt):
+        toks, oks = _ref.draft_walk_ref(window, ht_keys, ht_vals, cnt, dst,
+                                        ord0, k=k, max_probes=max_probes)
+    else:
+        toks, oks = _wk.draft_walk_cuda(window, ht_keys, ht_vals, cnt, dst,
+                                        ord0, k=k, max_probes=max_probes)
+    return toks, oks.to(torch.bool)
 
 
 def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,

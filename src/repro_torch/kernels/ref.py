@@ -187,6 +187,42 @@ def cdf_query_fused_ref(rows: torch.Tensor, found: torch.Tensor,
     return dk, pk, n_needed
 
 
+def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,
+                   ht_vals: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
+                   ord0: torch.Tensor, *, k: int, max_probes: int):
+    """k-step greedy draft walk (plain version of ``kernels/walk.py``).
+
+    A loop of k steps of (rolling ctx hash -> src probe -> top-1 gather at
+    the order head ``ord0[row]``) with a dead-lane stop: once a step finds no
+    transition the lane emits token 0 / ok 0 for every later step.
+    window[B, order] int32 (any strides); ord0[N] the order head of every
+    row (``slabs.order[:, 0]``, a strided view is fine).  Returns
+    ``(toks[B, k], ok[B, k])``, both int32.
+    """
+    n = cnt.shape[0]
+    b = window.shape[0]
+    toks = torch.zeros((b, k), dtype=torch.int32, device=window.device)
+    oks = torch.zeros((b, k), dtype=torch.int32, device=window.device)
+    win = window.to(torch.int32)
+    alive = torch.ones((b,), dtype=torch.bool, device=window.device)
+    for s in range(k):
+        src = ht.ctx_window_hash(win)
+        rows, found = probe_find_ref(torch.zeros_like(src), src,
+                                     ht_keys.unsqueeze(0), ht_vals.unsqueeze(0),
+                                     max_probes)
+        rowm = torch.where(found, rows, 0).clamp(0, n - 1).to(torch.int64)
+        slot0 = ord0[rowm].to(torch.int64)
+        cnt0 = cnt[rowm, slot0]
+        dst0 = dst[rowm, slot0]
+        ok = alive & found & (cnt0 > 0) & (dst0 != EMPTY)
+        nxt = torch.where(ok, dst0, 0).to(torch.int32)
+        toks[:, s] = nxt
+        oks[:, s] = ok.to(torch.int32)
+        win = torch.cat([win[:, 1:], nxt.unsqueeze(1)], dim=1)
+        alive = ok
+    return toks, oks
+
+
 def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                   dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
                   order: torch.Tensor, counters: torch.Tensor,

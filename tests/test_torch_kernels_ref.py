@@ -214,3 +214,129 @@ def test_slow_path_matches_reference_scan(num_rows, capacity, table_size,
     # the state crosses between the packages unchanged
     assert_same(jstate, convert.state_from_numpy(jax_state_leaves(jstate), tcfg, "cpu"),
                 "state_from_numpy")
+
+
+# ---------------------------------------------------------------------------
+# cdf_query over pre-ordered rows (the unfused read)
+# ---------------------------------------------------------------------------
+
+
+def _ordered_counts(rng, b, c, zero_frac, zipf=1.5):
+    raw = np.sort(rng.zipf(zipf, (b, c)).astype(np.int32), axis=1)[:, ::-1]
+    raw[rng.random((b, c)) < zero_frac] = 0
+    raw = np.ascontiguousarray(np.sort(raw, axis=1)[:, ::-1])
+    d_ord = rng.integers(0, 1000, (b, c)).astype(np.int32)
+    return raw, d_ord, raw.sum(axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("b,c", [(8, 16), (128, 128), (64, 256)])
+@pytest.mark.parametrize("t", [0.5, 0.9, 0.99])
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_cdf_query(jax_impl, b, c, t, chunks):
+    rng = np.random.default_rng(b + int(t * 100) + chunks)
+    c_ord, d_ord, tot = _ordered_counts(rng, b, c, 0.1)
+    c_ord[0], tot[0] = 0, 0                              # an unknown src
+    _both_impls("cdf_query", jax_impl, c_ord, d_ord, tot, threshold=t,
+                max_items=16, chunks=chunks)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+def test_cdf_query_topk_mode(jax_impl, chunks):
+    rng = np.random.default_rng(chunks)
+    c_ord, d_ord, tot = _ordered_counts(rng, 32, 64, 0.3)
+    _both_impls("cdf_query", jax_impl, c_ord, d_ord, tot, threshold=None,
+                max_items=8, chunks=chunks)
+    _both_impls("cdf_query", jax_impl, c_ord, d_ord, tot, threshold=0.4,
+                max_items=70, chunks=chunks, topk=True)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+def test_cdf_query_empty_rows_and_quantile(jax_impl):
+    zeros = np.zeros((4, 32), np.int32)
+    _both_impls("cdf_query", jax_impl, zeros, zeros, np.zeros(4, np.int32),
+                threshold=0.9, max_items=8)
+    # cumsum/1024: .5 .75 .875 .9375 -> 4 items needed
+    c_ord = np.asarray([[512, 256, 128, 64, 32, 16, 8, 8]], np.int32)
+    d_ord = np.arange(8, dtype=np.int32)[None]
+    tot = np.asarray([1024], np.int32)
+    _both_impls("cdf_query", jax_impl, c_ord, d_ord, tot, threshold=0.9,
+                max_items=8)
+    _, _, n = tops.cdf_query(*to_torch([c_ord, d_ord, tot]), 0.9, max_items=8)
+    assert int(n[0]) == 4
+
+
+def test_cdf_query_bad_chunks_raise():
+    x = torch.zeros((2, 16), dtype=torch.int32)
+    for bad in (3, 5, 32):
+        with pytest.raises(ValueError, match="must divide capacity"):
+            tops.cdf_query(x, x, x[:, 0], 0.5, chunks=bad)
+
+
+# ---------------------------------------------------------------------------
+# draft walk
+# ---------------------------------------------------------------------------
+
+
+def _walk_chain(rng, order, table_size, n_tokens=64):
+    """A chain learned (in JAX) from a noisy successor stream, a share of its
+    src keys then tombstoned; returns the raw arrays and the token stream."""
+    from repro.core import speculative as jspec
+    from repro_torch.core import hashtable as tht
+
+    ncfg = jspec.NGramConfig(order=order, mc=jmc.MCConfig(
+        num_rows=48 if table_size else 256, capacity=8, sort_passes=2,
+        table_size=table_size, max_probes=16))
+    succ = rng.integers(0, n_tokens, (n_tokens,)).astype(np.int32)
+    toks = np.empty((4, 128), np.int32)
+    toks[:, 0] = rng.integers(0, n_tokens, 4)
+    for i in range(1, 128):
+        noise = rng.integers(0, n_tokens, 4)
+        toks[:, i] = np.where(rng.random(4) < 0.9, succ[toks[:, i - 1]], noise)
+    chain = jspec.observe(jspec.init(ncfg), jnp.asarray(toks), cfg=ncfg).chain
+    table = tht.HashTable(*to_torch([np.asarray(chain.src_table.keys),
+                                     np.asarray(chain.src_table.vals)]))
+    live = table.keys[table.keys >= 0]
+    for key in live[torch.from_numpy(rng.random(live.numel()) < 0.2)].tolist():
+        table, _ = tht.delete(table, key, 16)
+    assert bool((table.keys == -2).any())
+    arrays = [table.keys.numpy(), table.vals.numpy(),
+              np.asarray(chain.slabs.cnt), np.asarray(chain.slabs.dst),
+              np.ascontiguousarray(np.asarray(chain.slabs.order)[:, 0])]
+    return arrays, toks
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("order,k,table_size", [
+    (2, 1, 0), (2, 4, 0), (2, 7, 0),
+    (1, 4, 0),
+    (3, 8, 64),      # small table: chains wrap its end
+])
+def test_draft_walk(jax_impl, order, k, table_size):
+    rng = np.random.default_rng(order * 10 + k)
+    arrays, toks = _walk_chain(rng, order, table_size)
+    # learned contexts, contexts whose key was tombstoned, unknown contexts
+    window = np.concatenate([toks[:, 50:50 + order], toks[:, 90:90 + order],
+                             np.full((2, order), 7777, np.int32)]).astype(np.int32)
+    _both_impls("draft_walk", jax_impl, window, *arrays, k=k, max_probes=16)
+    toks_k, ok = tops.draft_walk(*to_torch([window, *arrays]), k=k, max_probes=16)
+    assert ok.dtype == torch.bool and ok.any()
+    assert not ok[-2:].any() and not toks_k[-2:].any()
+    # ok rows are prefixes: once a lane dies it stays dead
+    assert torch.equal(ok, torch.cumprod(ok.to(torch.int32), dim=1).to(torch.bool))
+
+
+def test_draft_walk_reads_strided_views_and_empty_batches():
+    rng = np.random.default_rng(3)
+    arrays, toks = _walk_chain(rng, 2, 0)
+    keys, vals, cnt, dst, _ = to_torch(arrays)
+    order = torch.from_numpy(np.argsort(-arrays[2], axis=1, kind="stable")
+                             .astype(np.int32))
+    context = torch.from_numpy(toks[:, 40:48].copy())
+    strided = tops.draft_walk(context[:, -2:], keys, vals, cnt, dst, order[:, 0], k=5)
+    dense = tops.draft_walk(context[:, -2:].contiguous(), keys, vals, cnt, dst,
+                            order[:, 0].contiguous(), k=5)
+    assert_same(dense, strided, "strided views")
+    toks0, ok0 = tops.draft_walk(context[:0, -2:], keys, vals, cnt, dst, order[:, 0], k=5)
+    assert toks0.shape == ok0.shape == (0, 5)

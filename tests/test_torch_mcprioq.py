@@ -3,7 +3,9 @@ repro.core.mcprioq on the CPU.  The same seeded stream goes through both;
 after EVERY batch all 18 MCState leaves and the query answers are equal
 (tolerance zero, int32 and float32 alike)."""
 
+import dataclasses
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -61,3 +63,30 @@ def test_stream_state_and_answers_equal_after_every_batch(name):
     jinv, tinv = jmc.check_invariants(jstate, jcfg), tmc.check_invariants(tstate, tcfg)
     assert jinv == tinv
     assert all(v for k, v in tinv.items() if k != "sorted_fraction")
+
+
+@pytest.mark.parametrize("chunks", [0, 1, 2])
+def test_unfused_queries_equal_jax_and_the_fused_path(chunks):
+    """fused_query=False (``_ordered_rows`` + ``ops.cdf_query``) against the
+    reference's unfused read and against the port's fused read."""
+    jcfg, tcfg = _configs("rolling")
+    jstate, tstate = jmc.init(jcfg), tmc.init(tcfg, device="cpu")
+    for src, dst, weights, mask in itertools.islice(_stream(seed=chunks), 12):
+        jstate = jmc.update_batch(jstate, jnp.asarray(src), jnp.asarray(dst),
+                                  _opt(weights, jnp.asarray), _opt(mask, jnp.asarray),
+                                  cfg=jcfg)
+        tstate = tmc.update_batch(tstate, src, dst, weights, mask, cfg=tcfg)
+    assert_same(jstate, tstate, "stream")
+    jun = dataclasses.replace(jcfg, fused_query=False, query_chunks=chunks)
+    tun = dataclasses.replace(tcfg, fused_query=False, query_chunks=chunks)
+    srcs = np.arange(-2, 70, dtype=np.int32)
+    _queries(jstate, tstate, jun, tun, srcs, f"unfused chunks={chunks}")
+    for t, k in ((0.9, 16), (None, 5)):
+        fused = tmc.query_impl(tstate, srcs, t, tcfg, k)
+        assert_same(fused, tmc.query_impl(tstate, srcs, t, tun, k),
+                    f"unfused vs fused t={t}")
+
+
+def test_fused_query_false_is_accepted():
+    # use_dst_hash=True still raises: test_torch_package.py
+    assert not tmc.MCConfig(fused_query=False).fused_query

@@ -15,7 +15,10 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import hashtable as tht
 from repro_torch.core import mcprioq as tmc
+from repro_torch.core import slab as tsl
+from repro_torch.core.device import resolve_device
 from repro_torch.kernels import _build, ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -28,6 +31,8 @@ KERNELS = {
     "cdf_gather": ("cdf_query_fused_cuda", "cdf_query_fused_ref", "cdf_gather.cu",
                    "mcq_cdf_query_fused"),
     "slow_path": ("slow_path_cuda", "slow_path_ref", "slow_path.cu", "mcq_slow_path"),
+    "cdf_query": ("cdf_query_cuda", "cdf_query_ref", "cdf_query.cu", "mcq_cdf_query"),
+    "walk": ("draft_walk_cuda", "draft_walk_ref", "walk.cu", "mcq_draft_walk"),
 }
 
 
@@ -74,6 +79,7 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
         tmc.init(cfg)
     state = tmc.init(cfg, device="cpu")
     assert state.slabs.cnt.device.type == "cpu"
+    assert tmc.resolve_device is resolve_device
     assert all(getattr(state, f).dtype == torch.int32 and getattr(state, f).dim() == 0
                for f in tmc._COUNTER_FIELDS + ("decay_cursor",))
 
@@ -86,6 +92,8 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
     lambda x, v: ops.ht_find(v, v, v, impl="cuda"),
     lambda x, v: ops.cdf_query_fused(v, v, x, x, x, v, 0.5, impl="cuda"),
     lambda x, v: ops.slow_path(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
+    lambda x, v: ops.cdf_query(x, x, v, 0.5, impl="cuda"),
+    lambda x, v: ops.draft_walk(x, v, v, x, x, v, impl="cuda"),
 ])
 def test_impl_cuda_on_cpu_tensors_raises(call):
     x = torch.zeros((4, 4), dtype=torch.int32)
@@ -102,7 +110,8 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
     v = torch.zeros((4,), dtype=torch.int32)
     args = {"probe": (v, v, x, x), "slab_update": (v, v, v, x, x, v),
             "oddeven": (x, x), "cdf_gather": (v, v, x, x, x, v, 0.5),
-            "slow_path": (v, v, x, x, v, x, v, v, v, v, v)}[module]
+            "slow_path": (v, v, x, x, v, x, v, v, v, v, v),
+            "cdf_query": (x, x, v, 0.5), "walk": (x, v, v, x, x, v)}[module]
     before = mod.launches
     with pytest.raises(ValueError, match="takes CUDA"):
         wrapper(*args)
@@ -124,10 +133,21 @@ def test_config_rejects_unknown_impl(impl):
         tmc.MCConfig(impl=impl)
 
 
-@pytest.mark.parametrize("kw", [dict(use_dst_hash=True), dict(fused_query=False)])
+@pytest.mark.parametrize("kw", [dict(use_dst_hash=True),
+                                dict(use_dst_hash=True, fused_query=False)])
 def test_options_of_later_slices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="dst-hash slice"):
         tmc.MCConfig(**kw)
+
+
+@pytest.mark.parametrize("make", [lambda d: tht.make(8, device=d),
+                                  lambda d: tsl.make(4, 3, device=d)],
+                         ids=["hashtable", "slab"])
+def test_constructors_default_to_the_gpu_and_never_to_the_cpu(make):
+    assert not torch.cuda.is_available(), "this test describes a machine without a GPU"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(None)
+    assert all(x.device.type == "cpu" for x in make("cpu"))
 
 
 @pytest.mark.parametrize("module", list(KERNELS))
@@ -155,7 +175,7 @@ def test_build_is_keyed_by_sources_and_targets_sm_90a(tmp_path):
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     cu, cuh = _build.sources()
     assert {p.name for p in cu} == {k[2] for k in KERNELS.values()}
-    assert {p.name for p in cuh} == {"common.cuh", "cdf_walk.cuh"}
+    assert {p.name for p in cuh} == {"common.cuh", "cdf_walk.cuh", "probe.cuh"}
     assert re.fullmatch(r"[0-9a-f]{16}", _build.source_hash())
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
@@ -180,3 +200,73 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _kernel_stand_ins():
+    """Each CUDA wrapper replaced by its plain version behind a check of what
+    the wrapper takes: int32 tensors, contiguous except where the wrapper
+    passes a stride to its kernel (the draft walk's window and order
+    heads)."""
+    from repro_torch.kernels import (cdf_gather, cdf_query, oddeven, probe, ref,
+                                     slab_update, slow_path, walk)
+
+    def check(name, strided, plain):
+        def wrapper(*args, **kw):
+            for i, a in enumerate(args):
+                if isinstance(a, torch.Tensor):
+                    assert a.dtype == torch.int32, (name, i, a.dtype)
+                    assert i in strided or a.is_contiguous(), (name, i)
+            return plain(*args, **kw)
+        return wrapper
+
+    def probe_plain(rows, keys_q, keys, vals, *, max_probes):
+        slots, found = ref.probe_find_ref(rows, keys_q, keys, vals, max_probes)
+        return slots, found.to(torch.int32)
+
+    return [
+        (probe, "probe_find_cuda", check("probe", (), probe_plain)),
+        (slab_update, "slab_update_cuda", check(
+            "slab_update", (), lambda *a: ref.slab_update_ref(*a)[1:3])),
+        (oddeven, "oddeven_cuda", check(
+            "oddeven", (), lambda c, o, *, passes: ref.oddeven_sort_ref(c, o, passes))),
+        (cdf_gather, "cdf_query_fused_cuda", check(
+            "cdf_gather", (), lambda *a, max_items: ref.cdf_query_fused_ref(*a, max_items))),
+        (slow_path, "slow_path_cuda", check(
+            "slow_path", (), lambda *a, max_probes: ref.slow_path_ref(
+                *a[:-1], a[-1].to(torch.bool), max_probes))),
+        (cdf_query, "cdf_query_cuda", check(
+            "cdf_query", (), lambda *a, max_items: ref.cdf_query_ref(*a, max_items))),
+        (walk, "draft_walk_cuda", check("walk", (0, 5), lambda *a, **kw: (
+            lambda t, o: (t, o.to(torch.bool)))(*ref.draft_walk_ref(*a, **kw)))),
+    ]
+
+
+def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
+    """The update, both reads, decay and the drafter, with the dispatch sent
+    to stand-ins of the CUDA wrappers on CPU tensors: a strided or
+    mistyped argument fails here, before it reaches the card."""
+    import dataclasses
+
+    from repro_torch.core import speculative as tspec
+    monkeypatch.setattr(ops, "_use_ref", lambda impl, x: impl == "ref")
+    for module, name, stand_in in _kernel_stand_ins():
+        monkeypatch.setattr(module, name, stand_in)
+    ncfg = tspec.NGramConfig(order=2, decay_threshold=4, mc=tmc.MCConfig(
+        num_rows=32, capacity=8, max_new_per_batch=16, decay_block_rows=8))
+    rng = torch.Generator().manual_seed(0)
+    st = tspec.init(ncfg, device="cpu")
+    for _ in range(4):
+        toks = torch.randint(0, 12, (4, 17), generator=rng, dtype=torch.int32)
+        st = tspec.maintain(tspec.observe(st, toks, cfg=ncfg), cfg=ncfg)
+    ctx = toks[:, :6]
+    for k in (1, 3):
+        assert torch.equal(tspec.draft(st, ctx, cfg=ncfg, k=k)[0],
+                           tspec.draft_reference(st, ctx, cfg=ncfg, k=k)[0])
+    tspec.candidates(st, ctx, 0.9, cfg=ncfg)
+    column = toks[:, 3]                          # a strided view of srcs
+    for cfg in (ncfg.mc, dataclasses.replace(ncfg.mc, fused_query=False)):
+        tmc.query_threshold(st.chain, column, 0.5, cfg=cfg)
+        tmc.query_topk(st.chain, column, cfg=cfg, k=3)
+    tmc.update_batch(st.chain, column, toks[:, 4], cfg=ncfg.mc)
+    decayed = tmc.decay(st.chain, cfg=ncfg.mc)
+    assert tmc.maintenance_stats(decayed)["decay_steps"] > 0
