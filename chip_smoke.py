@@ -10,8 +10,12 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
   2. kernels  — every kernel against its plain PyTorch version ON the card at
                 small odd shapes (ragged batches, padding rows, saturated
                 tables, duplicates, unknown srcs, ``max_items > C``, threshold
-                and top-k mode); outputs must be EQUAL (tolerance 0, integers
-                and float32 alike);
+                and top-k mode), and the new-edge pass where its rows and its
+                sort are stressed (8,192 items on 4 rows and on 8,192 rows,
+                rows running out mid-pass, 65,536 mostly inactive items,
+                30,000 items with rows sorted in tiles and merged, the
+                in-place / cloning contract); outputs must be EQUAL
+                (tolerance 0, integers and float32 alike);
   3. main     — the main path at full width: a chain of 2**20 source rows x 128
                 slots, warmed by streaming ``update_batch`` calls of 65,536
                 transitions, then rounds of update + threshold query + top-k
@@ -21,7 +25,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 through the unfused read (``fused_query=False``), equal to
                 the fused answers, with its own launch counts; then each
                 kernel at the shapes and data that path gave it, against its
-                plain version (equal) and timed beside its bound;
+                plain version (equal) and timed beside its bound (the
+                new-edge pass also without its copies, and by launch);
   4. drafter  — the speculative drafter at full width: a chain of 2**20
                 contexts x 64 slots behind an ``EpochStore``, a learner loop
                 (acquire -> observe 64 x 1,025 tokens -> maintain -> publish)
@@ -320,6 +325,150 @@ def small_kernel_checks(gen):
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
         f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
+    large_slow_path_checks(gen)
+
+
+def direct_table(gen, n_keys, size):
+    """A src table of ``size`` slots holding ``n_keys`` random keys, each at
+    its home slot, key ``srcs[r] -> r``.  Returns ``(keys, vals, srcs)``."""
+    from repro_torch.core.hashtable import hash_u32
+    cand = torch.randperm(16 * size, generator=gen, device="cuda").to(torch.int32)
+    home = hash_u32(cand) & (size - 1)
+    by_home = torch.sort(home, stable=True).indices
+    first = torch.ones(by_home.numel(), dtype=torch.bool, device="cuda")
+    first[1:] = home[by_home[1:]] != home[by_home[:-1]]
+    srcs = cand[by_home[first]]
+    srcs = srcs[torch.randperm(srcs.numel(), generator=gen, device="cuda")][:n_keys]
+    if srcs.numel() != n_keys:
+        raise AssertionError("direct_table: too few distinct home slots")
+    keys = torch.full((size,), -1, dtype=torch.int32, device="cuda")
+    vals = torch.full((size,), -1, dtype=torch.int32, device="cuda")
+    slot = (hash_u32(srcs) & (size - 1)).long()
+    keys[slot] = srcs
+    vals[slot] = torch.arange(n_keys, dtype=torch.int32, device="cuda")
+    return keys, vals, srcs
+
+
+def large_slow_path_checks(gen):
+    """The new-edge pass where one warp walking the items never went: long
+    runs of items on a few rows, one item on each of thousands of rows, rows
+    running out mid-pass behind a 2-slot probe window, more items than one
+    block sorts (mostly inactive, and 30,000 active on 32,768 rows, so the
+    merges have work), no active item; and the in-place / cloning contract.  Held
+    equal (torch.equal) to the plain mirror of the kernel's decomposition,
+    and once to the sequential plain version."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slow_path as sp
+
+    def state(n, c, n_keys, density=0.9):
+        keys, vals, srcs = direct_table(gen, n_keys, 4 * n)
+        dst, cnt, tot, order = random_slabs(gen, n, c, density=density, hi=50)
+        counters = torch.tensor([n_keys, 0, 0, 0], dtype=torch.int32,
+                                device="cuda")
+        return (keys, vals, dst, cnt, tot, order, counters), srcs
+
+    def new_srcs(count):
+        return randint(gen, 1 << 28, (1 << 28) + count, (count,))
+
+    checked = []
+
+    def check(label, st, items, max_probes, plain=ref.slow_path_rows_ref):
+        got = ops.slow_path(*st, *items, max_probes=max_probes, impl="cuda")
+        torch.cuda.synchronize()
+        compare(label, got, plain(*st, *items, max_probes))
+        checked.append(label)
+        return got
+
+    def ones(count):
+        return torch.ones(count, dtype=torch.bool, device="cuda")
+
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+
+    def kernel_ms(st, items, max_probes):
+        """The kernel alone (in place, no copies) on these inputs."""
+        work = [x.clone() for x in st]
+
+        def restore():
+            for dst_t, src_t in zip(work, st):
+                dst_t.copy_(src_t)
+
+        return time_restored(
+            lambda: sp.slow_path_cuda_inplace(
+                *work, *items[:3], items[3].to(torch.int32),
+                max_probes=max_probes), restore, flush)
+
+    items = 8192
+    st, srcs = state(4096, 32, 4096)
+    few = srcs[randint(gen, 0, 4, (items,)).long()]
+    out = check("slow_path 8192 items on 4 rows, C=32 (sequential plain)", st,
+                (few, randint(gen, 0, 300, (items,)), randint(gen, 1, 5, (items,)),
+                 ones(items)), 64, plain=ref.slow_path_ref)
+    ev_few = int(out[5][3])
+    few_ms = kernel_ms(st, (few, randint(gen, 0, 300, (items,)),
+                            randint(gen, 1, 5, (items,)), ones(items)), 64)
+
+    st, srcs = state(8192, 64, 8192)
+    spread = (srcs[torch.randperm(items, generator=gen, device="cuda")],
+              randint(gen, 0, 20_000, (items,)), randint(gen, 1, 5, (items,)),
+              ones(items))
+    out = check("slow_path 8192 items on 8192 rows, C=64", st, spread, 64)
+    ev_spread = int(out[5][3])
+    spread_ms = kernel_ms(st, spread, 64)
+    # the contract: inputs untouched, or cnt/tot written in place when owned
+    saved = [x.clone() for x in st]
+    for own in (False, True):
+        args = list(st) if not own else [*st[:3], st[3].clone(), st[4].clone(),
+                                          *st[5:]]
+        got = ops.slow_path(*args, *spread, max_probes=64, own_counts=own,
+                            impl="cuda")
+        compare(f"slow_path own_counts={own} result", got, out)
+        if own and not (got[3] is args[3] and got[4] is args[4]):
+            raise AssertionError("slow_path own_counts=True returned new cnt/tot")
+        for i, (a, b) in enumerate(zip(st, saved)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"slow_path own_counts={own} wrote input {i}")
+    inactive = (spread[0], spread[1], spread[2], ~ones(items))
+    check("slow_path 8192 inactive items", st, inactive, 64)
+
+    st, srcs = state(4096, 16, 3500)
+    known = srcs[randint(gen, 0, 3500, (items,)).long()]
+    fresh = new_srcs(3000)[randint(gen, 0, 3000, (items,)).long()]
+    mixed = torch.where(randint(gen, 0, 2, (items,)) == 1, known, fresh)
+    out = check("slow_path rows running out mid-pass, 2^12 rows, max_probes=2",
+                st, (mixed, randint(gen, 0, 40, (items,)),
+                     randint(gen, 1, 5, (items,)), ones(items)), 2)
+    n_rows, dropped_rows, dropped_probes, _ = out[5].tolist()
+    if n_rows != 4096 or dropped_rows == 0 or dropped_probes == 0:
+        raise AssertionError(f"rows-running-out case missed its point: {out[5]}")
+
+    for length in (65_536, 8192 + 1234):
+        st, srcs = state(4096, 16, 2000)
+        pool = torch.cat([srcs, new_srcs(1500)])
+        check(f"slow_path L={length}, 3 % active",
+              st, (pool[randint(gen, 0, pool.numel(), (length,)).long()],
+                   randint(gen, 0, 40, (length,)), randint(gen, 1, 5, (length,)),
+                   torch.rand(length, generator=gen, device="cuda") < 0.03), 8)
+
+    # more items with a row than two tiles hold: every tile sorts and two
+    # levels of merges do real work, with one row's items in several tiles
+    length, tile = 30_000, 8192
+    st, srcs = state(32_768, 16, 30_000)
+    pool = torch.cat([srcs, new_srcs(4000)])
+    out = check(f"slow_path L={length} on 32768 rows, all active (merges)", st,
+                (pool[randint(gen, 0, pool.numel(), (length,)).long()],
+                 randint(gen, 0, 40, (length,)), randint(gen, 1, 5, (length,)),
+                 ones(length)), 64)
+    merged = length - int((out[5][1:3] - st[6][1:3]).sum())
+    if merged <= 2 * tile:
+        raise AssertionError(f"merge case: only {merged} items have a row")
+    say(f"[kernels] slow_path at sizes one warp never met: {len(checked)} cases "
+        f"equal to the plain versions (torch.equal; evictions {ev_few} on 4 rows, "
+        f"{ev_spread} on 8192 rows; rows ran out with {dropped_rows} "
+        f"dropped_rows and {dropped_probes} dropped_probes; {merged} items "
+        f"with a row sorted in {-(-merged // tile)} tiles and merged), in-place and "
+        f"cloning contract held; the kernel alone (no copies, median of 10): "
+        f"{few_ms:.4f} ms for 8192 items on 4 rows, {spread_ms:.4f} ms on 8192 "
+        f"rows")
 
 
 def small_walk_checks(gen, both):
@@ -455,7 +604,7 @@ MAIN_KERNELS = ("probe_find", "slab_update", "oddeven", "cdf_query_fused",
                 "slow_path")
 
 
-def phase_main(seed, warm_seconds, rounds):
+def phase_main(seed, warm_batches, rounds):
     from repro_torch import core
     cfg = core.MCConfig(num_rows=NUM_NODES, capacity=128, sort_passes=1,
                         decay_block_rows=1024, max_new_per_batch=8192,
@@ -467,21 +616,19 @@ def phase_main(seed, warm_seconds, rounds):
     say(f"[main] table {cfg.resolved_table_size()} slots; state "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
 
-    # warm-up: stream batches for a fixed budget
+    # warm-up: a fixed number of batches, so the state the rounds meet (how
+    # many of a batch's edges are new) does not follow the update's speed
     t0 = time.perf_counter()
-    batches = 0
-    while True:
-        for _ in range(10):
-            src, dst = traffic.batch(BATCH)
-            state = core.update_batch(state, src, dst, cfg=cfg)
-        batches += 10
-        torch.cuda.synchronize()
-        if time.perf_counter() - t0 >= warm_seconds:
-            break
+    for batch in range(warm_batches):
+        src, dst = traffic.batch(BATCH)
+        state = core.update_batch(state, src, dst, cfg=cfg)
+        if batch % 10 == 9:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
     stats = core.counter_stats(state)
-    say(f"[main] warm-up: {batches} batches of {BATCH} in "
-        f"{time.perf_counter() - t0:.1f} s (budget {warm_seconds} s); "
-        f"n_rows {stats['n_rows']} deferred_new {stats['deferred_new']}")
+    say(f"[main] warm-up: {warm_batches} batches of {BATCH} in "
+        f"{time.perf_counter() - t0:.1f} s; n_rows {stats['n_rows']} "
+        f"deferred_new {stats['deferred_new']}")
 
     # measured rounds: launch counts are read around exactly this block
     times = {}
@@ -776,23 +923,155 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
                   operations=8 * walked + 4 * queries * k)
         del c_u, d_u, tot_u
 
-    # slow path: tables copied (read + write), items in; one dependent chain
+    # slow path, as update_batch calls it (cnt/tot its own)
     counters = torch.stack([state.n_rows, state.dropped_rows,
                             state.dropped_probes, state.evictions])
-    n_active = int(p_mask.sum())
-    say(f"[kernels] slow_path{f' [{path}]' if path else ''} input: {n_active} "
-        f"active of {p_mask.numel()} items")
-    entry("slow_path", None, "slow_path.cu",
-          "src/repro/core/mcprioq.py:311",
-          lambda impl: ops.slow_path(table.keys, table.vals, slabs.dst,
-                                     slabs.cnt, slabs.tot, slabs.order, counters,
-                                     p_src, p_dst, p_w, p_mask,
-                                     max_probes=cfg.max_probes, impl=impl),
-          bytes_moved=4 * (2 * (2 * h + 2 * n * c + n + 4) + 4 * p_mask.numel()
-                           + n_active * (2 + 2 * c + 4)),
-          operations=n_active * (2 * cfg.max_probes + 4 * c),
-          plain_reps=1)
+    slow_path_entry(entries, launches, flush,
+                    "slow_path" + (f"[{path}]" if path else ""), cfg, table,
+                    slabs, counters, (p_src, p_dst, p_w, p_mask),
+                    sequential=path is None)
     return entries
+
+
+def time_restored(fn, restore, flush, reps=10, warm=2):
+    """Median milliseconds of ``fn()`` by CUDA events, each call after
+    ``restore()`` and a rewrite of ``flush`` (neither timed): for a call
+    that writes into its inputs."""
+    times = []
+    for rep in range(warm + reps):
+        restore()
+        flush.add_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if rep >= warm:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_phases_ms(fn, restore, prefix, reps=3):
+    """Device milliseconds per call of each kernel whose name starts with
+    ``prefix``, by torch.profiler over ``reps`` calls of ``fn()`` (each after
+    ``restore()``); empty when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            restore()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                not ev.key.startswith(prefix):
+            continue
+        device_us = getattr(ev, "self_device_time_total", None)
+        if device_us is None:
+            device_us = ev.self_cuda_time_total
+        out[ev.key.split("(")[0]] = device_us / 1e3 / reps
+    return out
+
+
+def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
+                    counters, items, sequential):
+    """The new-edge pass at a path's shapes: the kernel as ``update_batch``
+    calls it (src table, dst_slab and counters copied, cnt/tot written in
+    place) held equal to the plain mirror of its decomposition (and, where
+    ``sequential``, to the sequential plain version); the wrapper timed, the
+    kernel alone timed without copies, its launches timed by name; the bound
+    of each from the bytes it must move."""
+    from repro_torch.core.hashtable import hash_u32
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slow_path as sp
+    n, c = slabs.cnt.shape
+    h = table.keys.shape[0]
+    probes = cfg.max_probes
+    p_src, _, _, p_mask = items
+    length, n_active = p_src.numel(), int(p_mask.sum())
+    state = (table.keys, table.vals, slabs.dst, slabs.cnt, slabs.tot,
+             slabs.order, counters)
+    got = ops.slow_path(*state[:3], slabs.cnt.clone(), slabs.tot.clone(),
+                        *state[5:], *items, max_probes=probes, own_counts=True,
+                        impl="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.slow_path_rows_ref(*state, *items, probes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(name, got, want)
+    sequential_ms = None
+    if sequential:
+        t0 = time.perf_counter()
+        compare(f"{name} vs the sequential plain version", got,
+                ref.slow_path_ref(*state, *items, probes))
+        sequential_ms = (time.perf_counter() - t0) * 1e3
+    rows = int((want[4] != slabs.tot).sum())       # every touched row gains w
+    counts = want[5] - counters
+    del got, want
+
+    # bytes: every item's active flag, an active item's src/dst/w and its
+    # probe window up to where it stops, each touched row's dst/cnt/tot/order
+    # tail read once, two writes per active item
+    p = torch.arange(probes, device="cuda")
+    act_src = p_src[p_mask]
+    win = table.keys[((hash_u32(act_src) & (h - 1)).unsqueeze(1) + p) & (h - 1)]
+    hit = (win == act_src.unsqueeze(1)) | (win == -1)
+    stop = torch.where(hit.any(dim=1), hit.int().argmax(dim=1), probes - 1) + 1
+    probed = int(stop.sum())
+    del win, hit, stop
+    work_bytes = 4 * (length + 3 * n_active + 2 * probed + rows * (2 * c + 3)
+                      + 2 * n_active + 8)
+    copy_bytes = 4 * 2 * (2 * h + n * c + 4)
+    operations = n_active * (3 * probes + 4 * c)
+
+    cnt_w, tot_w = slabs.cnt.clone(), slabs.tot.clone()
+
+    def restore_counts():
+        cnt_w.copy_(slabs.cnt)
+        tot_w.copy_(slabs.tot)
+
+    ms = time_restored(
+        lambda: ops.slow_path(*state[:3], cnt_w, tot_w, *state[5:], *items,
+                              max_probes=probes, own_counts=True, impl="cuda"),
+        restore_counts, flush)
+    del cnt_w, tot_w
+    originals = state[:5] + (counters,)
+    work = [x.clone() for x in originals]
+
+    def restore_all():
+        for dst_t, src_t in zip(work, originals):
+            dst_t.copy_(src_t)
+
+    def kernel():
+        sp.slow_path_cuda_inplace(*work[:5], slabs.order, work[5], *items[:3],
+                                  p_mask.to(torch.int32), max_probes=probes)
+
+    nocopy_ms = time_restored(kernel, restore_all, flush)
+    phases = kernel_phases_ms(kernel, restore_all, "mcq_sp_")
+    del work
+    bound_ms, bound_by = bound(work_bytes + copy_bytes, operations)
+    nocopy_bound_ms, _ = bound(work_bytes, operations)
+    entries.append({
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slow_path.cu",
+        "replaces": "src/repro/core/mcprioq.py:311", "launches": launches["slow_path"],
+        "max_abs_err": err, "max_abs_diff": err, "equal": True,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "nocopy_ms": nocopy_ms, "nocopy_bound_ms": nocopy_bound_ms,
+        "phases_ms": phases, "sequential_plain_ms": sequential_ms,
+        "active_items": n_active, "items": length, "rows_touched": rows})
+    say(f"[kernels] {name}: {n_active} active of {length} items on {rows} rows "
+        f"(counters moved by {counts.tolist()}); wrapper {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); without copies {nocopy_ms:.4f} ms, "
+        f"bound {nocopy_bound_ms:.4f} ms; by launch (profiler, ms per call) "
+        + (", ".join(f"{k} {v:.4f}" for k, v in phases.items()) or "not measured")
+        + f"; plain mirror {plain_ms:.1f} ms"
+        + ("" if sequential_ms is None
+           else f", sequential plain version {sequential_ms:.1f} ms (once)")
+        + "; equal")
 
 
 # ---------------------------------------------------------------------------
@@ -872,7 +1151,7 @@ def walk_work(window, toks, oks, keys, max_probes):
     return probed, found_steps, int(run.sum())
 
 
-def phase_drafter(seed, warm_seconds, rounds, profile=False):
+def phase_drafter(seed, warm_batches, rounds, profile=False):
     from repro_torch import core
     from repro_torch.core import speculative as spec
     from repro_torch.core.epoch import EpochStore
@@ -920,22 +1199,21 @@ def phase_drafter(seed, warm_seconds, rounds, profile=False):
         store.release(snap)
         return snap.state
 
-    # warm-up: the learner loop for a fixed budget
+    # warm-up: the learner loop for a fixed number of batches
     t0 = time.perf_counter()
-    batches, gen_s = 0, 0.0
-    while time.perf_counter() - t0 < warm_seconds:
+    gen_s = 0.0
+    for batch in range(warm_batches):
         g0 = time.perf_counter()
         toks = traffic.batch()
         gen_s += time.perf_counter() - g0
         learn(toks, key="warm-up")
-        batches += 1
-        if batches % 5 == 0:
+        if batch % 5 == 4:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
     stats = core.counter_stats(current().chain)
-    say(f"[drafter] warm-up: {batches} observe batches in "
-        f"{time.perf_counter() - t0:.1f} s (budget {warm_seconds} s, "
-        f"{gen_s:.1f} s of it making tokens); counters {stats}")
+    say(f"[drafter] warm-up: {warm_batches} observe batches in "
+        f"{time.perf_counter() - t0:.1f} s ({gen_s:.1f} s of it making "
+        f"tokens); counters {stats}")
     times.clear()
 
     # measured rounds: learner and reader, launch counts around them
@@ -1176,9 +1454,9 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--warm-seconds", type=float, default=60.0,
-                    help="budget of the main path's warm-up stream; the "
-                         "drafter's is half of it")
+    ap.add_argument("--warm-batches", type=int, default=4400,
+                    help="update batches of the main path's warm-up; the "
+                         "drafter's warm-up observes half as many")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="after the main and drafter phases, print device time "
@@ -1202,7 +1480,7 @@ def main(argv=None):
         small_kernel_checks(gen)
     if "main" in phases:
         state, cfg, traffic, launches, known = phase_main(
-            args.seed, args.warm_seconds, args.rounds)
+            args.seed, args.warm_batches, args.rounds)
         src, dst = traffic.batch(BATCH)
         kernels = path_shape_kernels(state, cfg, src, dst, traffic.srcs(QUERIES),
                                      launches)
@@ -1224,7 +1502,7 @@ def main(argv=None):
         del state
         torch.cuda.empty_cache()
     if "drafter" in phases:
-        kernels += phase_drafter(args.seed, args.warm_seconds / 2,
+        kernels += phase_drafter(args.seed, args.warm_batches // 2,
                                  args.rounds, args.profile)
         torch.cuda.empty_cache()
     if "parity" in phases:

@@ -261,10 +261,12 @@ def _take_new_prefix(src, dst, w, pos, new_mask, limit: int):
 
 
 def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig) -> MCState:
-    """Sequential insert pass for new edges / new rows (the paper's rare
-    case), through the kernel layer (``ops.slow_path``).
+    """Insert pass for new edges / new rows (the paper's rare case), through
+    the kernel layer (``ops.slow_path``).
 
     Deterministic (batch order), fully masked — inactive items are no-ops.
+    The state's ``cnt``/``tot`` are the caller's own, made in this update and
+    held by no reader, so the pass writes them in place.
     """
     counters = torch.stack([state.n_rows, state.dropped_rows,
                             state.dropped_probes, state.evictions])
@@ -272,7 +274,7 @@ def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig) -> MCState:
     keys, vals, dst_slab, cnt, tot, counters = ops.slow_path(
         state.src_table.keys, state.src_table.vals, slabs.dst, slabs.cnt,
         slabs.tot, slabs.order, counters, src, dst, w, active,
-        max_probes=cfg.max_probes, impl=cfg.impl)
+        max_probes=cfg.max_probes, own_counts=True, impl=cfg.impl)
     return state._replace(
         src_table=HashTable(keys, vals),
         slabs=Slabs(dst_slab, cnt, tot, slabs.order),
@@ -333,6 +335,7 @@ def update_batch(
     p_src, p_dst, p_w, p_mask, overflow = _take_new_prefix(
         u_src, u_dst, u_w, u_pos, new_mask, limit)
     state = state._replace(deferred_new=state.deferred_new + overflow)
+    # cnt/tot are slab_update's fresh outputs: the pass may write them
     state = _slow_path(state, p_src, p_dst, p_w, p_mask, cfg)
 
     # (5) lock-free bubble sort, through the kernel layer
@@ -376,7 +379,7 @@ def update_batch_reference(
     tot = slabs.tot.clone().index_add_(0, rows64, add_w)
     state = state._replace(slabs=Slabs(slabs.dst, cnt, tot, slabs.order))
 
-    # slow path: everything else, sequential + masked
+    # slow path: everything else, sequential + masked (cnt/tot made above)
     state = _slow_path(state, src, dst, w, m & ~fast, cfg)
 
     # lock-free bubble sort, vectorised

@@ -155,4 +155,30 @@ def acceptance_rate(draft_tokens: torch.Tensor, target_tokens: torch.Tensor,
     accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
     drafted = ok.to(torch.int32).sum(dim=1).clamp(min=1)
     rate = accepted.to(torch.float32) / drafted.to(torch.float32)
-    return rate.mean()
+    return _mean_f32(rate)
+
+
+_LANES = 32
+
+
+def _mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """Float32 mean of a 1-D tensor in the order XLA sums it, so the bits
+    match ``jnp.mean``: while more than 32 values are left, zero-pad them
+    symmetrically (``pad // 2`` in front) to a multiple of 32 and sum each
+    window of 32 sequentially; sum the last <= 32 sequentially; multiply by
+    the float32 constant ``1/n``.  Column by column with element-wise adds,
+    since ``sum(dim)`` promises no order."""
+    n = x.numel()
+    while x.numel() > _LANES:
+        pad = -x.numel() % _LANES
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        win = x.view(-1, _LANES)
+        acc = torch.zeros_like(win[:, 0])
+        for j in range(_LANES):
+            acc = acc + win[:, j]
+        x = acc
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(x.numel()):
+        total = total + x[j]
+    inv_n = torch.tensor(1.0, dtype=torch.float32) / n
+    return total * inv_n.to(x.device)

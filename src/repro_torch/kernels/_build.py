@@ -42,7 +42,7 @@ SIGNATURES = {
     "mcq_cdf_query_fused": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                             _I, _I, _I, _P],
     "mcq_slow_path": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _P],
+                      _I, _I, _I, _P, _P, _P, _P],
     "mcq_cdf_query": [_P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
     "mcq_draft_walk": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I,
                        _I, _P, _P, _I, _P],

@@ -1,37 +1,95 @@
-// Sequential insert pass for new edges / new rows (the paper's rare case).
+// The new-edge pass of update_batch (the paper's rare case), row-parallel.
 //
-// Strictly in item order, so ONE warp of ONE block walks the items: the
-// lanes share each item's probe-window and row scans (lowest index wins, by
-// ballot + ffs) and lane 0 does the writes; __syncwarp() after an item's
-// writes makes them visible to the next item's reads.  How far the active
-// items reach is read from the mask in device memory (by all warps of the
-// block, before the others leave), and the walking warp takes the items 32 at
-// a time up to there, so a pass with no active item costs one short launch
-// and no device->host synchronisation.
-//
-// Per active item (src s, dst d, weight w):
-//   * look s up in the src table; if missing and a row is free, insert
-//     s -> n_rows (first TOMB reused when the key is absent) and take the row;
-//     no free row counts dropped_rows, an exhausted probe window
-//     dropped_probes, and the item ends there;
+// Replaces src/repro/core/mcprioq.py:311 _slow_path, a lax.scan over the
+// items: per active item (src s, dst d, weight w), in item order,
+//   * look s up in the src table; if missing (or stored with an EMPTY value)
+//     and a row is free, insert s -> n_rows (first TOMB reused when the key is
+//     absent) and take the row; no free row counts dropped_rows, an exhausted
+//     probe window dropped_probes, and the item ends there;
 //   * in the row: the slot already holding d, else the first free slot
 //     (cnt == 0), else the order tail (Space-Saving: the newcomer inherits the
 //     victim's count; counts evictions);  cnt[row, slot] = base + w,
 //     dst[row, slot] = d, tot[row] += w.
-// All tables are updated in place: the caller passes fresh copies.
-// counters = {n_rows, dropped_rows, dropped_probes, evictions}.
+// counters = {n_rows, dropped_rows, dropped_probes, evictions}.  The tables
+// are updated in place: the caller passes buffers it owns.
 //
-// The pass is one dependent chain, so its cost is round trips to memory, not
-// bytes.  Two things keep them few and short.  (1) Before the warp walks a
-// group of 32 items, every lane looks its OWN item up (read-only, a few
-// probes, which also pull its table slots into L2) and prefetches into L2 the
-// lines that item will touch: its row of dst/cnt, its tot and its order tail
-// (for an item that looks new, those of the row it will be given).  The guess
-// may be stale (an earlier item of the group may insert first); a prefetch
-// changes no result, a wrong one only misses.  (2) Per item, loads that do not
-// depend on each other are started together: table values with table keys, and
-// tot and the order tail with the row scan.
-#include "common.cuh"
+// An item depends on earlier ones in two ways only: a missing src takes the
+// next row (and a later item with that src finds it), and items on one row
+// share its slots.  Items on different rows never see each other, and
+// `order` is read-only here.  So the pass is four launches, with one short
+// sequential part:
+//   A1 lookup  one thread per item probes the pre-state table (probe.cuh)
+//              and writes a key (row << 32 | item); a miss gets the row
+//              MCQ_SP_MISSING, an inactive item MCQ_SP_NONE;
+//   A2 chain   one block gathers the keys that have a row into a second
+//              list, and finds the misses in item order; one warp walks
+//              them: look up again (an earlier miss may have inserted the
+//              src), else insert, else count the drop; an item that gets a
+//              row joins the list.  When every row is taken at the start no
+//              insert can happen, and the chain is a count of the misses.
+//              The list's length (n_with) is read by B1 and B2 on the
+//              device, so the sort's work follows the items that have a
+//              row, and an empty pass costs short launches, no host sync;
+//   B1 sort    the listed keys by (row, item): a bitonic sort of up to 8,192
+//              keys per block in shared memory, then rank merges of sorted
+//              runs (one launch per doubling) when there are more;
+//   B2 rows    one warp per row: the warp whose key heads a run of its row
+//              caches the row's dst/cnt in shared memory and applies the
+//              run's items in item order; evictions are summed with integer
+//              atomics, tot[row] is written by that warp alone.
+// No float and no order between rows enters a result, so the state is the
+// scan's, bit for bit.
+//
+// Bound on this card: bytes, and nearly all of them are the wrapper's copies
+// of the src table and dst_slab (kernels/slow_path.py); the launches here
+// move only the items, their probe windows and the rows they touch, so they
+// are bound by latency: a few dependent round trips per launch, the sort's
+// barriers, and a row's run of items on its warp.
+#include <limits.h>
+
+#include "probe.cuh"
+
+#define MCQ_SP_MISSING 0x7FFFFFFE  // row field: src missing, before A2
+#define MCQ_SP_NONE 0x7FFFFFFF     // row field: inactive item
+#define MCQ_SP_TILE 8192           // keys one block sorts in shared memory
+#define MCQ_SP_CHAIN_THREADS 1024
+#define MCQ_SP_ROW_WARPS 4         // warps per block of B2
+#define MCQ_SP_ROW_BLOCKS 8192     // B2 grid cap; warps stride over the keys
+#define MCQ_SP_SMEM_DEFAULT (48 * 1024)  // dynamic smem without opting in;
+                                         // B2 caches 2 * capacity int32 per
+                                         // warp in it: capacity <= 1,536
+
+__device__ __forceinline__ long long mcq_sp_key(int32_t row, int item) {
+  return (static_cast<long long>(row) << 32) | static_cast<unsigned>(item);
+}
+
+__device__ __forceinline__ int32_t mcq_sp_row(long long key) {
+  return static_cast<int32_t>(key >> 32);
+}
+
+// ---- A1: parallel lookups in the pre-state table ---------------------------
+
+__global__ void mcq_sp_lookup_kernel(const int32_t* __restrict__ src,
+                                     const int32_t* __restrict__ active,
+                                     int n_items,
+                                     const int32_t* __restrict__ tab_keys,
+                                     const int32_t* __restrict__ tab_vals,
+                                     int table_size, int max_probes,
+                                     long long* __restrict__ keys) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_items) return;
+  int32_t row = MCQ_SP_NONE;
+  if (active[i] != 0) {
+    int32_t val = MCQ_EMPTY;
+    // a stored EMPTY value reads as a miss
+    const bool hit = mcq_probe_chain(tab_keys, tab_vals, table_size, src[i],
+                                     max_probes, &val);
+    row = hit && val != MCQ_EMPTY ? val : MCQ_SP_MISSING;
+  }
+  keys[i] = mcq_sp_key(row, i);
+}
+
+// ---- A2: the misses, in item order, on one warp ------------------------------
 
 // Probe window of `key` from its home slot, shared by the warp.
 // stop_p: first position holding the key or EMPTY (max_probes if none);
@@ -82,200 +140,320 @@ __device__ __forceinline__ McqProbe mcq_probe_window(
   return pr;
 }
 
-__device__ __forceinline__ void mcq_prefetch_l2(const volatile void* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-}
-
-// Lines of row `row` that an item's slot search will read.
-__device__ __forceinline__ void mcq_prefetch_row(
-    const volatile int32_t* dst_slab, const volatile int32_t* cnt,
-    const volatile int32_t* tot, const int32_t* order, int32_t row,
-    int capacity) {
-  const size_t base = static_cast<size_t>(row) * capacity;
-  for (int j = 0; j < capacity; j += 32) {  // 32 ints = one 128-byte line
-    mcq_prefetch_l2(dst_slab + base + j);
-    mcq_prefetch_l2(cnt + base + j);
-  }
-  mcq_prefetch_l2(tot + row);
-  mcq_prefetch_l2(order + base + capacity - 1);
-}
-
-#define MCQ_WARM_PROBES 4
-#define MCQ_SCAN_THREADS 256  // block size; only warp 0 walks the items
-
-__global__ void mcq_slow_path_kernel(
-    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-    const int32_t* __restrict__ w, const int32_t* __restrict__ active,
-    int n_items,
-    volatile int32_t* tab_keys, volatile int32_t* tab_vals,
-    int table_size, volatile int32_t* dst_slab, volatile int32_t* cnt,
-    volatile int32_t* tot, const int32_t* __restrict__ order,
-    int32_t* counters, int num_rows, int capacity, int max_probes) {
-  // All warps of the block find where the last active item sits; then warp 0
-  // alone walks that far (the caller partitions active items to the front),
-  // so a pass with no active item ends here.
-  __shared__ int n_walk_shared;
-  if (threadIdx.x == 0) n_walk_shared = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & (MCQ_WARP - 1);
-  int last = 0;
-  for (int i = threadIdx.x; i < n_items; i += blockDim.x)
-    if (active[i] != 0) last = i + 1;
-  for (int off = MCQ_WARP / 2; off > 0; off >>= 1)
-    last = max(last, __shfl_xor_sync(MCQ_FULL_MASK, last, off));
-  if (lane == 0 && last > 0) atomicMax(&n_walk_shared, last);
-  __syncthreads();
-  if (threadIdx.x >= MCQ_WARP) return;
-  const int n_walk = n_walk_shared;
+// One block.  Every thread looks at one key per round (a round is 1,024
+// consecutive items).  Keys that have a row are appended to `with_row`
+// (order free: B1 sorts them); the misses of a round are listed in item
+// order in shared memory and walked by warp 0, so one round's chain ends
+// before the next round's begins.
+__global__ void mcq_sp_chain_kernel(const int32_t* __restrict__ src,
+                                    int n_items,
+                                    const long long* __restrict__ keys,
+                                    long long* __restrict__ with_row,
+                                    volatile int32_t* tab_keys,
+                                    volatile int32_t* tab_vals,
+                                    int table_size, int32_t* counters,
+                                    int num_rows, int max_probes,
+                                    int32_t* n_with_out) {
+  __shared__ int list[MCQ_SP_CHAIN_THREADS];
+  __shared__ int warp_misses[MCQ_SP_CHAIN_THREADS / MCQ_WARP];
+  __shared__ int n_out;
+  const int tid = threadIdx.x;
+  const int lane = tid & (MCQ_WARP - 1);
+  const int warp = tid / MCQ_WARP;
   const uint32_t mask = static_cast<uint32_t>(table_size - 1);
   int32_t n_rows = counters[0];
   int32_t dropped_rows = counters[1];
   int32_t dropped_probes = counters[2];
-  int32_t evictions = counters[3];
+  // with every row taken no insert can happen: the chain is a count
+  const bool full = n_rows >= num_rows;
+  if (tid == 0) n_out = 0;
+  __syncthreads();
 
-  for (int i0 = 0; i0 < n_walk; i0 += MCQ_WARP) {
-    const int i = i0 + lane;
-    const bool in_items = i < n_walk;
-    const int32_t my_s = in_items ? src[i] : 0;
-    const int32_t my_d = in_items ? dst[i] : 0;
-    const int32_t my_w = in_items ? w[i] : 0;
-    const bool my_act = in_items && active[i] != 0;
-    unsigned todo = __ballot_sync(MCQ_FULL_MASK, my_act);
-
-    // warm the cache for this group: each lane guesses its own item's row
-    bool guess_new = false;
-    if (my_act) {
-      const uint32_t h0 = mcq_hash_u32(my_s) & mask;
-      int32_t guess = -1;
-      for (int p = 0; p < MCQ_WARM_PROBES && p < max_probes; ++p) {
-        const uint32_t idx = (h0 + static_cast<uint32_t>(p)) & mask;
-        const int32_t k = tab_keys[idx];
-        if (k == MCQ_EMPTY) {
-          guess_new = true;
-          break;
-        }
-        if (k == my_s) {
-          guess = tab_vals[idx];
-          break;
-        }
-      }
-      if (guess >= 0 && guess < num_rows)
-        mcq_prefetch_row(dst_slab, cnt, tot, order, guess, capacity);
+  for (int base = 0; base < n_items; base += MCQ_SP_CHAIN_THREADS) {
+    const int i = base + tid;
+    const long long key = i < n_items ? keys[i] : mcq_sp_key(MCQ_SP_NONE, 0);
+    const int32_t row = mcq_sp_row(key);
+    const bool miss = row == MCQ_SP_MISSING;
+    const unsigned has = __ballot_sync(MCQ_FULL_MASK, row < MCQ_SP_MISSING);
+    if (has) {
+      int at = 0;
+      if (lane == 0) at = atomicAdd(&n_out, __popc(has));
+      at = __shfl_sync(MCQ_FULL_MASK, at, 0);
+      if (row < MCQ_SP_MISSING)
+        with_row[at + __popc(has & ((1u << lane) - 1u))] = key;
     }
-    // items that look new will take the next free rows, in item order
-    const unsigned news = __ballot_sync(MCQ_FULL_MASK, guess_new);
-    if (guess_new) {
-      const long long guess =
-          static_cast<long long>(n_rows) + __popc(news & ((1u << lane) - 1u));
-      if (guess < num_rows)
-        mcq_prefetch_row(dst_slab, cnt, tot, order,
-                         static_cast<int32_t>(guess), capacity);
+    const int total = __syncthreads_count(miss);
+    if (total == 0) continue;
+    if (full) {  // every miss is a dropped row
+      if (tid == 0) dropped_rows += total;
+      continue;
     }
-
-    while (todo) {
-      const int cur = mcq_first_lane(todo);
-      todo &= todo - 1u;
-      const int32_t s = __shfl_sync(MCQ_FULL_MASK, my_s, cur);
-      const int32_t d = __shfl_sync(MCQ_FULL_MASK, my_d, cur);
-      const int32_t wi = __shfl_sync(MCQ_FULL_MASK, my_w, cur);
-
-      // --- src row (lookup or allocate) --------------------------------
-      const McqProbe pr =
-          mcq_probe_window(tab_keys, tab_vals, mask, s, max_probes, lane);
-      int32_t row = -1;
-      // the key sits before any EMPTY; a stored EMPTY value reads as a miss
-      if (pr.stop_p < max_probes && pr.stop_key == s) row = pr.stop_val;
-      if (row == MCQ_EMPTY) {
-        if (n_rows >= num_rows) {
-          ++dropped_rows;
-          continue;
-        }
-        // insert: the key's own slot or the first EMPTY, unless a TOMB came
-        // first and the walk did not land on the key
-        int ins_p = pr.stop_p;
-        const bool landed_on_key =
-            pr.stop_p < max_probes && pr.stop_key == s;
-        if (pr.tomb_p < max_probes && !landed_on_key) ins_p = pr.tomb_p;
-        if (ins_p >= max_probes) {
-          ++dropped_probes;
-          continue;
-        }
-        row = n_rows;
-        if (lane == 0) {
-          const uint32_t idx = (pr.h0 + static_cast<uint32_t>(ins_p)) & mask;
-          tab_keys[idx] = s;
-          tab_vals[idx] = row;
-        }
-        ++n_rows;
-      }
-
-      // --- dst slot (find / free / Space-Saving tail replace) ----------
-      const size_t base = static_cast<size_t>(row) * capacity;
-      // independent of the scan, so started beside it (lane 0 uses them)
-      const int32_t tot_old = tot[row];
-      const int32_t tail = order[base + capacity - 1];
-      int slot_eq = -1;
-      int slot_free = -1;
-      int32_t cnt_eq = 0;  // count in slot_eq, from the scanning lane
-      for (int c0 = 0; c0 < capacity; c0 += MCQ_WARP) {
-        const int j = c0 + lane;
-        const bool in_row = j < capacity;
-        const int32_t dj = in_row ? dst_slab[base + j] : MCQ_EMPTY;
-        const int32_t cj = in_row ? cnt[base + j] : 1;
-        const unsigned eqs = __ballot_sync(MCQ_FULL_MASK, in_row && dj == d);
-        const unsigned frs = __ballot_sync(MCQ_FULL_MASK, in_row && cj == 0);
-        if (slot_free < 0 && frs) slot_free = c0 + mcq_first_lane(frs);
-        if (eqs) {
-          const int first = mcq_first_lane(eqs);
-          slot_eq = c0 + first;
-          cnt_eq = __shfl_sync(MCQ_FULL_MASK, cj, first);
-          break;
+    const unsigned ballot = __ballot_sync(MCQ_FULL_MASK, miss);
+    if (lane == 0) warp_misses[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0;
+    for (int w2 = 0; w2 < warp; ++w2) before += warp_misses[w2];
+    if (miss) list[before + __popc(ballot & ((1u << lane) - 1u))] = i;
+    __syncthreads();
+    if (warp == 0) {
+      for (int j0 = 0; j0 < total; j0 += MCQ_WARP) {
+        const int my_item = j0 + lane < total ? list[j0 + lane] : 0;
+        const int32_t my_s = src[my_item];
+        const int here = min(MCQ_WARP, total - j0);
+        for (int t = 0; t < here; ++t) {
+          const int item = __shfl_sync(MCQ_FULL_MASK, my_item, t);
+          const int32_t s = __shfl_sync(MCQ_FULL_MASK, my_s, t);
+          const McqProbe pr =
+              mcq_probe_window(tab_keys, tab_vals, mask, s, max_probes, lane);
+          const bool landed_on_key = pr.stop_p < max_probes && pr.stop_key == s;
+          int32_t got = landed_on_key ? pr.stop_val : MCQ_EMPTY;
+          if (got == MCQ_EMPTY) {
+            if (n_rows >= num_rows) {
+              ++dropped_rows;
+              continue;
+            }
+            // the key's own slot or the first EMPTY, unless a TOMB came first
+            // and the walk did not land on the key
+            int ins_p = pr.stop_p;
+            if (pr.tomb_p < max_probes && !landed_on_key) ins_p = pr.tomb_p;
+            if (ins_p >= max_probes) {
+              ++dropped_probes;
+              continue;
+            }
+            got = n_rows++;
+            if (lane == 0) {
+              const uint32_t idx =
+                  (pr.h0 + static_cast<uint32_t>(ins_p)) & mask;
+              tab_keys[idx] = s;
+              tab_vals[idx] = got;
+            }
+          }
+          if (lane == 0) with_row[atomicAdd(&n_out, 1)] = mcq_sp_key(got, item);
+          __syncwarp();
         }
       }
-      if (lane == 0) {
-        int slot;
-        int32_t base_cnt;
-        if (slot_eq >= 0) {
-          slot = slot_eq;
-          base_cnt = cnt_eq;
-        } else if (slot_free >= 0) {
-          slot = slot_free;
-          base_cnt = 0;
-        } else {
-          slot = tail;
-          base_cnt = cnt[base + slot];
-        }
-        cnt[base + slot] = base_cnt + wi;
-        dst_slab[base + slot] = d;
-        tot[row] = tot_old + wi;
-      }
-      if (slot_eq < 0 && slot_free < 0) ++evictions;
-      __syncwarp();
     }
+    __syncthreads();  // `list` is rewritten by the next round
   }
-  if (lane == 0) {
+  __syncthreads();
+  if (tid == 0) {  // thread 0 walked the chain: its counts are the block's
+    *n_with_out = n_out;
     counters[0] = n_rows;
     counters[1] = dropped_rows;
     counters[2] = dropped_probes;
-    counters[3] = evictions;
   }
 }
 
+// ---- B1: sort the keys that have a row, by (row, item) ---------------------
+
+// Each block sorts one tile of at most `tile` keys in shared memory (padded
+// with LLONG_MAX, above every key, to a power of two).
+__global__ void mcq_sp_sort_tiles_kernel(long long* keys, int tile,
+                                         const int32_t* __restrict__ n_with) {
+  extern __shared__ long long sk[];
+  const int base = blockIdx.x * tile;
+  const int n = min(tile, *n_with - base);
+  if (n <= 1) return;
+  int size = 2;
+  while (size < n) size <<= 1;
+  for (int j = threadIdx.x; j < size; j += blockDim.x)
+    sk[j] = j < n ? keys[base + j] : LLONG_MAX;
+  __syncthreads();
+  for (int k = 2; k <= size; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < size / 2; t += blockDim.x) {
+        const int lo = 2 * t - (t & (j - 1));
+        const int hi = lo + j;
+        const long long a = sk[lo];
+        const long long b = sk[hi];
+        if ((a > b) == ((lo & k) == 0)) {
+          sk[lo] = b;
+          sk[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) keys[base + j] = sk[j];
+}
+
+// Sorted runs of `run` keys merged pairwise: every key finds its place by
+// counting the keys below it in the other run (keys are distinct: they hold
+// the item's index).
+__global__ void mcq_sp_merge_kernel(const long long* __restrict__ in,
+                                    long long* __restrict__ out, int run,
+                                    const int32_t* __restrict__ n_with) {
+  const int n = *n_with;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const long long key = in[p];
+  const long long pair = 2LL * run;
+  const int base = static_cast<int>((p / pair) * pair);
+  const int mid = static_cast<int>(
+      min(static_cast<long long>(base) + run, static_cast<long long>(n)));
+  const int end = static_cast<int>(
+      min(static_cast<long long>(base) + pair, static_cast<long long>(n)));
+  const bool in_a = p < mid;
+  int lo = in_a ? mid : base;  // search the other run for keys below `key`
+  int hi = in_a ? end : mid;
+  const int first = lo;
+  while (lo < hi) {
+    const int m = (lo + hi) >> 1;
+    if (in[m] < key) lo = m + 1;
+    else hi = m;
+  }
+  const int own = in_a ? p - base : p - mid;
+  out[base + own + (lo - first)] = key;
+}
+
+// ---- B2: one warp per row --------------------------------------------------
+
+// The row is cached in shared memory (the wrapper refuses rows too wide for
+// MCQ_SP_SMEM_DEFAULT): its scans read the cache, its writes go to both.
+__global__ void mcq_sp_rows_kernel(const long long* __restrict__ keys,
+                                   const int32_t* __restrict__ n_with_in,
+                                   const int32_t* __restrict__ dst,
+                                   const int32_t* __restrict__ w,
+                                   int32_t* __restrict__ dst_slab,
+                                   int32_t* __restrict__ cnt, int32_t* tot,
+                                   const int32_t* __restrict__ order,
+                                   int32_t* counters, int num_rows,
+                                   int capacity) {
+  extern __shared__ int32_t row_cache[];
+  const int lane = threadIdx.x & (MCQ_WARP - 1);
+  const int warp_in_block = threadIdx.x / MCQ_WARP;
+  const int n_with = *n_with_in;
+  volatile int32_t* sd = row_cache + warp_in_block * 2 * capacity;
+  volatile int32_t* sc = sd + capacity;
+  const int n_warps = gridDim.x * MCQ_SP_ROW_WARPS;
+  for (int p = blockIdx.x * MCQ_SP_ROW_WARPS + warp_in_block; p < n_with;
+       p += n_warps) {
+    const int32_t row = mcq_sp_row(keys[p]);
+    // a warp works only where a row's run of keys begins
+    if (p > 0 && mcq_sp_row(keys[p - 1]) == row) continue;
+    if (row < 0 || row >= num_rows) continue;
+    const size_t base = static_cast<size_t>(row) * capacity;
+    // no other warp writes this row, and this launch has not written it yet
+    for (int j = lane; j < capacity; j += MCQ_WARP) {
+      sd[j] = dst_slab[base + j];
+      sc[j] = cnt[base + j];
+    }
+    const int32_t tail = order[base + capacity - 1];
+    int32_t row_tot = tot[row];
+    int evictions = 0;
+    __syncwarp();
+    for (int q = p;; q += MCQ_WARP) {
+      const int idx = q + lane;
+      const long long kq = idx < n_with ? keys[idx] : LLONG_MAX;
+      const bool in_run = idx < n_with && mcq_sp_row(kq) == row;
+      const int here = __popc(__ballot_sync(MCQ_FULL_MASK, in_run));
+      const int item = static_cast<int>(kq & 0xFFFFFFFFLL);
+      const int32_t my_d = in_run ? dst[item] : 0;
+      const int32_t my_w = in_run ? w[item] : 0;
+      for (int t = 0; t < here; ++t) {
+        const int32_t d = __shfl_sync(MCQ_FULL_MASK, my_d, t);
+        const int32_t wi = __shfl_sync(MCQ_FULL_MASK, my_w, t);
+        int slot_eq = -1;
+        int slot_free = -1;
+        for (int c0 = 0; c0 < capacity; c0 += MCQ_WARP) {
+          const int j = c0 + lane;
+          const bool in_row = j < capacity;
+          const int32_t dj = in_row ? sd[j] : MCQ_EMPTY;
+          const int32_t cj = in_row ? sc[j] : 1;
+          const unsigned eqs = __ballot_sync(MCQ_FULL_MASK, in_row && dj == d);
+          const unsigned frs = __ballot_sync(MCQ_FULL_MASK, in_row && cj == 0);
+          if (slot_free < 0 && frs) slot_free = c0 + mcq_first_lane(frs);
+          if (eqs) {
+            slot_eq = c0 + mcq_first_lane(eqs);
+            break;
+          }
+        }
+        const bool evict = slot_eq < 0 && slot_free < 0;
+        if (lane == 0) {
+          const int slot = slot_eq >= 0 ? slot_eq : slot_free >= 0 ? slot_free : tail;
+          const int32_t value = (slot_eq < 0 && slot_free >= 0 ? 0 : sc[slot]) + wi;
+          sc[slot] = value;
+          sd[slot] = d;
+          cnt[base + slot] = value;
+          dst_slab[base + slot] = d;
+        }
+        row_tot += wi;
+        evictions += evict;
+        __syncwarp();
+      }
+      if (here < MCQ_WARP) break;
+    }
+    if (lane == 0) {
+      tot[row] = row_tot;
+      if (evictions) atomicAdd(&counters[3], evictions);
+    }
+    __syncwarp();  // the cache is refilled for the warp's next row
+  }
+}
+
+static int mcq_next_pow2(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// keys, with_row: int64 scratch of n_items each; n_with: int32 scratch of
+// one.
 extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
                              const void* active, int n_items, void* tab_keys,
                              void* tab_vals, int table_size, void* dst_slab,
                              void* cnt, void* tot, const void* order,
                              void* counters, int num_rows, int capacity,
-                             int max_probes, void* stream) {
-  mcq_slow_path_kernel<<<1, MCQ_SCAN_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
-      static_cast<const int32_t*>(w), static_cast<const int32_t*>(active),
-      n_items, static_cast<volatile int32_t*>(tab_keys),
+                             int max_probes, void* keys, void* with_row,
+                             void* n_with, void* stream) {
+  if (n_items <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long* k_items = static_cast<long long*>(keys);
+  long long* k0 = static_cast<long long*>(with_row);
+  int32_t* nw = static_cast<int32_t*>(n_with);
+
+  mcq_sp_lookup_kernel<<<(n_items + 255) / 256, 256, 0, st>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(active),
+      n_items, static_cast<const int32_t*>(tab_keys),
+      static_cast<const int32_t*>(tab_vals), table_size, max_probes, k_items);
+  mcq_sp_chain_kernel<<<1, MCQ_SP_CHAIN_THREADS, 0, st>>>(
+      static_cast<const int32_t*>(src), n_items, k_items, k0,
+      static_cast<volatile int32_t*>(tab_keys),
       static_cast<volatile int32_t*>(tab_vals), table_size,
-      static_cast<volatile int32_t*>(dst_slab),
-      static_cast<volatile int32_t*>(cnt), static_cast<volatile int32_t*>(tot),
-      static_cast<const int32_t*>(order), static_cast<int32_t*>(counters), num_rows,
-      capacity, max_probes);
+      static_cast<int32_t*>(counters), num_rows, max_probes, nw);
+
+  // how many keys have a row is known on the device only: the grids are
+  // sized for all n_items, and blocks past the count leave at once
+  const int tile = min(mcq_next_pow2(n_items), MCQ_SP_TILE);
+  const size_t tile_bytes = static_cast<size_t>(tile) * sizeof(long long);
+  if (tile_bytes > MCQ_SP_SMEM_DEFAULT) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mcq_sp_sort_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(tile_bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mcq_sp_sort_tiles_kernel<<<(n_items + tile - 1) / tile,
+                             min(MCQ_SP_CHAIN_THREADS, max(MCQ_WARP, tile / 2)),
+                             tile_bytes, st>>>(k0, tile, nw);
+  long long* k1 = k_items;  // the lookups' keys are no longer needed
+  for (long long run = tile; run < n_items; run *= 2) {
+    mcq_sp_merge_kernel<<<(n_items + 255) / 256, 256, 0, st>>>(
+        k0, k1, static_cast<int>(run), nw);
+    long long* swap = k0;
+    k0 = k1;
+    k1 = swap;
+  }
+
+  const size_t cache_bytes =
+      static_cast<size_t>(MCQ_SP_ROW_WARPS) * 2 * capacity * sizeof(int32_t);
+  const int row_blocks = min(MCQ_SP_ROW_BLOCKS,
+                             (n_items + MCQ_SP_ROW_WARPS - 1) / MCQ_SP_ROW_WARPS);
+  mcq_sp_rows_kernel<<<row_blocks, MCQ_SP_ROW_WARPS * MCQ_WARP, cache_bytes,
+                       st>>>(
+      k0, nw, static_cast<const int32_t*>(dst),
+      static_cast<const int32_t*>(w), static_cast<int32_t*>(dst_slab),
+      static_cast<int32_t*>(cnt), static_cast<int32_t*>(tot),
+      static_cast<const int32_t*>(order), static_cast<int32_t*>(counters),
+      num_rows, capacity);
   return mcq_launch_status();
 }

@@ -168,15 +168,18 @@ def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
               order: torch.Tensor, counters: torch.Tensor,
               src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
               active: torch.Tensor, *, max_probes: int = 64,
-              impl: str = "auto"):
-    """Sequential new-edge pass (row allocation, slot allocation,
-    Space-Saving replacement) over items ``src/dst/w[L]`` where ``active``;
-    ``counters[4]`` = (n_rows, dropped_rows, dropped_probes, evictions).
-    Returns fresh ``(tab_keys, tab_vals, dst_slab, cnt, tot, counters)``."""
+              own_counts: bool = False, impl: str = "auto"):
+    """The new-edge pass (row allocation, slot allocation, Space-Saving
+    replacement) over items ``src/dst/w[L]`` where ``active``, with the
+    result of a sequential walk in item order; ``counters[4]`` = (n_rows,
+    dropped_rows, dropped_probes, evictions).  Returns ``(tab_keys,
+    tab_vals, dst_slab, cnt, tot, counters)``, fresh except ``cnt`` and
+    ``tot`` when the caller owns them (``own_counts``): those are written in
+    place."""
     if _use_ref(impl, cnt):
         return _ref.slow_path_ref(tab_keys, tab_vals, dst_slab, cnt, tot,
                                   order, counters, src, dst, w, active,
-                                  max_probes)
+                                  max_probes, own_counts)
     return _sp.slow_path_cuda(tab_keys, tab_vals, dst_slab, cnt, tot, order,
                               counters, src, dst, w, active.to(torch.int32),
-                              max_probes=max_probes)
+                              max_probes=max_probes, own_counts=own_counts)

@@ -227,7 +227,8 @@ def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                   dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
                   order: torch.Tensor, counters: torch.Tensor,
                   src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-                  active: torch.Tensor, max_probes: int):
+                  active: torch.Tensor, max_probes: int,
+                  own_counts: bool = False):
     """Sequential insert pass for new edges / new rows (the paper's rare case).
 
     Deterministic (batch order); inactive items are no-ops.  For each active
@@ -237,11 +238,14 @@ def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     the dst's slot, else the first free slot, else replace the order tail
     (Space-Saving: the newcomer inherits the victim's count; ``evictions`` =
     ``counters[3]``).  A later item sees the rows and slots an earlier one
-    made.  Returns fresh ``(tab_keys, tab_vals, dst_slab, cnt, tot,
-    counters)``; the inputs are not written.
+    made.  Returns ``(tab_keys, tab_vals, dst_slab, cnt, tot, counters)``,
+    all fresh; the inputs are not written, except ``cnt`` and ``tot`` when
+    the caller owns them (``own_counts``): those are written in place and
+    returned.
     """
-    tab_keys, tab_vals = tab_keys.clone(), tab_vals.clone()
-    dst_slab, cnt, tot = dst_slab.clone(), cnt.clone(), tot.clone()
+    tab_keys, tab_vals, dst_slab = tab_keys.clone(), tab_vals.clone(), dst_slab.clone()
+    if not own_counts:
+        cnt, tot = cnt.clone(), tot.clone()
     n_cap = cnt.shape[0]
     n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
     table = ht.HashTable(tab_keys, tab_vals)
@@ -278,6 +282,87 @@ def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
         cnt[row, slot] = base + wi
         dst_slab[row, slot] = d
         tot[row] += wi
+    new_counters = torch.tensor(
+        [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32
+    ).to(counters.device)
+    return tab_keys, tab_vals, dst_slab, cnt, tot, new_counters
+
+
+def slow_path_rows_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                       dst_slab: torch.Tensor, cnt: torch.Tensor,
+                       tot: torch.Tensor, order: torch.Tensor,
+                       counters: torch.Tensor, src: torch.Tensor,
+                       dst: torch.Tensor, w: torch.Tensor,
+                       active: torch.Tensor, max_probes: int,
+                       own_counts: bool = False):
+    """The same pass as :func:`slow_path_ref`, computed the way the CUDA
+    kernel decomposes it (same arguments, same results).
+
+    Phase A, rows: every active item looks its src up in the pre-state
+    table at once; only the items that miss (src absent, or stored with an
+    EMPTY value) run a sequential chain in item order — look up again (an
+    earlier miss may have inserted the src), else take the next row, else
+    count ``dropped_rows`` / ``dropped_probes``.  With every row taken at
+    the start, the chain is a count of the misses.  Phase B, slots: the
+    items that have a row, grouped by (row, position); rows never see each
+    other, so the k-th item of every row is applied at once, for k = 0, 1,
+    ...  Used by the tests and ``chip_smoke.py``, not on any path.
+    """
+    tab_keys, tab_vals, dst_slab = tab_keys.clone(), tab_vals.clone(), dst_slab.clone()
+    if not own_counts:
+        cnt, tot = cnt.clone(), tot.clone()
+    n_cap, cap = cnt.shape
+    n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
+    act = active.to(torch.bool)
+
+    # --- phase A: rows ------------------------------------------------------
+    table = ht.HashTable(tab_keys, tab_vals)
+    rows, found = ht.lookup(table, src, max_probes)
+    rows = torch.where(act & found, rows, -1).to(torch.int64)
+    missing = torch.nonzero(act & ~found).flatten().tolist()
+    if n_rows >= n_cap:
+        dropped_rows += len(missing)
+        missing = []
+    for i in missing:
+        row0, found_src = ht.lookup(table, src[i], max_probes)
+        if bool(found_src):
+            rows[i] = int(row0)
+        elif n_rows >= n_cap:
+            dropped_rows += 1
+        else:
+            slot, ok = ht.insert_probe(tab_keys, src[i], max_probes)
+            if not bool(ok):
+                dropped_probes += 1
+                continue
+            tab_keys[int(slot)] = src[i]
+            tab_vals[int(slot)] = n_rows
+            rows[i] = n_rows
+            n_rows += 1
+
+    # --- phase B: slots, rank k of every row at once ------------------------
+    items = torch.nonzero(rows >= 0).flatten()
+    if items.numel():
+        key = rows[items] * (rows.numel() + 1) + items
+        items = items[torch.sort(key).indices]
+        r_sorted = rows[items]
+        head = torch.ones_like(r_sorted, dtype=torch.bool)
+        head[1:] = r_sorted[1:] != r_sorted[:-1]
+        pos = torch.arange(items.numel(), device=items.device)
+        start = torch.cummax(torch.where(head, pos, 0), dim=0).values
+        rank = pos - start
+        for k in range(int(rank.max()) + 1):
+            it = items[rank == k]
+            r = rows[it]
+            d, wi = dst[it], w[it]
+            slot_eq, found_d = first_true(dst_slab[r] == d.unsqueeze(1), dim=1)
+            slot_free, has_free = first_true(cnt[r] == 0, dim=1)
+            tail = order[r, cap - 1].to(torch.int64)
+            slot = torch.where(found_d, slot_eq, torch.where(has_free, slot_free, tail))
+            base = torch.where(has_free & ~found_d, 0, cnt[r, slot])
+            cnt[r, slot] = (base + wi).to(cnt.dtype)
+            dst_slab[r, slot] = d.to(dst_slab.dtype)
+            tot[r] += wi.to(tot.dtype)
+            evictions += int((~found_d & ~has_free).sum())
     new_counters = torch.tensor(
         [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32
     ).to(counters.device)

@@ -1,24 +1,30 @@
-"""CUDA kernel: the sequential new-edge pass of ``update_batch``.
+"""CUDA kernel: the new-edge pass of ``update_batch``, row-parallel.
 
-Replaces ``repro/core/mcprioq.py::_slow_path`` — in the reference a
-``lax.scan`` over the new-edge prefix, not a Pallas kernel; a Python loop of
-tiny launches would not be a port of a scan, so here it is one kernel.  Per
-active item, in order: look the src up or allocate the next row (hash insert
-with tombstone reuse; ``dropped_rows`` / ``dropped_probes`` on failure), then
-the slot holding the dst, else the first free slot, else Space-Saving
+Replaces ``repro/core/mcprioq.py:311`` ``_slow_path`` — in the reference a
+``lax.scan`` over the new-edge prefix, not a Pallas kernel.  Per active item,
+in item order: look the src up or allocate the next row (hash insert with
+tombstone reuse; ``dropped_rows`` / ``dropped_probes`` on failure), then the
+slot holding the dst, else the first free slot, else Space-Saving
 replacement of the order tail (the newcomer inherits the victim's count;
 ``evictions``).  A later item sees what an earlier one wrote.
 
-Bound on this card: bytes for the functional copies (src table, ``dst``,
-``cnt``, ``tot`` are returned as fresh tensors: 2·(2·H + 2·N·C + N)·4 B), and
-beyond them latency — the items form one dependent chain of a few global
-round trips each.  The design runs the chain on ONE warp whose lanes share
-every scan (probe window, row scan: ballot + ffs, lowest index wins), warms
-the L2 cache for 32 items at a time (each lane looks its own item up and
-prefetches the lines it will touch), starts independent loads together, reads
-the active mask from device memory (all warps of the block find the last
-active item; the walk ends there) so that an empty pass costs one short launch
-and no device->host synchronisation, and leaves the copies to ``clone``.
+Only two things chain an item to earlier ones: a missing src takes the next
+row, and items on one row share its slots.  So the kernel (four launches)
+looks every src up at once, walks only the misses in item order on one warp
+(a count and nothing more once every row is taken), sorts the items that
+have a row by (row, item) in shared memory, and gives each row to its own
+warp, which applies that row's items in order.  It reads how many items
+have a row on the device, so the sort's work follows that count, and an
+empty pass costs a few short launches and no device->host
+synchronisation.  Plain mirror of this decomposition:
+:func:`repro_torch.kernels.ref.slow_path_rows_ref`.
+
+Bound on this card: bytes, and almost all of them are the functional copies
+of what an ``EpochStore`` reader may still hold — the src table and
+``dst_slab`` (2·(2·H + N·C)·4 B read + written).  ``cnt`` and ``tot`` are
+copied too unless the caller owns them (``own_counts``; ``update_batch``
+does: they are ``slab_update``'s fresh outputs), and are then written in
+place.  Beyond the copies the work is the items' probe windows and rows.
 
 Source: ``csrc/slow_path.cu`` (entry ``mcq_slow_path``).  Plain version:
 :func:`slow_path_ref`.
@@ -32,22 +38,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import slow_path_ref
 
 # the plain version is re-exported beside its kernel
-__all__ = ["slow_path_cuda", "slow_path_ref", "launches"]
+__all__ = ["slow_path_cuda", "slow_path_cuda_inplace", "slow_path_ref",
+           "launches"]
 
 launches = 0  # kernel launches made by slow_path_cuda in this process
 
+_NO_ROW = 0x7FFFFFFE  # row field of a missing src in the kernel's sort keys
+# the row launch caches 2 x C int32 per warp, 4 warps, in 48 KiB of shared
+# memory (MCQ_SP_ROW_WARPS, MCQ_SP_SMEM_DEFAULT in csrc/slow_path.cu)
+_MAX_CAPACITY = 48 * 1024 // (4 * 2 * 4)
 
-def slow_path_cuda(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
-                   dst_slab: torch.Tensor, cnt: torch.Tensor,
-                   tot: torch.Tensor, order: torch.Tensor,
-                   counters: torch.Tensor, src: torch.Tensor,
-                   dst: torch.Tensor, w: torch.Tensor, active: torch.Tensor,
-                   *, max_probes: int = 64):
-    """Sequential insert pass on the GPU.  tab_keys/tab_vals[H] the src table,
-    dst_slab/cnt/order[N, C], tot[N], counters[4] = (n_rows, dropped_rows,
-    dropped_probes, evictions), items src/dst/w/active[L] (active int32,
-    non-zero = apply).  Returns fresh ``(tab_keys, tab_vals, dst_slab, cnt,
-    tot, counters)``; the inputs are not written."""
+
+def slow_path_cuda_inplace(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                           dst_slab: torch.Tensor, cnt: torch.Tensor,
+                           tot: torch.Tensor, order: torch.Tensor,
+                           counters: torch.Tensor, src: torch.Tensor,
+                           dst: torch.Tensor, w: torch.Tensor,
+                           active: torch.Tensor, *, max_probes: int = 64):
+    """The pass on the GPU, written into the given src table, ``dst_slab``,
+    ``cnt``, ``tot`` and ``counters`` (the caller owns all of them); no
+    copy.  Arguments as :func:`slow_path_cuda`."""
     global launches
     _build.require_cuda_int32(
         "slow_path_cuda", tab_keys=tab_keys, tab_vals=tab_vals,
@@ -62,18 +72,48 @@ def slow_path_cuda(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
             or tot.shape != cnt.shape[:1] or cnt.shape[1] < 1:
         raise ValueError("slow_path_cuda: dst_slab/cnt/order must be [N, C], "
                          "tot [N]")
+    if cnt.shape[1] > _MAX_CAPACITY:
+        raise ValueError(f"slow_path_cuda: at most {_MAX_CAPACITY} slots per row")
+    if cnt.shape[0] >= _NO_ROW:
+        raise ValueError(f"slow_path_cuda: at most {_NO_ROW - 1} rows")
     if counters.shape != (4,):
         raise ValueError("slow_path_cuda: counters must be int32[4]")
     if src.dim() != 1 or not (src.shape == dst.shape == w.shape == active.shape):
         raise ValueError("slow_path_cuda: src/dst/w/active must be [L]")
     if max_probes < 1:
         raise ValueError("slow_path_cuda: max_probes must be >= 1")
-    out = [x.clone() for x in (tab_keys, tab_vals, dst_slab, cnt, tot, counters)]
+    n_items = src.shape[0]
+    if n_items == 0:
+        return
+    keys = torch.empty(n_items, dtype=torch.int64, device=src.device)
+    with_row = torch.empty_like(keys)
+    n_with = torch.empty(1, dtype=torch.int32, device=src.device)
     _build.launch("mcq_slow_path", src.device, src.data_ptr(), dst.data_ptr(),
-                  w.data_ptr(), active.data_ptr(), src.shape[0],
-                  out[0].data_ptr(), out[1].data_ptr(), size,
-                  out[2].data_ptr(), out[3].data_ptr(), out[4].data_ptr(),
-                  order.data_ptr(), out[5].data_ptr(), cnt.shape[0],
-                  cnt.shape[1], max_probes)
+                  w.data_ptr(), active.data_ptr(), n_items,
+                  tab_keys.data_ptr(), tab_vals.data_ptr(), tab_keys.shape[0],
+                  dst_slab.data_ptr(), cnt.data_ptr(), tot.data_ptr(),
+                  order.data_ptr(), counters.data_ptr(), cnt.shape[0],
+                  cnt.shape[1], max_probes, keys.data_ptr(),
+                  with_row.data_ptr(), n_with.data_ptr())
     launches += 1
+
+
+def slow_path_cuda(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                   dst_slab: torch.Tensor, cnt: torch.Tensor,
+                   tot: torch.Tensor, order: torch.Tensor,
+                   counters: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor, w: torch.Tensor, active: torch.Tensor,
+                   *, max_probes: int = 64, own_counts: bool = False):
+    """The new-edge pass on the GPU.  tab_keys/tab_vals[H] the src table,
+    dst_slab/cnt/order[N, C], tot[N], counters[4] = (n_rows, dropped_rows,
+    dropped_probes, evictions), items src/dst/w/active[L] (active int32,
+    non-zero = apply).  Returns ``(tab_keys, tab_vals, dst_slab, cnt, tot,
+    counters)``: fresh tensors, the inputs not written — except ``cnt`` and
+    ``tot`` when the caller owns them (``own_counts``), which are written in
+    place and returned."""
+    out = [x.clone() for x in (tab_keys, tab_vals, dst_slab)]
+    out += [cnt, tot] if own_counts else [cnt.clone(), tot.clone()]
+    out.append(counters.clone())
+    slow_path_cuda_inplace(*out[:5], order, out[5], src, dst, w, active,
+                           max_probes=max_probes)
     return tuple(out)

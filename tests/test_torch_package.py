@@ -232,8 +232,8 @@ def _kernel_stand_ins():
         (cdf_gather, "cdf_query_fused_cuda", check(
             "cdf_gather", (), lambda *a, max_items: ref.cdf_query_fused_ref(*a, max_items))),
         (slow_path, "slow_path_cuda", check(
-            "slow_path", (), lambda *a, max_probes: ref.slow_path_ref(
-                *a[:-1], a[-1].to(torch.bool), max_probes))),
+            "slow_path", (), lambda *a, max_probes, own_counts: ref.slow_path_ref(
+                *a[:-1], a[-1].to(torch.bool), max_probes, own_counts))),
         (cdf_query, "cdf_query_cuda", check(
             "cdf_query", (), lambda *a, max_items: ref.cdf_query_ref(*a, max_items))),
         (walk, "draft_walk_cuda", check("walk", (0, 5), lambda *a, **kw: (
