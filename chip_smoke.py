@@ -26,7 +26,10 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 the fused answers, with its own launch counts; then each
                 kernel at the shapes and data that path gave it, against its
                 plain version (equal) and timed beside its bound (the
-                new-edge pass also without its copies, and by launch);
+                new-edge pass also without its copies, and by launch; the
+                probe at the update's and the queries' keys, beside the
+                launch floor and its dependent round trips, and counted
+                per ``lookup_rows`` call by torch.profiler);
   4. drafter  — the speculative drafter at full width: a chain of 2**20
                 contexts x 64 slots behind an ``EpochStore``, a learner loop
                 (acquire -> observe 64 x 1,025 tokens -> maintain -> publish)
@@ -36,7 +39,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 learner step and the candidates equal to the plain versions',
                 ``draft`` equal to ``draft_reference``; then every kernel of
                 the path at the shapes and data it gave them, against its
-                plain version (equal) and timed beside its bound;
+                plain version (equal) and timed beside its bound, the draft
+                walk also inside the learner loop;
   5. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
                 every query answer equal after every batch; the same for the
@@ -284,19 +288,25 @@ def small_kernel_checks(gen):
                          ops.cdf_query, c_ord, d_ord, tot2[rows], t,
                          max_items=max_items)
 
-    # probe: tombstone chains, wrap-around, saturated windows, padding rows
+    # probe: tombstone chains, wrap-around, saturated windows, padding rows,
+    # the home slot alone; keys -1 (EMPTY: a miss without a read) and -2
+    # (TOMB); the stacked mode (dh_find) beside the flat one (ht_find) with
+    # both miss values
     for n, h, max_probes, fill, delete_frac in (
             (4, 32, 32, 12, 0.0), (3, 16, 8, 14, 0.5), (2, 8, 16, 7, 0.4),
-            (5, 64, 4, 40, 0.9), (1, 1, 3, 1, 0.0)):
+            (5, 64, 4, 40, 0.9), (1, 1, 3, 1, 0.0), (3, 16, 1, 10, 0.3)):
         keys, vals = build_tables(gen, n, h, max_probes, fill, delete_frac)
         for batch in (0, 1, 203):
             rows = randint(gen, -1, n, (batch,))
             q = randint(gen, 0, 520, (batch,))
+            q[::5] = -1
+            q[3::11] = -2
             both(f"dh_find N={n} H={h} P={max_probes} B={batch}", ops.dh_find,
                  rows, q, keys, vals, max_probes=max_probes)
-            both(f"ht_find H={h} P={max_probes} B={batch}", ops.ht_find, q,
-                 keys[0].contiguous(), vals[0].contiguous(),
-                 max_probes=max_probes)
+            for miss in (-1, 0):
+                both(f"ht_find H={h} P={max_probes} B={batch} miss={miss}",
+                     ops.ht_find, q, keys[0].contiguous(),
+                     vals[0].contiguous(), max_probes=max_probes, miss=miss)
 
     # slow path: rows and slots running out, tiny table with a short window
     from repro_torch.core import mcprioq as mc
@@ -476,14 +486,22 @@ def small_walk_checks(gen, both):
     src keys tombstoned (small tables: chains wrap) and a few order heads
     pointing at a slot whose count is 0; windows of learned contexts (dead
     ends mid-walk come from the stream's noise) and unknown ones, read as
-    strided views of wider contexts."""
+    strided views of wider contexts; then rows wider than the lanes of a
+    sequence hold in registers, order heads anywhere in them."""
     from repro_torch.core import hashtable as ht
     from repro_torch.core import mcprioq as mc
     from repro_torch.core import speculative as spec
     from repro_torch.kernels import ops
     vocab, seqs, length = 40, 6, 96
     walk_ok = 0
-    for order_n, table_size in ((1, 0), (2, 0), (2, 64), (3, 64)):
+
+    def check(label, args, k, max_probes):
+        nonlocal walk_ok
+        _, ok = both(label, ops.draft_walk, *args, k=k, max_probes=max_probes)
+        walk_ok += int(ok.sum())
+
+    span = torch.arange(8, device="cuda")
+    for order_n, table_size in ((1, 0), (2, 0), (2, 64), (3, 64), (5, 0)):
         ncfg = spec.NGramConfig(order=order_n, mc=mc.MCConfig(
             num_rows=48, capacity=8, table_size=table_size, max_probes=16,
             sort_passes=2, impl="cuda"))
@@ -503,21 +521,30 @@ def small_walk_checks(gen, both):
         cnt = chain.slabs.cnt.clone()
         stale = randint(gen, 0, ncfg.mc.num_rows, (6,)).long()
         cnt[stale, chain.slabs.order[stale, 0].long()] = 0
-        span = torch.arange(8, device="cuda")
+
+        def windows(batch):
+            pos = randint(gen, 8, length, (batch,)).long()
+            seq = randint(gen, 0, seqs, (batch,)).long()
+            ctx = toks[seq.unsqueeze(1), pos.unsqueeze(1) - 8 + span]
+            unknown = torch.rand(batch, generator=gen, device="cuda") < 0.1
+            return torch.where(unknown.unsqueeze(1), ctx + 5000, ctx)[:, -order_n:]
+
         for k in (1, 4, 8):
             for batch in (0, 1, 77):
-                pos = randint(gen, 8, length, (batch,)).long()
-                seq = randint(gen, 0, seqs, (batch,)).long()
-                ctx = toks[seq.unsqueeze(1), pos.unsqueeze(1) - 8 + span]
-                unknown = torch.rand(batch, generator=gen, device="cuda") < 0.1
-                ctx = torch.where(unknown.unsqueeze(1), ctx + 5000, ctx)
-                _, ok = both(f"draft_walk order={order_n} "
-                             f"T={table.keys.numel()} k={k} B={batch}",
-                             ops.draft_walk, ctx[:, -order_n:], table.keys,
-                             table.vals, cnt, chain.slabs.dst,
-                             chain.slabs.order[:, 0], k=k,
-                             max_probes=ncfg.mc.max_probes)
-                walk_ok += int(ok.sum())
+                check(f"draft_walk order={order_n} T={table.keys.numel()} k={k} "
+                      f"B={batch}", (windows(batch), table.keys, table.vals, cnt,
+                                     chain.slabs.dst, chain.slabs.order[:, 0]),
+                      k, ncfg.mc.max_probes)
+    # rows of 160 slots (wider than 16 lanes x 8 registers): random counts,
+    # dsts from the vocabulary so walks go on, order heads anywhere
+    wide = 160
+    cnt_w = randint(gen, 0, 4, (ncfg.mc.num_rows, wide))
+    dst_w = torch.where(cnt_w > 0, randint(gen, 0, vocab, cnt_w.shape), -1)
+    ord_w = randint(gen, 0, wide, (ncfg.mc.num_rows, 2))
+    for k in (4, 8):
+        check(f"draft_walk C={wide} k={k} B=77",
+              (windows(77), table.keys, table.vals, cnt_w.to(torch.int32),
+               dst_w.to(torch.int32), ord_w[:, 0]), k, ncfg.mc.max_probes)
     if walk_ok == 0:
         raise AssertionError("draft_walk checks: no lane ever drafted a token")
     return walk_ok
@@ -771,9 +798,10 @@ def bound(bytes_moved, operations):
 
 
 def kernel_entry(entries, launches, flush, name, module, source, replaces, run,
-                 bytes_moved, operations, plain_reps=3, library=None):
+                 bytes_moved, operations, plain_reps=3, library=None, extra=None):
     """Hold ``run("cuda")`` against ``run("ref")`` (equal), time both and the
-    library call beside the bound, and append the kernel's line."""
+    library call beside the bound, and append the kernel's line (with the
+    keys of ``extra`` added)."""
     got = run("cuda")
     torch.cuda.synchronize()
     want = run("ref")
@@ -791,10 +819,12 @@ def kernel_entry(entries, launches, flush, name, module, source, replaces, run,
         "max_abs_err": err, "max_abs_diff": err, "equal": True,
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms})
+        "library_ms": library_ms, **(extra or {})})
     say(f"[kernels] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), library "
-        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; equal")
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; equal"
+        + "".join(f"; {k} {v:.4f}" if isinstance(v, float) else f"; {k} {v}"
+                  for k, v in (extra or {}).items()))
 
 
 def walk_length(c_ord, tot, t):
@@ -809,6 +839,53 @@ def walk_length(c_ord, tot, t):
     cum = torch.cumsum(c_ord, dim=1, dtype=torch.int32).to(torch.float32)
     first, _ = first_true(cum >= tcnt.unsqueeze(1), dim=1)
     return (first + 1).clamp(max=c)
+
+
+def probe_work(keys_q, keys, max_probes):
+    """What a flat probe of ``keys_q`` must read, and its dependent round
+    trips: ``(slots whose key is read + found slots' values, {trips})``.  A
+    key -1 reads nothing; another reads its chain up to the key or EMPTY
+    (the whole window if neither).  A query's trips are its key's load and
+    one per probed slot (a slot's key and value come together)."""
+    from repro_torch.core import hashtable as ht
+    h = keys.shape[0]
+    p = torch.arange(max_probes, device="cuda")
+    win = keys[((ht.hash_u32(keys_q) & (h - 1)).unsqueeze(1) + p) & (h - 1)]
+    key_p = ht.first_true(win == keys_q.unsqueeze(1), dim=1)[0]
+    empty_p = ht.first_true(win == -1, dim=1)[0]
+    probed = torch.minimum(key_p, empty_p).clamp(max=max_probes - 1) + 1
+    probed = torch.where(keys_q == -1, 0, probed)
+    found = (key_p < empty_p) & (keys_q != -1)
+    trips = 1 + probed
+    return int(probed.sum()) + int(found.sum()), {
+        "trips_mean": float(trips.double().mean()), "trips_max": int(trips.max())}
+
+
+def launches_per_lookup(state, q, cfg, calls=20):
+    """Device kernels per ``lookup_rows`` call, counted by torch.profiler over
+    ``calls`` calls beside the probe's own count; fails unless each call is
+    the one probe launch.  A session that lost kernel records (seen in
+    sessions late in a process: 0 of 1 and 18 of 20) is retried once."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.kernels import probe
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = probe.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                mc.lookup_rows(state, q, cfg)
+            torch.cuda.synchronize()
+        kernels = [ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        counted = probe.launches - before
+        if len(kernels) == calls:
+            break
+    say(f"[kernels] lookup_rows of {q.numel()} srcs: {len(kernels) / calls:g} "
+        f"device kernel(s) per call by torch.profiler over {calls} calls "
+        f"{sorted(set(kernels))}, probe count {counted / calls:g} per call")
+    if len(kernels) != calls or counted != calls:
+        raise AssertionError("lookup_rows is not one probe launch")
 
 
 def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
@@ -845,18 +922,24 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
     p_src, p_dst, p_w, p_mask, _ = mc._take_new_prefix(
         u_src, u_dst, u_w, u_pos, u_act & ~fast, cfg.resolved_max_new(batch))
 
-    # probe: B keys + rows in, 2 B out; the chain each query must read
-    p = torch.arange(cfg.max_probes, device="cuda")
-    win = table.keys[((mc.ht.hash_u32(u_src) & (h - 1)).unsqueeze(1) + p) & (h - 1)]
-    stop = mc.ht.first_true((win == u_src.unsqueeze(1)) | (win == -1), dim=1)[0] \
-        .clamp(max=cfg.max_probes - 1) + 1
-    chain_reads = int(stop.sum()) + int(found_src0.sum())
-    entry("probe_find", None, "probe.cu", "src/repro/kernels/probe.py:105",
-          lambda impl: ops.ht_find(u_src, table.keys, table.vals,
-                                   max_probes=cfg.max_probes, impl=impl),
-          bytes_moved=4 * (4 * batch + chain_reads),
-          operations=12 * batch + 3 * chain_reads)
-    del win, stop
+    # probe, as lookup_rows calls it: flat mode, miss value 0; at the
+    # update's keys (B = 65,536 aggregated items, -1 for non-head items) and
+    # at the queries' srcs (B = 4,096)
+    launch_floor = time_ms(lambda: torch.cuda._sleep(0), flush=flush)
+    for variant, keys_q in ((None, u_src), ("query", q)):
+        slot_reads, trips = probe_work(keys_q, table.keys, cfg.max_probes)
+        entry("probe_find", variant, "probe.cu", "src/repro/kernels/probe.py:105",
+              lambda impl, keys_q=keys_q: ops.ht_find(
+                  keys_q, table.keys, table.vals, max_probes=cfg.max_probes,
+                  miss=0, impl=impl),
+              # keys in, slots + bool found out, the probed slots' keys and
+              # the found slots' values
+              bytes_moved=4 * (2 * keys_q.numel() + slot_reads) + keys_q.numel(),
+              operations=12 * keys_q.numel() + 3 * slot_reads,
+              extra=dict(launch_floor_ms=launch_floor, batch=keys_q.numel(),
+                         **trips))
+    if path is None:
+        launches_per_lookup(state, q, cfg)
 
     # slab_update: cnt/tot copied (read + write), items in, scanned row prefixes
     hit_slot = mc.ht.first_true(slabs.dst[rows0.long()] == u_dst.unsqueeze(1),
@@ -1127,10 +1210,13 @@ class TokenTraffic:
                            randint(self.gen, 0, self.vocab, (n, width)), ctx)
 
 
-def walk_work(window, toks, oks, keys, max_probes):
+def walk_work(window, toks, oks, keys, max_probes, lanes):
     """What a draft walk over these inputs must read: (table slots probed,
-    steps whose probe found the context, steps run).  A lane runs its steps
-    up to and including the one that fails."""
+    steps whose probe found the context, steps run, dependent round trips
+    per step, most of one sequence).  A sequence runs its steps up to and
+    including the one that fails.  With ``lanes`` lanes a step takes
+    ceil(probed / lanes) trips, then one (order head with the row) where the
+    context was found; a sequence takes one more to load its window."""
     from repro_torch.core import hashtable as ht
     b, k = toks.shape
     order = window.shape[1]
@@ -1139,6 +1225,7 @@ def walk_work(window, toks, oks, keys, max_probes):
     run = (oks.to(torch.int64).sum(dim=1) + 1).clamp(max=k)
     p = torch.arange(max_probes, device="cuda")
     probed = found_steps = 0
+    trips = torch.ones(b, dtype=torch.int64, device="cuda")
     for s in range(k):
         live = run > s
         src = ht.ctx_window_hash(seq[:, s:s + order])
@@ -1146,16 +1233,44 @@ def walk_work(window, toks, oks, keys, max_probes):
         key_p = ht.first_true(win == src.unsqueeze(1), dim=1)[0]
         empty_p = ht.first_true(win == -1, dim=1)[0]
         stop = torch.minimum(key_p, empty_p).clamp(max=max_probes - 1) + 1
+        found = live & (key_p < empty_p)
         probed += int(stop[live].sum())
-        found_steps += int((live & (key_p < empty_p)).sum())
-    return probed, found_steps, int(run.sum())
+        found_steps += int(found.sum())
+        trips += torch.where(live, (stop + lanes - 1) // lanes + found, 0)
+    steps = int(run.sum())
+    return probed, found_steps, steps, float(trips.sum() - b) / steps, int(trips.max())
+
+
+def drafts_in_loop(learn, traffic, current, cfg, rounds, busy_cycles=4_000_000):
+    """Device ms of ``draft`` at k = 4 and k = 8 where a server meets it:
+    each round one learner step (its odd-even pass sweeps the table through
+    the L2), then the reader's two drafts, k = 4 first, on the state it
+    published.  A spin kernel queued ahead of the drafts keeps the host's
+    launch time out of the events.  Returns ``{k: [ms per round]}``."""
+    from repro_torch.core import speculative as spec
+    times = {4: [], 8: []}
+    for _ in range(rounds):
+        toks = traffic.batch()
+        learn(toks)
+        ctx = traffic.contexts(toks)
+        state = current()
+        torch.cuda._sleep(busy_cycles)
+        for k, out in times.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            spec.draft(state, ctx, cfg=cfg, k=k)
+            end.record()
+            out.append((start, end))
+        torch.cuda.synchronize()
+    return {k: [s.elapsed_time(e) for s, e in v] for k, v in times.items()}
 
 
 def phase_drafter(seed, warm_batches, rounds, profile=False):
     from repro_torch import core
     from repro_torch.core import speculative as spec
     from repro_torch.core.epoch import EpochStore
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, walk
     cfg = spec.NGramConfig(order=2, decay_threshold=1 << 18, mc=core.MCConfig(
         num_rows=2 ** 20, capacity=64, sort_passes=1, decay_block_rows=1024,
         max_new_per_batch=8192))
@@ -1304,21 +1419,30 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
     del toks, src
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     keys = chain.src_table.keys
+    walk_args = (window, keys, chain.src_table.vals, chain.slabs.cnt,
+                 chain.slabs.dst, chain.slabs.order[:, 0])
+    launch_floor = time_ms(lambda: torch.cuda._sleep(0), flush=flush)
+    # the drafts inside the learner loop, where a server meets them
+    in_loop = drafts_in_loop(learn, traffic, current, cfg, rounds)
+    say(f"[drafter] draft device ms inside the learner loop ({rounds} rounds, "
+        f"medians): " + ", ".join(f"k={k} {statistics.median(t):.4f}"
+                                  for k, t in in_loop.items()))
     for k in (4, 8):
-        probed, found_steps, steps = walk_work(window, out[k][0], out[k][1],
-                                               keys, cfg.mc.max_probes)
+        probed, found_steps, steps, trips, trips_max = walk_work(
+            window, out[k][0], out[k][1], keys, cfg.mc.max_probes, walk.LANES)
         kernel_entry(
             entries, launches, flush, f"draft_walk[k={k}]", "draft_walk",
             "walk.cu", "src/repro/kernels/walk.py:123",
             lambda impl, k=k: ops.draft_walk(
-                window, keys, chain.src_table.vals, chain.slabs.cnt,
-                chain.slabs.dst, chain.slabs.order[:, 0], k=k,
-                max_probes=cfg.mc.max_probes, impl=impl),
+                *walk_args, k=k, max_probes=cfg.mc.max_probes, impl=impl),
             # window in; per step the probed slots, then value, order head,
             # cnt and dst where the context was found; toks + ok out
             bytes_moved=4 * (window.numel() + probed + 4 * found_steps)
             + WINDOWS * k * 5,
-            operations=steps * (14 * cfg.order + 10) + 3 * probed)
+            operations=steps * (14 * cfg.order + 10) + 3 * probed,
+            extra=dict(launch_floor_ms=launch_floor, lanes=walk.LANES,
+                       in_loop_ms=statistics.median(in_loop[k]),
+                       trips_per_step=trips, trips_max=trips_max))
 
     if profile:
         pool = []

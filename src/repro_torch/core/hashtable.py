@@ -138,9 +138,9 @@ def lookup_batch(table: HashTable, keys, max_probes: int = 64,
 
     ``impl='vmap'`` (default) is the batched form of :func:`lookup`.  Any
     kernel impl (``auto``/``ref``/``cuda``) routes through the shared
-    open-addressing probe kernel (``ops.ht_find``; the flat table is the
-    N = 1 case of the per-row probe).  Imported lazily: this module is a leaf
-    the kernel layer itself depends on.
+    open-addressing probe kernel in its flat mode (``ops.ht_find``: one
+    launch on CUDA tensors).  Imported lazily: this module is a leaf the
+    kernel layer itself depends on.
     """
     keys = _key_tensor(keys, table.keys.device)
     if impl == "vmap":

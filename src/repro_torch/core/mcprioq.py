@@ -187,12 +187,15 @@ def _to_state_device(state: MCState, x, dtype) -> torch.Tensor:
 def lookup_rows(state: MCState, src: torch.Tensor, cfg: MCConfig):
     """Batched src -> row. Returns ``(rows[B], found[B])``; row 0 when missing.
 
-    Routed through the shared open-addressing probe kernel (``ops.ht_find``
-    via ``lookup_batch``): one launch at the head of every query and update.
+    The shared open-addressing probe kernel in its flat mode
+    (``ops.ht_find`` with ``miss=0``) writes the row, 0 for a missing src,
+    and ``found`` as bool itself: one launch at the head of every query and
+    update, nothing around it.
     """
-    rows, found = ht.lookup_batch(state.src_table, src, cfg.max_probes,
-                                  impl=cfg.impl)
-    return torch.where(found, rows, 0), found
+    table = state.src_table
+    return ops.ht_find(_to_state_device(state, src, torch.int32), table.keys,
+                       table.vals, max_probes=cfg.max_probes, miss=0,
+                       impl=cfg.impl)
 
 
 def _find_slots(state: MCState, rows: torch.Tensor, dst: torch.Tensor,

@@ -36,7 +36,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # C entry point -> argument types (every pointer and the stream is c_void_p:
 # without argtypes ctypes would cut a 64-bit pointer to 32 bits)
 SIGNATURES = {
-    "mcq_probe_find": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mcq_probe_find": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mcq_slab_update": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "mcq_oddeven": [_P, _P, _P, _LL, _I, _I, _P],
     "mcq_cdf_query_fused": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hashtable import EMPTY
 from repro_torch.kernels import cdf_gather as _cg
 from repro_torch.kernels import cdf_query as _cdf
 from repro_torch.kernels import oddeven as _oe
@@ -84,23 +85,26 @@ def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
     """
     if _use_ref(impl, dh_keys):
         return _ref.dh_find_ref(rows, dsts, dh_keys, dh_vals, max_probes)
-    slots, found = _pr.probe_find_cuda(rows, dsts, dh_keys, dh_vals,
-                                       max_probes=max_probes)
-    return slots, found.to(torch.bool)
+    return _pr.probe_find_cuda(rows, dsts, dh_keys, dh_vals,
+                               max_probes=max_probes)
 
 
 def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
             tab_vals: torch.Tensor, *, max_probes: int = 64,
-            impl: str = "auto"):
-    """Batched flat-table lookup: ``(vals[B], found[B] bool)``.
+            miss: int = EMPTY, impl: str = "auto"):
+    """Batched flat-table lookup: ``(vals[B], found[B] bool)``, ``miss``
+    (EMPTY unless the caller picks another value) where not found.
 
     The src node-id -> row probe at the head of every query and update
-    (paper §II.1): the flat table is the N = 1 case of the shared probe
-    kernel.  ``hashtable.lookup_batch`` routes here when an impl is given.
+    (paper §II.1), the flat mode of the shared probe kernel: on CUDA tensors
+    one launch, outputs already in their final type and value.
+    ``hashtable.lookup_batch`` routes here when an impl is given.
     """
-    rows = torch.zeros_like(keys_q)
-    return dh_find(rows, keys_q, tab_keys.unsqueeze(0), tab_vals.unsqueeze(0),
-                   max_probes=max_probes, impl=impl)
+    if _use_ref(impl, tab_keys):
+        return _ref.probe_find_ref(None, keys_q, tab_keys, tab_vals,
+                                   max_probes, miss)
+    return _pr.probe_find_cuda(None, keys_q, tab_keys, tab_vals,
+                               max_probes=max_probes, miss=miss)
 
 
 def cdf_query(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,

@@ -9,6 +9,8 @@ device; on the CPU they are what the kernel wrappers dispatch to.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import hashtable as ht
@@ -75,20 +77,25 @@ def slab_update_ref(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
     return dst, cnt, tot, found
 
 
-def probe_find_ref(rows: torch.Tensor, keys_q: torch.Tensor,
-                   keys: torch.Tensor, vals: torch.Tensor, max_probes: int):
+def probe_find_ref(rows: Optional[torch.Tensor], keys_q: torch.Tensor,
+                   keys: torch.Tensor, vals: torch.Tensor, max_probes: int,
+                   miss: int = EMPTY):
     """Batched open-addressing probe (the shared lookup oracle).
 
     rows[B] select a table out of keys/vals[N, H]; rows < 0 marks padding.
-    Covers both the per-row dst hash (paper §II.2, N = slab rows) and the
-    flat src table (paper §II.1, N = 1).  Returns ``(slots[B], found[B])``
-    with slot EMPTY when missing.
+    ``rows=None`` probes one flat table keys/vals[H].  Covers both the
+    per-row dst hash (paper §II.2, N = slab rows) and the flat src table
+    (paper §II.1).  Returns ``(slots[B], found[B] bool)`` with slot ``miss``
+    (EMPTY by default) where missing.
 
     Semantics are the core scalar probe (``hashtable.lookup``: scan from the
     home slot, stop at the key or the first EMPTY, give up after
     ``max_probes``), as one (B, max_probes) window gather + min-reductions
     over probe positions.
     """
+    if rows is None:
+        rows = torch.zeros_like(keys_q)
+        keys, vals = keys.unsqueeze(0), vals.unsqueeze(0)
     h = keys.shape[1]
     safe_rows = rows.clamp(min=0).to(torch.int64)
     kq = keys_q.to(torch.int64)
@@ -101,7 +108,7 @@ def probe_find_ref(rows: torch.Tensor, keys_q: torch.Tensor,
     found = (key_p < empty_p) & (rows >= 0)
     slot_idx = (h0 + key_p.clamp(max=max_probes - 1)) & (h - 1)
     slots = vals[safe_rows, slot_idx]
-    return torch.where(found, slots, EMPTY).to(torch.int32), found
+    return torch.where(found, slots, miss).to(torch.int32), found
 
 
 # the dst-hash entry point is the same probe; kept under its §II.2 name
@@ -207,10 +214,9 @@ def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,
     alive = torch.ones((b,), dtype=torch.bool, device=window.device)
     for s in range(k):
         src = ht.ctx_window_hash(win)
-        rows, found = probe_find_ref(torch.zeros_like(src), src,
-                                     ht_keys.unsqueeze(0), ht_vals.unsqueeze(0),
-                                     max_probes)
-        rowm = torch.where(found, rows, 0).clamp(0, n - 1).to(torch.int64)
+        rows, found = probe_find_ref(None, src, ht_keys, ht_vals, max_probes,
+                                     miss=0)
+        rowm = rows.clamp(0, n - 1).to(torch.int64)
         slot0 = ord0[rowm].to(torch.int64)
         cnt0 = cnt[rowm, slot0]
         dst0 = dst[rowm, slot0]

@@ -8,18 +8,26 @@ chain snapshot is read-only for the whole draft (``EpochStore`` contract), so
 the k steps run in one launch.  A lane whose step finds no transition emits
 token 0 / ok 0 for every later step and stops probing.
 
-Bound on this card: neither bytes nor operations but latency.  A step needs
-its probe chain (usually one or two 4-byte reads at load factor <= 0.25),
-one table value, the order head and one ``cnt``/``dst`` pair — random reads
-into tables far larger than the cache, each depending on the one before.
-The TPU kernel loads the whole src table and the slabs into VMEM for every
-128-query block, which is upside down here (the table alone is 16 MiB at
-2^22 slots).  The design gives each sequence one thread that reads only its
-own chain and its own slab entries, so a draft of B sequences costs
-O(B * k) random reads whatever the table size, and B threads keep that many
-dependent chains in flight.  The probe loop is ``csrc/probe.cuh``, shared
-with ``csrc/probe.cu``.  The order head is read with its row stride, so the
-strided view ``slabs.order[:, 0]`` goes in without a copy.
+Bound on this card: latency, neither bytes nor operations.  A step moves
+a few bytes — its probe chain (usually the home slot at load factor <=
+0.25), the order head, one ``cnt``/``dst`` pair — out of tables far larger
+than the cache, each read depending on the one before, so a draft costs k
+times a step's dependent DRAM round trips plus one launch.  The TPU kernel
+loads the whole src table and the slabs into VMEM for every 128-query
+block, which is upside down here (the table alone is 16 MiB at 2^22 slots).
+The design reads only each sequence's own chain and slab entries, keeps the
+window in registers (its tokens' hashes, shifted at each step: the emitted
+tokens are never read back from memory), and gives each sequence
+``LANES`` lanes, which cut a step to two round trips: they probe ``LANES``
+slots of the chain at once, then load the order head together with the
+row's whole ``cnt`` and ``dst`` (coalesced, C = 64 is 2 x 256 B) and pick
+the slot by shuffle — C x 8 bytes per step instead of 8.  One thread per
+sequence takes three trips (slot, order head, ``cnt``/``dst``); it was
+slower where a server meets a draft, right after a learner step, and is not
+kept (``PERF.md`` §6 has both designs' times).  The order head is read with
+its row stride, so the strided view ``slabs.order[:, 0]`` goes in without a
+copy.  The window is held in registers up to ``MAX_ORDER`` tokens; a longer
+one is refused.
 
 Source: ``csrc/walk.cu`` (entry ``mcq_draft_walk``).  Plain version:
 :func:`draft_walk_ref`.
@@ -37,6 +45,9 @@ __all__ = ["draft_walk_cuda", "draft_walk_ref", "launches"]
 
 launches = 0  # kernel launches made by draft_walk_cuda in this process
 
+LANES = 16       # MCQ_WALK_LANES in csrc/walk.cu: lanes per sequence
+MAX_ORDER = 16   # MCQ_WALK_MAX_ORDER in csrc/walk.cu
+
 
 def draft_walk_cuda(window: torch.Tensor, ht_keys: torch.Tensor,
                     ht_vals: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
@@ -50,8 +61,9 @@ def draft_walk_cuda(window: torch.Tensor, ht_keys: torch.Tensor,
                               window=window, ht_keys=ht_keys, ht_vals=ht_vals,
                               cnt=cnt, dst=dst, ord0=ord0)
     dev = cnt.device
-    if window.dim() != 2:
-        raise ValueError("draft_walk_cuda: window must be [B, order]")
+    if window.dim() != 2 or not 1 <= window.shape[1] <= MAX_ORDER:
+        raise ValueError(f"draft_walk_cuda: window must be [B, order] with "
+                         f"1 <= order <= {MAX_ORDER}")
     if ht_keys.dim() != 1 or ht_keys.shape != ht_vals.shape:
         raise ValueError("draft_walk_cuda: ht_keys/ht_vals must be [T]")
     t_size = ht_keys.shape[0]

@@ -102,6 +102,7 @@ def _dh_tables(rng, n, h, max_probes, fill, delete_frac):
     (3, 16, 8, 14, 0.5),     # tombstone chains, short window
     (2, 8, 16, 7, 0.4),      # window wraps the table
     (5, 64, 4, 40, 0.9),     # tombstone-saturated windows
+    (3, 16, 1, 10, 0.3),     # the home slot alone
 ])
 def test_dh_find_and_ht_find(jax_impl, n, h, max_probes, fill, delete_frac):
     rng = np.random.default_rng(n * h + max_probes)
@@ -110,8 +111,18 @@ def test_dh_find_and_ht_find(jax_impl, n, h, max_probes, fill, delete_frac):
     rows = rng.integers(-1, n, batch).astype(np.int32)    # -1 = padding
     q = np.array([rng.choice(members[max(r, 0)]) for r in rows], np.int32)
     q = np.where(rng.random(batch) < 0.3, rng.integers(0, 600, batch), q).astype(np.int32)
+    q[::7] = -1                                           # the EMPTY key: a miss
     _both_impls("dh_find", jax_impl, rows, q, keys, vals, max_probes=max_probes)
     _both_impls("ht_find", jax_impl, q, keys[0], vals[0], max_probes=max_probes)
+    # the miss value lookup_rows asks for: the port's one kernel output
+    # against the reference's lookup and its where
+    want_v, want_f = jops.ht_find(*to_jax([q, keys[0], vals[0]]),
+                                  max_probes=max_probes, impl=jax_impl)
+    for timpl in ("auto", "ref"):
+        got = tops.ht_find(*to_torch([q, keys[0], vals[0]]),
+                           max_probes=max_probes, miss=0, impl=timpl)
+        assert_same((jnp.where(want_f, want_v, 0), want_f), got,
+                    f"ht_find miss=0 [jax {jax_impl} / torch {timpl}]")
 
 
 @pytest.mark.parametrize("jax_impl", JAX_IMPLS)

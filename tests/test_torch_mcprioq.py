@@ -18,6 +18,7 @@ from repro_torch import convert
 from repro_torch.core import mcprioq as tmc
 
 from torch_parity import (CHAIN_CONFIGS as CONFIGS, assert_same,
+                          jax_state_leaves,
                           chain_configs as _configs, chain_stream as _stream,
                           opt as _opt)
 
@@ -90,3 +91,28 @@ def test_unfused_queries_equal_jax_and_the_fused_path(chunks):
 def test_fused_query_false_is_accepted():
     # use_dst_hash=True still raises: test_torch_package.py
     assert not tmc.MCConfig(fused_query=False).fused_query
+
+
+@pytest.mark.parametrize("name", ["rolling", "no_sort_small_table"])
+def test_lookup_rows_equals_jax_found_and_missing(name):
+    """The port's lookup_rows (one flat-mode probe writing row 0 for a
+    missing src) against the reference's on the same learned state: known
+    srcs, unknown ones, negative ids and the EMPTY key -1."""
+    jcfg, tcfg = _configs(name)
+    jstate = jmc.init(jcfg)
+    for src, dst, weights, mask in itertools.islice(_stream(seed=3), 8):
+        jstate = jmc.update_batch(jstate, jnp.asarray(src), jnp.asarray(dst),
+                                  _opt(weights, jnp.asarray), _opt(mask, jnp.asarray),
+                                  cfg=jcfg)
+    tstate = convert.state_from_numpy(jax_state_leaves(jstate), tcfg,
+                                      device="cpu")
+    srcs = np.concatenate([np.arange(-3, 90), [-1, 2**30, 7, -1]]).astype(np.int32)
+    for jimpl in ("ref", "pallas"):
+        want = jmc.lookup_rows(jstate, jnp.asarray(srcs),
+                               cfg=dataclasses.replace(jcfg, impl=jimpl))
+        for timpl in ("auto", "ref"):
+            got = tmc.lookup_rows(tstate, srcs, dataclasses.replace(tcfg, impl=timpl))
+            assert_same(want, got, f"lookup_rows [jax {jimpl} / torch {timpl}]")
+    found = np.asarray(want[1])
+    assert found.any() and not found.all()
+    assert not found[srcs == -1].any()

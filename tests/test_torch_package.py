@@ -90,6 +90,7 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
     lambda x, v: ops.decay_sort(x, x, x, impl="cuda"),
     lambda x, v: ops.dh_find(v, v, x, x, impl="cuda"),
     lambda x, v: ops.ht_find(v, v, v, impl="cuda"),
+    lambda x, v: ops.ht_find(v, v, v, miss=0, impl="cuda"),
     lambda x, v: ops.cdf_query_fused(v, v, x, x, x, v, 0.5, impl="cuda"),
     lambda x, v: ops.slow_path(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
     lambda x, v: ops.cdf_query(x, x, v, 0.5, impl="cuda"),
@@ -202,11 +203,13 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
     assert '"ok"' not in out.stdout
 
 
-def _kernel_stand_ins():
+def _kernel_stand_ins(probe_calls):
     """Each CUDA wrapper replaced by its plain version behind a check of what
     the wrapper takes: int32 tensors, contiguous except where the wrapper
     passes a stride to its kernel (the draft walk's window and order
-    heads)."""
+    heads).  The probe's stand-in also checks its table against its mode
+    (flat ``[H]`` when ``rows`` is None, stacked ``[N, H]`` otherwise) and
+    records ``(flat, miss)`` of each call in ``probe_calls``."""
     from repro_torch.kernels import (cdf_gather, cdf_query, oddeven, probe, ref,
                                      slab_update, slow_path, walk)
 
@@ -219,9 +222,10 @@ def _kernel_stand_ins():
             return plain(*args, **kw)
         return wrapper
 
-    def probe_plain(rows, keys_q, keys, vals, *, max_probes):
-        slots, found = ref.probe_find_ref(rows, keys_q, keys, vals, max_probes)
-        return slots, found.to(torch.int32)
+    def probe_plain(rows, keys_q, keys, vals, *, max_probes, miss=-1):
+        assert keys.dim() == (1 if rows is None else 2), (rows is None, keys.shape)
+        probe_calls.append((rows is None, miss))
+        return ref.probe_find_ref(rows, keys_q, keys, vals, max_probes, miss)
 
     return [
         (probe, "probe_find_cuda", check("probe", (), probe_plain)),
@@ -249,7 +253,8 @@ def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
 
     from repro_torch.core import speculative as tspec
     monkeypatch.setattr(ops, "_use_ref", lambda impl, x: impl == "ref")
-    for module, name, stand_in in _kernel_stand_ins():
+    probe_calls = []
+    for module, name, stand_in in _kernel_stand_ins(probe_calls):
         monkeypatch.setattr(module, name, stand_in)
     ncfg = tspec.NGramConfig(order=2, decay_threshold=4, mc=tmc.MCConfig(
         num_rows=32, capacity=8, max_new_per_batch=16, decay_block_rows=8))
@@ -270,3 +275,6 @@ def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
     tmc.update_batch(st.chain, column, toks[:, 4], cfg=ncfg.mc)
     decayed = tmc.decay(st.chain, cfg=ncfg.mc)
     assert tmc.maintenance_stats(decayed)["decay_steps"] > 0
+    # every src lookup (update, both reads, candidates) is the flat probe
+    # with lookup_rows' miss value 0: one launch, nothing around it
+    assert probe_calls and set(probe_calls) == {(True, 0)}, set(probe_calls)
