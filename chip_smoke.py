@@ -10,7 +10,11 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
   2. kernels  — every kernel against its plain PyTorch version ON the card at
                 small odd shapes (ragged batches, padding rows, saturated
                 tables, duplicates, unknown srcs, ``max_items > C``, threshold
-                and top-k mode), and the new-edge pass where its rows and its
+                and top-k mode, rows wider than the fused read's step, rows
+                that are not 16 B aligned), the decay at C from 1 to 256
+                (tied, all-zero and all-evicted rows, the rolling form with
+                the clamped last block and a cursor past it), and the
+                new-edge pass where its rows and its
                 sort are stressed (8,192 items on 4 rows and on 8,192 rows,
                 rows running out mid-pass, 65,536 mostly inactive items,
                 30,000 items with rows sorted in tiles and merged, the
@@ -21,15 +25,20 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 transitions, then rounds of update + threshold query + top-k
                 query + maintenance, with launch counts read around the
                 rounds and no device->host synchronisation allowed inside
-                ``update_batch`` and the queries; then the same queries
+                ``update_batch``, the queries and one rolling ``decay``; then
+                the same queries
                 through the unfused read (``fused_query=False``), equal to
                 the fused answers, with its own launch counts; then each
                 kernel at the shapes and data that path gave it, against its
                 plain version (equal) and timed beside its bound (the
                 new-edge pass also without its copies, and by launch; the
                 probe at the update's and the queries' keys, beside the
-                launch floor and its dependent round trips, and counted
-                per ``lookup_rows`` call by torch.profiler);
+                launch floor and its dependent round trips; the decay's
+                rolling wrapper on the whole state as ``decay`` calls it
+                (the copies of the state included), and the kernel alone
+                on a block and on the whole table, beside torch.sort;
+                device kernels per ``lookup_rows``, ``decay_sort`` and fused
+                query call counted by torch.profiler);
   4. drafter  — the speculative drafter at full width: a chain of 2**20
                 contexts x 64 slots behind an ``EpochStore``, a learner loop
                 (acquire -> observe 64 x 1,025 tokens -> maintain -> publish)
@@ -236,7 +245,7 @@ def small_kernel_checks(gen):
         checked += 1
         return got
 
-    for c in (1, 5, 32, 96, 128):
+    for c in (1, 5, 32, 64, 96, 128, 256, 300):
         n = 37
         dst, cnt, tot, order = random_slabs(gen, n, c)
         # oddeven: random permutations, ties, several pass counts
@@ -272,6 +281,11 @@ def small_kernel_checks(gen):
                     both(f"cdf C={c} B={batch} k={max_items} t={t}",
                          ops.cdf_query_fused, rows, found, cnt2, dst2, order,
                          tot2, t, max_items=max_items)
+        # the same rows 4 B past a 16 B boundary: the read's scalar loads
+        skew = [misaligned(x) for x in (cnt2, dst2, order)]
+        for t in (0.5, None):
+            both(f"cdf C={c} B=45 misaligned rows t={t}", ops.cdf_query_fused,
+                 rows, found, *skew, tot2, t, max_items=c + 3)
         # cdf over pre-ordered rows, as _ordered_rows gathers them: unknown
         # srcs zeroed, a known all-zero row, ragged batches
         for batch in (0, 1, 45):
@@ -332,10 +346,62 @@ def small_kernel_checks(gen):
             st = mc._slow_path(st, src, dsts, w, active, cfg)
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
+    small_decay_checks(gen, both)
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
         f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
     large_slow_path_checks(gen)
+
+
+def misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 B past a 16 B boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def small_decay_checks(gen, both):
+    """The fused decay against its plain version (the odd-even composition)
+    and against the plain mirror of its own decomposition, at every register
+    shape from 1 to 256 slots: random counts, ties over a row, all-zero rows,
+    counts of 1 (every edge evicted), counts up to 2^31 - 1, free
+    slots among live ones; ``order`` a random permutation, and the order the
+    counts already have (rows the kernel keeps as they are); then the
+    rolling form with
+    r not dividing n, the cursor at the clamped last block, past it and
+    negative, and its contract: the inputs are not written."""
+    from repro_torch.kernels import ops, ref
+    for c in (1, 2, 3, 5, 31, 32, 33, 64, 96, 128, 160, 256):
+        n = 41
+        _, cnt, _, _ = random_slabs(gen, n, c)
+        cnt[1] = 6
+        cnt[2] = 0
+        cnt[3] = 1
+        cnt[4] = randint(gen, 1, 4, (c,))
+        cnt[5] = randint(gen, 0, 2 ** 31 - 1, (c,))
+        cnt[6] = randint(gen, 0, 3, (c,)) * 2
+        dst = torch.where(cnt > 0, randint(gen, 0, 10_000, (n, c)), -1).to(torch.int32)
+        # a random permutation, and the order the counts already have
+        ordered = torch.sort(-cnt, dim=1, stable=True).indices.to(torch.int32)
+        for label, perm in (("", random_perm_rows(gen, n, c)),
+                            (" sorted rows", ordered)):
+            got = both(f"decay_sort C={c}{label}", ops.decay_sort, cnt, dst, perm)
+            compare(f"decay_sort C={c}{label} vs its decomposition", got,
+                    ref.decay_sort_rows_ref(cnt, dst, perm))
+    n, c, r = 37, 24, 10
+    dst, cnt, tot, order = random_slabs(gen, n, c, hi=40)
+    order = random_perm_rows(gen, n, c)
+    saved = [x.clone() for x in (cnt, dst, order, tot)]
+    for block_rows in (1, r, n):
+        for cur in (0, 2, 3, 4, 9, -1, 2 ** 31 - 1):
+            cursor = torch.tensor(cur, dtype=torch.int32, device="cuda")
+            both(f"decay_sort_rolling n={n} r={block_rows} cursor={cur}",
+                 ops.decay_sort_rolling, cnt, dst, order, tot, cursor,
+                 block_rows=block_rows)
+    for x, y in zip((cnt, dst, order, tot), saved):
+        if not torch.equal(x, y):
+            raise AssertionError("decay_sort_rolling wrote into its inputs")
 
 
 def direct_table(gen, n_keys, size):
@@ -584,11 +650,11 @@ class Traffic:
 
 
 def kernel_modules():
-    from repro_torch.kernels import (cdf_gather, cdf_query, oddeven, probe,
-                                     slab_update, slow_path, walk)
+    from repro_torch.kernels import (cdf_gather, cdf_query, decay_sort, oddeven,
+                                     probe, slab_update, slow_path, walk)
     return {"probe_find": probe, "slab_update": slab_update, "oddeven": oddeven,
             "cdf_query_fused": cdf_gather, "slow_path": slow_path,
-            "cdf_query": cdf_query, "draft_walk": walk}
+            "cdf_query": cdf_query, "draft_walk": walk, "decay_sort": decay_sort}
 
 
 @contextlib.contextmanager
@@ -628,7 +694,7 @@ def timed(times, key, fn, *args, **kw):
 
 
 MAIN_KERNELS = ("probe_find", "slab_update", "oddeven", "cdf_query_fused",
-                "slow_path")
+                "slow_path", "decay_sort")
 
 
 def phase_main(seed, warm_batches, rounds):
@@ -673,7 +739,8 @@ def phase_main(seed, warm_batches, rounds):
                         q, cfg=cfg, k=8)
             state = timed(times, "maybe_decay", core.maybe_decay, state,
                           cfg=cfg, total_threshold=decay_threshold)
-        state = timed(times, "decay", core.decay, state, cfg=cfg)
+        # rolling decay: the block is found on the device, no host sync
+        state = timed(times, "decay", no_sync, core.decay, state, cfg=cfg)
 
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in times.items()}
@@ -685,6 +752,8 @@ def phase_main(seed, warm_batches, rounds):
         f"(device time by CUDA events, no synchronisation inside the calls)")
     say(f"[main] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say("[main] one rolling decay ran under set_sync_debug_mode('error'): no "
+        "device->host synchronisation")
     say(f"[main] counters {core.counter_stats(state)}")
     say(f"[main] maintenance {core.maintenance_stats(state)}")
 
@@ -861,31 +930,46 @@ def probe_work(keys_q, keys, max_probes):
         "trips_mean": float(trips.double().mean()), "trips_max": int(trips.max())}
 
 
-def launches_per_lookup(state, q, cfg, calls=20):
-    """Device kernels per ``lookup_rows`` call, counted by torch.profiler over
-    ``calls`` calls beside the probe's own count; fails unless each call is
-    the one probe launch.  A session that lost kernel records (seen in
-    sessions late in a process: 0 of 1 and 18 of 20) is retried once."""
+def kernels_per_call(label, fn, modules, names, calls=20, sessions=3):
+    """Device kernels per call of ``fn()``, counted by torch.profiler over
+    ``calls`` calls, beside the launch counts of the wrappers in
+    ``modules``.  Fails unless each wrapper launched its kernel once per
+    call, every device kernel recorded is one of ``names`` (C kernel names)
+    and there are at most ``len(names)`` per call.  The profiler can lose a
+    kernel record (seen: 1 of 40, 2 of 20, 0 of 1), which only lowers the
+    count, so up to ``sessions`` sessions are run for an exact count and a
+    short one is reported as lost records; fewer than half the expected
+    records fails, so a profiler that records nothing cannot pass."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import mcprioq as mc
-    from repro_torch.kernels import probe
-    for _ in range(2):
+    expect = len(names) * calls
+    for _ in range(sessions):
         torch.cuda.synchronize()
-        before = probe.launches
+        before = [m.launches for m in modules]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                mc.lookup_rows(state, q, cfg)
+                fn()
             torch.cuda.synchronize()
         kernels = [ev.name for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA]
-        counted = probe.launches - before
-        if len(kernels) == calls:
+        counted = [m.launches - b for m, b in zip(modules, before)]
+        if len(kernels) == expect:
             break
-    say(f"[kernels] lookup_rows of {q.numel()} srcs: {len(kernels) / calls:g} "
-        f"device kernel(s) per call by torch.profiler over {calls} calls "
-        f"{sorted(set(kernels))}, probe count {counted / calls:g} per call")
-    if len(kernels) != calls or counted != calls:
-        raise AssertionError("lookup_rows is not one probe launch")
+    other = sorted({k for k in kernels if not any(n in k for n in names)})
+    say(f"[kernels] {label}: {len(kernels) / calls:g} device kernel(s) per "
+        f"call by torch.profiler over {calls} calls "
+        f"{sorted(set(k[:60] for k in kernels))}"
+        + ("" if len(kernels) >= expect else
+           f" ({expect - len(kernels)} record(s) lost by the profiler)")
+        + "; launches per call: "
+        + ", ".join(f"{m.__name__.split('.')[-1]} {c / calls:g}"
+                    for m, c in zip(modules, counted)))
+    if other or len(kernels) > expect or any(c != calls for c in counted):
+        raise AssertionError(f"{label} is not {len(names)} device kernel(s) "
+                             f"per call, one launch of each of {names}: "
+                             f"other kernels {other}")
+    if 2 * len(kernels) < expect:
+        raise AssertionError(f"{label}: the profiler recorded {len(kernels)} of "
+                             f"{expect} device kernels")
 
 
 def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
@@ -897,8 +981,7 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
     the path's queries; ``path`` tags the entries of a path other than the
     main one."""
     from repro_torch.core import mcprioq as mc
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cdf_gather, decay_sort, ops, probe, ref
 
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")  # 256 MiB
     n, c = cfg.num_rows, cfg.capacity
@@ -939,7 +1022,9 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
               extra=dict(launch_floor_ms=launch_floor, batch=keys_q.numel(),
                          **trips))
     if path is None:
-        launches_per_lookup(state, q, cfg)
+        kernels_per_call(f"lookup_rows of {queries} srcs",
+                         lambda: mc.lookup_rows(state, q, cfg), (probe,),
+                         ("mcq_probe_find",))
 
     # slab_update: cnt/tot copied (read + write), items in, scanned row prefixes
     hit_slot = mc.ht.first_true(slabs.dst[rows0.long()] == u_dst.unsqueeze(1),
@@ -960,17 +1045,50 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
           bytes_moved=4 * 3 * n * c,
           operations=cfg.sort_passes * n * c * 3)
 
-    # oddeven as decay's full sort: one block, C//2+1 passes; torch.sort beside it
+    # the decay: the rolling wrapper as decay launches it, then the kernel
+    # alone on a block (and, on the main path, over the whole table as
+    # stop-the-world decays it); the plain version halves and runs C//2+1
+    # odd-even passes, torch.sort sorts the block's halved counts alone
+    per_lane = 1
+    while 32 * per_lane < c:
+        per_lane *= 2
+    log_p = (32 * per_lane).bit_length() - 1
+
+    def sort_ops(rows):
+        # two per compare-exchange of the network; halving, eviction, sum
+        return rows * (16 * per_lane * log_p * (log_p + 1) + 3 * c)
+
     r = cfg.resolved_decay_rows()
-    blk_cnt = (slabs.cnt[:r] >> 1).contiguous()
-    blk_ord = slabs.order[:r].contiguous()
-    blk_c_ord = torch.gather(blk_cnt, 1, blk_ord.long())
-    entry("oddeven", "decay_sort", "oddeven.cu", "src/repro/kernels/oddeven.py:67",
-          lambda impl: ops.oddeven_sort(blk_cnt, blk_ord, passes=c // 2 + 1,
-                                        impl=impl),
-          bytes_moved=4 * 3 * r * c,
-          operations=(c // 2 + 1) * r * c * 3,
-          library=lambda: torch.sort(-blk_c_ord, dim=1, stable=True))
+    entry("decay_sort", "rolling", "decay_sort.cu",
+          "src/repro/kernels/ops.py:120",
+          lambda impl: ops.decay_sort_rolling(
+              slabs.cnt, slabs.dst, slabs.order, slabs.tot, state.decay_cursor,
+              block_rows=r, impl=impl),
+          # cnt, dst, order, tot and the cursor read once, their copies (the
+          # block decayed) and the next cursor written once
+          bytes_moved=8 * (3 * n * c + n + 1), operations=sort_ops(r),
+          extra=dict(rows=r, copies="included"))
+
+    def decay_entry(variant, arrays, plain_reps=3):
+        rows = arrays[0].shape[0]
+        c_ord = torch.gather(arrays[0] >> 1, 1, arrays[2].long())
+        entry("decay_sort", variant, "decay_sort.cu",
+              "src/repro/kernels/ops.py:120",
+              lambda impl: ops.decay_sort(*arrays, impl=impl),
+              # cnt, dst, order read; the three and tot written
+              bytes_moved=4 * (6 * rows * c + rows), operations=sort_ops(rows),
+              plain_reps=plain_reps,
+              library=lambda: torch.sort(c_ord, dim=1, descending=True,
+                                         stable=True),
+              extra=dict(rows=rows))
+
+    block = [x[:r] for x in (slabs.cnt, slabs.dst, slabs.order)]
+    decay_entry("block, kernel alone", block)
+    if path is None:
+        kernels_per_call(f"ops.decay_sort of {r} rows",
+                         lambda: ops.decay_sort(*block), (decay_sort,),
+                         ("mcq_decay_sort",))
+        decay_entry("table", (slabs.cnt, slabs.dst, slabs.order), plain_reps=1)
 
     # fused query: threshold and top-k; per known src the positions it needs
     q_rows, q_found = mc.lookup_rows(state, q, cfg)
@@ -988,6 +1106,14 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
               bytes_moved=4 * (2 * queries + known + 2 * walked + emitted
                                + queries * (2 * k + 1)),
               operations=8 * walked + 4 * queries * k)
+        if path is None:
+            kernels_per_call(
+                f"query_{'topk' if t is None else 'threshold'} of {queries} srcs",
+                (lambda t=t, k=k: mc.query_topk(state, q, cfg=cfg, k=k))
+                if t is None else
+                (lambda t=t, k=k: mc.query_threshold(state, q, t, cfg=cfg,
+                                                     max_items=k)),
+                (probe, cdf_gather), ("mcq_probe_find", "mcq_cdf_query_fused"))
 
     # the unfused read: the pre-ordered rows _ordered_rows hands the kernel
     if unfused:
@@ -1165,7 +1291,7 @@ VOCAB = 152_064          # qwen2-7b's vocabulary (src/repro/configs/qwen2_7b.py)
 DRAFT_SEQS, DRAFT_LEN = 64, 1_025   # 65,536 transitions per observe
 WINDOWS = 4_096
 DRAFTER_KERNELS = ("draft_walk", "probe_find", "slab_update", "oddeven",
-                   "slow_path", "cdf_query_fused")
+                   "slow_path", "cdf_query_fused", "decay_sort")
 
 
 class TokenTraffic:

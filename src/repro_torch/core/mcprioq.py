@@ -31,8 +31,8 @@ approximate order — the paper's lock-free bubble sort.
 
 Every function returns a new ``MCState`` and never writes into a tensor of
 the state it was given: a reader may go on holding the old one.  On a CUDA
-state ``update_batch`` and the queries launch their kernels without any
-device->host synchronisation.
+state ``update_batch``, the queries and ``decay`` launch their kernels
+without any device->host synchronisation.
 
 Kernel dispatch is selected by ``MCConfig.impl`` (``auto``/``ref``/``cuda``).
 ``update_batch_reference`` keeps the O(B) sequential semantics as an oracle.
@@ -472,8 +472,9 @@ def decay(state: MCState, *, cfg: MCConfig) -> MCState:
     (``decay_block_rows == R``): halve only the cursor's R-row block and
     advance the cursor, so a serving system amortises maintenance across
     steps — per-call kernel work scales with R, not ``num_rows``, and readers
-    see the paper's approximately-correct mid-maintenance state.  Reading the
-    cursor costs one device->host synchronisation per call.
+    see the paper's approximately-correct mid-maintenance state.  The block
+    is found from the cursor on the device (``ops.decay_sort_rolling``), so
+    neither mode synchronises with the host.
     """
     n = cfg.num_rows
     r = cfg.resolved_decay_rows()
@@ -486,23 +487,15 @@ def decay(state: MCState, *, cfg: MCConfig) -> MCState:
             slabs=Slabs(dst, cnt, tot, order),
             decay_steps=state.decay_steps + one)
 
-    n_blocks = -(-n // r)
-    cur = int(state.decay_cursor) % n_blocks
-    # last block is clamped so every call touches exactly r rows (it overlaps
-    # the previous block when r does not divide n; halving is not idempotent
-    # per row — kept as the reference has it)
-    row0 = min(cur * r, n - r)
-    block = slice(row0, row0 + r)
-    cnt2, dst2, ord2, tot2 = ops.decay_sort(
-        slabs.cnt[block], slabs.dst[block], slabs.order[block], impl=cfg.impl)
-    new = Slabs(*(x.clone() for x in slabs))
-    new.dst[block] = dst2
-    new.cnt[block] = cnt2
-    new.tot[block] = tot2
-    new.order[block] = ord2
+    # the last block is clamped so every call touches exactly r rows (it
+    # overlaps the previous block when r does not divide n; halving is not
+    # idempotent per row — kept as the reference has it)
+    cnt, dst, order, tot, cursor = ops.decay_sort_rolling(
+        slabs.cnt, slabs.dst, slabs.order, slabs.tot, state.decay_cursor,
+        block_rows=r, impl=cfg.impl)
     return state._replace(
-        slabs=new,
-        decay_cursor=torch.full_like(state.decay_cursor, cur + 1),
+        slabs=Slabs(dst, cnt, tot, order),
+        decay_cursor=cursor,
         decay_steps=state.decay_steps + one)
 
 

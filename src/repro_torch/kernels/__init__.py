@@ -5,6 +5,8 @@
                                              dst hash (§II.2)
   * :mod:`repro_torch.kernels.slab_update` — fused batched edge increment (§II.A)
   * :mod:`repro_torch.kernels.oddeven`     — lock-free bubble sort (§II.2)
+  * :mod:`repro_torch.kernels.decay_sort`  — decay in one pass: halve, evict,
+                                             re-sum, full re-sort (§II.C)
   * :mod:`repro_torch.kernels.cdf_gather`  — fused row-gather + CDF walk (§II.B)
   * :mod:`repro_torch.kernels.cdf_query`   — CDF walk over pre-ordered rows
                                              (the unfused read) + chunking rule

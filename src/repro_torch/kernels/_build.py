@@ -46,6 +46,7 @@ SIGNATURES = {
     "mcq_cdf_query": [_P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
     "mcq_draft_walk": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I,
                        _I, _P, _P, _I, _P],
+    "mcq_decay_sort": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -146,19 +147,21 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
-def require_cuda_int32(name: str, *, strided=(), **tensors) -> None:
-    """Every kernel takes contiguous int32 tensors on one CUDA device.  The
-    arguments named in ``strided`` may have a strided leading dimension (the
-    wrapper passes that stride to its kernel) but must be unit-stride along
-    their last."""
+def require_cuda_int32(name: str, *, strided=(), bools=(), **tensors) -> None:
+    """Every kernel takes contiguous int32 tensors on one CUDA device, but
+    the arguments named in ``bools``, which are torch.bool.  The arguments
+    named in ``strided`` may have a strided leading dimension (the wrapper
+    passes that stride to its kernel) but must be unit-stride along their
+    last."""
     device = None
     for arg, x in tensors.items():
         if not x.is_cuda:
             raise ValueError(
                 f"{name}: {arg} is on {x.device}; the CUDA kernel takes CUDA "
                 f"tensors (use impl='ref' or 'auto' for CPU tensors)")
-        if x.dtype != torch.int32:
-            raise TypeError(f"{name}: {arg} must be int32, got {x.dtype}")
+        want = torch.bool if arg in bools else torch.int32
+        if x.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want}, got {x.dtype}")
         if arg in strided:
             if x.dim() > 1 and x.shape[-1] > 1 and x.stride(-1) != 1:
                 raise ValueError(f"{name}: {arg} must be unit-stride along "

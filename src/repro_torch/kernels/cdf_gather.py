@@ -9,15 +9,19 @@ cdf_query_fused_pallas`` (``_fused_kernel``) with the walk it shares,
 positions ``< max_items`` (EMPTY / 0.0 elsewhere), ``n_needed`` = needed
 positions over all C; an unknown src gives all EMPTY / 0 / 0.
 
-Bound on this card: bytes, and few of them — a known src needs at most
-3·C·4 B of its row (order, cnt, the emitted dsts) and usually one 32-position
-chunk of it, plus (8·max_items + 4) B of output per query.  The design gives
-each query a warp that loads its own ``rows[q]``/``found[q]``, walks 32
-positions at a time with a warp scan and an int32 carry, and leaves the loop
-once the carry has crossed the threshold, so the traffic follows CDF^-1(t)
-and not C.
+Bound on this card: bytes in principle, 3·C·4 B of a known src's row (order,
+cnt, dst) plus (8·max_items + 4) B of output per query; in practice the DRAM
+sectors a few thousand scattered rows touch and the dependent round trips
+between them.  The design gives each query a warp that loads its own
+``rows[q]``/``found[q]`` and reads as little of the row as its walk needs,
+in rounds of priority positions: the round's order positions, then ``cnt``
+and (below ``max_items``) ``dst`` gathered together, and one warp scan of
+the round in registers.  Threshold mode walks 32 positions per round and
+stops once the prefix crosses ``t * tot``, so the traffic follows
+CDF^-1(t); top-k mode walks every position, the whole row in one round up
+to 256 positions.
 
-Source: ``csrc/cdf_gather.cu`` (entry ``mcq_cdf_query_fused``), walk in
+Source: ``csrc/cdf_gather.cu`` (entry ``mcq_cdf_query_fused``), walk step in
 ``csrc/cdf_walk.cuh``.  Plain version: :func:`cdf_query_fused_ref`.
 """
 
@@ -38,12 +42,13 @@ def cdf_query_fused_cuda(rows: torch.Tensor, found: torch.Tensor,
                          cnt: torch.Tensor, dst: torch.Tensor,
                          order: torch.Tensor, tot: torch.Tensor,
                          threshold, *, max_items: int = 16):
-    """rows[B] (pre-resolved, 0 where missing), found[B] int32 mask,
+    """rows[B] (pre-resolved, 0 where missing), found[B] bool,
     cnt/dst/order: [N, C] slab arrays, tot: [N].  ``threshold=None`` is top-k
     mode.  Returns (dsts[B, max_items], probs[B, max_items], n_needed[B])."""
     global launches
-    _build.require_cuda_int32("cdf_query_fused_cuda", rows=rows, found=found,
-                              cnt=cnt, dst=dst, order=order, tot=tot)
+    _build.require_cuda_int32("cdf_query_fused_cuda", bools=("found",),
+                              rows=rows, found=found, cnt=cnt, dst=dst,
+                              order=order, tot=tot)
     if cnt.dim() != 2 or not (cnt.shape == dst.shape == order.shape):
         raise ValueError("cdf_query_fused_cuda: cnt/dst/order must be [N, C]")
     if tot.shape != cnt.shape[:1]:

@@ -1,0 +1,100 @@
+"""CUDA kernel: the §II.C decay of slab rows in one pass — halve, evict,
+re-sum and re-sort.
+
+Replaces the TPU composition ``repro/kernels/ops.py::decay_sort`` (the
+prologue ``cnt >> 1``, evict, row sum, then ``repro/kernels/oddeven.py::
+oddeven_pallas`` with ``C//2 + 1`` passes as a full sort), and in rolling
+mode the block slicing of ``repro/core/mcprioq.py::decay_impl``.  Per row:
+``cnt' = cnt >> 1``, ``dst' = EMPTY`` where ``cnt'`` is 0, ``tot'`` the row
+sum of ``cnt'``, ``order'`` the stable descending sort of the counts in
+priority order.  The odd-even network with ``C//2 + 1`` passes sorts any row
+completely and never swaps equal counts, so its result is exactly the sort
+by (count descending, priority position ascending): the kernel keeps a row
+whose halved counts are already in order as it is, and sorts any other by
+that unique key (64 bits: ``-count * 2^32 + position``) with a bitonic
+network, which gives the same bits.
+
+Bound on this card: bytes — cnt, dst and order read once, the three written
+once, plus ``tot``: 6·C·4 B per row (0.96 ms for 2^20 x 128 at 3.35 TB/s), but
+a 1024-row block moves 3 MB and is a launch and two DRAM round trips.  The
+design gives each row a warp that reads and writes the row once, sums with a
+warp reduction and sorts in registers (28 compare-exchange steps at C = 128
+against 260 serial shared-memory steps of 65 odd-even passes; none for a row
+already in order).  In rolling mode the kernel reads the cursor itself, so a
+rolling decay needs no device->host synchronisation; it writes the block
+into copies of the state (``EpochStore`` readers may hold the tensors given)
+and the next cursor into a fresh tensor.
+
+Source: ``csrc/decay_sort.cu`` (entry ``mcq_decay_sort``).  Plain versions:
+:func:`decay_sort_ref` and :func:`decay_sort_rolling_ref`;
+:func:`decay_sort_rows_ref` mirrors the kernel's decomposition.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (decay_sort_ref, decay_sort_rolling_ref,
+                                     decay_sort_rows_ref)
+
+# the plain versions are re-exported beside their kernel
+__all__ = ["decay_sort_cuda", "decay_sort_rolling_cuda", "decay_sort_ref",
+           "decay_sort_rolling_ref", "decay_sort_rows_ref", "launches",
+           "MAX_CAPACITY"]
+
+launches = 0  # kernel launches made by this module's wrappers in this process
+
+MAX_CAPACITY = 1024   # 32 lanes x 32 registers: the widest row a warp sorts
+
+
+def _check(name, cnt, dst, order, **more):
+    _build.require_cuda_int32(name, cnt=cnt, dst=dst, order=order, **more)
+    if cnt.dim() != 2 or not (cnt.shape == dst.shape == order.shape):
+        raise ValueError(f"{name}: cnt/dst/order must be [N, C]")
+    if not 1 <= cnt.shape[1] <= MAX_CAPACITY:
+        raise ValueError(f"{name}: capacity {cnt.shape[1]} is outside 1.."
+                         f"{MAX_CAPACITY}, the rows one warp sorts in registers")
+
+
+def _launch(cnt, dst, order, outs, cursor, cursor_out, block_rows):
+    global launches
+    _build.launch("mcq_decay_sort", cnt.device, cnt.data_ptr(), dst.data_ptr(),
+                  order.data_ptr(), *(x.data_ptr() for x in outs),
+                  None if cursor is None else cursor.data_ptr(),
+                  None if cursor_out is None else cursor_out.data_ptr(),
+                  cnt.shape[0], block_rows, cnt.shape[1])
+    launches += 1
+
+
+def decay_sort_cuda(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor):
+    """Every row of cnt/dst/order [N, C] decayed on the GPU in one launch.
+    Returns fresh ``(cnt', dst', order', tot')``."""
+    _check("decay_sort_cuda", cnt, dst, order)
+    outs = (torch.empty_like(cnt), torch.empty_like(dst),
+            torch.empty_like(order),
+            torch.empty(cnt.shape[:1], dtype=torch.int32, device=cnt.device))
+    if cnt.shape[0]:
+        _launch(cnt, dst, order, outs, None, None, cnt.shape[0])
+    return outs
+
+
+def decay_sort_rolling_cuda(cnt: torch.Tensor, dst: torch.Tensor,
+                            order: torch.Tensor, tot: torch.Tensor,
+                            cursor: torch.Tensor, *, block_rows: int):
+    """The rolling block the device-side ``cursor`` (0-dim int32) selects,
+    decayed on the GPU in one launch.  Returns copies of cnt/dst/order
+    [N, C] and tot [N] with rows ``row0 .. row0 + block_rows`` decayed, and
+    the next cursor (fresh); the inputs are not written."""
+    _check("decay_sort_rolling_cuda", cnt, dst, order, tot=tot, cursor=cursor)
+    n = cnt.shape[0]
+    if tot.shape != (n,) or cursor.dim() != 0:
+        raise ValueError("decay_sort_rolling_cuda: tot must be [N] and cursor "
+                         "a 0-dim tensor")
+    if not 1 <= block_rows <= n:
+        raise ValueError(f"decay_sort_rolling_cuda: block_rows {block_rows} "
+                         f"outside 1..{n}")
+    outs = tuple(x.clone() for x in (cnt, dst, order, tot))
+    cursor_out = torch.empty_like(cursor)
+    _launch(cnt, dst, order, outs, cursor, cursor_out, block_rows)
+    return (*outs, cursor_out)

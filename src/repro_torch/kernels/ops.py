@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.hashtable import EMPTY
 from repro_torch.kernels import cdf_gather as _cg
 from repro_torch.kernels import cdf_query as _cdf
+from repro_torch.kernels import decay_sort as _ds
 from repro_torch.kernels import oddeven as _oe
 from repro_torch.kernels import probe as _pr
 from repro_torch.kernels import ref as _ref
@@ -62,16 +63,30 @@ def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                *, impl: str = "auto"):
     """§II.C decay: halve counters, evict dead edges, fully re-sort.
 
-    The compaction sort composes the odd-even kernel with C/2+1 passes (a
-    full odd-even transposition network sorts any input).  Returns (cnt',
-    dst', order', tot') with evicted slots at the order tail.
+    On CUDA tensors one launch of the fused decay kernel; the plain version
+    composes the halving with C/2+1 odd-even passes (a full odd-even
+    transposition network sorts any input).  Returns (cnt', dst', order',
+    tot') with evicted slots at the order tail.
     """
-    new_cnt = cnt >> 1
-    new_dst = torch.where(new_cnt == 0, -1, dst).to(torch.int32)
-    new_tot = new_cnt.sum(dim=1).to(torch.int32)
-    passes = cnt.shape[1] // 2 + 1
-    new_order = oddeven_sort(new_cnt, order, passes=passes, impl=impl)
-    return new_cnt, new_dst, new_order, new_tot
+    if _use_ref(impl, cnt):
+        return _ref.decay_sort_ref(cnt, dst, order)
+    return _ds.decay_sort_cuda(cnt, dst, order)
+
+
+def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
+                       order: torch.Tensor, tot: torch.Tensor,
+                       cursor: torch.Tensor, *, block_rows: int,
+                       impl: str = "auto"):
+    """Rolling §II.C decay of the ``block_rows``-row block the device-side
+    ``cursor`` selects (the reference's clamped last block included), with
+    no device->host synchronisation.  Returns ``(cnt', dst', order', tot',
+    cursor')``: copies of the inputs with that block decayed, and the next
+    cursor; the inputs are not written."""
+    if _use_ref(impl, cnt):
+        return _ref.decay_sort_rolling_ref(cnt, dst, order, tot, cursor,
+                                           block_rows)
+    return _ds.decay_sort_rolling_cuda(cnt, dst, order, tot, cursor,
+                                       block_rows=block_rows)
 
 
 def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
@@ -132,10 +147,11 @@ def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                     chunks: int = 0, topk: bool = False, impl: str = "auto"):
     """Fused inference: in-kernel row gather + CDF walk (cdf_gather.py).
 
-    Takes pre-resolved rows[B] (0 where missing) + found[B] and the raw slab
-    arrays; only queried rows are touched.  ``threshold=None`` (or
-    ``topk=True``) is top-k mode.  ``chunks`` is validated and otherwise
-    changes nothing: every chunking of the integer walk gives the same bits.
+    Takes pre-resolved rows[B] (0 where missing) + found[B] (bool, as
+    ``ht_find`` returns it) and the raw slab arrays; only queried rows are
+    touched.  ``threshold=None`` (or ``topk=True``) is top-k mode.
+    ``chunks`` is validated and otherwise changes nothing: every chunking of
+    the integer walk gives the same bits.
     """
     topk = topk or threshold is None
     _cdf.auto_chunks(cnt.shape[1], chunks)
@@ -143,8 +159,8 @@ def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
     if _use_ref(impl, cnt):
         return _ref.cdf_query_fused_ref(rows, found, cnt, dst, order, tot,
                                         threshold, max_items)
-    return _cg.cdf_query_fused_cuda(rows, found.to(torch.int32), cnt, dst,
-                                    order, tot, threshold, max_items=max_items)
+    return _cg.cdf_query_fused_cuda(rows, found, cnt, dst, order, tot,
+                                    threshold, max_items=max_items)
 
 
 def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,

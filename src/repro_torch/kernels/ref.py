@@ -56,6 +56,90 @@ def oddeven_sort_ref(cnt: torch.Tensor, order: torch.Tensor, passes: int):
     return new_order
 
 
+def decay_sort_ref(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor):
+    """§II.C decay of every row given (the reference's composition): halve
+    the counts, evict the edges whose count reaches 0, re-sum the rows, and
+    sort with C//2+1 odd-even passes — a full transposition network, and a
+    stable one, since only strictly out-of-order neighbours swap.  Returns
+    ``(cnt', dst', order', tot')``."""
+    new_cnt = cnt >> 1
+    new_dst = torch.where(new_cnt == 0, EMPTY, dst).to(torch.int32)
+    new_tot = new_cnt.sum(dim=1).to(torch.int32)
+    new_order = oddeven_sort_ref(new_cnt, order, cnt.shape[1] // 2 + 1)
+    return new_cnt, new_dst, new_order, new_tot
+
+
+def _bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """Ascending bitonic network over each row of ``keys[N, P]`` (P a power
+    of two): for k = 2, 4, .., P and j = k/2, .., 1, position e and its
+    partner e ^ j keep the lower key where ``e & k`` is 0, else the higher."""
+    p = keys.shape[1]
+    e = torch.arange(p, device=keys.device)
+    k = 2
+    while k <= p:
+        j = k // 2
+        while j >= 1:
+            other = keys[:, e ^ j]
+            keep_min = ((e & j) == 0) == ((e & k) == 0)
+            keys = torch.where(keep_min, torch.minimum(keys, other),
+                               torch.maximum(keys, other))
+            j //= 2
+        k *= 2
+    return keys
+
+
+def decay_sort_rows_ref(cnt: torch.Tensor, dst: torch.Tensor,
+                        order: torch.Tensor):
+    """The same decay as :func:`decay_sort_ref`, computed the way the CUDA
+    kernel (``csrc/decay_sort.cu``) decomposes it (same arguments, same
+    results): halve, evict, reduce; a row whose halved counts are already
+    non-increasing in priority order keeps its order; any other row sorts
+    the unique keys (count descending, priority position e ascending) with a
+    bitonic network padded to P = 32 * V positions (V the power of two of
+    slots per lane) with keys that sort last — 64-bit keys
+    ``-count * 2^32 + e`` — and sorted position i takes the slot
+    ``order[e_i]``.  Used by the tests and ``chip_smoke.py``, not on any
+    path."""
+    n, cap = cnt.shape
+    new_cnt = cnt >> 1
+    new_dst = torch.where(new_cnt == 0, EMPTY, dst).to(torch.int32)
+    new_tot = new_cnt.sum(dim=1).to(torch.int32)
+    width = 32
+    while width < cap:
+        width *= 2
+    h = sl.gather_cols(new_cnt, order).to(torch.int64)
+    pos = torch.arange(cap, dtype=torch.int64, device=cnt.device)
+    keys = torch.cat([-h * 2 ** 32 + pos,
+                      torch.full((n, width - cap), torch.iinfo(torch.int64).max,
+                                 dtype=torch.int64, device=cnt.device)], dim=1)
+    by_key = _bitonic_sort_rows(keys)[:, :cap] & (2 ** 32 - 1)
+    in_order = (h[:, :-1] >= h[:, 1:]).all(dim=1, keepdim=True)
+    new_order = torch.gather(order, 1, torch.where(in_order, pos, by_key))
+    return new_cnt, new_dst, new_order.to(torch.int32), new_tot
+
+
+def decay_sort_rolling_ref(cnt: torch.Tensor, dst: torch.Tensor,
+                           order: torch.Tensor, tot: torch.Tensor,
+                           cursor: torch.Tensor, block_rows: int):
+    """Rolling decay of one ``block_rows``-row block, found on the device as
+    the reference finds it: ``cur = cursor mod ceil(n / r)``, first row
+    ``min(cur * r, n - r)`` (the last block is clamped and overlaps the one
+    before it when r does not divide n).  Returns copies of ``cnt, dst,
+    order, tot`` with that block decayed by :func:`decay_sort_ref`, and the
+    next cursor ``cur + 1``; nothing reads the cursor on the host."""
+    n = cnt.shape[0]
+    cur = torch.remainder(cursor, -(-n // block_rows))
+    row0 = (cur.to(torch.int64) * block_rows).clamp(max=n - block_rows)
+    rows = row0 + torch.arange(block_rows, device=cnt.device)
+    blocks = decay_sort_ref(cnt[rows], dst[rows], order[rows])
+    outs = []
+    for full, block in zip((cnt, dst, order, tot), blocks):
+        out = full.clone()
+        out[rows] = block
+        outs.append(out)
+    return (*outs, (cur + 1).to(torch.int32))
+
+
 def slab_update_ref(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
                     dst: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor):
     """Fast-path batched edge increment (paper §II.A.2, existing edges only).

@@ -126,7 +126,8 @@ def test_dh_find_and_ht_find(jax_impl, n, h, max_probes, fill, delete_frac):
 
 
 @pytest.mark.parametrize("jax_impl", JAX_IMPLS)
-@pytest.mark.parametrize("n,c,max_items", [(16, 128, 16), (9, 5, 8), (8, 256, 4), (4, 1, 2)])
+@pytest.mark.parametrize("n,c,max_items", [(16, 128, 16), (9, 5, 8), (8, 256, 4), (4, 1, 2),
+                                         (6, 300, 20)])   # wider than one step
 def test_cdf_query_fused(jax_impl, n, c, max_items):
     rng = np.random.default_rng(n + c)
     dst, cnt, tot, order = _rand_slabs(rng, n, c, density=0.5)
@@ -149,6 +150,27 @@ def test_cdf_query_fused(jax_impl, n, c, max_items):
     # topk=True with a threshold given is top-k mode as well
     _both_impls("cdf_query_fused", jax_impl, rows, found, cnt, dst, order, tot,
                 threshold=0.5, max_items=max_items, topk=True)
+
+
+@pytest.mark.parametrize("timpl", ["auto", "ref"])
+def test_cdf_query_fused_takes_found_as_bool_unchanged(timpl):
+    """``ops.cdf_query_fused`` hands ``found`` on as the bool mask that
+    ``lookup_rows`` returns (no cast); on CPU tensors the answers are JAX's
+    and those an int32 mask gives."""
+    rng = np.random.default_rng(11)
+    dst, cnt, tot, order = _rand_slabs(rng, 12, 40, density=0.6)
+    rows = rng.integers(0, 12, 30).astype(np.int32)
+    found = rng.random(30) < 0.7
+    for threshold, k in ((0.8, 6), (None, 50)):
+        want = jops.cdf_query_fused(*to_jax([rows, found, cnt, dst, order, tot]),
+                                    threshold, max_items=k, impl="ref")
+        args = to_torch([rows, found, cnt, dst, order, tot])
+        assert args[1].dtype == torch.bool
+        got = tops.cdf_query_fused(*args, threshold, max_items=k, impl=timpl)
+        assert_same(want, got, f"bool found t={threshold} [torch {timpl}]")
+        as_int = tops.cdf_query_fused(args[0], args[1].to(torch.int32), *args[2:],
+                                      threshold, max_items=k, impl=timpl)
+        assert_same(got, as_int, f"int32 found t={threshold} [torch {timpl}]")
 
 
 def test_cdf_query_fused_chunkings_identical_and_bad_chunks_raise():

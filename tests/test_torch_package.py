@@ -33,6 +33,8 @@ KERNELS = {
     "slow_path": ("slow_path_cuda", "slow_path_ref", "slow_path.cu", "mcq_slow_path"),
     "cdf_query": ("cdf_query_cuda", "cdf_query_ref", "cdf_query.cu", "mcq_cdf_query"),
     "walk": ("draft_walk_cuda", "draft_walk_ref", "walk.cu", "mcq_draft_walk"),
+    "decay_sort": ("decay_sort_cuda", "decay_sort_ref", "decay_sort.cu",
+                   "mcq_decay_sort"),
 }
 
 
@@ -88,6 +90,8 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
     lambda x, v: ops.oddeven_sort(x, x, impl="cuda"),
     lambda x, v: ops.slab_update(v, v, v, x, x, v, impl="cuda"),
     lambda x, v: ops.decay_sort(x, x, x, impl="cuda"),
+    lambda x, v: ops.decay_sort_rolling(x, x, x, v, v[0], block_rows=2,
+                                        impl="cuda"),
     lambda x, v: ops.dh_find(v, v, x, x, impl="cuda"),
     lambda x, v: ops.ht_find(v, v, v, impl="cuda"),
     lambda x, v: ops.ht_find(v, v, v, miss=0, impl="cuda"),
@@ -112,7 +116,8 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
     args = {"probe": (v, v, x, x), "slab_update": (v, v, v, x, x, v),
             "oddeven": (x, x), "cdf_gather": (v, v, x, x, x, v, 0.5),
             "slow_path": (v, v, x, x, v, x, v, v, v, v, v),
-            "cdf_query": (x, x, v, 0.5), "walk": (x, v, v, x, x, v)}[module]
+            "cdf_query": (x, x, v, 0.5), "walk": (x, v, v, x, x, v),
+            "decay_sort": (x, x, x)}[module]
     before = mod.launches
     with pytest.raises(ValueError, match="takes CUDA"):
         wrapper(*args)
@@ -203,21 +208,26 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
     assert '"ok"' not in out.stdout
 
 
-def _kernel_stand_ins(probe_calls):
+def _kernel_stand_ins(probe_calls, decay_calls):
     """Each CUDA wrapper replaced by its plain version behind a check of what
-    the wrapper takes: int32 tensors, contiguous except where the wrapper
-    passes a stride to its kernel (the draft walk's window and order
-    heads).  The probe's stand-in also checks its table against its mode
-    (flat ``[H]`` when ``rows`` is None, stacked ``[N, H]`` otherwise) and
-    records ``(flat, miss)`` of each call in ``probe_calls``."""
-    from repro_torch.kernels import (cdf_gather, cdf_query, oddeven, probe, ref,
-                                     slab_update, slow_path, walk)
+    the wrapper takes: int32 tensors, but bool where the wrapper takes bool
+    (the fused read's ``found``), contiguous except where the wrapper passes
+    a stride to its kernel (the draft walk's window and order heads).  The
+    probe's stand-in also checks its table against its mode (flat ``[H]``
+    when ``rows`` is None, stacked ``[N, H]`` otherwise) and records
+    ``(flat, miss)`` of each call in ``probe_calls``; the decay stand-ins
+    record ``(rows, block_rows)`` in ``decay_calls`` (``block_rows`` None for
+    the whole-table form) and the rolling one checks that its cursor is the
+    state's 0-dim int32 tensor."""
+    from repro_torch.kernels import (cdf_gather, cdf_query, decay_sort, oddeven,
+                                     probe, ref, slab_update, slow_path, walk)
 
-    def check(name, strided, plain):
+    def check(name, strided, plain, bools=()):
         def wrapper(*args, **kw):
             for i, a in enumerate(args):
                 if isinstance(a, torch.Tensor):
-                    assert a.dtype == torch.int32, (name, i, a.dtype)
+                    want = torch.bool if i in bools else torch.int32
+                    assert a.dtype == want, (name, i, a.dtype)
                     assert i in strided or a.is_contiguous(), (name, i)
             return plain(*args, **kw)
         return wrapper
@@ -227,6 +237,15 @@ def _kernel_stand_ins(probe_calls):
         probe_calls.append((rows is None, miss))
         return ref.probe_find_ref(rows, keys_q, keys, vals, max_probes, miss)
 
+    def decay_plain(cnt, dst, order):
+        decay_calls.append((cnt.shape[0], None))
+        return ref.decay_sort_ref(cnt, dst, order)
+
+    def rolling_plain(cnt, dst, order, tot, cursor, *, block_rows):
+        assert cursor.dim() == 0 and cursor.device == cnt.device, cursor
+        decay_calls.append((cnt.shape[0], block_rows))
+        return ref.decay_sort_rolling_ref(cnt, dst, order, tot, cursor, block_rows)
+
     return [
         (probe, "probe_find_cuda", check("probe", (), probe_plain)),
         (slab_update, "slab_update_cuda", check(
@@ -234,7 +253,8 @@ def _kernel_stand_ins(probe_calls):
         (oddeven, "oddeven_cuda", check(
             "oddeven", (), lambda c, o, *, passes: ref.oddeven_sort_ref(c, o, passes))),
         (cdf_gather, "cdf_query_fused_cuda", check(
-            "cdf_gather", (), lambda *a, max_items: ref.cdf_query_fused_ref(*a, max_items))),
+            "cdf_gather", (), lambda *a, max_items: ref.cdf_query_fused_ref(*a, max_items),
+            bools=(1,))),
         (slow_path, "slow_path_cuda", check(
             "slow_path", (), lambda *a, max_probes, own_counts: ref.slow_path_ref(
                 *a[:-1], a[-1].to(torch.bool), max_probes, own_counts))),
@@ -242,19 +262,22 @@ def _kernel_stand_ins(probe_calls):
             "cdf_query", (), lambda *a, max_items: ref.cdf_query_ref(*a, max_items))),
         (walk, "draft_walk_cuda", check("walk", (0, 5), lambda *a, **kw: (
             lambda t, o: (t, o.to(torch.bool)))(*ref.draft_walk_ref(*a, **kw)))),
+        (decay_sort, "decay_sort_cuda", check("decay_sort", (), decay_plain)),
+        (decay_sort, "decay_sort_rolling_cuda", check(
+            "decay_sort_rolling", (), rolling_plain)),
     ]
 
 
 def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
-    """The update, both reads, decay and the drafter, with the dispatch sent
+    """The update, both reads, both decays and the drafter, with the dispatch sent
     to stand-ins of the CUDA wrappers on CPU tensors: a strided or
     mistyped argument fails here, before it reaches the card."""
     import dataclasses
 
     from repro_torch.core import speculative as tspec
     monkeypatch.setattr(ops, "_use_ref", lambda impl, x: impl == "ref")
-    probe_calls = []
-    for module, name, stand_in in _kernel_stand_ins(probe_calls):
+    probe_calls, decay_calls = [], []
+    for module, name, stand_in in _kernel_stand_ins(probe_calls, decay_calls):
         monkeypatch.setattr(module, name, stand_in)
     ncfg = tspec.NGramConfig(order=2, decay_threshold=4, mc=tmc.MCConfig(
         num_rows=32, capacity=8, max_new_per_batch=16, decay_block_rows=8))
@@ -275,6 +298,12 @@ def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
     tmc.update_batch(st.chain, column, toks[:, 4], cfg=ncfg.mc)
     decayed = tmc.decay(st.chain, cfg=ncfg.mc)
     assert tmc.maintenance_stats(decayed)["decay_steps"] > 0
+    whole = dataclasses.replace(ncfg.mc, decay_block_rows=0)
+    tmc.decay(st.chain, cfg=whole)
+    # rolling decays hand the kernel the whole state and the cursor tensor;
+    # stop-the-world is the one whole-table launch
+    assert decay_calls[-2:] == [(32, 8), (32, None)], decay_calls
+    assert set(decay_calls) == {(32, 8), (32, None)}, set(decay_calls)
     # every src lookup (update, both reads, candidates) is the flat probe
     # with lookup_rows' miss value 0: one launch, nothing around it
     assert probe_calls and set(probe_calls) == {(True, 0)}, set(probe_calls)
