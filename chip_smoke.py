@@ -18,14 +18,18 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 sort are stressed (8,192 items on 4 rows and on 8,192 rows,
                 rows running out mid-pass, 65,536 mostly inactive items,
                 30,000 items with rows sorted in tiles and merged, the
-                in-place / cloning contract); outputs must be EQUAL
-                (tolerance 0, integers and float32 alike);
+                functional / in-place contract); every in-place form (the
+                row flags it sets included) and copy_dirty_rows; outputs
+                must be EQUAL (tolerance 0, integers and float32 alike);
   3. main     — the main path at full width: a chain of 2**20 source rows x 128
-                slots, warmed by streaming ``update_batch`` calls of 65,536
-                transitions, then rounds of update + threshold query + top-k
-                query + maintenance, with launch counts read around the
-                rounds and no device->host synchronisation allowed inside
-                ``update_batch``, the queries and one rolling ``decay``; then
+                slots, warmed by streaming ``update_batch_`` calls of 65,536
+                transitions; the owner calls held equal to the functional
+                calls on a side copy for a few rounds; then rounds of
+                ``update_batch_`` + threshold query + top-k query +
+                ``maybe_decay_``, with launch counts read around the rounds
+                and no device->host synchronisation allowed inside any of
+                them nor one rolling ``decay_``, and a profiler check that
+                an owner update and a rolling ``decay_`` copy no state; then
                 the same queries
                 through the unfused read (``fused_query=False``), equal to
                 the fused answers, with its own launch counts; then each
@@ -33,27 +37,32 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 plain version (equal) and timed beside its bound (the
                 new-edge pass also without its copies, and by launch; the
                 probe at the update's and the queries' keys, beside the
-                launch floor and its dependent round trips; the decay's
-                rolling wrapper on the whole state as ``decay`` calls it
-                (the copies of the state included), and the kernel alone
-                on a block and on the whole table, beside torch.sort;
+                launch floor and its dependent round trips; the in-place
+                forms as the owner calls launch them and the functional
+                wrappers, copies included, beside them; the decay also
+                alone on a block and on the whole table, beside torch.sort;
                 device kernels per ``lookup_rows``, ``decay_sort`` and fused
                 query call counted by torch.profiler);
   4. drafter  — the speculative drafter at full width: a chain of 2**20
                 contexts x 64 slots behind an ``EpochStore``, a learner loop
-                (acquire -> observe 64 x 1,025 tokens -> maintain -> publish)
-                and a reader loop (acquire -> draft 4,096 windows at k=4 and
-                k=8 -> candidates -> release), tokens from a 152,064-token
-                vocabulary; launch counts around the rounds; the decaying
-                learner step and the candidates equal to the plain versions',
+                through the back buffer (``BackBufferLearner.write``:
+                copy_dirty_rows, observe_ 64 x 1,025 tokens, maintain_,
+                publish), its first states held equal to a functional
+                learner's, and a reader loop (acquire -> draft 4,096 windows
+                at k=4 and k=8 -> candidates -> release), tokens from a
+                152,064-token vocabulary; launch counts around the rounds;
+                a profiler check that a learner write copies no state; the
+                decaying learner step and the candidates equal to the plain
+                versions',
                 ``draft`` equal to ``draft_reference``; then every kernel of
                 the path at the shapes and data it gave them, against its
                 plain version (equal) and timed beside its bound, the draft
                 walk also inside the learner loop;
   5. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
-                every query answer equal after every batch; the same for the
-                unfused read and for a small drafter stream, drafts included.
+                every query answer equal after every batch, the owner calls
+                and their row flags too; the same for the unfused read and
+                for a small drafter stream, drafts included.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -245,6 +254,25 @@ def small_kernel_checks(gen):
         checked += 1
         return got
 
+    def both_(name, fn, written, *args, **kw):
+        """An in-place form, kernel and plain version each on copies of the
+        arguments it writes (their positions in ``written``) and with dirty
+        flags (some set before, which stay set): the written tensors and
+        the flags equal."""
+        nonlocal checked
+        outs = []
+        rows = next(args[i].shape[0] for i in written if args[i].dim() == 2)
+        for impl in ("cuda", "ref"):
+            a = [x.clone() if i in written else x for i, x in enumerate(args)]
+            dirty = torch.zeros(rows, dtype=torch.uint8, device="cuda")
+            dirty[::5] = 1
+            fn(*a, dirty=dirty, impl=impl, **kw)
+            outs.append([a[i] for i in written] + [dirty])
+        torch.cuda.synchronize()
+        compare(name + " (in place, flags)", *outs)
+        checked += 1
+        return outs[0]
+
     for c in (1, 5, 32, 64, 96, 128, 256, 300):
         n = 37
         dst, cnt, tot, order = random_slabs(gen, n, c)
@@ -254,6 +282,8 @@ def small_kernel_checks(gen):
         for passes in (0, 1, 2, c // 2 + 1):
             both(f"oddeven C={c} passes={passes}", ops.oddeven_sort, small, perm,
                  passes=passes)
+            both_(f"oddeven C={c} passes={passes}", ops.oddeven_sort_, (1,),
+                  small, perm, passes=passes)
         both(f"decay_sort C={c}", ops.decay_sort, cnt, dst, perm)
         # slab_update: ragged batch, padding rows, absent edges, duplicates
         for batch in (0, 1, 77):
@@ -269,6 +299,8 @@ def small_kernel_checks(gen):
             dup[0] = torch.where(cnt[0] > 0, 77, -1)   # repeated dst: first slot
             both(f"slab_update C={c} B={batch}", ops.slab_update, rows, dsts, w,
                  dup, cnt, tot)
+            both_(f"slab_update C={c} B={batch}", ops.slab_update_, (4, 5),
+                  rows, dsts, w, dup, cnt, tot)
         # cdf: thresholds, top-k, unknown srcs, empty row, max_items > C
         cnt2, dst2, tot2 = cnt.clone(), dst.clone(), tot.clone()
         cnt2[1], dst2[1], tot2[1] = 0, -1, 0
@@ -343,10 +375,13 @@ def small_kernel_checks(gen):
             both(f"slow_path N={num_rows} C={c} H={cfg.resolved_table_size()} "
                  f"P={max_probes} step={step}", ops.slow_path, *args,
                  max_probes=max_probes)
+            both_(f"slow_path N={num_rows} C={c} step={step}", ops.slow_path_,
+                  (0, 1, 2, 3, 4, 6), *args, max_probes=max_probes)
             st = mc._slow_path(st, src, dsts, w, active, cfg)
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
-    small_decay_checks(gen, both)
+    small_decay_checks(gen, both, both_)
+    small_copy_checks(gen)
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
         f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
@@ -361,7 +396,36 @@ def misaligned(x):
     return out
 
 
-def small_decay_checks(gen, both):
+def small_copy_checks(gen):
+    """``copy_dirty_rows`` against its plain version: back buffers of random
+    rows, flags on some rows (none, all, a random share), tables of several
+    sizes; the back's tensors and the cleared flags equal."""
+    from repro_torch.kernels import ops
+    cases = 0
+    for n, c, h, share in ((37, 1, 1, 0.3), (37, 5, 16, 0.0), (40, 32, 64, 1.0),
+                           (41, 128, 1024, 0.3), (1000, 300, 4096, 0.1)):
+        front = [*random_slabs(gen, n, c)]
+        back = [*random_slabs(gen, n, c)]
+        tables = [randint(gen, -2, 500, (h,)) for _ in range(4)]
+        scalars = [randint(gen, 0, 99, (10,)) for _ in range(2)]
+        flags = (torch.rand(n, generator=gen, device="cuda") < share).to(torch.uint8)
+        outs = []
+        for impl in ("cuda", "ref"):
+            b = [x.clone() for x in back] + [x.clone() for x in tables[2:]] \
+                + [scalars[1].clone()]
+            dirty = flags.clone()
+            f = (front[1], front[0], front[3], front[2], *tables[:2], scalars[0])
+            ops.copy_dirty_rows(f, (b[1], b[0], b[3], b[2], *b[4:]), dirty,
+                                impl=impl)
+            outs.append(b + [dirty])
+        torch.cuda.synchronize()
+        compare(f"copy_dirty_rows N={n} C={c} H={h} flagged {share}", *outs)
+        cases += 1
+    say(f"[kernels] copy_dirty_rows: {cases} cases equal to the plain version "
+        f"(torch.equal, flags cleared)")
+
+
+def small_decay_checks(gen, both, both_):
     """The fused decay against its plain version (the odd-even composition)
     and against the plain mirror of its own decomposition, at every register
     shape from 1 to 256 slots: random counts, ties over a row, all-zero rows,
@@ -389,6 +453,11 @@ def small_decay_checks(gen, both):
             got = both(f"decay_sort C={c}{label}", ops.decay_sort, cnt, dst, perm)
             compare(f"decay_sort C={c}{label} vs its decomposition", got,
                     ref.decay_sort_rows_ref(cnt, dst, perm))
+            tot = cnt.sum(dim=1).to(torch.int32)
+            for fire in (None, True, False):
+                fire_t = None if fire is None else torch.tensor(fire, device="cuda")
+                both_(f"decay_sort_ C={c}{label} fire={fire}", ops.decay_sort_,
+                      (0, 1, 2, 3), cnt, dst, perm, tot, fire=fire_t)
     n, c, r = 37, 24, 10
     dst, cnt, tot, order = random_slabs(gen, n, c, hi=40)
     order = random_perm_rows(gen, n, c)
@@ -399,6 +468,12 @@ def small_decay_checks(gen, both):
             both(f"decay_sort_rolling n={n} r={block_rows} cursor={cur}",
                  ops.decay_sort_rolling, cnt, dst, order, tot, cursor,
                  block_rows=block_rows)
+            for fire in (None, True, False):
+                fire_t = None if fire is None else torch.tensor(fire, device="cuda")
+                both_(f"decay_sort_rolling_ n={n} r={block_rows} cursor={cur} "
+                      f"fire={fire}", ops.decay_sort_rolling_, (0, 1, 2, 3, 4),
+                      cnt, dst, order, tot, cursor, block_rows=block_rows,
+                      fire=fire_t)
     for x, y in zip((cnt, dst, order, tot), saved):
         if not torch.equal(x, y):
             raise AssertionError("decay_sort_rolling wrote into its inputs")
@@ -469,7 +544,7 @@ def large_slow_path_checks(gen):
                 dst_t.copy_(src_t)
 
         return time_restored(
-            lambda: sp.slow_path_cuda_inplace(
+            lambda: sp.slow_path_cuda_(
                 *work, *items[:3], items[3].to(torch.int32),
                 max_probes=max_probes), restore, flush)
 
@@ -490,19 +565,22 @@ def large_slow_path_checks(gen):
     out = check("slow_path 8192 items on 8192 rows, C=64", st, spread, 64)
     ev_spread = int(out[5][3])
     spread_ms = kernel_ms(st, spread, 64)
-    # the contract: inputs untouched, or cnt/tot written in place when owned
+    # the contract: the functional form writes none of its inputs; the
+    # in-place form writes the same result into the tensors it is given and
+    # flags exactly the rows whose dst, cnt or tot changed
     saved = [x.clone() for x in st]
-    for own in (False, True):
-        args = list(st) if not own else [*st[:3], st[3].clone(), st[4].clone(),
-                                          *st[5:]]
-        got = ops.slow_path(*args, *spread, max_probes=64, own_counts=own,
-                            impl="cuda")
-        compare(f"slow_path own_counts={own} result", got, out)
-        if own and not (got[3] is args[3] and got[4] is args[4]):
-            raise AssertionError("slow_path own_counts=True returned new cnt/tot")
-        for i, (a, b) in enumerate(zip(st, saved)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"slow_path own_counts={own} wrote input {i}")
+    got = ops.slow_path(*st, *spread, max_probes=64, impl="cuda")
+    compare("slow_path functional result", got, out)
+    for i, (a, b) in enumerate(zip(st, saved)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the functional slow_path wrote input {i}")
+    own = [x.clone() for x in st]
+    dirty = torch.zeros(st[3].shape[0], dtype=torch.uint8, device="cuda")
+    ops.slow_path_(*own, *spread, max_probes=64, dirty=dirty, impl="cuda")
+    compare("slow_path in place", own[:5] + own[6:], out)
+    changed = ((own[2] != st[2]) | (own[3] != st[3])).any(dim=1) | (own[4] != st[4])
+    if not torch.equal(dirty.bool(), changed):
+        raise AssertionError("slow_path_: the flags are not the rows it changed")
     inactive = (spread[0], spread[1], spread[2], ~ones(items))
     check("slow_path 8192 inactive items", st, inactive, 64)
 
@@ -650,11 +728,13 @@ class Traffic:
 
 
 def kernel_modules():
-    from repro_torch.kernels import (cdf_gather, cdf_query, decay_sort, oddeven,
-                                     probe, slab_update, slow_path, walk)
+    from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
+                                     decay_sort, oddeven, probe, slab_update,
+                                     slow_path, walk)
     return {"probe_find": probe, "slab_update": slab_update, "oddeven": oddeven,
             "cdf_query_fused": cdf_gather, "slow_path": slow_path,
-            "cdf_query": cdf_query, "draft_walk": walk, "decay_sort": decay_sort}
+            "cdf_query": cdf_query, "draft_walk": walk, "decay_sort": decay_sort,
+            "copy_dirty_rows": copy_rows}
 
 
 @contextlib.contextmanager
@@ -695,6 +775,44 @@ def timed(times, key, fn, *args, **kw):
 
 MAIN_KERNELS = ("probe_find", "slab_update", "oddeven", "cdf_query_fused",
                 "slow_path", "decay_sort")
+SIDE_ROUNDS = 3         # rounds the owner calls are held to functional ones
+COPY_OPS = ("aten::copy_", "aten::clone", "aten::_to_copy", "aten::cat",
+            "aten::stack")
+
+
+def no_state_copies(label, fn, rows, calls=3):
+    """Run ``fn()`` ``calls`` times under torch.profiler with shapes
+    recorded; fail if a copy op (every device-to-device memcpy and copy
+    kernel is launched by one) copies a tensor of ``rows`` elements or more:
+    a state leaf has at least one per row.  The copy kernels and memcpys it
+    does launch — dtype casts, ``torch.sort``'s copy of its input and a
+    slice assignment, all of the batch's items — are counted and
+    printed."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    big = sorted({f"{ev.name}{ev.input_shapes}" for ev in events
+                  if ev.name in COPY_OPS and any(
+                      shape and int(torch.tensor(shape).prod()) >= rows
+                      for shape in (ev.input_shapes or []))})
+    device = [ev.name for ev in events
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    memcpy = [k for k in device if "Memcpy DtoD" in k]
+    casts = [k for k in device if "direct_copy" in k]
+    say(f"[kernels] {label}: {len(device) / calls:g} device kernels per call "
+        f"(torch.profiler, {calls} calls); per call {len(casts) / calls:g} "
+        f"copy kernels and {len(memcpy) / calls:g} device-to-device memcpys, "
+        f"all on tensors below {rows} elements; copies of {rows}+ elements: "
+        f"{big or 'none'}")
+    if not device:
+        raise AssertionError(f"{label}: the profiler recorded no device kernel")
+    if big:
+        raise AssertionError(f"{label} copies state: {big}")
 
 
 def phase_main(seed, warm_batches, rounds):
@@ -714,7 +832,7 @@ def phase_main(seed, warm_batches, rounds):
     t0 = time.perf_counter()
     for batch in range(warm_batches):
         src, dst = traffic.batch(BATCH)
-        state = core.update_batch(state, src, dst, cfg=cfg)
+        core.update_batch_(state, src, dst, cfg=cfg)
         if batch % 10 == 9:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
@@ -723,37 +841,84 @@ def phase_main(seed, warm_batches, rounds):
         f"{time.perf_counter() - t0:.1f} s; n_rows {stats['n_rows']} "
         f"deferred_new {stats['deferred_new']}")
 
+    # the owner calls against the functional calls on a side copy, every
+    # leaf equal after each call of the first rounds
+    decay_threshold = 64
+    side = core.private_copy(state)
+    for i in range(SIDE_ROUNDS):
+        src, dst = traffic.batch(BATCH)
+        out = core.update_batch_(state, src, dst, cfg=cfg)
+        side = core.update_batch(side, src, dst, cfg=cfg)
+        equal_states(f"main round {i}: update_batch_ vs update_batch", out, side)
+        core.maybe_decay_(state, cfg=cfg, total_threshold=decay_threshold)
+        side = core.maybe_decay(side, cfg=cfg, total_threshold=decay_threshold)
+        equal_states(f"main round {i}: maybe_decay_ vs maybe_decay", state, side)
+        if out is not state:
+            raise AssertionError("update_batch_ returned another state")
+    core.decay_(state, cfg=cfg)
+    equal_states("main: decay_ vs decay", state, core.decay(side, cfg=cfg))
+    del side, out
+    say(f"[main] {SIDE_ROUNDS} rounds of update_batch_ + maybe_decay_ and one "
+        f"decay_ (the owner calls, in place) equal to the functional calls on a "
+        f"side copy: all 18 leaves after every call; peak device memory with "
+        f"the side copy {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
     # measured rounds: launch counts are read around exactly this block
     times = {}
-    decay_threshold = 64
     with launch_window("main", MAIN_KERNELS) as launches:
         for _ in range(rounds):
             src, dst = traffic.batch(BATCH)
             q = traffic.srcs(QUERIES)
-            state = timed(times, "update_batch", no_sync, core.update_batch,
-                          state, src, dst, cfg=cfg)
+            timed(times, "update_batch_", no_sync, core.update_batch_, state,
+                  src, dst, cfg=cfg)
             answers = timed(times, "query_threshold", no_sync,
                             core.query_threshold, state, q, 0.9, cfg=cfg,
                             max_items=16)
             top = timed(times, "query_topk", no_sync, core.query_topk, state,
                         q, cfg=cfg, k=8)
-            state = timed(times, "maybe_decay", core.maybe_decay, state,
-                          cfg=cfg, total_threshold=decay_threshold)
+            timed(times, "maybe_decay_", no_sync, core.maybe_decay_, state,
+                  cfg=cfg, total_threshold=decay_threshold)
         # rolling decay: the block is found on the device, no host sync
-        state = timed(times, "decay", no_sync, core.decay, state, cfg=cfg)
+        timed(times, "decay_", no_sync, core.decay_, state, cfg=cfg)
+    # a trigger that does not fire: the decay's launches return at once
+    steps = state.decay_steps.clone()
+    for _ in range(rounds):
+        timed(times, "maybe_decay_[no fire]", no_sync, core.maybe_decay_,
+              state, cfg=cfg, total_threshold=2 ** 31 - 1)
+    if not torch.equal(steps, state.decay_steps):
+        raise AssertionError("maybe_decay_ decayed under a threshold no row passes")
+    # the maintenance calls' device time (a spin kernel queued ahead keeps
+    # the host's launch time out of it) and their latency on an idle device
+    for key, fn in (
+            ("decay_", lambda: core.decay_(state, cfg=cfg)),
+            ("maybe_decay_", lambda: core.maybe_decay_(
+                state, cfg=cfg, total_threshold=decay_threshold)),
+            ("maybe_decay_[no fire]", lambda: core.maybe_decay_(
+                state, cfg=cfg, total_threshold=2 ** 31 - 1))):
+        device_ms, idle_ms = call_ms(lambda fn=fn: no_sync(fn))
+        say(f"[main] {key}: device {device_ms:.4f} ms, latency on an idle "
+            f"device {idle_ms:.4f} ms (medians of 20, in turns)")
+    torch.cuda.synchronize()
+    batches = iter([traffic.batch(BATCH) for _ in range(3)])
+    no_state_copies("update_batch_", lambda: core.update_batch_(
+        state, *next(batches), cfg=cfg), cfg.num_rows)
+    no_state_copies("decay_ (rolling)", lambda: core.decay_(state, cfg=cfg),
+                    cfg.num_rows)
 
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in times.items()}
     say(f"[main] {rounds} rounds; median ms per call: "
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
-    say(f"[main] observe {BATCH / med['update_batch'] * 1e3:.0f} edges/s; "
+    say(f"[main] observe {BATCH / med['update_batch_'] * 1e3:.0f} edges/s; "
         f"query_threshold {QUERIES / med['query_threshold'] * 1e3:.0f} queries/s; "
         f"query_topk {QUERIES / med['query_topk'] * 1e3:.0f} queries/s "
         f"(device time by CUDA events, no synchronisation inside the calls)")
-    say(f"[main] peak device memory "
+    say(f"[main] peak device memory over the rounds "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say("[main] one rolling decay ran under set_sync_debug_mode('error'): no "
-        "device->host synchronisation")
+    say("[main] update_batch_, the queries, maybe_decay_ and one rolling "
+        "decay_ ran under set_sync_debug_mode('error'): no device->host "
+        "synchronisation")
     say(f"[main] counters {core.counter_stats(state)}")
     say(f"[main] maintenance {core.maintenance_stats(state)}")
 
@@ -793,12 +958,12 @@ def phase_main(seed, warm_batches, rounds):
     k_mask = (slabs.cnt[rows, top_slot] > 0) & (k_src >= 0)
     steady = {}
     for _ in range(12):
-        timed(steady, "update_batch", no_sync, core.update_batch, state, k_src,
-              k_dst, None, k_mask, cfg=cfg)
+        timed(steady, "update_batch", no_sync, core.update_batch_, state,
+              k_src, k_dst, None, k_mask, cfg=cfg)
     torch.cuda.synchronize()
     steady_ms = statistics.median(
         s.elapsed_time(e) for s, e in steady["update_batch"][2:])
-    say(f"[main] update_batch on {int(k_mask.sum())} existing edges only (empty "
+    say(f"[main] update_batch_ on {int(k_mask.sum())} existing edges only (empty "
         f"sequential pass): median {steady_ms:.3f} ms, "
         f"{BATCH / steady_ms * 1e3:.0f} edges/s")
 
@@ -989,10 +1154,17 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
     h = table.keys.shape[0]
     entries = []
 
-    def entry(kernel, variant, *args, **kw):
+    def label(kernel, variant):
         tags = [tag for tag in (path, variant) if tag]
-        label = f"{kernel}[{', '.join(tags)}]" if tags else kernel
-        kernel_entry(entries, launches, flush, label, kernel, *args, **kw)
+        return f"{kernel}[{', '.join(tags)}]" if tags else kernel
+
+    def entry(kernel, variant, *args, **kw):
+        kernel_entry(entries, launches, flush, label(kernel, variant), kernel,
+                     *args, **kw)
+
+    def in_place(kernel, variant, *args, **kw):
+        inplace_entry(entries, launches, flush, label(kernel, variant), kernel,
+                      *args, **kw)
 
     # inputs as update_batch makes them
     src, dst, w, m = mc._batch_inputs(state, src, dst, None, None)
@@ -1030,16 +1202,38 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
     hit_slot = mc.ht.first_true(slabs.dst[rows0.long()] == u_dst.unsqueeze(1),
                                 dim=1)[0] + 1
     scanned = int(torch.where(fast, hit_slot, 0).sum())
-    entry("slab_update", None, "slab_update.cu",
+    found = int(fast.sum())
+    del hit_slot
+    # in place, as update_batch_ launches it: items in, the scanned row
+    # prefixes, two atomics and a flag per found edge
+    in_place("slab_update", None, "slab_update.cu",
+             "src/repro/kernels/slab_update.py:75",
+             lambda impl, work, dirty: ops.slab_update_(
+                 fast_rows, u_dst, u_w, slabs.dst, *work, dirty=dirty,
+                 impl=impl),
+             (slabs.cnt, slabs.tot),
+             bytes_moved=lambda flagged: 4 * (3 * batch + scanned + 4 * found)
+             + flagged,
+             operations=2 * scanned + 4 * batch)
+    # functional: cnt/tot copied (read + write) first
+    entry("slab_update", "functional", "slab_update.cu",
           "src/repro/kernels/slab_update.py:75",
           lambda impl: ops.slab_update(fast_rows, u_dst, u_w, slabs.dst,
                                        slabs.cnt, slabs.tot, impl=impl),
-          bytes_moved=4 * (2 * n * c + 2 * n + 3 * batch + scanned + 2 * int(fast.sum())),
+          bytes_moved=4 * (2 * n * c + 2 * n + 3 * batch + scanned + 2 * found),
           operations=2 * scanned + 4 * batch)
-    del hit_slot
 
-    # oddeven at the update's shape: cnt + order in, order out
-    entry("oddeven", None, "oddeven.cu", "src/repro/kernels/oddeven.py:67",
+    # oddeven at the update's shape, in place as update_batch_ launches it:
+    # cnt + order in, the changed rows of order out; functional: all of
+    # order out
+    in_place("oddeven", None, "oddeven.cu", "src/repro/kernels/oddeven.py:67",
+             lambda impl, work, dirty: ops.oddeven_sort_(
+                 slabs.cnt, *work, passes=cfg.sort_passes, dirty=dirty,
+                 impl=impl),
+             (slabs.order,),
+             bytes_moved=lambda flagged: 4 * (2 * n * c + flagged * c) + flagged,
+             operations=cfg.sort_passes * n * c * 3)
+    entry("oddeven", "functional", "oddeven.cu", "src/repro/kernels/oddeven.py:67",
           lambda impl: ops.oddeven_sort(slabs.cnt, slabs.order,
                                         passes=cfg.sort_passes, impl=impl),
           bytes_moved=4 * 3 * n * c,
@@ -1059,7 +1253,16 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
         return rows * (16 * per_lane * log_p * (log_p + 1) + 3 * c)
 
     r = cfg.resolved_decay_rows()
-    entry("decay_sort", "rolling", "decay_sort.cu",
+    # in place, as decay_ launches it: the block's cnt, dst, order read and
+    # written, its tot written, the cursor read and written, its flags set
+    in_place("decay_sort", "rolling", "decay_sort.cu",
+             "src/repro/kernels/ops.py:120",
+             lambda impl, work, dirty: ops.decay_sort_rolling_(
+                 *work, block_rows=r, dirty=dirty, impl=impl),
+             (slabs.cnt, slabs.dst, slabs.order, slabs.tot, state.decay_cursor),
+             bytes_moved=lambda flagged: 4 * (6 * r * c + r + 2) + flagged,
+             operations=sort_ops(r), extra=dict(rows=r))
+    entry("decay_sort", "rolling, functional", "decay_sort.cu",
           "src/repro/kernels/ops.py:120",
           lambda impl: ops.decay_sort_rolling(
               slabs.cnt, slabs.dst, slabs.order, slabs.tot, state.decay_cursor,
@@ -1142,6 +1345,52 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
     return entries
 
 
+def inplace_entry(entries, launches, flush, name, module, source, replaces,
+                  run, written, bytes_moved, operations, plain_reps=3,
+                  flags=None, extra=None):
+    """An in-place form: ``run(impl, work, dirty)`` writes into ``work``
+    (copies of the tensors ``written``) and into ``dirty`` (uint8, one per
+    row; a copy of ``flags``, or zeros).  Held equal to its plain version on
+    copies, the flags included; then timed in place, each call after the
+    copies are restored (not timed).  ``bytes_moved(flagged rows)`` gives
+    the bound: the rows flagged in ``flags``, or by the call."""
+    rows = next(x.shape[0] for x in written if x.dim() == 2)
+    if flags is None:
+        flags = torch.zeros(rows, dtype=torch.uint8, device="cuda")
+    outs = []
+    for impl in ("cuda", "ref"):
+        work = [x.clone() for x in written]
+        dirty = flags.clone()
+        run(impl, work, dirty)
+        outs.append(work + [dirty])
+        torch.cuda.synchronize()
+    err = compare(f"{name} (in place, flags)", *outs)
+    flagged = int(torch.maximum(flags, outs[1][-1]).sum())
+    work, dirty = outs[0][:-1], outs[0][-1]
+    del outs
+
+    def restore():
+        for w, x in zip(work, written):
+            w.copy_(x)
+        dirty.copy_(flags)
+
+    ms = time_restored(lambda: run("cuda", work, dirty), restore, flush)
+    plain_ms = time_restored(lambda: run("ref", work, dirty), restore, flush,
+                             reps=plain_reps, warm=1 if plain_reps > 1 else 0)
+    bound_ms, bound_by = bound(bytes_moved(flagged), operations)
+    entries.append({
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": replaces, "launches": launches[module],
+        "max_abs_err": err, "max_abs_diff": err, "equal": True,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "in_place": True, "rows_flagged": flagged, **(extra or {})})
+    say(f"[kernels] {name}: in place {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); {flagged} rows flagged; "
+        f"equal, flags included")
+
+
 def time_restored(fn, restore, flush, reps=10, warm=2):
     """Median milliseconds of ``fn()`` by CUDA events, each call after
     ``restore()`` and a rewrite of ``flush`` (neither timed): for a call
@@ -1185,15 +1434,15 @@ def kernel_phases_ms(fn, restore, prefix, reps=3):
 
 def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
                     counters, items, sequential):
-    """The new-edge pass at a path's shapes: the kernel as ``update_batch``
-    calls it (src table, dst_slab and counters copied, cnt/tot written in
-    place) held equal to the plain mirror of its decomposition (and, where
-    ``sequential``, to the sequential plain version); the wrapper timed, the
-    kernel alone timed without copies, its launches timed by name; the bound
-    of each from the bytes it must move."""
+    """The new-edge pass at a path's shapes: the in-place form as
+    ``update_batch_`` launches it (src table, dst_slab, cnt, tot and counters
+    its own, flags set) held equal, flags included, to the plain mirror of
+    its decomposition (and, where ``sequential``, to the sequential plain
+    version); timed in place and by launch, and the functional wrapper
+    (its copies included) beside it; the bound of each from the bytes it
+    must move."""
     from repro_torch.core.hashtable import hash_u32
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels import slow_path as sp
     n, c = slabs.cnt.shape
     h = table.keys.shape[0]
     probes = cfg.max_probes
@@ -1201,28 +1450,34 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
     length, n_active = p_src.numel(), int(p_mask.sum())
     state = (table.keys, table.vals, slabs.dst, slabs.cnt, slabs.tot,
              slabs.order, counters)
-    got = ops.slow_path(*state[:3], slabs.cnt.clone(), slabs.tot.clone(),
-                        *state[5:], *items, max_probes=probes, own_counts=True,
-                        impl="cuda")
-    torch.cuda.synchronize()
+    written = (0, 1, 2, 3, 4, 6)
+
+    def on_copies(fn):
+        work = [x.clone() if i in written else x for i, x in enumerate(state)]
+        dirty = torch.zeros(n, dtype=torch.uint8, device="cuda")
+        fn(work, dirty)
+        torch.cuda.synchronize()
+        return [work[i] for i in written] + [dirty]
+
+    got = on_copies(lambda w, d: ops.slow_path_(*w, *items, max_probes=probes,
+                                                dirty=d, impl="cuda"))
     t0 = time.perf_counter()
-    want = ref.slow_path_rows_ref(*state, *items, probes)
-    torch.cuda.synchronize()
+    want = on_copies(lambda w, d: ref.slow_path_rows_ref_(*w, *items, probes, d))
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = compare(name, got, want)
     sequential_ms = None
     if sequential:
         t0 = time.perf_counter()
-        compare(f"{name} vs the sequential plain version", got,
-                ref.slow_path_ref(*state, *items, probes))
+        compare(f"{name} vs the sequential plain version", got, on_copies(
+            lambda w, d: ref.slow_path_ref_(*w, *items, probes, d)))
         sequential_ms = (time.perf_counter() - t0) * 1e3
-    rows = int((want[4] != slabs.tot).sum())       # every touched row gains w
+    rows = int(want[-1].sum())       # every row an item is applied to
     counts = want[5] - counters
     del got, want
 
     # bytes: every item's active flag, an active item's src/dst/w and its
     # probe window up to where it stops, each touched row's dst/cnt/tot/order
-    # tail read once, two writes per active item
+    # tail read once and its flag set, two writes per active item
     p = torch.arange(probes, device="cuda")
     act_src = p_src[p_mask]
     win = table.keys[((hash_u32(act_src) & (h - 1)).unsqueeze(1) + p) & (h - 1)]
@@ -1231,37 +1486,30 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
     probed = int(stop.sum())
     del win, hit, stop
     work_bytes = 4 * (length + 3 * n_active + 2 * probed + rows * (2 * c + 3)
-                      + 2 * n_active + 8)
-    copy_bytes = 4 * 2 * (2 * h + n * c + 4)
+                      + 2 * n_active + 8) + rows
+    copy_bytes = 4 * 2 * (2 * h + 2 * n * c + n + 4)
     operations = n_active * (3 * probes + 4 * c)
 
-    cnt_w, tot_w = slabs.cnt.clone(), slabs.tot.clone()
-
-    def restore_counts():
-        cnt_w.copy_(slabs.cnt)
-        tot_w.copy_(slabs.tot)
-
-    ms = time_restored(
-        lambda: ops.slow_path(*state[:3], cnt_w, tot_w, *state[5:], *items,
-                              max_probes=probes, own_counts=True, impl="cuda"),
-        restore_counts, flush)
-    del cnt_w, tot_w
-    originals = state[:5] + (counters,)
+    originals = [state[i] for i in written]
     work = [x.clone() for x in originals]
+    dirty = torch.zeros(n, dtype=torch.uint8, device="cuda")
 
     def restore_all():
         for dst_t, src_t in zip(work, originals):
             dst_t.copy_(src_t)
+        dirty.zero_()
 
     def kernel():
-        sp.slow_path_cuda_inplace(*work[:5], slabs.order, work[5], *items[:3],
-                                  p_mask.to(torch.int32), max_probes=probes)
+        ops.slow_path_(*work[:5], slabs.order, work[5], *items,
+                       max_probes=probes, dirty=dirty, impl="cuda")
 
-    nocopy_ms = time_restored(kernel, restore_all, flush)
+    ms = time_restored(kernel, restore_all, flush)
     phases = kernel_phases_ms(kernel, restore_all, "mcq_sp_")
     del work
-    bound_ms, bound_by = bound(work_bytes + copy_bytes, operations)
-    nocopy_bound_ms, _ = bound(work_bytes, operations)
+    functional_ms = time_ms(lambda: ops.slow_path(
+        *state, *items, max_probes=probes, impl="cuda"), flush=flush)
+    bound_ms, bound_by = bound(work_bytes, operations)
+    functional_bound_ms, _ = bound(work_bytes + copy_bytes, operations)
     entries.append({
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/slow_path.cu",
@@ -1269,18 +1517,20 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
         "max_abs_err": err, "max_abs_diff": err, "equal": True,
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "nocopy_ms": nocopy_ms, "nocopy_bound_ms": nocopy_bound_ms,
+        "in_place": True, "functional_ms": functional_ms,
+        "functional_bound_ms": functional_bound_ms,
         "phases_ms": phases, "sequential_plain_ms": sequential_ms,
         "active_items": n_active, "items": length, "rows_touched": rows})
     say(f"[kernels] {name}: {n_active} active of {length} items on {rows} rows "
-        f"(counters moved by {counts.tolist()}); wrapper {ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); without copies {nocopy_ms:.4f} ms, "
-        f"bound {nocopy_bound_ms:.4f} ms; by launch (profiler, ms per call) "
+        f"(counters moved by {counts.tolist()}); in place {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); the functional wrapper (copies "
+        f"included) {functional_ms:.4f} ms, bound {functional_bound_ms:.4f} ms; "
+        f"by launch (profiler, ms per call) "
         + (", ".join(f"{k} {v:.4f}" for k, v in phases.items()) or "not measured")
         + f"; plain mirror {plain_ms:.1f} ms"
         + ("" if sequential_ms is None
            else f", sequential plain version {sequential_ms:.1f} ms (once)")
-        + "; equal")
+        + "; equal, flags included")
 
 
 # ---------------------------------------------------------------------------
@@ -1291,7 +1541,8 @@ VOCAB = 152_064          # qwen2-7b's vocabulary (src/repro/configs/qwen2_7b.py)
 DRAFT_SEQS, DRAFT_LEN = 64, 1_025   # 65,536 transitions per observe
 WINDOWS = 4_096
 DRAFTER_KERNELS = ("draft_walk", "probe_find", "slab_update", "oddeven",
-                   "slow_path", "cdf_query_fused", "decay_sort")
+                   "slow_path", "cdf_query_fused", "decay_sort",
+                   "copy_dirty_rows")
 
 
 class TokenTraffic:
@@ -1395,7 +1646,7 @@ def drafts_in_loop(learn, traffic, current, cfg, rounds, busy_cycles=4_000_000):
 def phase_drafter(seed, warm_batches, rounds, profile=False):
     from repro_torch import core
     from repro_torch.core import speculative as spec
-    from repro_torch.core.epoch import EpochStore
+    from repro_torch.core.epoch import BackBufferLearner, EpochStore
     from repro_torch.kernels import ops, walk
     cfg = spec.NGramConfig(order=2, decay_threshold=1 << 18, mc=core.MCConfig(
         num_rows=2 ** 20, capacity=64, sort_passes=1, decay_block_rows=1024,
@@ -1405,27 +1656,28 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     store = EpochStore(spec.init(cfg))
+    learner = BackBufferLearner(store)
     say(f"[drafter] {cfg}")
-    say(f"[drafter] table {cfg.mc.resolved_table_size()} slots; state "
-        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB resident; "
-        f"vocabulary {VOCAB}, {DRAFT_SEQS} x {DRAFT_LEN} tokens per observe, "
-        f"{WINDOWS} windows per draft")
+    say(f"[drafter] table {cfg.mc.resolved_table_size()} slots; the front and "
+        f"the back state {(torch.cuda.memory_allocated() - base) / 2**30:.2f} "
+        f"GiB resident; vocabulary {VOCAB}, {DRAFT_SEQS} x {DRAFT_LEN} tokens "
+        f"per observe, {WINDOWS} windows per draft")
     times = {}
 
     def learn(toks, ncfg=cfg, key="observe"):
-        snap = store.acquire()
-        try:
-            st = timed(times, key, no_sync, spec.observe, snap.state, toks,
-                       cfg=ncfg)
-            st = timed(times, f"maintain{'' if ncfg is cfg else '[decay]'}",
-                       spec.maintain, st, cfg=ncfg)
-            store.publish(st)
-        finally:
-            store.release(snap)
+        """One learner write through the back buffer: catch the back up,
+        observe_ + maintain_ into it, publish it."""
+        def step(st, dirty):
+            timed(times, key, spec.observe_, st, toks, cfg=ncfg, dirty=dirty)
+            timed(times, f"maintain_{'' if ncfg is cfg else '[decay]'}",
+                  spec.maintain_, st, cfg=ncfg, dirty=dirty)
+            return st
+        return timed(times, f"learner write{'' if key == 'observe' else f'[{key}]'}",
+                     no_sync, learner.write, step)
 
     def read(ctx):
         """The reader loop; returns the state it read and its answers."""
-        snap = store.acquire()
+        snap = learner.acquire()
         try:
             out = {k: no_sync(spec.draft, snap.state, ctx, cfg=cfg, k=k)
                    for k in (4, 8)}
@@ -1436,7 +1688,7 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
             store.release(snap)
 
     def current():
-        snap = store.acquire()
+        snap = learner.acquire()
         store.release(snap)
         return snap.state
 
@@ -1455,7 +1707,20 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
     say(f"[drafter] warm-up: {warm_batches} observe batches in "
         f"{time.perf_counter() - t0:.1f} s ({gen_s:.1f} s of it making "
         f"tokens); counters {stats}")
+    # the states the learner publishes against a functional learner's
+    func = spec.DrafterState(chain=core.private_copy(current().chain))
+    for i in range(SIDE_ROUNDS):
+        toks = traffic.batch()
+        func = spec.maintain(spec.observe(func, toks, cfg=cfg), cfg=cfg)
+        learn(toks, key="check")
+        equal_states(f"drafter round {i}: back-buffer learner vs functional "
+                     f"learner", current().chain, func.chain)
+    del func
+    say(f"[drafter] {SIDE_ROUNDS} learner writes through the back buffer "
+        f"(copy_dirty_rows + observe_ + maintain_) published the states of a "
+        f"functional learner: all 18 leaves equal")
     times.clear()
+    torch.cuda.reset_peak_memory_stats()
 
     # measured rounds: learner and reader, launch counts around them
     # a threshold low enough that the rolling decay fires, as the main
@@ -1501,9 +1766,8 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
     say(f"[drafter] ok drafts: {float(ok4.float().mean()):.4f} of k=4 steps, "
         f"{float(out[8][1].float().mean()):.4f} of k=8 steps; first step ok "
         f"for {float(ok4[:, 0].float().mean()):.4f} of windows; rolling decay "
-        f"{steps0} -> {steps1} blocks; peak device memory "
+        f"{steps0} -> {steps1} blocks; peak device memory over the rounds "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    chain = state.chain     # what the last round's reader read
     say(f"[drafter] counters {core.counter_stats(current().chain)}")
 
     # what came out is right: the decaying learner step again with the plain
@@ -1544,18 +1808,47 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
         path="drafter", reads=((0.9, 8),), unfused=False)
     del toks, src
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    keys = chain.src_table.keys
-    walk_args = (window, keys, chain.src_table.vals, chain.slabs.cnt,
-                 chain.slabs.dst, chain.slabs.order[:, 0])
     launch_floor = time_ms(lambda: torch.cuda._sleep(0), flush=flush)
     # the drafts inside the learner loop, where a server meets them
     in_loop = drafts_in_loop(learn, traffic, current, cfg, rounds)
     say(f"[drafter] draft device ms inside the learner loop ({rounds} rounds, "
         f"medians): " + ", ".join(f"k={k} {statistics.median(t):.4f}"
                                   for k, t in in_loop.items()))
+    # a learner write copies no state: the back is caught up by rows
+    batches = iter([traffic.batch() for _ in range(3)])
+    no_state_copies("learner write (copy_dirty_rows + observe_ + maintain_)",
+                    lambda: learn(next(batches)), cfg.mc.num_rows)
+    # copy_dirty_rows at the drafter's shapes, on the flags the last write
+    # left: what the next write copies
+    front, back = learner._front.chain, learner._back.chain
+    flags = learner._dirty.clone()
+    n, c = cfg.mc.num_rows, cfg.mc.capacity
+    h = front.src_table.keys.shape[0]
+    inplace_entry(
+        entries, launches, flush, "copy_dirty_rows[drafter]", "copy_dirty_rows",
+        "copy_rows.cu", "none: the back-buffer learner's catch-up",
+        lambda impl, work, dirty: ops.copy_dirty_rows(
+            (front.slabs.cnt, front.slabs.dst, front.slabs.order,
+             front.slabs.tot, *front.src_table, core.scalars_of(front)),
+            tuple(work), dirty, impl=impl),
+        (back.slabs.cnt, back.slabs.dst, back.slabs.order, back.slabs.tot,
+         *back.src_table, core.scalars_of(back)),
+        # the flags read and cleared, each flagged row read and written,
+        # the table and the scalars read and written whole
+        bytes_moved=lambda flagged: n + flagged * (1 + 8 * (3 * c + 1))
+        + 8 * (2 * h + len(core.SCALAR_FIELDS)),
+        operations=0, flags=flags, extra=dict(rows=n, table_slots=h))
+    del front, back, flags
+    # the walk on the windows of the last round, over the state published now
+    state = current()
+    chain = state.chain
+    keys = chain.src_table.keys
+    walk_args = (window, keys, chain.src_table.vals, chain.slabs.cnt,
+                 chain.slabs.dst, chain.slabs.order[:, 0])
     for k in (4, 8):
+        toks_k, ok_k = spec.draft(state, ctx, cfg=cfg, k=k)
         probed, found_steps, steps, trips, trips_max = walk_work(
-            window, out[k][0], out[k][1], keys, cfg.mc.max_probes, walk.LANES)
+            window, toks_k, ok_k, keys, cfg.mc.max_probes, walk.LANES)
         kernel_entry(
             entries, launches, flush, f"draft_walk[k={k}]", "draft_walk",
             "walk.cu", "src/repro/kernels/walk.py:123",
@@ -1592,13 +1885,14 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
 
 
 def equal_states(label, a, b):
+    """Every one of the 18 leaves of two chains equal (on the device)."""
     from repro_torch import convert
-    torch.cuda.synchronize()
-    la, lb = convert.state_to_numpy(a), convert.state_to_numpy(b)
     for name in convert.LEAF_NAMES:
-        if not (la[name] == lb[name]).all():
-            raise AssertionError(f"{label}: leaf {name} differs between "
-                                 f"impl='cuda' and impl='ref'")
+        x, y = a, b
+        for part in name.split("."):
+            x, y = getattr(x, part), getattr(y, part)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: leaf {name} differs")
 
 
 def phase_parity(seed, batches=32):
@@ -1612,6 +1906,10 @@ def phase_parity(seed, batches=32):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     sk, sp = core.init(cfg_k), core.init(cfg_p)
+    # the owner calls, kernels and plain versions, with their row flags
+    own = {cfg.impl: (core.init(cfg), torch.zeros(cfg.num_rows, dtype=torch.uint8,
+                                                  device="cuda"))
+           for cfg in (cfg_k, cfg_p)}
     nodes, degree, size = 700, 96, 512
     for i in range(batches):
         src = randint(gen, -2, nodes, (size,))          # a few negative ids
@@ -1625,9 +1923,18 @@ def phase_parity(seed, batches=32):
         sp = core.update_batch(sp, src, dst, w, mask, cfg=cfg_p)
         sk = core.maybe_decay(sk, cfg=cfg_k, total_threshold=400)
         sp = core.maybe_decay(sp, cfg=cfg_p, total_threshold=400)
+        for cfg in (cfg_k, cfg_p):
+            st, dirty = own[cfg.impl]
+            core.update_batch_(st, src, dst, w, mask, cfg=cfg, dirty=dirty)
+            core.maybe_decay_(st, cfg=cfg, total_threshold=400, dirty=dirty)
         if i == batches // 2:
             sk, sp = core.decay(sk, cfg=cfg_k), core.decay(sp, cfg=cfg_p)
+            for cfg in (cfg_k, cfg_p):
+                core.decay_(own[cfg.impl][0], cfg=cfg, dirty=own[cfg.impl][1])
         equal_states(f"parity batch {i}", sk, sp)
+        equal_states(f"parity batch {i}: owner calls (kernels)", own["cuda"][0], sp)
+        equal_states(f"parity batch {i}: owner calls (plain)", own["ref"][0], sp)
+        compare(f"parity batch {i}: row flags", own["cuda"][1], own["ref"][1])
         q = randint(gen, 0, nodes + 50, (300,))
         fused = core.query_threshold(sk, q, 0.8, cfg=cfg_k, max_items=12)
         fused_top = core.query_topk(sk, q, cfg=cfg_k, k=5)
@@ -1645,7 +1952,9 @@ def phase_parity(seed, batches=32):
     stats = core.counter_stats(sk)
     say(f"[parity] {batches} batches at {cfg_k.num_rows}x{cfg_k.capacity}: all "
         f"{len(convert.LEAF_NAMES)} state leaves and all query answers, fused "
-        f"and unfused, equal after every batch; counters {stats}")
+        f"and unfused, equal after every batch, and the owner calls' states "
+        f"and row flags ({int(own['cuda'][1].sum())} rows flagged) too; "
+        f"counters {stats}")
     for need in ("deferred_new", "evictions", "dropped_rows", "decay_steps"):
         if stats[need] <= 0:
             raise AssertionError(f"parity stream never exercised {need}")
@@ -1741,14 +2050,14 @@ def main(argv=None):
             def mixed_round():
                 src, dst = traffic.batch(BATCH)
                 q = traffic.srcs(QUERIES)
-                new_state = core.update_batch(state, src, dst, cfg=cfg)
-                core.query_threshold(new_state, q, 0.9, cfg=cfg, max_items=16)
-                core.query_topk(new_state, q, cfg=cfg, k=8)
+                core.update_batch_(state, src, dst, cfg=cfg)
+                core.query_threshold(state, q, 0.9, cfg=cfg, max_items=16)
+                core.query_topk(state, q, cfg=cfg, k=8)
 
-            profile_window("update (new edges) + 2 queries", mixed_round)
-            profile_window("update_batch on existing edges only",
-                           lambda: core.update_batch(state, *known[:2], None,
-                                                     known[2], cfg=cfg))
+            profile_window("update_ (new edges) + 2 queries", mixed_round)
+            profile_window("update_batch_ on existing edges only",
+                           lambda: core.update_batch_(state, *known[:2], None,
+                                                      known[2], cfg=cfg))
         del state
         torch.cuda.empty_cache()
     if "drafter" in phases:

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashtable import HashTable
-from repro_torch.core.mcprioq import MCConfig, MCState, resolve_device
+from repro_torch.core.mcprioq import (MCConfig, MCState, private_copy,
+                                      resolve_device)
 from repro_torch.core.slab import Slabs
 
 _NESTED = {"src_table": HashTable, "slabs": Slabs}
@@ -40,7 +41,8 @@ def state_to_numpy(state: MCState) -> Dict[str, np.ndarray]:
 def state_from_numpy(leaves: Dict[str, np.ndarray], cfg: MCConfig,
                      device=None) -> MCState:
     """Build an ``MCState`` on ``device`` (default: the GPU, as ``init``)
-    from numpy leaves, checking names, dtypes and shapes against ``cfg``."""
+    from numpy leaves, checking names, dtypes and shapes against ``cfg``.
+    As in ``init``, the scalar leaves are views of one int32 tensor."""
     dev = resolve_device(device)
     missing = sorted(set(LEAF_NAMES) - set(leaves))
     extra = sorted(set(leaves) - set(LEAF_NAMES))
@@ -71,4 +73,4 @@ def state_from_numpy(leaves: Dict[str, np.ndarray], cfg: MCConfig,
             fields[field] = cls(*(leaf(f"{field}.{sub}") for sub in cls._fields))
         else:
             fields[field] = leaf(field)
-    return MCState(**fields)
+    return private_copy(MCState(**fields), table=False, slabs=())

@@ -15,18 +15,26 @@ the GIL, so readers never observe a torn snapshot — the lock-free property.
 once its reader count drops to zero AND a newer version exists.
 
 Torch tensors are mutable, so the store is only as good as the states it
-holds: every function of ``repro_torch.core`` returns new tensors and never
-writes into a tensor of the state it was given, which is what lets a reader
-go on using a snapshot while the learner builds the next one from it.
+holds: the functional calls of ``repro_torch.core`` return new tensors and
+never write into a tensor of the state they were given, which is what lets
+a reader go on using a snapshot while the learner builds the next one from
+it.  ``BackBufferLearner`` makes the copy of read-copy-update a copy of
+rows: it writes in place (the owner calls) into a second state that no
+reader holds any more, after catching that state up with the published one
+row by row.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
+
+import torch
 
 from repro_torch.analysis.invariants import requires_lock
+from repro_torch.core import mcprioq as mc
+from repro_torch.kernels import ops
 
 
 class Snapshot(NamedTuple):
@@ -40,9 +48,11 @@ class EpochStore:
     # Concurrency contract (checked by tools/mcqlint): ``_lock`` guards the
     # reader accounting only.  ``_snap`` is deliberately NOT declared
     # protected — the single atomic reference swap under the GIL is the
-    # lock-free read path the whole design rests on.  Globally, ``_lock``
-    # ranks below every engine lock (it is only ever taken inside store calls
-    # and never holds while calling out).
+    # lock-free read path the whole design rests on; ``acquire`` reads it
+    # under the lock only so that the read and the reader's registration
+    # cannot straddle a ``publish`` that retires the version.  Globally,
+    # ``_lock`` ranks below every engine lock (it is only ever taken inside
+    # store calls and never holds while calling out).
     _MCQ_LOCK_ORDER = ("_lock",)
     _MCQ_LOCK_PROTECTS = {
         "_lock": ("_readers", "retired_versions"),
@@ -51,14 +61,18 @@ class EpochStore:
     def __init__(self, state: Any):
         self._snap = Snapshot(0, state)
         self._readers: dict[int, int] = {}
-        self._lock = threading.Lock()  # protects accounting only, never reads
+        self._lock = threading.Lock()  # protects the reader accounting
         self.retired_versions: list[int] = []
 
     # -- read side -------------------------------------------------------
     def acquire(self) -> Snapshot:
-        """Enter a read-side critical section: pin the current snapshot."""
-        snap = self._snap  # atomic ref read (GIL)
+        """Enter a read-side critical section: pin the current snapshot.
+
+        The snapshot is read under the lock: read before it, a ``publish``
+        could retire the version in between, and the reader would pin a
+        retired version (whose buffers a back-buffer learner reuses)."""
         with self._lock:
+            snap = self._snap
             self._readers[snap.version] = self._readers.get(snap.version, 0) + 1
         return snap
 
@@ -108,3 +122,96 @@ class EpochStore:
     @property
     def version(self) -> int:
         return self._snap.version
+
+
+def _chain(state) -> mc.MCState:
+    """The chain of a published state: an ``MCState``, or a state that
+    holds one as ``.chain`` (``speculative.DrafterState``)."""
+    return getattr(state, "chain", state)
+
+
+def _copied(chain: mc.MCState):
+    """What ``ops.copy_dirty_rows`` takes of a chain: the slab rows, the src
+    table and the scalars."""
+    slabs = chain.slabs
+    return (slabs.cnt, slabs.dst, slabs.order, slabs.tot, *chain.src_table,
+            mc.scalars_of(chain))
+
+
+def _leaves(chain: mc.MCState):
+    return (*chain.slabs, *chain.src_table, chain.dh_keys, chain.dh_vals,
+            *(getattr(chain, f) for f in mc.SCALAR_FIELDS))
+
+
+class BackBufferLearner:
+    """The single writer of an ``EpochStore``, writing in place.
+
+    It keeps two states: the *front*, the version it published last, which
+    readers may hold, and a private *back*, a version no reader holds any
+    more.  :meth:`write` waits for the back's readers to leave (the store's
+    reader accounting: ``synchronize``), catches the back up with the front
+    (``ops.copy_dirty_rows``: the rows the last write changed, flagged in
+    ``dirty``, plus the src table and the scalars), applies the owner's
+    in-place write to the back with the flags tracking it, publishes the
+    back and swaps the roles.  Two states' memory, and per write the rows
+    the last write changed instead of a copy of the table.
+
+    The store's current state must be one the learner owns from now on
+    (built by ``init``: its scalar leaves are views of one tensor); the back
+    starts as a ``mcprioq.private_copy`` of it.  A state is an ``MCState``
+    or holds one as ``.chain``.
+
+    Stream rule: a host ``release`` does not mean the device has finished
+    reading.  Readers must launch on the learner's stream (the current
+    stream when the learner was made), so that their kernels run before
+    the learner's next writes into the version they read; :meth:`acquire`
+    and :meth:`write` check it.  Nothing here synchronises the host with
+    the device.
+    """
+
+    def __init__(self, store: EpochStore):
+        self.store = store
+        snap = store.acquire()
+        store.release(snap)
+        self._front = snap.state
+        chain = _chain(snap.state)
+        mc.scalars_of(chain)         # the learner writes the scalars in place
+        back = mc.private_copy(chain)
+        self._back = (snap.state._replace(chain=back)
+                      if hasattr(snap.state, "chain") else back)
+        self._dirty = torch.zeros(chain.slabs.tot.shape, dtype=torch.uint8,
+                                  device=chain.slabs.tot.device)
+        self._stream = (torch.cuda.current_stream(self._dirty.device)
+                        if self._dirty.is_cuda else None)
+
+    def _check_stream(self, who: str) -> None:
+        if self._stream is not None and \
+                torch.cuda.current_stream(self._dirty.device) != self._stream:
+            raise RuntimeError(
+                f"{who} is not on the learner's stream: its kernels could "
+                f"still read a version the learner writes into next")
+
+    def acquire(self) -> Snapshot:
+        """A reader's ``store.acquire``, on the learner's stream (checked).
+        Leave with ``store.release``."""
+        self._check_stream("a reader")
+        return self.store.acquire()
+
+    def write(self, fn: Callable, *args, **kwargs):
+        """Publish ``fn(back, *args, dirty=flags, **kwargs)``: an owner call
+        (``update_batch_``, ``decay_``, ``speculative.observe_`` ..., or a
+        function of several) that writes into the state it is given, flags
+        the rows it changes and returns that state.  Returns the state
+        published."""
+        self._check_stream("the learner")
+        self.store.synchronize()     # the back's version has no reader left
+        front, back = _chain(self._front), _chain(self._back)
+        ops.copy_dirty_rows(_copied(front), _copied(back), self._dirty)
+        new = fn(self._back, *args, dirty=self._dirty, **kwargs)
+        if [x.data_ptr() for x in _leaves(_chain(new))] != \
+                [x.data_ptr() for x in _leaves(back)]:
+            raise RuntimeError("the learner's write returned other tensors "
+                               "than the back state's: it must write in place")
+        self.store.publish(new)
+        self._front, self._back = new, self._front
+        return new

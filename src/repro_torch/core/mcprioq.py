@@ -29,10 +29,25 @@ A batch of B transitions runs through a three-stage pipeline:
 Afterwards ``sort_passes`` odd-even passes (``ops.oddeven_sort``) restore
 approximate order — the paper's lock-free bubble sort.
 
-Every function returns a new ``MCState`` and never writes into a tensor of
-the state it was given: a reader may go on holding the old one.  On a CUDA
-state ``update_batch``, the queries and ``decay`` launch their kernels
-without any device->host synchronisation.
+Two kinds of write.  The functional ``update_batch``, ``decay`` and
+``maybe_decay`` return a new ``MCState`` and never write into a tensor of
+the state they were given: a reader may go on holding the old one.  Their
+twins with a trailing underscore, ``update_batch_``, ``decay_`` and
+``maybe_decay_``, are for the state's owner — a caller that holds the only
+reference to every tensor of the state (one from :func:`init`, or a private
+copy): they write into its tensors and return that same state, with no copy
+(the port's counterpart of calling the reference's jitted functions with
+the state donated).  Each pair shares one body; only who owns the buffers
+differs.  An owner call takes ``dirty`` (None, or uint8 [N]) and flags every
+row whose ``cnt``, ``dst``, ``tot`` or ``order`` it changed
+(``core.epoch.BackBufferLearner`` catches its back buffer up by those
+flags).  On a CUDA state ``update_batch(_)``, the queries, ``decay(_)`` and
+``maybe_decay_`` launch their kernels without any device->host
+synchronisation.
+
+The ten scalar leaves (``n_rows`` .. ``dh_tombstones``, in ``MCState``
+order) are views of one int32 tensor made by :func:`init`; the first four,
+the new-edge pass's counters, must be so for an owner call.
 
 Kernel dispatch is selected by ``MCConfig.impl`` (``auto``/``ref``/``cuda``).
 ``update_batch_reference`` keeps the O(B) sequential semantics as an oracle.
@@ -50,13 +65,15 @@ from repro_torch.core import slab as sl
 from repro_torch.core.device import resolve_device
 from repro_torch.core.hashtable import EMPTY, TOMB, HashTable
 from repro_torch.core.slab import Slabs
-from repro_torch.kernels import ops
+from repro_torch.kernels import decay_sort, ops
 
 __all__ = [
     "EMPTY", "TOMB", "HashTable", "Slabs", "MCConfig", "MCState",
-    "resolve_device", "init", "lookup_rows", "update_batch", "update_batch_reference", "query_impl",
-    "query_threshold", "query_topk", "decay", "maybe_decay",
-    "check_invariants", "maintenance_stats", "counter_stats",
+    "resolve_device", "check_cuda_limits", "init", "private_copy",
+    "lookup_rows", "update_batch", "update_batch_", "update_batch_reference",
+    "query_impl", "query_threshold", "query_topk", "decay", "decay_",
+    "maybe_decay", "maybe_decay_", "check_invariants", "maintenance_stats",
+    "counter_stats",
 ]
 
 _IMPLS = ("auto", "ref", "cuda")
@@ -140,17 +157,38 @@ class MCState(NamedTuple):
     dh_tombstones: torch.Tensor   # live decay tombstones across all row hashes
 
 
+SCALAR_FIELDS = tuple(f for f in MCState._fields
+                      if f not in ("src_table", "slabs", "dh_keys", "dh_vals"))
+_COUNTERS = 4   # n_rows, dropped_rows, dropped_probes, evictions
+
+
+def check_cuda_limits(cfg: MCConfig, device) -> None:
+    """Refuse a configuration the CUDA kernels cannot run, before a state is
+    built on ``device``: on a CUDA device with ``impl`` auto or cuda, a row
+    wider than the decay kernel sorts (``decay_sort.MAX_CAPACITY``, the
+    smallest width limit of the kernels).  No fallback: ``impl="ref"`` runs
+    the plain versions at any width."""
+    if torch.device(device).type != "cuda" or cfg.impl == "ref":
+        return
+    if cfg.capacity > decay_sort.MAX_CAPACITY:
+        raise ValueError(
+            f"capacity {cfg.capacity} is above {decay_sort.MAX_CAPACITY}, the "
+            f"widest row the CUDA decay kernel (kernels/decay_sort.py) sorts "
+            f"in one warp's registers")
+
+
 def init(cfg: MCConfig, device=None) -> MCState:
     """Empty chain on ``device`` (default: the current CUDA device; raises
-    when there is none)."""
+    when there is none).  Its scalar leaves are views of one int32 tensor."""
     dev = resolve_device(device)
+    check_cuda_limits(cfg, dev)
     n, c = cfg.num_rows, cfg.capacity
     h = cfg.resolved_dst_table_size() if cfg.use_dst_hash else 1
 
     def int32(value: int) -> torch.Tensor:
         return torch.full((), value, dtype=torch.int32, device=dev)
 
-    return MCState(
+    state = MCState(
         src_table=ht.make(cfg.resolved_table_size(), device=dev),
         slabs=sl.make(n, c, device=dev),
         n_rows=int32(0),
@@ -166,6 +204,44 @@ def init(cfg: MCConfig, device=None) -> MCState:
         dh_rebuilds=int32(0),
         dh_tombstones=int32(0),
     )
+    return private_copy(state, table=False, slabs=())
+
+
+def scalars_of(state: MCState, count: int = len(SCALAR_FIELDS)) -> torch.Tensor:
+    """The first ``count`` scalar leaves as one int32 [count] view of the
+    tensor they share; raises when they are not consecutive elements of
+    one tensor (a state from :func:`init`, :func:`private_copy` or a
+    functional write has them so)."""
+    leaves = [getattr(state, f) for f in SCALAR_FIELDS[:count]]
+    first = leaves[0]
+    packed = all(x.dim() == 0 and x.dtype == torch.int32
+                 and x.device == first.device
+                 and x.untyped_storage().data_ptr()
+                 == first.untyped_storage().data_ptr()
+                 and x.data_ptr() == first.data_ptr() + 4 * i
+                 for i, x in enumerate(leaves))
+    if not packed:
+        raise ValueError(
+            f"the scalar leaves {SCALAR_FIELDS[:count]} are not consecutive "
+            f"elements of one int32 tensor; an owner call takes a state made "
+            f"by init() or private_copy()")
+    return first.as_strided((count,), (1,))
+
+
+def private_copy(state: MCState, *, table: bool = True,
+                 slabs=Slabs._fields) -> MCState:
+    """A copy of ``state`` that the owner calls may write: the src table
+    (``table``) and the slab arrays named in ``slabs`` cloned, the scalar
+    leaves packed into one new int32 tensor; the other leaves shared with
+    ``state`` (the row hashes ``dh_keys``/``dh_vals`` always: nothing
+    writes them while the dst hash is unported)."""
+    scalars = torch.stack([getattr(state, f) for f in SCALAR_FIELDS])
+    copy = state._replace(**{f: scalars[i] for i, f in enumerate(SCALAR_FIELDS)})
+    if table:
+        copy = copy._replace(src_table=HashTable(
+            *(x.clone() for x in state.src_table)))
+    return copy._replace(slabs=state.slabs._replace(
+        **{f: getattr(state.slabs, f).clone() for f in slabs}))
 
 
 def _device_of(state: MCState) -> torch.device:
@@ -263,26 +339,21 @@ def _take_new_prefix(src, dst, w, pos, new_mask, limit: int):
     return src[perm], dst[perm], w[perm], p_mask, overflow
 
 
-def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig) -> MCState:
+def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig,
+               dirty=None) -> MCState:
     """Insert pass for new edges / new rows (the paper's rare case), through
-    the kernel layer (``ops.slow_path``).
+    the kernel layer (``ops.slow_path_``), written into ``state``'s src
+    table, ``dst``/``cnt``/``tot`` and counters: the caller owns them.
+    Returns ``state``.
 
     Deterministic (batch order), fully masked — inactive items are no-ops.
-    The state's ``cnt``/``tot`` are the caller's own, made in this update and
-    held by no reader, so the pass writes them in place.
     """
-    counters = torch.stack([state.n_rows, state.dropped_rows,
-                            state.dropped_probes, state.evictions])
-    slabs = state.slabs
-    keys, vals, dst_slab, cnt, tot, counters = ops.slow_path(
-        state.src_table.keys, state.src_table.vals, slabs.dst, slabs.cnt,
-        slabs.tot, slabs.order, counters, src, dst, w, active,
-        max_probes=cfg.max_probes, own_counts=True, impl=cfg.impl)
-    return state._replace(
-        src_table=HashTable(keys, vals),
-        slabs=Slabs(dst_slab, cnt, tot, slabs.order),
-        n_rows=counters[0], dropped_rows=counters[1],
-        dropped_probes=counters[2], evictions=counters[3])
+    slabs, table = state.slabs, state.src_table
+    ops.slow_path_(table.keys, table.vals, slabs.dst, slabs.cnt, slabs.tot,
+                   slabs.order, scalars_of(state, _COUNTERS), src, dst, w,
+                   active, max_probes=cfg.max_probes, dirty=dirty,
+                   impl=cfg.impl)
+    return state
 
 
 def _batch_inputs(state: MCState, src, dst, weights, mask):
@@ -295,22 +366,12 @@ def _batch_inputs(state: MCState, src, dst, weights, mask):
     return src, dst, w, m & (src >= 0) & (dst >= 0)
 
 
-def update_batch(
-    state: MCState,
-    src,
-    dst,
-    weights=None,
-    mask=None,
-    *,
-    cfg: MCConfig,
-) -> MCState:
-    """Apply a batch of transitions ``src[i] -> dst[i]`` (paper §II.A).
-
-    Pipeline: pre-aggregate duplicates, fused fast-path increment
-    (``ops.slab_update``), bounded sequential slow path for new edges
-    (``ops.slow_path``; an empty pass is one short launch), then
-    ``cfg.sort_passes`` odd-even passes (``ops.oddeven_sort``).
-    """
+def _update(state: MCState, src, dst, weights, mask, cfg: MCConfig, *,
+            owner: bool, dirty=None) -> MCState:
+    """The body of :func:`update_batch` and :func:`update_batch_`: every
+    kernel writes into ``state`` except the odd-even pass, which the
+    functional twin lets write a fresh ``order`` (it writes every row then;
+    the owner's in place writes only the rows that changed)."""
     src, dst, w, m = _batch_inputs(state, src, dst, weights, mask)
     b = src.shape[0]
 
@@ -326,10 +387,8 @@ def update_batch(
     # (3) fast path: fused batched increment through the kernel layer (the
     # batched equivalent of the paper's atomic fetch-add)
     slabs = state.slabs
-    cnt, tot = ops.slab_update(
-        torch.where(fast, rows0, -1), u_dst, u_w,
-        slabs.dst, slabs.cnt, slabs.tot, impl=cfg.impl)
-    state = state._replace(slabs=Slabs(slabs.dst, cnt, tot, slabs.order))
+    ops.slab_update_(torch.where(fast, rows0, -1), u_dst, u_w, slabs.dst,
+                     slabs.cnt, slabs.tot, dirty=dirty, impl=cfg.impl)
 
     # (4) slow path: new edges only, partitioned to a bounded prefix so the
     # sequential pass is O(max_new)
@@ -337,18 +396,49 @@ def update_batch(
     limit = cfg.resolved_max_new(b)
     p_src, p_dst, p_w, p_mask, overflow = _take_new_prefix(
         u_src, u_dst, u_w, u_pos, new_mask, limit)
-    state = state._replace(deferred_new=state.deferred_new + overflow)
-    # cnt/tot are slab_update's fresh outputs: the pass may write them
-    state = _slow_path(state, p_src, p_dst, p_w, p_mask, cfg)
+    state.deferred_new.add_(overflow)
+    _slow_path(state, p_src, p_dst, p_w, p_mask, cfg, dirty)
 
     # (5) lock-free bubble sort, through the kernel layer
-    if cfg.sort_passes:
-        slabs = state.slabs
-        order = ops.oddeven_sort(slabs.cnt, slabs.order,
-                                 passes=cfg.sort_passes, impl=cfg.impl)
-        state = state._replace(
-            slabs=Slabs(slabs.dst, slabs.cnt, slabs.tot, order))
+    if cfg.sort_passes and owner:
+        ops.oddeven_sort_(slabs.cnt, slabs.order, passes=cfg.sort_passes,
+                          dirty=dirty, impl=cfg.impl)
+    elif cfg.sort_passes:
+        state = state._replace(slabs=slabs._replace(order=ops.oddeven_sort(
+            slabs.cnt, slabs.order, passes=cfg.sort_passes, impl=cfg.impl)))
     return state
+
+
+def update_batch(
+    state: MCState,
+    src,
+    dst,
+    weights=None,
+    mask=None,
+    *,
+    cfg: MCConfig,
+) -> MCState:
+    """Apply a batch of transitions ``src[i] -> dst[i]`` (paper §II.A).
+
+    Pipeline: pre-aggregate duplicates, fused fast-path increment
+    (``ops.slab_update_``), bounded sequential slow path for new edges
+    (``ops.slow_path_``; an empty pass is one short launch), then
+    ``cfg.sort_passes`` odd-even passes (``ops.oddeven_sort``).  Functional:
+    the kernels write into copies of what they write (the src table,
+    ``dst``/``cnt``/``tot``, the scalars) and a fresh ``order``.
+    """
+    return _update(private_copy(state, slabs=("dst", "cnt", "tot")),
+                   src, dst, weights, mask, cfg, owner=False)
+
+
+def update_batch_(state: MCState, src, dst, weights=None, mask=None, *,
+                  cfg: MCConfig, dirty=None) -> MCState:
+    """:func:`update_batch` for the state's owner: written into ``state``'s
+    own tensors, which it returns (no copy; ``order`` rows that the odd-even
+    pass leaves as they were are not rewritten).  ``dirty`` (uint8 [N]):
+    every row changed is flagged."""
+    return _update(state, src, dst, weights, mask, cfg, owner=True,
+                   dirty=dirty)
 
 
 def update_batch_reference(
@@ -374,16 +464,17 @@ def update_batch_reference(
     fast = m & found_src0 & found_d0
 
     # fast path: scatter-add (duplicates aggregate, like contended atomics)
+    # into copies of what this function writes
+    state = private_copy(state, slabs=("dst", "cnt", "tot"))
     add_w = torch.where(fast, w, 0)
     slabs = state.slabs
     rows64 = rows0.to(torch.int64)
     flat = rows64 * cfg.capacity + slots0.to(torch.int64)
-    cnt = slabs.cnt.clone().view(-1).index_add_(0, flat, add_w).view_as(slabs.cnt)
-    tot = slabs.tot.clone().index_add_(0, rows64, add_w)
-    state = state._replace(slabs=Slabs(slabs.dst, cnt, tot, slabs.order))
+    slabs.cnt.view(-1).index_add_(0, flat, add_w)
+    slabs.tot.index_add_(0, rows64, add_w)
 
-    # slow path: everything else, sequential + masked (cnt/tot made above)
-    state = _slow_path(state, src, dst, w, m & ~fast, cfg)
+    # slow path: everything else, sequential + masked
+    _slow_path(state, src, dst, w, m & ~fast, cfg)
 
     # lock-free bubble sort, vectorised
     slabs = state.slabs
@@ -464,6 +555,33 @@ def query_topk(state: MCState, src, *, cfg: MCConfig, k: int = 8):
 # ---------------------------------------------------------------------------
 
 
+def _decay(state: MCState, cfg: MCConfig, *, fire=None, dirty=None,
+           fresh: bool = False) -> MCState:
+    """The body of :func:`decay`, :func:`decay_` and :func:`maybe_decay_`,
+    written into ``state``; ``fire`` (a 0-dim bool tensor) gates it on the
+    device.  ``fresh``: the stop-the-world kernel writes every row into new
+    tensors instead (the functional twin: every row is written anyway)."""
+    n = cfg.num_rows
+    r = cfg.resolved_decay_rows()
+    slabs = state.slabs
+    if r >= n and fresh:  # stop-the-world: one full-table dispatch
+        cnt, dst, order, tot = ops.decay_sort(
+            slabs.cnt, slabs.dst, slabs.order, impl=cfg.impl)
+        state = state._replace(slabs=Slabs(dst, cnt, tot, order))
+    elif r >= n:
+        ops.decay_sort_(slabs.cnt, slabs.dst, slabs.order, slabs.tot,
+                        fire=fire, dirty=dirty, impl=cfg.impl)
+    else:
+        # the last block is clamped so every call touches exactly r rows (it
+        # overlaps the previous block when r does not divide n; halving is
+        # not idempotent per row — kept as the reference has it)
+        ops.decay_sort_rolling_(slabs.cnt, slabs.dst, slabs.order, slabs.tot,
+                                state.decay_cursor, block_rows=r, fire=fire,
+                                dirty=dirty, impl=cfg.impl)
+    state.decay_steps.add_(1 if fire is None else fire)
+    return state
+
+
 def decay(state: MCState, *, cfg: MCConfig) -> MCState:
     """§II.C decay through the kernel layer (``ops.decay_sort``).
 
@@ -473,30 +591,23 @@ def decay(state: MCState, *, cfg: MCConfig) -> MCState:
     advance the cursor, so a serving system amortises maintenance across
     steps — per-call kernel work scales with R, not ``num_rows``, and readers
     see the paper's approximately-correct mid-maintenance state.  The block
-    is found from the cursor on the device (``ops.decay_sort_rolling``), so
-    neither mode synchronises with the host.
+    is found from the cursor on the device (``ops.decay_sort_rolling_``), so
+    neither mode synchronises with the host.  Functional: the rolling decay
+    writes into copies of the slabs and scalars, the stop-the-world one into
+    fresh tensors.
     """
-    n = cfg.num_rows
-    r = cfg.resolved_decay_rows()
-    slabs = state.slabs
-    one = torch.ones_like(state.decay_steps)
-    if r >= n:  # stop-the-world: one full-table dispatch
-        cnt, dst, order, tot = ops.decay_sort(
-            slabs.cnt, slabs.dst, slabs.order, impl=cfg.impl)
-        return state._replace(
-            slabs=Slabs(dst, cnt, tot, order),
-            decay_steps=state.decay_steps + one)
+    whole = cfg.resolved_decay_rows() >= cfg.num_rows
+    return _decay(private_copy(state, table=False,
+                               slabs=() if whole else Slabs._fields),
+                  cfg, fresh=whole)
 
-    # the last block is clamped so every call touches exactly r rows (it
-    # overlaps the previous block when r does not divide n; halving is not
-    # idempotent per row — kept as the reference has it)
-    cnt, dst, order, tot, cursor = ops.decay_sort_rolling(
-        slabs.cnt, slabs.dst, slabs.order, slabs.tot, state.decay_cursor,
-        block_rows=r, impl=cfg.impl)
-    return state._replace(
-        slabs=Slabs(dst, cnt, tot, order),
-        decay_cursor=cursor,
-        decay_steps=state.decay_steps + one)
+
+def decay_(state: MCState, *, cfg: MCConfig, dirty=None) -> MCState:
+    """:func:`decay` for the state's owner: written into ``state``'s own
+    tensors (a rolling decay writes its block and the cursor and nothing
+    else), which it returns.  ``dirty`` (uint8 [N]): the decayed rows are
+    flagged."""
+    return _decay(state, cfg, dirty=dirty)
 
 
 def maybe_decay(state: MCState, *, cfg: MCConfig, total_threshold: int) -> MCState:
@@ -504,10 +615,21 @@ def maybe_decay(state: MCState, *, cfg: MCConfig, total_threshold: int) -> MCSta
     suggests decaying "at some threshold over the number of total
     transitions").  In rolling mode each trigger halves one block; the
     threshold keeps firing until the offending row's block comes around.
-    Reading the trigger costs one device->host synchronisation per call."""
+    Reading the trigger costs one device->host synchronisation per call;
+    :func:`maybe_decay_` decides on the device."""
     if bool((state.slabs.tot > total_threshold).any()):
         return decay(state, cfg=cfg)
     return state
+
+
+def maybe_decay_(state: MCState, *, cfg: MCConfig, total_threshold: int,
+                 dirty=None) -> MCState:
+    """:func:`maybe_decay` for the state's owner, decided on the device as
+    the reference's ``lax.cond`` does: the trigger is a device bool that
+    the decay kernel reads, so a call that does not fire writes nothing
+    and nothing is read on the host.  Returns ``state``."""
+    fire = (state.slabs.tot > total_threshold).any()
+    return _decay(state, cfg, fire=fire, dirty=dirty)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ query gives candidate sets for tree-style verification.
 
 Every function returns new tensors and writes into none of the state it was
 given, so a reader may go on drafting from a snapshot that the learner is
-building the next version from (``core.epoch.EpochStore``).
+building the next version from (``core.epoch.EpochStore``) — except
+``observe_`` and ``maintain_``, the learner's writes for the state's owner
+(``mcprioq.update_batch_`` / ``maybe_decay_``): they write into the state
+given and return it, and serve a learner with no readers or the
+back-buffer learner (``core.epoch.BackBufferLearner``).
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ import torch
 
 from repro_torch.core import hashtable as ht
 from repro_torch.core import mcprioq as mc
+from repro_torch.core.device import resolve_device
 from repro_torch.core.hashtable import EMPTY
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, walk
 
-__all__ = ["NGramConfig", "DrafterState", "init", "context_ids", "observe",
-           "maintain", "draft", "draft_reference", "candidates",
-           "acceptance_rate"]
+__all__ = ["NGramConfig", "DrafterState", "check_cuda_limits", "init",
+           "context_ids", "observe",
+           "observe_", "maintain", "maintain_", "draft", "draft_reference",
+           "candidates", "acceptance_rate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +49,25 @@ class DrafterState(NamedTuple):
     chain: mc.MCState
 
 
+def check_cuda_limits(cfg: NGramConfig, device) -> None:
+    """Refuse a drafter the CUDA kernels cannot run, before it is built on
+    ``device``: on a CUDA device with ``impl`` auto or cuda, a context longer
+    than the draft walk holds (``walk.MAX_ORDER``), or a chain that
+    ``mcprioq.check_cuda_limits`` refuses.  No fallback."""
+    mc.check_cuda_limits(cfg.mc, device)
+    if torch.device(device).type == "cuda" and cfg.mc.impl != "ref" \
+            and cfg.order > walk.MAX_ORDER:
+        raise ValueError(
+            f"order {cfg.order} is above {walk.MAX_ORDER}, the longest context "
+            f"the CUDA draft walk (kernels/walk.py) holds in registers")
+
+
 def init(cfg: NGramConfig, device=None) -> DrafterState:
     """Empty drafter on ``device`` (default: the current CUDA device; raises
-    when there is none)."""
-    return DrafterState(chain=mc.init(cfg.mc, device=device))
+    when there is none, and on a configuration the CUDA kernels refuse)."""
+    dev = resolve_device(device)
+    check_cuda_limits(cfg, dev)
+    return DrafterState(chain=mc.init(cfg.mc, device=dev))
 
 
 def _tokens(state: DrafterState, x) -> torch.Tensor:
@@ -69,29 +90,53 @@ def context_ids(tokens: torch.Tensor, order: int) -> torch.Tensor:
     return torch.where(idx >= order - 1, ctx, -1)
 
 
+def _transitions(state: DrafterState, tokens, order: int):
+    """The ``(src, dst)`` transitions a batch of token sequences teaches.
+    The -1 contexts of the first ``order - 1`` positions stay in: the
+    update masks them (dropping them here would move the batch's sort
+    positions)."""
+    tokens = _tokens(state, tokens)
+    ctx = context_ids(tokens, order)        # [B, S]
+    return ctx[:, :-1].reshape(-1), tokens[:, 1:].reshape(-1)
+
+
 def observe(state: DrafterState, tokens, *, cfg: NGramConfig) -> DrafterState:
     """Learn from a batch of token sequences. tokens: int32[B, S].
 
-    Pure learning — §II.C maintenance lives in :func:`maintain`.  The -1
-    contexts of the first ``order - 1`` positions go to ``update_batch``,
-    which masks them (dropping them here would move the batch's sort
-    positions)."""
-    tokens = _tokens(state, tokens)
-    ctx = context_ids(tokens, cfg.order)        # [B, S]
-    src = ctx[:, :-1].reshape(-1)
-    dst = tokens[:, 1:].reshape(-1)
-    chain = mc.update_batch(state.chain, src, dst, cfg=cfg.mc)
+    Pure learning — §II.C maintenance lives in :func:`maintain`."""
+    chain = mc.update_batch(state.chain, *_transitions(state, tokens, cfg.order),
+                            cfg=cfg.mc)
     return DrafterState(chain=chain)
+
+
+def observe_(state: DrafterState, tokens, *, cfg: NGramConfig,
+             dirty=None) -> DrafterState:
+    """:func:`observe` for the state's owner (``mcprioq.update_batch_``):
+    written into ``state``, which it returns; ``dirty`` flags the rows
+    changed."""
+    mc.update_batch_(state.chain, *_transitions(state, tokens, cfg.order),
+                     cfg=cfg.mc, dirty=dirty)
+    return state
 
 
 def maintain(state: DrafterState, *, cfg: NGramConfig) -> DrafterState:
     """Learner-side §II.C maintenance: decay once any row total crosses
     ``cfg.decay_threshold``.  With ``cfg.mc.decay_block_rows`` set this is a
     rolling block halve (bounded per-call work); stop-the-world otherwise.
-    Reading the trigger costs one device->host synchronisation."""
+    Reading the trigger costs one device->host synchronisation;
+    :func:`maintain_` decides on the device."""
     chain = mc.maybe_decay(state.chain, cfg=cfg.mc,
                            total_threshold=cfg.decay_threshold)
     return DrafterState(chain=chain)
+
+
+def maintain_(state: DrafterState, *, cfg: NGramConfig,
+              dirty=None) -> DrafterState:
+    """:func:`maintain` for the state's owner (``mcprioq.maybe_decay_``):
+    decided on the device, written into ``state``, which it returns."""
+    mc.maybe_decay_(state.chain, cfg=cfg.mc,
+                    total_threshold=cfg.decay_threshold, dirty=dirty)
+    return state
 
 
 def draft(state: DrafterState, context, *, cfg: NGramConfig,

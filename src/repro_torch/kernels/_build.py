@@ -37,16 +37,18 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # without argtypes ctypes would cut a 64-bit pointer to 32 bits)
 SIGNATURES = {
     "mcq_probe_find": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mcq_slab_update": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "mcq_oddeven": [_P, _P, _P, _LL, _I, _I, _P],
+    "mcq_slab_update": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "mcq_oddeven": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "mcq_cdf_query_fused": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                             _I, _I, _I, _P],
     "mcq_slow_path": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _P, _P, _P, _P],
+                      _P, _I, _I, _I, _P, _P, _P, _P],
     "mcq_cdf_query": [_P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
     "mcq_draft_walk": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I,
                        _I, _P, _P, _I, _P],
-    "mcq_decay_sort": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P],
+    "mcq_decay_sort": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I,
+                       _P],
+    "mcq_copy_dirty_rows": [_P] * 15 + [_LL, _I, _LL, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -147,19 +149,39 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
-def require_cuda_int32(name: str, *, strided=(), bools=(), **tensors) -> None:
+def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer for ctypes; None (a null pointer) for an
+    optional argument left out."""
+    return None if x is None else x.data_ptr()
+
+
+def require_flags(name: str, dirty: Optional[torch.Tensor], rows: int) -> None:
+    """``dirty`` is None or one uint8 flag per row (its type, device and
+    contiguity are checked with the other tensors)."""
+    if dirty is not None and dirty.shape != (rows,):
+        raise ValueError(f"{name}: dirty must be uint8[{rows}], one flag per "
+                         f"row, got {tuple(dirty.shape)}")
+
+
+def require_cuda_int32(name: str, *, strided=(), bools=(), flags=(),
+                       **tensors) -> None:
     """Every kernel takes contiguous int32 tensors on one CUDA device, but
-    the arguments named in ``bools``, which are torch.bool.  The arguments
+    the arguments named in ``bools``, which are torch.bool, and those named
+    in ``flags`` (per-row dirty flags), which are torch.uint8.  The arguments
     named in ``strided`` may have a strided leading dimension (the wrapper
     passes that stride to its kernel) but must be unit-stride along their
-    last."""
+    last.  An argument given as None (an optional one left out) is
+    skipped."""
     device = None
     for arg, x in tensors.items():
+        if x is None:
+            continue
         if not x.is_cuda:
             raise ValueError(
                 f"{name}: {arg} is on {x.device}; the CUDA kernel takes CUDA "
                 f"tensors (use impl='ref' or 'auto' for CPU tensors)")
-        want = torch.bool if arg in bools else torch.int32
+        want = (torch.bool if arg in bools else
+                torch.uint8 if arg in flags else torch.int32)
         if x.dtype != want:
             raise TypeError(f"{name}: {arg} must be {want}, got {x.dtype}")
         if arg in strided:

@@ -20,11 +20,19 @@
 // compare-exchange between two registers of one lane, a step of j >= V one
 // __shfl_xor_sync with lane L ^ (j / V).
 //
+// In place: each output may be its input (the state's owner decays its own
+// tensors).  Element j of a row is read and then written by the same lane,
+// and order is staged whole in shared memory before any of it is written, so
+// the aliased pairs carry no __restrict__.
+//
 // Rolling mode (cursor != null): the block of rows is found on the device --
 // cur = cursor mod ceil(n / r), row0 = min(cur * r, n - r), the clamped last
-// block of the reference -- and cur + 1 is written to cursor_out.  Outputs are
-// indexed like the inputs, so the caller hands fresh copies of the state and
-// only rows row0 .. row0 + r of them are written.
+// block of the reference -- and cur + 1 is written back to the cursor by a
+// one-thread launch after the block: every warp of the block launch reads the
+// cursor, so none of them may move it.  Rows outside the block are not
+// touched.  fire (a device bool, or null for "always"): when it is false the
+// launches return at once and the cursor stays.  dirty (uint8 per row, or
+// null): set to 1 for every row decayed.
 #include <climits>
 
 #include "common.cuh"
@@ -76,19 +84,37 @@ __device__ __forceinline__ void mcq_bitonic_sort(long long (&key)[1 << LOG_V],
   }
 }
 
+// The block the cursor selects: cursor mod ceil(n / r), a floor mod as
+// jnp.remainder.
+__device__ __forceinline__ long long mcq_decay_block(int32_t cursor,
+                                                     long long num_rows,
+                                                     long long block_rows) {
+  const long long n_blocks = (num_rows + block_rows - 1) / block_rows;
+  long long cur = static_cast<long long>(cursor) % n_blocks;
+  if (cur < 0) cur += n_blocks;
+  return cur;
+}
+
+// The cursor moves after every warp of the block launch has read it.
+__global__ void mcq_decay_cursor_kernel(int32_t* cursor,
+                                        const uint8_t* __restrict__ fire,
+                                        long long num_rows,
+                                        long long block_rows) {
+  if (fire != nullptr && *fire == 0) return;
+  *cursor = static_cast<int32_t>(
+      mcq_decay_block(*cursor, num_rows, block_rows) + 1);
+}
+
 template <int LOG_V>
 __global__ void __launch_bounds__(MCQ_DECAY_WARPS * MCQ_WARP)
-    mcq_decay_sort_kernel(const int32_t* __restrict__ cnt,
-                          const int32_t* __restrict__ dst,
-                          const int32_t* __restrict__ order,
-                          int32_t* __restrict__ cnt_out,
-                          int32_t* __restrict__ dst_out,
-                          int32_t* __restrict__ order_out,
+    mcq_decay_sort_kernel(const int32_t* cnt, const int32_t* dst,
+                          const int32_t* order, int32_t* cnt_out,
+                          int32_t* dst_out, int32_t* order_out,
                           int32_t* __restrict__ tot_out,
                           const int32_t* __restrict__ cursor,
-                          int32_t* __restrict__ cursor_out,
-                          long long num_rows, long long block_rows,
-                          int capacity) {
+                          const uint8_t* __restrict__ fire,
+                          uint8_t* __restrict__ dirty, long long num_rows,
+                          long long block_rows, int capacity) {
   constexpr int V = 1 << LOG_V;
   constexpr int P = V * MCQ_WARP;
   __shared__ int32_t smem[MCQ_DECAY_WARPS][2][P];
@@ -96,37 +122,47 @@ __global__ void __launch_bounds__(MCQ_DECAY_WARPS * MCQ_WARP)
   const int warp = threadIdx.x / MCQ_WARP;
   const long long local =
       static_cast<long long>(blockIdx.x) * MCQ_DECAY_WARPS + warp;
+  if (local >= block_rows) return;  // whole warp leaves together
+  if (fire != nullptr && *fire == 0) return;
   long long row0 = 0;
   if (cursor != nullptr) {
-    const long long n_blocks = (num_rows + block_rows - 1) / block_rows;
-    long long cur = static_cast<long long>(*cursor) % n_blocks;
-    if (cur < 0) cur += n_blocks;  // floor mod, as jnp.remainder
+    const long long cur = mcq_decay_block(*cursor, num_rows, block_rows);
     const long long first = cur * block_rows, last = num_rows - block_rows;
     row0 = first < last ? first : last;
-    if (local == 0 && lane == 0) *cursor_out = static_cast<int32_t>(cur + 1);
   }
-  if (local >= block_rows) return;  // whole warp leaves together
   const size_t base = static_cast<size_t>(row0 + local) * capacity;
   int32_t* s_cnt = smem[warp][0];
   int32_t* s_ord = smem[warp][1];
 
-  // one read of the row: halve, evict, sum; every load issued before a store
+  // one read of the row: halve, evict, sum.  Every load is issued before
+  // any store: the outputs may be the inputs, so the compiler may not move a
+  // later load above an earlier store itself.
+  int32_t c[V], d[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int j = lane + i * MCQ_WARP;
+    if (j < capacity) {
+      c[i] = cnt[base + j] >> 1;
+      d[i] = dst[base + j];
+      s_ord[j] = order[base + j];
+    }
+  }
   uint32_t part = 0;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
     const int j = lane + i * MCQ_WARP;
     if (j < capacity) {
-      const int32_t c = cnt[base + j] >> 1;
-      const int32_t d = dst[base + j];
-      s_ord[j] = order[base + j];
-      s_cnt[j] = c;
-      cnt_out[base + j] = c;
-      dst_out[base + j] = c == 0 ? MCQ_EMPTY : d;
-      part += static_cast<uint32_t>(c);
+      s_cnt[j] = c[i];
+      cnt_out[base + j] = c[i];
+      dst_out[base + j] = c[i] == 0 ? MCQ_EMPTY : d[i];
+      part += static_cast<uint32_t>(c[i]);
     }
   }
   const uint32_t total = __reduce_add_sync(MCQ_FULL_MASK, part);
-  if (lane == 0) tot_out[row0 + local] = static_cast<int32_t>(total);
+  if (lane == 0) {
+    tot_out[row0 + local] = static_cast<int32_t>(total);
+    if (dirty != nullptr) dirty[row0 + local] = 1;
+  }
   __syncwarp();
 
   // the halved counts in priority order; a row already non-increasing keeps
@@ -183,21 +219,23 @@ static void mcq_decay_sort_launch(unsigned blocks, cudaStream_t stream,
                                   const int32_t* order, int32_t* cnt_out,
                                   int32_t* dst_out, int32_t* order_out,
                                   int32_t* tot_out, const int32_t* cursor,
-                                  int32_t* cursor_out, long long num_rows,
-                                  long long block_rows, int capacity) {
+                                  const uint8_t* fire, uint8_t* dirty,
+                                  long long num_rows, long long block_rows,
+                                  int capacity) {
   mcq_decay_sort_kernel<LOG_V><<<blocks, MCQ_DECAY_WARPS * MCQ_WARP, 0,
                                  stream>>>(
-      cnt, dst, order, cnt_out, dst_out, order_out, tot_out, cursor,
-      cursor_out, num_rows, block_rows, capacity);
+      cnt, dst, order, cnt_out, dst_out, order_out, tot_out, cursor, fire,
+      dirty, num_rows, block_rows, capacity);
 }
 
 // cursor == null: rows 0 .. block_rows (block_rows == num_rows, the whole
-// table).  Otherwise the rolling block the cursor selects (1 <= block_rows
-// <= num_rows).  1 <= capacity <= 1024.
+// table), one launch.  Otherwise the rolling block the cursor selects
+// (1 <= block_rows <= num_rows), then the cursor's launch.  Outputs may be
+// the inputs.  1 <= capacity <= 1024.
 extern "C" int mcq_decay_sort(const void* cnt, const void* dst,
                               const void* order, void* cnt_out, void* dst_out,
-                              void* order_out, void* tot_out,
-                              const void* cursor, void* cursor_out,
+                              void* order_out, void* tot_out, void* cursor,
+                              const void* fire, void* dirty,
                               long long num_rows, long long block_rows,
                               int capacity, void* stream) {
   if (block_rows <= 0 || capacity <= 0 || capacity > MCQ_DECAY_MAX_V * MCQ_WARP)
@@ -212,12 +250,13 @@ extern "C" int mcq_decay_sort(const void* cnt, const void* dst,
   auto* dout = static_cast<int32_t*>(dst_out);
   auto* oo = static_cast<int32_t*>(order_out);
   auto* to = static_cast<int32_t*>(tot_out);
-  const auto* cur = static_cast<const int32_t*>(cursor);
-  auto* cur_out = static_cast<int32_t*>(cursor_out);
+  auto* cur = static_cast<int32_t*>(cursor);
+  const auto* f = static_cast<const uint8_t*>(fire);
+  auto* dr = static_cast<uint8_t*>(dirty);
   const int v = (capacity + MCQ_WARP - 1) / MCQ_WARP;
 #define MCQ_DECAY_CASE(LOG_V)                                                  \
-  mcq_decay_sort_launch<LOG_V>(blocks, s, c, d, o, co, dout, oo, to, cur,      \
-                               cur_out, num_rows, block_rows, capacity)
+  mcq_decay_sort_launch<LOG_V>(blocks, s, c, d, o, co, dout, oo, to, cur, f,   \
+                               dr, num_rows, block_rows, capacity)
   if (v <= 1) MCQ_DECAY_CASE(0);
   else if (v <= 2) MCQ_DECAY_CASE(1);
   else if (v <= 4) MCQ_DECAY_CASE(2);
@@ -225,5 +264,10 @@ extern "C" int mcq_decay_sort(const void* cnt, const void* dst,
   else if (v <= 16) MCQ_DECAY_CASE(4);
   else MCQ_DECAY_CASE(5);
 #undef MCQ_DECAY_CASE
+  if (cur != nullptr) {
+    const int status = mcq_launch_status();
+    if (status != 0) return status;
+    mcq_decay_cursor_kernel<<<1, 1, 0, s>>>(cur, f, num_rows, block_rows);
+  }
   return mcq_launch_status();
 }

@@ -1,19 +1,22 @@
-// Fast-path batched increment of existing edges.
+// Fast-path batched increment of existing edges, in place.
 //
 // One warp per item (row, dst, w).  The warp scans dst_slab[row, :] 32 slots
 // at a time (coalesced), takes the LOWEST matching slot (ballot + ffs) and
-// lane 0 adds w to cnt_out[row, slot] and tot_out[row] with int32 atomics.
-// Integer atomics are exact and order-free, so duplicate items and several
-// items on one row need no ordering.  cnt_out/tot_out arrive as copies of
-// cnt/tot; absent edges and rows < 0 are no-ops.  Any capacity >= 1.
+// lane 0 adds w to cnt[row, slot] and tot[row] with int32 atomics, and sets
+// dirty[row] (uint8 per row, or null).  Integer atomics are exact and
+// order-free, so duplicate items and several items on one row need no
+// ordering.  cnt/tot are the caller's own (the state's owner, or a copy the
+// functional wrapper made); absent edges and rows < 0 are no-ops.  Any
+// capacity >= 1.
 #include "common.cuh"
 
 __global__ void mcq_slab_update_kernel(const int32_t* __restrict__ rows,
                                        const int32_t* __restrict__ dsts,
                                        const int32_t* __restrict__ w,
                                        const int32_t* __restrict__ dst_slab,
-                                       int32_t* cnt_out, int32_t* tot_out,
-                                       int batch, int capacity) {
+                                       int32_t* cnt, int32_t* tot,
+                                       uint8_t* __restrict__ dirty, int batch,
+                                       int capacity) {
   const int lane = threadIdx.x & (MCQ_WARP - 1);
   const int warps_per_block = blockDim.x / MCQ_WARP;
   const long long item =
@@ -31,8 +34,9 @@ __global__ void mcq_slab_update_kernel(const int32_t* __restrict__ rows,
     if (hits) {
       if (lane == 0) {
         const int32_t wi = w[item];
-        atomicAdd(cnt_out + base + c0 + mcq_first_lane(hits), wi);
-        atomicAdd(tot_out + row, wi);
+        atomicAdd(cnt + base + c0 + mcq_first_lane(hits), wi);
+        atomicAdd(tot + row, wi);
+        if (dirty != nullptr) dirty[row] = 1;
       }
       return;
     }
@@ -40,9 +44,9 @@ __global__ void mcq_slab_update_kernel(const int32_t* __restrict__ rows,
 }
 
 extern "C" int mcq_slab_update(const void* rows, const void* dsts,
-                               const void* w, const void* dst_slab,
-                               void* cnt_out, void* tot_out, int batch,
-                               int capacity, void* stream) {
+                               const void* w, const void* dst_slab, void* cnt,
+                               void* tot, void* dirty, int batch, int capacity,
+                               void* stream) {
   if (batch <= 0) return 0;
   const int threads = 256;
   const int warps_per_block = threads / MCQ_WARP;
@@ -51,7 +55,7 @@ extern "C" int mcq_slab_update(const void* rows, const void* dsts,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(dsts),
       static_cast<const int32_t*>(w), static_cast<const int32_t*>(dst_slab),
-      static_cast<int32_t*>(cnt_out), static_cast<int32_t*>(tot_out), batch,
-      capacity);
+      static_cast<int32_t*>(cnt), static_cast<int32_t*>(tot),
+      static_cast<uint8_t*>(dirty), batch, capacity);
   return mcq_launch_status();
 }

@@ -11,7 +11,9 @@
 //     victim's count; counts evictions);  cnt[row, slot] = base + w,
 //     dst[row, slot] = d, tot[row] += w.
 // counters = {n_rows, dropped_rows, dropped_probes, evictions}.  The tables
-// are updated in place: the caller passes buffers it owns.
+// are updated in place: the caller passes buffers it owns.  dirty (uint8 per
+// row, or null) is set for every row the pass writes, which takes in every
+// row it allocates: an item that gets a row is applied to it.
 //
 // An item depends on earlier ones in two ways only: a missing src takes the
 // next row (and a later item with that src finds it), and items on one row
@@ -36,15 +38,16 @@
 //   B2 rows    one warp per row: the warp whose key heads a run of its row
 //              caches the row's dst/cnt in shared memory and applies the
 //              run's items in item order; evictions are summed with integer
-//              atomics, tot[row] is written by that warp alone.
+//              atomics, tot[row] and dirty[row] are written by that warp
+//              alone.
 // No float and no order between rows enters a result, so the state is the
 // scan's, bit for bit.
 //
-// Bound on this card: bytes, and nearly all of them are the wrapper's copies
-// of the src table and dst_slab (kernels/slow_path.py); the launches here
-// move only the items, their probe windows and the rows they touch, so they
-// are bound by latency: a few dependent round trips per launch, the sort's
-// barriers, and a row's run of items on its warp.
+// Bound on this card: bytes -- the items, their probe windows and the rows
+// they touch -- so the launches are bound by latency: a few dependent round
+// trips per launch, the sort's barriers, and a row's run of items on its
+// warp.  (The functional wrapper's copies of the src table and dst_slab are
+// its own; the state's owner passes its tensors and pays none.)
 #include <limits.h>
 
 #include "probe.cuh"
@@ -317,7 +320,8 @@ __global__ void mcq_sp_rows_kernel(const long long* __restrict__ keys,
                                    int32_t* __restrict__ dst_slab,
                                    int32_t* __restrict__ cnt, int32_t* tot,
                                    const int32_t* __restrict__ order,
-                                   int32_t* counters, int num_rows,
+                                   int32_t* counters,
+                                   uint8_t* __restrict__ dirty, int num_rows,
                                    int capacity) {
   extern __shared__ int32_t row_cache[];
   const int lane = threadIdx.x & (MCQ_WARP - 1);
@@ -385,6 +389,7 @@ __global__ void mcq_sp_rows_kernel(const long long* __restrict__ keys,
     }
     if (lane == 0) {
       tot[row] = row_tot;
+      if (dirty != nullptr) dirty[row] = 1;
       if (evictions) atomicAdd(&counters[3], evictions);
     }
     __syncwarp();  // the cache is refilled for the warp's next row
@@ -398,12 +403,13 @@ static int mcq_next_pow2(int x) {
 }
 
 // keys, with_row: int64 scratch of n_items each; n_with: int32 scratch of
-// one.
+// one; dirty: null, or uint8 per row.
 extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
                              const void* active, int n_items, void* tab_keys,
                              void* tab_vals, int table_size, void* dst_slab,
                              void* cnt, void* tot, const void* order,
-                             void* counters, int num_rows, int capacity,
+                             void* counters, void* dirty, int num_rows,
+                             int capacity,
                              int max_probes, void* keys, void* with_row,
                              void* n_with, void* stream) {
   if (n_items <= 0) return 0;
@@ -454,6 +460,6 @@ extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
       static_cast<const int32_t*>(w), static_cast<int32_t*>(dst_slab),
       static_cast<int32_t*>(cnt), static_cast<int32_t*>(tot),
       static_cast<const int32_t*>(order), static_cast<int32_t*>(counters),
-      num_rows, capacity);
+      static_cast<uint8_t*>(dirty), num_rows, capacity);
   return mcq_launch_status();
 }

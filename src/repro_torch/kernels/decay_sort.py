@@ -15,19 +15,24 @@ that unique key (64 bits: ``-count * 2^32 + position``) with a bitonic
 network, which gives the same bits.
 
 Bound on this card: bytes — cnt, dst and order read once, the three written
-once, plus ``tot``: 6·C·4 B per row (0.96 ms for 2^20 x 128 at 3.35 TB/s), but
+once, plus ``tot``: 6·C·4 B per row (0.96 ms for 2^20 x 128 at 3.35 TB/s);
 a 1024-row block moves 3 MB and is a launch and two DRAM round trips.  The
 design gives each row a warp that reads and writes the row once, sums with a
 warp reduction and sorts in registers (28 compare-exchange steps at C = 128
 against 260 serial shared-memory steps of 65 odd-even passes; none for a row
-already in order).  In rolling mode the kernel reads the cursor itself, so a
-rolling decay needs no device->host synchronisation; it writes the block
-into copies of the state (``EpochStore`` readers may hold the tensors given)
-and the next cursor into a fresh tensor.
+already in order).  The kernel writes in place: its outputs may be its
+inputs, so the state's owner decays its own tensors and a rolling decay
+moves the block and nothing else (``decay_sort_cuda_``,
+``decay_sort_rolling_cuda_``).  In rolling mode it reads the cursor itself
+and a one-thread launch after the block moves it, so a rolling decay needs
+no device->host synchronisation; given a device ``fire`` flag, both launches
+return at once when it is false (``maybe_decay_``).  The functional wrappers
+give the kernel fresh outputs (whole table) or copies of the state (rolling:
+an ``EpochStore`` reader may hold the tensors given).
 
 Source: ``csrc/decay_sort.cu`` (entry ``mcq_decay_sort``).  Plain versions:
-:func:`decay_sort_ref` and :func:`decay_sort_rolling_ref`;
-:func:`decay_sort_rows_ref` mirrors the kernel's decomposition.
+:func:`decay_sort_ref`, :func:`decay_sort_rolling_ref` and their in-place
+forms; :func:`decay_sort_rows_ref` mirrors the kernel's decomposition.
 """
 
 from __future__ import annotations
@@ -35,34 +40,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (decay_sort_ref, decay_sort_rolling_ref,
+from repro_torch.kernels.ref import (decay_sort_ref, decay_sort_ref_,
+                                     decay_sort_rolling_ref,
+                                     decay_sort_rolling_ref_,
                                      decay_sort_rows_ref)
 
 # the plain versions are re-exported beside their kernel
-__all__ = ["decay_sort_cuda", "decay_sort_rolling_cuda", "decay_sort_ref",
-           "decay_sort_rolling_ref", "decay_sort_rows_ref", "launches",
-           "MAX_CAPACITY"]
+__all__ = ["decay_sort_cuda", "decay_sort_cuda_", "decay_sort_rolling_cuda",
+           "decay_sort_rolling_cuda_", "decay_sort_ref", "decay_sort_ref_",
+           "decay_sort_rolling_ref", "decay_sort_rolling_ref_",
+           "decay_sort_rows_ref", "launches", "MAX_CAPACITY"]
 
 launches = 0  # kernel launches made by this module's wrappers in this process
 
 MAX_CAPACITY = 1024   # 32 lanes x 32 registers: the widest row a warp sorts
 
 
-def _check(name, cnt, dst, order, **more):
-    _build.require_cuda_int32(name, cnt=cnt, dst=dst, order=order, **more)
+def _check(name, cnt, dst, order, fire=None, dirty=None, **more):
+    _build.require_cuda_int32(name, bools=("fire",), flags=("dirty",), cnt=cnt,
+                              dst=dst, order=order, fire=fire, dirty=dirty,
+                              **more)
     if cnt.dim() != 2 or not (cnt.shape == dst.shape == order.shape):
         raise ValueError(f"{name}: cnt/dst/order must be [N, C]")
     if not 1 <= cnt.shape[1] <= MAX_CAPACITY:
         raise ValueError(f"{name}: capacity {cnt.shape[1]} is outside 1.."
                          f"{MAX_CAPACITY}, the rows one warp sorts in registers")
+    if fire is not None and fire.dim() != 0:
+        raise ValueError(f"{name}: fire must be a 0-dim bool tensor")
+    _build.require_flags(name, dirty, cnt.shape[0])
 
 
-def _launch(cnt, dst, order, outs, cursor, cursor_out, block_rows):
+def _launch(cnt, dst, order, outs, cursor, fire, dirty, block_rows):
     global launches
     _build.launch("mcq_decay_sort", cnt.device, cnt.data_ptr(), dst.data_ptr(),
                   order.data_ptr(), *(x.data_ptr() for x in outs),
-                  None if cursor is None else cursor.data_ptr(),
-                  None if cursor_out is None else cursor_out.data_ptr(),
+                  _build.ptr(cursor), _build.ptr(fire), _build.ptr(dirty),
                   cnt.shape[0], block_rows, cnt.shape[1])
     launches += 1
 
@@ -75,26 +87,52 @@ def decay_sort_cuda(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor):
             torch.empty_like(order),
             torch.empty(cnt.shape[:1], dtype=torch.int32, device=cnt.device))
     if cnt.shape[0]:
-        _launch(cnt, dst, order, outs, None, None, cnt.shape[0])
+        _launch(cnt, dst, order, outs, None, None, None, cnt.shape[0])
     return outs
+
+
+def decay_sort_cuda_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+                     tot: torch.Tensor, *, fire=None, dirty=None) -> None:
+    """Every row of cnt/dst/order [N, C] and tot [N] decayed in place on the
+    GPU, one launch; unless the device bool ``fire`` is false, when nothing
+    is written.  ``dirty`` (uint8 [N]): every decayed row's flag set."""
+    _check("decay_sort_cuda_", cnt, dst, order, fire, dirty, tot=tot)
+    if tot.shape != cnt.shape[:1]:
+        raise ValueError("decay_sort_cuda_: tot must be [N]")
+    if cnt.shape[0]:
+        _launch(cnt, dst, order, (cnt, dst, order, tot), None, fire, dirty,
+                cnt.shape[0])
+
+
+def decay_sort_rolling_cuda_(cnt: torch.Tensor, dst: torch.Tensor,
+                             order: torch.Tensor, tot: torch.Tensor,
+                             cursor: torch.Tensor, *, block_rows: int,
+                             fire=None, dirty=None) -> None:
+    """The rolling block the device-side ``cursor`` (0-dim int32) selects,
+    decayed in place on the GPU, and the cursor moved to the next block;
+    rows ``row0 .. row0 + block_rows`` of cnt/dst/order [N, C] and tot [N]
+    are written, no other.  Unless the device bool ``fire`` is false: then
+    nothing is written and the cursor stays.  ``dirty`` (uint8 [N]): the
+    block's flags set."""
+    _check("decay_sort_rolling_cuda_", cnt, dst, order, fire, dirty, tot=tot,
+           cursor=cursor)
+    n = cnt.shape[0]
+    if tot.shape != (n,) or cursor.dim() != 0:
+        raise ValueError("decay_sort_rolling_cuda_: tot must be [N] and cursor "
+                         "a 0-dim tensor")
+    if not 1 <= block_rows <= n:
+        raise ValueError(f"decay_sort_rolling_cuda_: block_rows {block_rows} "
+                         f"outside 1..{n}")
+    _launch(cnt, dst, order, (cnt, dst, order, tot), cursor, fire, dirty,
+            block_rows)
 
 
 def decay_sort_rolling_cuda(cnt: torch.Tensor, dst: torch.Tensor,
                             order: torch.Tensor, tot: torch.Tensor,
                             cursor: torch.Tensor, *, block_rows: int):
-    """The rolling block the device-side ``cursor`` (0-dim int32) selects,
-    decayed on the GPU in one launch.  Returns copies of cnt/dst/order
-    [N, C] and tot [N] with rows ``row0 .. row0 + block_rows`` decayed, and
-    the next cursor (fresh); the inputs are not written."""
-    _check("decay_sort_rolling_cuda", cnt, dst, order, tot=tot, cursor=cursor)
-    n = cnt.shape[0]
-    if tot.shape != (n,) or cursor.dim() != 0:
-        raise ValueError("decay_sort_rolling_cuda: tot must be [N] and cursor "
-                         "a 0-dim tensor")
-    if not 1 <= block_rows <= n:
-        raise ValueError(f"decay_sort_rolling_cuda: block_rows {block_rows} "
-                         f"outside 1..{n}")
-    outs = tuple(x.clone() for x in (cnt, dst, order, tot))
-    cursor_out = torch.empty_like(cursor)
-    _launch(cnt, dst, order, outs, cursor, cursor_out, block_rows)
-    return (*outs, cursor_out)
+    """The rolling decay into copies: returns copies of cnt/dst/order [N, C]
+    and tot [N] with the cursor's block decayed, and the next cursor; the
+    inputs are not written."""
+    outs = tuple(x.clone() for x in (cnt, dst, order, tot, cursor))
+    decay_sort_rolling_cuda_(*outs, block_rows=block_rows)
+    return outs

@@ -10,11 +10,14 @@ compare-exchange sweeps, descending, strict ``<`` (equal counts never swap).
 Bound on this card: bytes — ``cnt`` and ``order`` read, ``order`` written,
 3·N·C·4 B whatever ``passes`` is.  The design holds a row in shared memory
 for ALL passes (one warp per row, a lane per pair, ``__syncwarp`` between
-half-passes), so extra passes cost shared-memory sweeps and no global traffic.
-``ops.decay_sort`` runs it with ``C//2 + 1`` passes as a full sort.
+half-passes), so extra passes cost shared-memory sweeps and no global
+traffic.  In place (``oddeven_cuda_``, the state's owner) a row in which no
+pair swapped is not written back, and a row that changed sets its dirty
+flag, so the writes fall to the rows that changed.
 
-Source: ``csrc/oddeven.cu`` (entry ``mcq_oddeven``).  Plain version:
-:func:`oddeven_sort_ref` (= order gather + :func:`oddeven_ref`).
+Source: ``csrc/oddeven.cu`` (entry ``mcq_oddeven``).  Plain versions:
+:func:`oddeven_sort_ref` (= order gather + :func:`oddeven_ref`) and
+:func:`oddeven_sort_ref_`.
 """
 
 from __future__ import annotations
@@ -22,36 +25,50 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import oddeven_ref, oddeven_sort_ref
+from repro_torch.kernels.ref import oddeven_ref, oddeven_sort_ref, oddeven_sort_ref_
 
-# the plain version is re-exported beside its kernel
-__all__ = ["oddeven_cuda", "oddeven_ref", "oddeven_sort_ref", "launches"]
+# the plain versions are re-exported beside their kernel
+__all__ = ["oddeven_cuda", "oddeven_cuda_", "oddeven_ref", "oddeven_sort_ref",
+           "oddeven_sort_ref_", "launches"]
 
-launches = 0  # kernel launches made by oddeven_cuda in this process
+launches = 0  # kernel launches made by this module's wrappers in this process
 
 _MAX_SHARED_BYTES = 232448  # dynamic shared memory one block can ask for
 _WARPS_PER_BLOCK = 4        # rows per block in csrc/oddeven.cu
 
 
+def _launch(name, cnt, order, order_out, passes, dirty):
+    global launches
+    _build.require_cuda_int32(name, flags=("dirty",), cnt=cnt, order=order,
+                              dirty=dirty)
+    if cnt.dim() != 2 or cnt.shape != order.shape:
+        raise ValueError(f"{name}: cnt/order must both be [N, C]")
+    if passes < 0:
+        raise ValueError(f"{name}: passes must be >= 0")
+    n, cap = cnt.shape
+    if _WARPS_PER_BLOCK * 2 * cap * 4 > _MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: capacity {cap} does not fit a row "
+                         f"block in shared memory")
+    if n > (2 ** 31 - 1) * _WARPS_PER_BLOCK:
+        raise ValueError(f"{name}: too many rows for one launch")
+    _build.require_flags(name, dirty, n)
+    if n == 0 or cap == 0:
+        return
+    _build.launch("mcq_oddeven", cnt.device, cnt.data_ptr(), order.data_ptr(),
+                  order_out.data_ptr(), _build.ptr(dirty), n, cap, passes)
+    launches += 1
+
+
 def oddeven_cuda(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1):
     """``passes`` odd-even passes over every row on the GPU; cnt/order
     [N, C].  Returns the new order permutation (a fresh tensor)."""
-    global launches
-    _build.require_cuda_int32("oddeven_cuda", cnt=cnt, order=order)
-    if cnt.dim() != 2 or cnt.shape != order.shape:
-        raise ValueError("oddeven_cuda: cnt/order must both be [N, C]")
-    if passes < 0:
-        raise ValueError("oddeven_cuda: passes must be >= 0")
-    n, cap = cnt.shape
-    if _WARPS_PER_BLOCK * 2 * cap * 4 > _MAX_SHARED_BYTES:
-        raise ValueError(f"oddeven_cuda: capacity {cap} does not fit a row "
-                         f"block in shared memory")
-    if n > (2 ** 31 - 1) * _WARPS_PER_BLOCK:
-        raise ValueError("oddeven_cuda: too many rows for one launch")
     order_out = torch.empty_like(order)
-    if n == 0 or cap == 0:
-        return order_out
-    _build.launch("mcq_oddeven", cnt.device, cnt.data_ptr(), order.data_ptr(),
-                  order_out.data_ptr(), n, cap, passes)
-    launches += 1
+    _launch("oddeven_cuda", cnt, order, order_out, passes, None)
     return order_out
+
+
+def oddeven_cuda_(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
+                  dirty=None) -> None:
+    """The same passes written into ``order`` itself: only the rows that
+    changed are written, and their ``dirty`` (uint8 [N]) flags set."""
+    _launch("oddeven_cuda_", cnt, order, order, passes, dirty)

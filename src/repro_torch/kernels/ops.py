@@ -6,6 +6,13 @@ plain PyTorch version on whatever device the tensors are on, ``impl='auto'``
 picks the kernel for CUDA tensors and the plain version for CPU tensors.
 A kernel that fails to build or launch raises; nothing falls back to the
 plain version.
+
+Each write kernel has two forms.  The functional one returns new tensors
+and writes nothing it is given (an ``EpochStore`` reader may hold it).  The
+in-place one (a trailing underscore) writes into the tensors it is given —
+for the state's owner — and takes ``dirty`` (None, or uint8 [N], one flag
+per row), which it sets for every row whose ``cnt``, ``dst``, ``tot`` or
+``order`` it changed.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 from repro_torch.core.hashtable import EMPTY
 from repro_torch.kernels import cdf_gather as _cg
 from repro_torch.kernels import cdf_query as _cdf
+from repro_torch.kernels import copy_rows as _cr
 from repro_torch.kernels import decay_sort as _ds
 from repro_torch.kernels import oddeven as _oe
 from repro_torch.kernels import probe as _pr
@@ -48,6 +56,16 @@ def oddeven_sort(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
     return _oe.oddeven_cuda(cnt, order, passes=passes)
 
 
+def oddeven_sort_(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
+                  dirty=None, impl: str = "auto") -> None:
+    """The passes written into ``order``: only the rows that changed are
+    written, and flagged."""
+    if _use_ref(impl, cnt):
+        _ref.oddeven_sort_ref_(cnt, order, passes, dirty)
+    else:
+        _oe.oddeven_cuda_(cnt, order, passes=passes, dirty=dirty)
+
+
 def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
                 dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
                 *, impl: str = "auto"):
@@ -57,6 +75,17 @@ def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
         _, cnt2, tot2, _ = _ref.slab_update_ref(rows, dsts, w, dst_slab, cnt, tot)
         return cnt2, tot2
     return _su.slab_update_cuda(rows, dsts, w, dst_slab, cnt, tot)
+
+
+def slab_update_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
+                 dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+                 *, dirty=None, impl: str = "auto") -> None:
+    """Fast-path batched increments written into ``cnt``/``tot``; every row
+    an item hit is flagged."""
+    if _use_ref(impl, cnt):
+        _ref.slab_update_ref_(rows, dsts, w, dst_slab, cnt, tot, dirty)
+    else:
+        _su.slab_update_cuda_(rows, dsts, w, dst_slab, cnt, tot, dirty=dirty)
 
 
 def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
@@ -73,6 +102,18 @@ def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
     return _ds.decay_sort_cuda(cnt, dst, order)
 
 
+def decay_sort_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+                tot: torch.Tensor, *, fire=None, dirty=None,
+                impl: str = "auto") -> None:
+    """The decay of every row written into ``cnt, dst, order, tot``, every
+    row flagged; nothing at all when the 0-dim bool tensor ``fire`` is
+    false (read on the device, never on the host)."""
+    if _use_ref(impl, cnt):
+        _ref.decay_sort_ref_(cnt, dst, order, tot, fire, dirty)
+    else:
+        _ds.decay_sort_cuda_(cnt, dst, order, tot, fire=fire, dirty=dirty)
+
+
 def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                        order: torch.Tensor, tot: torch.Tensor,
                        cursor: torch.Tensor, *, block_rows: int,
@@ -87,6 +128,23 @@ def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                                            block_rows)
     return _ds.decay_sort_rolling_cuda(cnt, dst, order, tot, cursor,
                                        block_rows=block_rows)
+
+
+def decay_sort_rolling_(cnt: torch.Tensor, dst: torch.Tensor,
+                        order: torch.Tensor, tot: torch.Tensor,
+                        cursor: torch.Tensor, *, block_rows: int, fire=None,
+                        dirty=None, impl: str = "auto") -> None:
+    """The rolling decay written into ``cnt, dst, order, tot`` (the block's
+    rows, flagged) and ``cursor`` (moved to the next block); nothing at all
+    when the 0-dim bool tensor ``fire`` is false.  No device->host
+    synchronisation."""
+    if _use_ref(impl, cnt):
+        _ref.decay_sort_rolling_ref_(cnt, dst, order, tot, cursor, block_rows,
+                                     fire, dirty)
+    else:
+        _ds.decay_sort_rolling_cuda_(cnt, dst, order, tot, cursor,
+                                     block_rows=block_rows, fire=fire,
+                                     dirty=dirty)
 
 
 def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
@@ -188,18 +246,44 @@ def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
               order: torch.Tensor, counters: torch.Tensor,
               src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
               active: torch.Tensor, *, max_probes: int = 64,
-              own_counts: bool = False, impl: str = "auto"):
+              impl: str = "auto"):
     """The new-edge pass (row allocation, slot allocation, Space-Saving
     replacement) over items ``src/dst/w[L]`` where ``active``, with the
     result of a sequential walk in item order; ``counters[4]`` = (n_rows,
     dropped_rows, dropped_probes, evictions).  Returns ``(tab_keys,
-    tab_vals, dst_slab, cnt, tot, counters)``, fresh except ``cnt`` and
-    ``tot`` when the caller owns them (``own_counts``): those are written in
-    place."""
+    tab_vals, dst_slab, cnt, tot, counters)``, all fresh."""
     if _use_ref(impl, cnt):
         return _ref.slow_path_ref(tab_keys, tab_vals, dst_slab, cnt, tot,
                                   order, counters, src, dst, w, active,
-                                  max_probes, own_counts)
+                                  max_probes)
     return _sp.slow_path_cuda(tab_keys, tab_vals, dst_slab, cnt, tot, order,
                               counters, src, dst, w, active.to(torch.int32),
-                              max_probes=max_probes, own_counts=own_counts)
+                              max_probes=max_probes)
+
+
+def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+               dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+               order: torch.Tensor, counters: torch.Tensor,
+               src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+               active: torch.Tensor, *, max_probes: int = 64, dirty=None,
+               impl: str = "auto") -> None:
+    """The new-edge pass written into the src table, ``dst_slab``, ``cnt``,
+    ``tot`` and ``counters``; every row written is flagged."""
+    if _use_ref(impl, cnt):
+        _ref.slow_path_ref_(tab_keys, tab_vals, dst_slab, cnt, tot, order,
+                            counters, src, dst, w, active, max_probes, dirty)
+    else:
+        _sp.slow_path_cuda_(tab_keys, tab_vals, dst_slab, cnt, tot, order,
+                            counters, src, dst, w, active.to(torch.int32),
+                            max_probes=max_probes, dirty=dirty)
+
+
+def copy_dirty_rows(front, back, dirty: torch.Tensor, *,
+                    impl: str = "auto") -> None:
+    """Catch ``back`` up with ``front``, each ``(cnt, dst, order, tot,
+    table keys, table vals, scalars)``: the rows flagged in ``dirty`` and
+    the rest whole; then clear the flags."""
+    if _use_ref(impl, dirty):
+        _ref.copy_dirty_rows_ref(*front, *back, dirty)
+    else:
+        _cr.copy_dirty_rows_cuda(*front, *back, dirty)

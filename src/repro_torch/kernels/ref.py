@@ -17,35 +17,46 @@ from repro_torch.core import hashtable as ht
 from repro_torch.core import slab as sl
 from repro_torch.core.hashtable import EMPTY, first_true
 
+# The in-place forms (a trailing underscore) write into the tensors they are
+# given, as the kernels do for the state's owner, and set ``dirty`` (None, or
+# uint8 [N], one flag per row) for the rows the kernel flags.  They neither
+# clone a tensor they are given nor read one on the host (the sequential
+# new-edge pass excepted), and take ``fire`` (a 0-dim bool tensor: write
+# only when it holds) without reading it.
+
+
+def _flag(dirty, rows: torch.Tensor) -> None:
+    """Set ``dirty`` where the bool ``rows`` [N] holds (no-op for None)."""
+    if dirty is not None:
+        dirty.bitwise_or_(rows.to(torch.uint8))
+
+
+def _fired(new: torch.Tensor, old: torch.Tensor, fire) -> torch.Tensor:
+    return new if fire is None else torch.where(fire, new, old)
+
 
 def oddeven_ref(c_ord: torch.Tensor, order: torch.Tensor, passes: int):
     """k odd-even passes over counts-in-order + the order permutation.
 
     c_ord[N, C] are the counts *already gathered into order position* (the
     kernel-side layout); order[N, C] the slot permutation. Returns the pair
-    after ``passes`` full (even+odd) sweeps, descending target.
+    after ``passes`` full (even+odd) sweeps, descending target; the inputs
+    are not written.
     """
-    c_ord = c_ord.clone()
-    order = order.clone()
     cap = c_ord.shape[1]
+    idx = torch.arange(cap, device=c_ord.device)
     for _ in range(passes):
         for start in (0, 1):
-            m = (cap - start) // 2
-            if m <= 0:
-                continue
-            left = slice(start, start + 2 * m, 2)
-            right = slice(start + 1, start + 1 + 2 * m, 2)
-            left_c, right_c = c_ord[:, left], c_ord[:, right]
-            left_o, right_o = order[:, left], order[:, right]
-            swap = left_c < right_c
-            nl_c = torch.where(swap, right_c, left_c)
-            nr_c = torch.where(swap, left_c, right_c)
-            nl_o = torch.where(swap, right_o, left_o)
-            nr_o = torch.where(swap, left_o, right_o)
-            c_ord[:, left] = nl_c
-            c_ord[:, right] = nr_c
-            order[:, left] = nl_o
-            order[:, right] = nr_o
+            # pairs (p, p + 1) for p = start, start + 2, ..: each position's
+            # partner, and whether it is the pair's left or right element
+            off = idx - start
+            left = (off >= 0) & (off % 2 == 0) & (idx + 1 < cap)
+            right = (off >= 1) & (off % 2 == 1)
+            partner = torch.where(left, idx + 1, torch.where(right, idx - 1, idx))
+            pc = c_ord[:, partner]
+            swap = (left & (c_ord < pc)) | (right & (pc < c_ord))
+            c_ord, order = (torch.where(swap, pc, c_ord),
+                            torch.where(swap, order[:, partner], order))
     return c_ord, order
 
 
@@ -54,6 +65,15 @@ def oddeven_sort_ref(cnt: torch.Tensor, order: torch.Tensor, passes: int):
     counts into order position once, run the passes, return the new order."""
     _, new_order = oddeven_ref(sl.gather_cols(cnt, order), order, passes)
     return new_order
+
+
+def oddeven_sort_ref_(cnt: torch.Tensor, order: torch.Tensor, passes: int,
+                      dirty=None) -> None:
+    """:func:`oddeven_sort_ref` written into ``order``; a row whose order
+    changed is flagged."""
+    new_order = oddeven_sort_ref(cnt, order, passes)
+    _flag(dirty, (new_order != order).any(dim=1))
+    order.copy_(new_order)
 
 
 def decay_sort_ref(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor):
@@ -118,35 +138,61 @@ def decay_sort_rows_ref(cnt: torch.Tensor, dst: torch.Tensor,
     return new_cnt, new_dst, new_order.to(torch.int32), new_tot
 
 
-def decay_sort_rolling_ref(cnt: torch.Tensor, dst: torch.Tensor,
-                           order: torch.Tensor, tot: torch.Tensor,
-                           cursor: torch.Tensor, block_rows: int):
-    """Rolling decay of one ``block_rows``-row block, found on the device as
-    the reference finds it: ``cur = cursor mod ceil(n / r)``, first row
-    ``min(cur * r, n - r)`` (the last block is clamped and overlaps the one
-    before it when r does not divide n).  Returns copies of ``cnt, dst,
-    order, tot`` with that block decayed by :func:`decay_sort_ref`, and the
-    next cursor ``cur + 1``; nothing reads the cursor on the host."""
+def decay_sort_ref_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+                    tot: torch.Tensor, fire=None, dirty=None) -> None:
+    """:func:`decay_sort_ref` of every row written into ``cnt, dst, order,
+    tot`` (unless ``fire`` is false); every decayed row is flagged."""
+    blocks = decay_sort_ref(cnt, dst, order)
+    for full, block in zip((cnt, dst, order, tot), blocks):
+        full.copy_(_fired(block, full, fire))
+    _flag(dirty, torch.ones_like(tot, dtype=torch.bool) if fire is None
+          else fire.expand(tot.shape))
+
+
+def decay_sort_rolling_ref_(cnt: torch.Tensor, dst: torch.Tensor,
+                            order: torch.Tensor, tot: torch.Tensor,
+                            cursor: torch.Tensor, block_rows: int, fire=None,
+                            dirty=None) -> None:
+    """Rolling decay of one ``block_rows``-row block, in place, found on the
+    device as the reference finds it: ``cur = cursor mod ceil(n / r)``, first
+    row ``min(cur * r, n - r)`` (the last block is clamped and overlaps the
+    one before it when r does not divide n).  That block of ``cnt, dst,
+    order, tot`` is decayed by :func:`decay_sort_ref` and flagged, and the
+    cursor set to ``cur + 1`` — unless ``fire`` is false, when nothing
+    changes.  Nothing is read on the host."""
     n = cnt.shape[0]
     cur = torch.remainder(cursor, -(-n // block_rows))
     row0 = (cur.to(torch.int64) * block_rows).clamp(max=n - block_rows)
     rows = row0 + torch.arange(block_rows, device=cnt.device)
     blocks = decay_sort_ref(cnt[rows], dst[rows], order[rows])
-    outs = []
     for full, block in zip((cnt, dst, order, tot), blocks):
-        out = full.clone()
-        out[rows] = block
-        outs.append(out)
-    return (*outs, (cur + 1).to(torch.int32))
+        full[rows] = _fired(block, full[rows], fire)
+    cursor.copy_(_fired((cur + 1).to(torch.int32), cursor, fire))
+    if dirty is not None:
+        dirty[rows] |= 1 if fire is None else fire.to(torch.uint8)
 
 
-def slab_update_ref(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
-                    dst: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor):
-    """Fast-path batched edge increment (paper §II.A.2, existing edges only).
+def decay_sort_rolling_ref(cnt: torch.Tensor, dst: torch.Tensor,
+                           order: torch.Tensor, tot: torch.Tensor,
+                           cursor: torch.Tensor, block_rows: int):
+    """:func:`decay_sort_rolling_ref_` on copies: returns copies of ``cnt,
+    dst, order, tot`` with the cursor's block decayed, and the next cursor;
+    the inputs are not written."""
+    outs = tuple(x.clone() for x in (cnt, dst, order, tot, cursor))
+    decay_sort_rolling_ref_(*outs, block_rows)
+    return outs
+
+
+def slab_update_ref_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
+                     dst: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+                     dirty=None) -> torch.Tensor:
+    """Fast-path batched edge increment (paper §II.A.2, existing edges only),
+    written into ``cnt`` and ``tot``.
 
     For each item i: find slot of dsts[i] in row rows[i]; if present add w[i]
-    to cnt and tot.  Items whose edge is absent are no-ops (the caller sends
-    them down the slow path).  rows < 0 marks padding.
+    to cnt and tot, and flag the row.  Items whose edge is absent are no-ops
+    (the caller sends them down the slow path).  rows < 0 marks padding.
+    Returns ``found[B]``.
     """
     active = rows >= 0
     safe_rows = rows.clamp(min=0).to(torch.int64)
@@ -156,8 +202,19 @@ def slab_update_ref(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
     slot = torch.where(any_hit, slot, 0)
     addw = torch.where(found, w, 0).to(cnt.dtype)
     cap = cnt.shape[1]
-    cnt = cnt.clone().view(-1).index_add_(0, safe_rows * cap + slot, addw).view_as(cnt)
-    tot = tot.clone().index_add_(0, safe_rows, addw)
+    cnt.view(-1).index_add_(0, safe_rows * cap + slot, addw)
+    tot.index_add_(0, safe_rows, addw)
+    hits = torch.zeros_like(tot).index_add_(0, safe_rows, found.to(tot.dtype))
+    _flag(dirty, hits > 0)
+    return found
+
+
+def slab_update_ref(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
+                    dst: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor):
+    """:func:`slab_update_ref_` on copies of ``cnt``/``tot``; returns
+    ``(dst, cnt', tot', found)``."""
+    cnt, tot = cnt.clone(), tot.clone()
+    found = slab_update_ref_(rows, dsts, w, dst, cnt, tot)
     return dst, cnt, tot, found
 
 
@@ -313,12 +370,27 @@ def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,
     return toks, oks
 
 
-def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
-                  dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
-                  order: torch.Tensor, counters: torch.Tensor,
-                  src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-                  active: torch.Tensor, max_probes: int,
-                  own_counts: bool = False):
+def _on_copies(pass_):
+    """The functional form of an in-place new-edge pass: it runs on copies of
+    what the pass writes and returns ``(tab_keys, tab_vals, dst_slab, cnt,
+    tot, counters)``; the inputs are not written."""
+    def functional(tab_keys, tab_vals, dst_slab, cnt, tot, order, counters,
+                   src, dst, w, active, max_probes):
+        out = [x.clone() for x in (tab_keys, tab_vals, dst_slab, cnt, tot,
+                                   counters)]
+        pass_(*out[:5], order, out[5], src, dst, w, active, max_probes)
+        return tuple(out)
+    functional.__name__ = functional.__qualname__ = pass_.__name__[:-1]
+    functional.__doc__ = f"``{pass_.__name__}`` on copies (see there)."
+    return functional
+
+
+def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                   dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
+                   order: torch.Tensor, counters: torch.Tensor,
+                   src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                   active: torch.Tensor, max_probes: int,
+                   dirty=None) -> None:
     """Sequential insert pass for new edges / new rows (the paper's rare case).
 
     Deterministic (batch order); inactive items are no-ops.  For each active
@@ -328,14 +400,10 @@ def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     the dst's slot, else the first free slot, else replace the order tail
     (Space-Saving: the newcomer inherits the victim's count; ``evictions`` =
     ``counters[3]``).  A later item sees the rows and slots an earlier one
-    made.  Returns ``(tab_keys, tab_vals, dst_slab, cnt, tot, counters)``,
-    all fresh; the inputs are not written, except ``cnt`` and ``tot`` when
-    the caller owns them (``own_counts``): those are written in place and
-    returned.
+    made.  Writes ``tab_keys, tab_vals, dst_slab, cnt, tot, counters`` in
+    place and flags every row it writes.  A sequential walk: it reads the
+    items on the host.
     """
-    tab_keys, tab_vals, dst_slab = tab_keys.clone(), tab_vals.clone(), dst_slab.clone()
-    if not own_counts:
-        cnt, tot = cnt.clone(), tot.clone()
     n_cap = cnt.shape[0]
     n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
     table = ht.HashTable(tab_keys, tab_vals)
@@ -372,20 +440,20 @@ def slow_path_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
         cnt[row, slot] = base + wi
         dst_slab[row, slot] = d
         tot[row] += wi
-    new_counters = torch.tensor(
-        [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32
-    ).to(counters.device)
-    return tab_keys, tab_vals, dst_slab, cnt, tot, new_counters
+        if dirty is not None:
+            dirty[row] = 1
+    counters.copy_(torch.tensor(
+        [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32))
 
 
-def slow_path_rows_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
-                       dst_slab: torch.Tensor, cnt: torch.Tensor,
-                       tot: torch.Tensor, order: torch.Tensor,
-                       counters: torch.Tensor, src: torch.Tensor,
-                       dst: torch.Tensor, w: torch.Tensor,
-                       active: torch.Tensor, max_probes: int,
-                       own_counts: bool = False):
-    """The same pass as :func:`slow_path_ref`, computed the way the CUDA
+def slow_path_rows_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                        dst_slab: torch.Tensor, cnt: torch.Tensor,
+                        tot: torch.Tensor, order: torch.Tensor,
+                        counters: torch.Tensor, src: torch.Tensor,
+                        dst: torch.Tensor, w: torch.Tensor,
+                        active: torch.Tensor, max_probes: int,
+                        dirty=None) -> None:
+    """The same pass as :func:`slow_path_ref_`, computed the way the CUDA
     kernel decomposes it (same arguments, same results).
 
     Phase A, rows: every active item looks its src up in the pre-state
@@ -398,9 +466,6 @@ def slow_path_rows_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     other, so the k-th item of every row is applied at once, for k = 0, 1,
     ...  Used by the tests and ``chip_smoke.py``, not on any path.
     """
-    tab_keys, tab_vals, dst_slab = tab_keys.clone(), tab_vals.clone(), dst_slab.clone()
-    if not own_counts:
-        cnt, tot = cnt.clone(), tot.clone()
     n_cap, cap = cnt.shape
     n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
     act = active.to(torch.bool)
@@ -453,7 +518,27 @@ def slow_path_rows_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
             dst_slab[r, slot] = d.to(dst_slab.dtype)
             tot[r] += wi.to(tot.dtype)
             evictions += int((~found_d & ~has_free).sum())
-    new_counters = torch.tensor(
-        [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32
-    ).to(counters.device)
-    return tab_keys, tab_vals, dst_slab, cnt, tot, new_counters
+        if dirty is not None:
+            dirty[r_sorted] = 1
+    counters.copy_(torch.tensor(
+        [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32))
+
+
+slow_path_ref = _on_copies(slow_path_ref_)
+slow_path_rows_ref = _on_copies(slow_path_rows_ref_)
+
+
+def copy_dirty_rows_ref(f_cnt, f_dst, f_order, f_tot, f_keys, f_vals,
+                        f_scalars, b_cnt, b_dst, b_order, b_tot, b_keys,
+                        b_vals, b_scalars, dirty) -> None:
+    """Catch the back state up with the front (plain version of
+    ``copy_rows.py``): the ``cnt``/``dst``/``order`` rows and ``tot`` of
+    every row flagged in ``dirty``, the src table ``keys``/``vals`` and the
+    ``scalars`` whole; then clear the flags."""
+    rows = dirty != 0
+    for f, b in ((f_cnt, b_cnt), (f_dst, b_dst), (f_order, b_order)):
+        b.copy_(torch.where(rows.unsqueeze(1), f, b))
+    b_tot.copy_(torch.where(rows, f_tot, b_tot))
+    for f, b in ((f_keys, b_keys), (f_vals, b_vals), (f_scalars, b_scalars)):
+        b.copy_(f)
+    dirty.zero_()

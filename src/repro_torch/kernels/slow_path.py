@@ -19,15 +19,16 @@ empty pass costs a few short launches and no device->host
 synchronisation.  Plain mirror of this decomposition:
 :func:`repro_torch.kernels.ref.slow_path_rows_ref`.
 
-Bound on this card: bytes, and almost all of them are the functional copies
-of what an ``EpochStore`` reader may still hold — the src table and
-``dst_slab`` (2·(2·H + N·C)·4 B read + written).  ``cnt`` and ``tot`` are
-copied too unless the caller owns them (``own_counts``; ``update_batch``
-does: they are ``slab_update``'s fresh outputs), and are then written in
-place.  Beyond the copies the work is the items' probe windows and rows.
+Bound on this card: bytes — the items, their probe windows and the rows
+they touch.  The state's owner hands its own tensors (``slow_path_cuda_``):
+the pass writes the src table, ``dst_slab``, ``cnt``, ``tot`` and the
+counters in place and sets the dirty flag of every row it writes.  The
+functional wrapper first copies what the pass writes — the src table,
+``dst_slab``, ``cnt``/``tot`` and the counters, 2·(2·H + 2·N·C + N)·4 B read
++ written: an ``EpochStore`` reader may hold the tensors given.
 
-Source: ``csrc/slow_path.cu`` (entry ``mcq_slow_path``).  Plain version:
-:func:`slow_path_ref`.
+Source: ``csrc/slow_path.cu`` (entry ``mcq_slow_path``).  Plain versions:
+:func:`slow_path_ref` and :func:`slow_path_ref_`.
 """
 
 from __future__ import annotations
@@ -35,13 +36,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import slow_path_ref
+from repro_torch.kernels.ref import slow_path_ref, slow_path_ref_
 
-# the plain version is re-exported beside its kernel
-__all__ = ["slow_path_cuda", "slow_path_cuda_inplace", "slow_path_ref",
-           "launches"]
+# the plain versions are re-exported beside their kernel
+__all__ = ["slow_path_cuda", "slow_path_cuda_", "slow_path_ref",
+           "slow_path_ref_", "launches"]
 
-launches = 0  # kernel launches made by slow_path_cuda in this process
+launches = 0  # kernel launches made by slow_path_cuda_ in this process
 
 _NO_ROW = 0x7FFFFFFE  # row field of a missing src in the kernel's sort keys
 # the row launch caches 2 x C int32 per warp, 4 warps, in 48 KiB of shared
@@ -49,20 +50,22 @@ _NO_ROW = 0x7FFFFFFE  # row field of a missing src in the kernel's sort keys
 _MAX_CAPACITY = 48 * 1024 // (4 * 2 * 4)
 
 
-def slow_path_cuda_inplace(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
-                           dst_slab: torch.Tensor, cnt: torch.Tensor,
-                           tot: torch.Tensor, order: torch.Tensor,
-                           counters: torch.Tensor, src: torch.Tensor,
-                           dst: torch.Tensor, w: torch.Tensor,
-                           active: torch.Tensor, *, max_probes: int = 64):
+def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                    dst_slab: torch.Tensor, cnt: torch.Tensor,
+                    tot: torch.Tensor, order: torch.Tensor,
+                    counters: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor, w: torch.Tensor,
+                    active: torch.Tensor, *, max_probes: int = 64,
+                    dirty=None) -> None:
     """The pass on the GPU, written into the given src table, ``dst_slab``,
     ``cnt``, ``tot`` and ``counters`` (the caller owns all of them); no
-    copy.  Arguments as :func:`slow_path_cuda`."""
+    copy.  ``dirty`` (uint8 [N]): the flag of every row written set.
+    Arguments as :func:`slow_path_cuda`."""
     global launches
     _build.require_cuda_int32(
-        "slow_path_cuda", tab_keys=tab_keys, tab_vals=tab_vals,
-        dst_slab=dst_slab, cnt=cnt, tot=tot, order=order, counters=counters,
-        src=src, dst=dst, w=w, active=active)
+        "slow_path_cuda", flags=("dirty",), tab_keys=tab_keys,
+        tab_vals=tab_vals, dst_slab=dst_slab, cnt=cnt, tot=tot, order=order,
+        counters=counters, src=src, dst=dst, w=w, active=active, dirty=dirty)
     size = tab_keys.shape[0]
     if tab_keys.dim() != 1 or tab_vals.shape != tab_keys.shape or size < 1 \
             or size & (size - 1):
@@ -82,6 +85,7 @@ def slow_path_cuda_inplace(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
         raise ValueError("slow_path_cuda: src/dst/w/active must be [L]")
     if max_probes < 1:
         raise ValueError("slow_path_cuda: max_probes must be >= 1")
+    _build.require_flags("slow_path_cuda", dirty, cnt.shape[0])
     n_items = src.shape[0]
     if n_items == 0:
         return
@@ -92,7 +96,8 @@ def slow_path_cuda_inplace(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                   w.data_ptr(), active.data_ptr(), n_items,
                   tab_keys.data_ptr(), tab_vals.data_ptr(), tab_keys.shape[0],
                   dst_slab.data_ptr(), cnt.data_ptr(), tot.data_ptr(),
-                  order.data_ptr(), counters.data_ptr(), cnt.shape[0],
+                  order.data_ptr(), counters.data_ptr(), _build.ptr(dirty),
+                  cnt.shape[0],
                   cnt.shape[1], max_probes, keys.data_ptr(),
                   with_row.data_ptr(), n_with.data_ptr())
     launches += 1
@@ -103,17 +108,14 @@ def slow_path_cuda(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                    tot: torch.Tensor, order: torch.Tensor,
                    counters: torch.Tensor, src: torch.Tensor,
                    dst: torch.Tensor, w: torch.Tensor, active: torch.Tensor,
-                   *, max_probes: int = 64, own_counts: bool = False):
+                   *, max_probes: int = 64):
     """The new-edge pass on the GPU.  tab_keys/tab_vals[H] the src table,
     dst_slab/cnt/order[N, C], tot[N], counters[4] = (n_rows, dropped_rows,
     dropped_probes, evictions), items src/dst/w/active[L] (active int32,
     non-zero = apply).  Returns ``(tab_keys, tab_vals, dst_slab, cnt, tot,
-    counters)``: fresh tensors, the inputs not written — except ``cnt`` and
-    ``tot`` when the caller owns them (``own_counts``), which are written in
-    place and returned."""
-    out = [x.clone() for x in (tab_keys, tab_vals, dst_slab)]
-    out += [cnt, tot] if own_counts else [cnt.clone(), tot.clone()]
+    counters)``: fresh tensors, the inputs not written."""
+    out = [x.clone() for x in (tab_keys, tab_vals, dst_slab, cnt, tot)]
     out.append(counters.clone())
-    slow_path_cuda_inplace(*out[:5], order, out[5], src, dst, w, active,
-                           max_probes=max_probes)
+    slow_path_cuda_(*out[:5], order, out[5], src, dst, w, active,
+                    max_probes=max_probes)
     return tuple(out)

@@ -35,6 +35,8 @@ KERNELS = {
     "walk": ("draft_walk_cuda", "draft_walk_ref", "walk.cu", "mcq_draft_walk"),
     "decay_sort": ("decay_sort_cuda", "decay_sort_ref", "decay_sort.cu",
                    "mcq_decay_sort"),
+    "copy_rows": ("copy_dirty_rows_cuda", "copy_dirty_rows_ref", "copy_rows.cu",
+                  "mcq_copy_dirty_rows"),
 }
 
 
@@ -99,6 +101,14 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
     lambda x, v: ops.slow_path(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
     lambda x, v: ops.cdf_query(x, x, v, 0.5, impl="cuda"),
     lambda x, v: ops.draft_walk(x, v, v, x, x, v, impl="cuda"),
+    lambda x, v: ops.oddeven_sort_(x, x, impl="cuda"),
+    lambda x, v: ops.slab_update_(v, v, v, x, x, v, impl="cuda"),
+    lambda x, v: ops.decay_sort_(x, x, x, v, impl="cuda"),
+    lambda x, v: ops.decay_sort_rolling_(x, x, x, v, v[0], block_rows=2,
+                                         impl="cuda"),
+    lambda x, v: ops.slow_path_(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
+    lambda x, v: ops.copy_dirty_rows((x, x, x, v, v, v, v), (x, x, x, v, v, v, v),
+                                     v.to(torch.uint8), impl="cuda"),
 ])
 def test_impl_cuda_on_cpu_tensors_raises(call):
     x = torch.zeros((4, 4), dtype=torch.int32)
@@ -117,7 +127,9 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
             "oddeven": (x, x), "cdf_gather": (v, v, x, x, x, v, 0.5),
             "slow_path": (v, v, x, x, v, x, v, v, v, v, v),
             "cdf_query": (x, x, v, 0.5), "walk": (x, v, v, x, x, v),
-            "decay_sort": (x, x, x)}[module]
+            "decay_sort": (x, x, x),
+            "copy_rows": (x, x, x, v, v, v, v, x, x, x, v, v, v, v,
+                          v.to(torch.uint8))}[module]
     before = mod.launches
     with pytest.raises(ValueError, match="takes CUDA"):
         wrapper(*args)
@@ -211,24 +223,32 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
 def _kernel_stand_ins(probe_calls, decay_calls):
     """Each CUDA wrapper replaced by its plain version behind a check of what
     the wrapper takes: int32 tensors, but bool where the wrapper takes bool
-    (the fused read's ``found``), contiguous except where the wrapper passes
-    a stride to its kernel (the draft walk's window and order heads).  The
-    probe's stand-in also checks its table against its mode (flat ``[H]``
-    when ``rows`` is None, stacked ``[N, H]`` otherwise) and records
-    ``(flat, miss)`` of each call in ``probe_calls``; the decay stand-ins
-    record ``(rows, block_rows)`` in ``decay_calls`` (``block_rows`` None for
-    the whole-table form) and the rolling one checks that its cursor is the
+    (the fused read's ``found``, the decay's ``fire``) and uint8 for the
+    ``dirty`` flags, contiguous except where the wrapper passes a stride to
+    its kernel (the draft walk's window and order heads).  The probe's
+    stand-in also checks its table against its mode (flat ``[H]`` when
+    ``rows`` is None, stacked ``[N, H]`` otherwise) and records ``(flat,
+    miss)`` of each call in ``probe_calls``; the decay stand-ins record
+    ``(rows, block_rows)`` in ``decay_calls`` (``block_rows`` None for the
+    whole-table forms) and the rolling ones check that their cursor is the
     state's 0-dim int32 tensor."""
-    from repro_torch.kernels import (cdf_gather, cdf_query, decay_sort, oddeven,
-                                     probe, ref, slab_update, slow_path, walk)
+    from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
+                                     decay_sort, oddeven, probe, ref,
+                                     slab_update, slow_path, walk)
 
     def check(name, strided, plain, bools=()):
         def wrapper(*args, **kw):
             for i, a in enumerate(args):
                 if isinstance(a, torch.Tensor):
-                    want = torch.bool if i in bools else torch.int32
+                    want = (torch.bool if i in bools else
+                            torch.uint8 if name == "copy_rows" and i == 14
+                            else torch.int32)
                     assert a.dtype == want, (name, i, a.dtype)
                     assert i in strided or a.is_contiguous(), (name, i)
+            for key, want in (("fire", torch.bool), ("dirty", torch.uint8)):
+                if kw.get(key) is not None:
+                    assert kw[key].dtype == want and kw[key].is_contiguous(), \
+                        (name, key)
             return plain(*args, **kw)
         return wrapper
 
@@ -241,40 +261,69 @@ def _kernel_stand_ins(probe_calls, decay_calls):
         decay_calls.append((cnt.shape[0], None))
         return ref.decay_sort_ref(cnt, dst, order)
 
+    def decay_plain_(cnt, dst, order, tot, *, fire=None, dirty=None):
+        assert fire is None or fire.dim() == 0, fire
+        decay_calls.append((cnt.shape[0], None))
+        ref.decay_sort_ref_(cnt, dst, order, tot, fire, dirty)
+
     def rolling_plain(cnt, dst, order, tot, cursor, *, block_rows):
         assert cursor.dim() == 0 and cursor.device == cnt.device, cursor
         decay_calls.append((cnt.shape[0], block_rows))
         return ref.decay_sort_rolling_ref(cnt, dst, order, tot, cursor, block_rows)
 
+    def rolling_plain_(cnt, dst, order, tot, cursor, *, block_rows, fire=None,
+                       dirty=None):
+        assert cursor.dim() == 0 and cursor.device == cnt.device, cursor
+        decay_calls.append((cnt.shape[0], block_rows))
+        ref.decay_sort_rolling_ref_(cnt, dst, order, tot, cursor, block_rows,
+                                    fire, dirty)
+
     return [
         (probe, "probe_find_cuda", check("probe", (), probe_plain)),
         (slab_update, "slab_update_cuda", check(
             "slab_update", (), lambda *a: ref.slab_update_ref(*a)[1:3])),
+        (slab_update, "slab_update_cuda_", check(
+            "slab_update_", (), lambda *a, dirty=None: ref.slab_update_ref_(
+                *a, dirty))),
         (oddeven, "oddeven_cuda", check(
             "oddeven", (), lambda c, o, *, passes: ref.oddeven_sort_ref(c, o, passes))),
+        (oddeven, "oddeven_cuda_", check(
+            "oddeven_", (), lambda c, o, *, passes, dirty=None:
+            ref.oddeven_sort_ref_(c, o, passes, dirty))),
         (cdf_gather, "cdf_query_fused_cuda", check(
             "cdf_gather", (), lambda *a, max_items: ref.cdf_query_fused_ref(*a, max_items),
             bools=(1,))),
         (slow_path, "slow_path_cuda", check(
-            "slow_path", (), lambda *a, max_probes, own_counts: ref.slow_path_ref(
-                *a[:-1], a[-1].to(torch.bool), max_probes, own_counts))),
+            "slow_path", (), lambda *a, max_probes: ref.slow_path_ref(
+                *a[:-1], a[-1].to(torch.bool), max_probes))),
+        (slow_path, "slow_path_cuda_", check(
+            "slow_path_", (), lambda *a, max_probes, dirty=None: ref.slow_path_ref_(
+                *a[:-1], a[-1].to(torch.bool), max_probes, dirty))),
         (cdf_query, "cdf_query_cuda", check(
             "cdf_query", (), lambda *a, max_items: ref.cdf_query_ref(*a, max_items))),
         (walk, "draft_walk_cuda", check("walk", (0, 5), lambda *a, **kw: (
             lambda t, o: (t, o.to(torch.bool)))(*ref.draft_walk_ref(*a, **kw)))),
         (decay_sort, "decay_sort_cuda", check("decay_sort", (), decay_plain)),
+        (decay_sort, "decay_sort_cuda_", check("decay_sort_", (), decay_plain_)),
         (decay_sort, "decay_sort_rolling_cuda", check(
             "decay_sort_rolling", (), rolling_plain)),
+        (decay_sort, "decay_sort_rolling_cuda_", check(
+            "decay_sort_rolling_", (), rolling_plain_)),
+        (copy_rows, "copy_dirty_rows_cuda", check(
+            "copy_rows", (), ref.copy_dirty_rows_ref)),
     ]
 
 
 def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
-    """The update, both reads, both decays and the drafter, with the dispatch sent
-    to stand-ins of the CUDA wrappers on CPU tensors: a strided or
-    mistyped argument fails here, before it reaches the card."""
+    """The update, both reads, both decays and the drafter, functional and
+    for the state's owner (``maybe_decay_`` firing and not), and the
+    back-buffer learner, with the dispatch sent to stand-ins of the CUDA
+    wrappers on CPU tensors: a strided or mistyped argument fails here,
+    before it reaches the card."""
     import dataclasses
 
     from repro_torch.core import speculative as tspec
+    from repro_torch.core.epoch import BackBufferLearner, EpochStore
     monkeypatch.setattr(ops, "_use_ref", lambda impl, x: impl == "ref")
     probe_calls, decay_calls = [], []
     for module, name, stand_in in _kernel_stand_ins(probe_calls, decay_calls):
@@ -303,6 +352,20 @@ def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
     # rolling decays hand the kernel the whole state and the cursor tensor;
     # stop-the-world is the one whole-table launch
     assert decay_calls[-2:] == [(32, 8), (32, None)], decay_calls
+    assert set(decay_calls) == {(32, 8), (32, None)}, set(decay_calls)
+    # the owner calls, with flags, and the back-buffer learner
+    own = tmc.private_copy(st.chain)
+    dirty = torch.zeros(32, dtype=torch.uint8)
+    tmc.update_batch_(own, column, toks[:, 4], cfg=ncfg.mc, dirty=dirty)
+    for cfg in (ncfg.mc, whole):
+        tmc.decay_(own, cfg=cfg, dirty=dirty)
+        for threshold in (0, 2 ** 30):           # fires, and does not
+            tmc.maybe_decay_(own, cfg=cfg, total_threshold=threshold,
+                             dirty=dirty)
+    learner = BackBufferLearner(EpochStore(tspec.init(ncfg, device="cpu")))
+    for _ in range(3):
+        learner.write(lambda s, dirty: tspec.maintain_(tspec.observe_(
+            s, toks, cfg=ncfg, dirty=dirty), cfg=ncfg, dirty=dirty))
     assert set(decay_calls) == {(32, 8), (32, None)}, set(decay_calls)
     # every src lookup (update, both reads, candidates) is the flat probe
     # with lookup_rows' miss value 0: one launch, nothing around it

@@ -6,8 +6,10 @@ warp.  ``kernels/ref.py::slow_path_rows_ref`` is the plain mirror of that
 decomposition.  Here it is held equal (tolerance 0, all six outputs) to the
 sequential plain version ``slow_path_ref`` and to the reference's
 ``lax.scan`` (``repro.core.mcprioq._slow_path``) on the cases where the
-order of the items matters, and on random small tables.  Also the in-place
-``cnt``/``tot`` contract of the pass and of ``update_batch``."""
+order of the items matters, and on random small tables.  Also the contract
+of the pass's two forms (functional: nothing written; in place: exactly what
+the pass writes, with the rows it writes flagged) and that ``update_batch``
+hands the pass copies, never the state's tensors."""
 
 import numpy as np
 import pytest
@@ -235,33 +237,55 @@ def test_random_passes(seed, n_rows, pool, p_active, tomb, stored_empty):
 
 
 # ---------------------------------------------------------------------------
-# the in-place contract of cnt and tot
+# the contract of the two forms: functional, and in place for the owner
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fn", [ref.slow_path_ref, ref.slow_path_rows_ref,
-                                lambda *a, **kw: ops.slow_path(
-                                    *a[:-1], max_probes=a[-1], **kw)])
+@pytest.mark.parametrize("fn", [
+    (ref.slow_path_ref, ref.slow_path_ref_),
+    (ref.slow_path_rows_ref, ref.slow_path_rows_ref_),
+    (lambda *a: ops.slow_path(*a[:-1], max_probes=a[-1]),
+     lambda *a, dirty: ops.slow_path_(*a[:-1], max_probes=a[-1], dirty=dirty))],
+    ids=["slow_path_ref", "slow_path_rows_ref", "<lambda>"])
 @pytest.mark.parametrize("own_counts", [False, True])
 def test_own_counts_writes_cnt_and_tot_in_place_and_nothing_else(fn, own_counts):
+    """The functional form writes none of its inputs; the in-place form
+    (the owner owns every tensor the pass writes) writes the src table,
+    dst_slab, cnt, tot and the counters and nothing else, and flags exactly
+    the rows whose dst_slab, cnt or tot it changed."""
+    functional, in_place = fn
     rng = np.random.default_rng(9)
     case = _state(rng, srcs=range(6))
     case.update(_items([0, 7, 7, 1, 8], rng=rng))
     args = _torch_args(case)
     before = [a.clone() for a in args]
-    out = fn(*args, P, own_counts=own_counts)
+    written = ("tab_keys", "tab_vals", "dst_slab", "cnt", "tot", "counters")
+    if own_counts:
+        dirty = torch.zeros(N, dtype=torch.uint8)
+        in_place(*args, P, dirty=dirty)
+        out = tuple(args[NAMES.index(name)] for name in written)
+        changed = ((args[2] != before[2]) | (args[3] != before[3])).any(dim=1) \
+            | (args[4] != before[4])
+        assert torch.equal(dirty.bool(), changed) and changed.any()
+    else:
+        out = functional(*args, P)
+        assert not any(out[i] is args[NAMES.index(name)]
+                       for i, name in enumerate(written))
     assert_same(_jax(case), out, "pass")
-    for i, (a, b) in enumerate(zip(args, before)):
-        written = own_counts and NAMES[i] in ("cnt", "tot")
-        assert torch.equal(a, b) != written, NAMES[i]
-    assert (out[3] is args[3] and out[4] is args[4]) == own_counts
-    assert not any(out[i] is args[j] for i, j in ((0, 0), (1, 1), (2, 2), (5, 6)))
+    for name, a, b in zip(NAMES, args, before):
+        assert torch.equal(a, b) != (own_counts and name in written), name
+
+
+def _state_leaves(state):
+    return (*state.src_table, *state.slabs, state.dh_keys, state.dh_vals,
+            *(getattr(state, f) for f in tmc.SCALAR_FIELDS))
 
 
 @pytest.mark.parametrize("update", [tmc.update_batch, tmc.update_batch_reference])
 def test_update_batch_leaves_its_published_state_untouched(update, monkeypatch):
-    """``update_batch`` hands the pass the cnt/tot it made itself, never the
-    state's: a reader holding the state sees it unchanged."""
+    """``update_batch`` hands the in-place pass the copies it made itself,
+    never the state's tensors: a reader holding the state sees it
+    unchanged."""
     cfg = tmc.MCConfig(num_rows=N, capacity=C, table_size=H, max_probes=P,
                        max_new_per_batch=8)
     rng = np.random.default_rng(10)
@@ -270,18 +294,20 @@ def test_update_batch_leaves_its_published_state_untouched(update, monkeypatch):
         state = update(state, rng.integers(0, 30, 40), rng.integers(0, 6, 40),
                        cfg=cfg)
     held = convert.state_to_numpy(state)
-    given_counts = []
-    plain = ref.slow_path_ref
+    given = []
+    plain = ref.slow_path_ref_
 
     def spy(*args, **kw):
-        given_counts.append((args[3], args[4], args[-1]))
+        given.append(args[:5] + args[6:7])
         return plain(*args, **kw)
 
-    monkeypatch.setattr(ref, "slow_path_ref", spy)
+    monkeypatch.setattr(ref, "slow_path_ref_", spy)
     new = update(state, rng.integers(0, 40, 40), rng.integers(0, 9, 40), cfg=cfg)
-    (cnt, tot, own_counts), = given_counts
-    assert own_counts is True
-    assert cnt is not state.slabs.cnt and tot is not state.slabs.tot
+    (written,) = given
+    held_storages = {x.untyped_storage().data_ptr()
+                     for x in _state_leaves(state)}
+    assert not any(x.untyped_storage().data_ptr() in held_storages
+                   for x in written)
     assert tmc.counter_stats(new) != tmc.counter_stats(state)
     now = convert.state_to_numpy(state)
     for name, value in held.items():
@@ -307,8 +333,8 @@ def test_cuda_wrapper_takes_rows_its_shared_memory_cache_holds(capacity,
             z(4), z(3), z(3), z(3), z(3))
     if capacity > 1536:
         with pytest.raises(ValueError, match="at most 1536 slots"):
-            sp.slow_path_cuda_inplace(*args, max_probes=P)
+            sp.slow_path_cuda_(*args, max_probes=P)
         assert not launched
     else:
-        sp.slow_path_cuda_inplace(*args, max_probes=P)
+        sp.slow_path_cuda_(*args, max_probes=P)
         assert len(launched) == 1 and capacity in launched[0]
