@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as below
     python3 chip_smoke.py --phases device,kernels   # a subset, for debugging
+    python3 chip_smoke.py --phases device,kernels,hash   # the dst-hash path
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
@@ -43,7 +44,22 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 alone on a block and on the whole table, beside torch.sort;
                 device kernels per ``lookup_rows``, ``decay_sort`` and fused
                 query call counted by torch.profiler);
-  4. drafter  — the speculative drafter at full width: a chain of 2**20
+  4. hash     — the main path with the per-row dst hash (paper §II.2,
+                ``use_dst_hash=True``, 512 lanes per row): the same chain and
+                traffic, the warm-up with ``maybe_decay_``; the owner calls
+                held equal to the functional ones on a side copy, rounds
+                under the same launch-count and no-sync checks, the
+                profiler's no-copy check; the back-buffer learner over it;
+                an update's device time, hash against scan on the same
+                batches; a rebuild of the warmed table forced inside
+                ``decay_`` (decided on the device), then every invariant,
+                ``dst_hash_consistent`` included; then the path's device
+                code at its shapes against its plain versions and timed
+                beside its bounds (the stacked probe beside the scan, the
+                new-edge pass with the row-hash edits, the rolling decay
+                with the repair beside it without, the rebuild, the
+                learner's catch-up with row hashes);
+  5. drafter  — the speculative drafter at full width: a chain of 2**20
                 contexts x 64 slots behind an ``EpochStore``, a learner loop
                 through the back buffer (``BackBufferLearner.write``:
                 copy_dirty_rows, observe_ 64 x 1,025 tokens, maintain_,
@@ -58,11 +74,13 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 the path at the shapes and data it gave them, against its
                 plain version (equal) and timed beside its bound, the draft
                 walk also inside the learner loop;
-  5. parity   — the whole path at a small configuration, once with the CUDA
+  6. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
                 every query answer equal after every batch, the owner calls
-                and their row flags too; the same for the unfused read and
-                for a small drafter stream, drafts included.
+                and their row flags too; the same with the dst hash (rebuilds
+                firing) and through the back-buffer learner on it; the same
+                for the unfused read and for a small drafter stream, drafts
+                included.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -88,7 +106,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "drafter", "parity")
+PHASES = ("device", "kernels", "main", "hash", "drafter", "parity")
 
 
 def say(*parts):
@@ -254,20 +272,24 @@ def small_kernel_checks(gen):
         checked += 1
         return got
 
-    def both_(name, fn, written, *args, **kw):
+    def both_(name, fn, written, *args, written_kw=(), **kw):
         """An in-place form, kernel and plain version each on copies of the
-        arguments it writes (their positions in ``written``) and with dirty
-        flags (some set before, which stay set): the written tensors and
-        the flags equal."""
+        arguments it writes (their positions in ``written``, and the
+        keyword arguments named in ``written_kw``) and with dirty flags
+        (some set before, which stay set): the written tensors and the
+        flags equal."""
         nonlocal checked
         outs = []
         rows = next(args[i].shape[0] for i in written if args[i].dim() == 2)
         for impl in ("cuda", "ref"):
             a = [x.clone() if i in written else x for i, x in enumerate(args)]
+            k = {key: x.clone() if key in written_kw else x
+                 for key, x in kw.items()}
             dirty = torch.zeros(rows, dtype=torch.uint8, device="cuda")
             dirty[::5] = 1
-            fn(*a, dirty=dirty, impl=impl, **kw)
-            outs.append([a[i] for i in written] + [dirty])
+            fn(*a, dirty=dirty, impl=impl, **k)
+            outs.append([a[i] for i in written]
+                        + [k[key] for key in written_kw] + [dirty])
         torch.cuda.synchronize()
         compare(name + " (in place, flags)", *outs)
         checked += 1
@@ -340,7 +362,8 @@ def small_kernel_checks(gen):
     # both miss values
     for n, h, max_probes, fill, delete_frac in (
             (4, 32, 32, 12, 0.0), (3, 16, 8, 14, 0.5), (2, 8, 16, 7, 0.4),
-            (5, 64, 4, 40, 0.9), (1, 1, 3, 1, 0.0), (3, 16, 1, 10, 0.3)):
+            (5, 64, 4, 40, 0.9), (1, 1, 3, 1, 0.0), (3, 16, 1, 10, 0.3),
+            (3, 512, 64, 150, 0.6)):
         keys, vals = build_tables(gen, n, h, max_probes, fill, delete_frac)
         for batch in (0, 1, 203):
             rows = randint(gen, -1, n, (batch,))
@@ -381,6 +404,7 @@ def small_kernel_checks(gen):
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
     small_decay_checks(gen, both, both_)
+    small_dh_checks(gen, both, both_)
     small_copy_checks(gen)
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
@@ -402,27 +426,33 @@ def small_copy_checks(gen):
     sizes; the back's tensors and the cleared flags equal."""
     from repro_torch.kernels import ops
     cases = 0
-    for n, c, h, share in ((37, 1, 1, 0.3), (37, 5, 16, 0.0), (40, 32, 64, 1.0),
-                           (41, 128, 1024, 0.3), (1000, 300, 4096, 0.1)):
+    for n, c, h, share, dh in (
+            (37, 1, 1, 0.3, 0), (37, 5, 16, 0.0, 0), (40, 32, 64, 1.0, 0),
+            (41, 128, 1024, 0.3, 0), (1000, 300, 4096, 0.1, 0),
+            (37, 5, 16, 0.4, 1), (41, 128, 64, 0.3, 8), (300, 128, 4096, 0.2, 512),
+            (33, 7, 32, 1.0, 4096)):
         front = [*random_slabs(gen, n, c)]
         back = [*random_slabs(gen, n, c)]
         tables = [randint(gen, -2, 500, (h,)) for _ in range(4)]
         scalars = [randint(gen, 0, 99, (10,)) for _ in range(2)]
+        hashes = [randint(gen, -2, 500, (n, dh)) for _ in range(4)] if dh else []
         flags = (torch.rand(n, generator=gen, device="cuda") < share).to(torch.uint8)
         outs = []
         for impl in ("cuda", "ref"):
             b = [x.clone() for x in back] + [x.clone() for x in tables[2:]] \
-                + [scalars[1].clone()]
+                + [scalars[1].clone()] + [x.clone() for x in hashes[2:]]
             dirty = flags.clone()
-            f = (front[1], front[0], front[3], front[2], *tables[:2], scalars[0])
+            f = (front[1], front[0], front[3], front[2], *tables[:2], scalars[0],
+                 *hashes[:2])
             ops.copy_dirty_rows(f, (b[1], b[0], b[3], b[2], *b[4:]), dirty,
                                 impl=impl)
             outs.append(b + [dirty])
         torch.cuda.synchronize()
-        compare(f"copy_dirty_rows N={n} C={c} H={h} flagged {share}", *outs)
+        compare(f"copy_dirty_rows N={n} C={c} T={h} row hashes H={dh} "
+                f"flagged {share}", *outs)
         cases += 1
     say(f"[kernels] copy_dirty_rows: {cases} cases equal to the plain version "
-        f"(torch.equal, flags cleared)")
+        f"(torch.equal, flags cleared), row hashes of width 1 to 4096 in 4")
 
 
 def small_decay_checks(gen, both, both_):
@@ -477,6 +507,98 @@ def small_decay_checks(gen, both, both_):
     for x, y in zip((cnt, dst, order, tot), saved):
         if not torch.equal(x, y):
             raise AssertionError("decay_sort_rolling wrote into its inputs")
+
+
+def hash_chain(gen, n, c, h, max_probes, tomb_share):
+    """A chain with row hashes learned on the card through the plain
+    versions (random traffic that fills rows and evicts, rolling decays
+    that leave tombstones, no rebuild), then a share of the EMPTY lanes
+    made TOMB: windows saturated with tombstones.  Returns ``(cfg,
+    state)``."""
+    from repro_torch.core import mcprioq as mc
+    cfg = mc.MCConfig(num_rows=n, capacity=c, max_probes=max_probes,
+                      use_dst_hash=True, dst_table_size=h,
+                      decay_block_rows=max(n // 3, 1),
+                      dh_rebuild_fraction=100.0, impl="ref")
+    st = mc.init(cfg)
+    for _ in range(4):
+        src = randint(gen, 0, n + n // 4, (6 * n,))
+        dst = randint(gen, 0, 3 * c, (6 * n,))
+        st = mc.decay(mc.update_batch(st, src, dst, cfg=cfg), cfg=cfg)
+    tomb = (st.dh_keys == -1) & (
+        torch.rand(st.dh_keys.shape, generator=gen, device="cuda") < tomb_share)
+    return cfg, st._replace(dh_keys=torch.where(tomb, -2, st.dh_keys)
+                            .to(torch.int32).contiguous())
+
+
+def small_dh_checks(gen, both, both_):
+    """The dst-hash path's device code against its plain versions, on row
+    hashes learned on the card: H of 1, 8, 64 and 512, windows wrapping
+    small tables, windows saturated with tombstones, a window that fills
+    (an insert that finds no lane drops the key), capacities up to 128.
+    The new-edge pass with the row-hash edits (functional and in place);
+    the decay with the repair (whole table, rolling, ``fire`` each way,
+    functional and in place); the rebuild with thresholds either side of
+    the tombstones, ``fire`` each way and an all-zero row."""
+    from repro_torch.kernels import ops
+    cases = 0
+    for n, c, h, probes, tomb_share in (
+            (37, 5, 1, 4, 0.0), (29, 8, 8, 16, 0.9), (23, 8, 8, 4, 0.0),
+            (13, 33, 64, 40, 0.95), (17, 128, 512, 64, 0.5)):
+        cfg, st = hash_chain(gen, n, c, h, probes, tomb_share)
+        label = f"N={n} C={c} H={h} P={probes} TOMB {tomb_share}"
+        slabs, dh = st.slabs, dict(dh_keys=st.dh_keys, dh_vals=st.dh_vals)
+        for items in (0, 1, 4 * n):
+            src = randint(gen, 0, n + n // 2, (items,))
+            dsts = randint(gen, 0, 4 * c, (items,))
+            w = randint(gen, 1, 5, (items,))
+            active = torch.rand(items, generator=gen, device="cuda") < 0.85
+            counters = torch.stack([st.n_rows, st.dropped_rows,
+                                    st.dropped_probes, st.evictions])
+            args = (st.src_table.keys, st.src_table.vals, slabs.dst, slabs.cnt,
+                    slabs.tot, slabs.order, counters, src, dsts, w, active)
+            both(f"slow_path+row hashes {label} L={items}", ops.slow_path,
+                 *args, max_probes=probes, **dh)
+            both_(f"slow_path_+row hashes {label} L={items}", ops.slow_path_,
+                  (0, 1, 2, 3, 4, 6), *args, max_probes=probes,
+                  written_kw=("dh_keys", "dh_vals"), **dh)
+            cases += 2
+        tombs = st.dh_tombstones.reshape(())
+        perm = random_perm_rows(gen, n, c)
+        both(f"decay_sort+repair {label}", ops.decay_sort, slabs.cnt, slabs.dst,
+             perm, **dh)
+        for fire in (None, True, False):
+            fire_t = None if fire is None else torch.tensor(fire, device="cuda")
+            both_(f"decay_sort_+repair {label} fire={fire}", ops.decay_sort_,
+                  (0, 1, 2, 3), slabs.cnt, slabs.dst, perm, slabs.tot,
+                  fire=fire_t, tombstones=tombs,
+                  written_kw=("dh_keys", "tombstones"), **dh)
+            for block, cur in ((1, 5), (7, 2), (7, -1), (n, 3)):
+                cursor = torch.tensor(cur, dtype=torch.int32, device="cuda")
+                both_(f"decay_sort_rolling_+repair {label} r={block} "
+                      f"cursor={cur} fire={fire}", ops.decay_sort_rolling_,
+                      (0, 1, 2, 3, 4), slabs.cnt, slabs.dst, perm, slabs.tot,
+                      cursor, block_rows=block, fire=fire_t, tombstones=tombs,
+                      written_kw=("dh_keys", "tombstones"), **dh)
+                cases += 1
+            cnt0 = slabs.cnt.clone()
+            cnt0[0] = 0                      # an all-zero row: an EMPTY table
+            held = int(tombs)
+            for threshold in (held - 1, held, -1, 2 ** 31 - 1):
+                counters = torch.stack([st.dh_rebuilds, tombs])
+                both_(f"dh_rebuild_ {label} tombstones {held} threshold "
+                      f"{threshold} fire={fire}", ops.dh_rebuild_, (2, 3, 4),
+                      cnt0, slabs.dst, st.dh_keys, st.dh_vals, counters,
+                      threshold=threshold, max_probes=probes, fire=fire_t)
+                cases += 1
+        cursor = torch.tensor(1, dtype=torch.int32, device="cuda")
+        both(f"decay_sort_rolling+repair {label}", ops.decay_sort_rolling,
+             slabs.cnt, slabs.dst, perm, slabs.tot, cursor, block_rows=5,
+             tombstones=tombs, **dh)
+        cases += 5
+    say(f"[kernels] dst-hash path: {cases} cases (new-edge pass with row-hash "
+        f"edits, decay with repair, rebuild) equal to the plain versions "
+        f"(torch.equal), H from 1 to 512, tombstone-saturated and full windows")
 
 
 def direct_table(gen, n_keys, size):
@@ -729,12 +851,12 @@ class Traffic:
 
 def kernel_modules():
     from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
-                                     decay_sort, oddeven, probe, slab_update,
-                                     slow_path, walk)
+                                     decay_sort, dh_rebuild, oddeven, probe,
+                                     slab_update, slow_path, walk)
     return {"probe_find": probe, "slab_update": slab_update, "oddeven": oddeven,
             "cdf_query_fused": cdf_gather, "slow_path": slow_path,
             "cdf_query": cdf_query, "draft_walk": walk, "decay_sort": decay_sort,
-            "copy_dirty_rows": copy_rows}
+            "copy_dirty_rows": copy_rows, "dh_rebuild": dh_rebuild}
 
 
 @contextlib.contextmanager
@@ -1433,14 +1555,14 @@ def kernel_phases_ms(fn, restore, prefix, reps=3):
 
 
 def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
-                    counters, items, sequential):
+                    counters, items, sequential, row_hashes=()):
     """The new-edge pass at a path's shapes: the in-place form as
-    ``update_batch_`` launches it (src table, dst_slab, cnt, tot and counters
-    its own, flags set) held equal, flags included, to the plain mirror of
-    its decomposition (and, where ``sequential``, to the sequential plain
-    version); timed in place and by launch, and the functional wrapper
-    (its copies included) beside it; the bound of each from the bytes it
-    must move."""
+    ``update_batch_`` launches it (src table, dst_slab, cnt, tot, counters
+    and the ``row_hashes`` (dh_keys, dh_vals) if given its own, flags set)
+    held equal, flags included, to the plain mirror of its decomposition
+    (and, where ``sequential``, to the sequential plain version); timed in
+    place and by launch, and the functional wrapper (its copies included)
+    beside it; the bound of each from the bytes it must move."""
     from repro_torch.core.hashtable import hash_u32
     from repro_torch.kernels import ops, ref
     n, c = slabs.cnt.shape
@@ -1449,8 +1571,11 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
     p_src, _, _, p_mask = items
     length, n_active = p_src.numel(), int(p_mask.sum())
     state = (table.keys, table.vals, slabs.dst, slabs.cnt, slabs.tot,
-             slabs.order, counters)
-    written = (0, 1, 2, 3, 4, 6)
+             slabs.order, counters, *row_hashes)
+    written = (0, 1, 2, 3, 4, 6, 7, 8)[:6 + len(row_hashes)]
+
+    def dh(args):   # the row hashes among a call's arguments, as keywords
+        return dict(zip(("dh_keys", "dh_vals"), args[7:]))
 
     def on_copies(fn):
         work = [x.clone() if i in written else x for i, x in enumerate(state)]
@@ -1459,20 +1584,23 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
         torch.cuda.synchronize()
         return [work[i] for i in written] + [dirty]
 
-    got = on_copies(lambda w, d: ops.slow_path_(*w, *items, max_probes=probes,
-                                                dirty=d, impl="cuda"))
+    got = on_copies(lambda w, d: ops.slow_path_(
+        *w[:7], *items, max_probes=probes, dirty=d, impl="cuda", **dh(w)))
     t0 = time.perf_counter()
-    want = on_copies(lambda w, d: ref.slow_path_rows_ref_(*w, *items, probes, d))
+    want = on_copies(lambda w, d: ref.slow_path_rows_ref_(
+        *w[:7], *items, probes, d, *w[7:]))
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = compare(name, got, want)
     sequential_ms = None
     if sequential:
         t0 = time.perf_counter()
         compare(f"{name} vs the sequential plain version", got, on_copies(
-            lambda w, d: ref.slow_path_ref_(*w, *items, probes, d)))
+            lambda w, d: ref.slow_path_ref_(*w[:7], *items, probes, d, *w[7:])))
         sequential_ms = (time.perf_counter() - t0) * 1e3
     rows = int(want[-1].sum())       # every row an item is applied to
     counts = want[5] - counters
+    # each row-hash lane the pass changed is read and written (key, value)
+    lanes = sum(int((x != y).sum()) for x, y in zip(want[6:8], row_hashes))
     del got, want
 
     # bytes: every item's active flag, an active item's src/dst/w and its
@@ -1486,8 +1614,9 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
     probed = int(stop.sum())
     del win, hit, stop
     work_bytes = 4 * (length + 3 * n_active + 2 * probed + rows * (2 * c + 3)
-                      + 2 * n_active + 8) + rows
-    copy_bytes = 4 * 2 * (2 * h + 2 * n * c + n + 4)
+                      + 2 * n_active + 8 + 4 * lanes) + rows
+    copy_bytes = 4 * 2 * (2 * h + 2 * n * c + n + 4
+                          + sum(x.numel() for x in row_hashes))
     operations = n_active * (3 * probes + 4 * c)
 
     originals = [state[i] for i in written]
@@ -1501,26 +1630,31 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
 
     def kernel():
         ops.slow_path_(*work[:5], slabs.order, work[5], *items,
-                       max_probes=probes, dirty=dirty, impl="cuda")
+                       max_probes=probes, dirty=dirty, impl="cuda",
+                       **dict(zip(("dh_keys", "dh_vals"), work[6:])))
 
     ms = time_restored(kernel, restore_all, flush)
     phases = kernel_phases_ms(kernel, restore_all, "mcq_sp_")
     del work
     functional_ms = time_ms(lambda: ops.slow_path(
-        *state, *items, max_probes=probes, impl="cuda"), flush=flush)
+        *state[:7], *items, max_probes=probes, impl="cuda", **dh(state)),
+        flush=flush)
     bound_ms, bound_by = bound(work_bytes, operations)
     functional_bound_ms, _ = bound(work_bytes + copy_bytes, operations)
     entries.append({
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/slow_path.cu",
-        "replaces": "src/repro/core/mcprioq.py:311", "launches": launches["slow_path"],
+        "replaces": "src/repro/core/mcprioq.py:311"
+        + (" (row-hash edits :356-358)" if row_hashes else ""),
+        "launches": launches["slow_path"],
         "max_abs_err": err, "max_abs_diff": err, "equal": True,
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "in_place": True, "functional_ms": functional_ms,
         "functional_bound_ms": functional_bound_ms,
         "phases_ms": phases, "sequential_plain_ms": sequential_ms,
-        "active_items": n_active, "items": length, "rows_touched": rows})
+        "active_items": n_active, "items": length, "rows_touched": rows,
+        "row_hash_lanes_changed": lanes})
     say(f"[kernels] {name}: {n_active} active of {length} items on {rows} rows "
         f"(counters moved by {counts.tolist()}); in place {ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); the functional wrapper (copies "
@@ -1534,7 +1668,333 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the speculative drafter at full width
+# phase 4: the dst-hash path at full width
+# ---------------------------------------------------------------------------
+
+HASH_KERNELS = MAIN_KERNELS + ("dh_rebuild",)
+
+
+def hash_against_scan(state, cfg, traffic, calls=8):
+    """An update's device time, the dst hash against the row scan, on the
+    same batches, printed: a copy of the warmed state is driven with the
+    hash off (its row hashes then go stale; it is dropped after).  Both see
+    the same batches, so their slabs stay equal (checked); by kernel name
+    (torch.profiler) and by events with a spin kernel queued ahead."""
+    from repro_torch import core
+    scan_cfg = dataclasses.replace(cfg, use_dst_hash=False)
+    scan = core.private_copy(state)
+    batches = [traffic.batch(BATCH) for _ in range(3 * calls)]
+    result = {}
+    for label, st, c in (("hash", state, cfg), ("scan", scan, scan_cfg)):
+        it = iter(batches[:calls])
+        by_kernel = kernel_phases_ms(
+            lambda: core.update_batch_(st, *next(it), cfg=c), lambda: None, "",
+            reps=calls)
+        result[label] = (sum(by_kernel.values()) if by_kernel else None,
+                         by_kernel)
+    for a, b in zip(state.slabs, scan.slabs):
+        if not torch.equal(a, b):
+            raise AssertionError("hash vs scan: the two paths' slabs differ")
+    it = {label: iter(batches[calls:]) for label in ("hash", "scan")}
+    for label, st, c in (("hash", state, cfg), ("scan", scan, scan_cfg)):
+        device_ms, idle_ms = call_ms(
+            lambda: core.update_batch_(st, *next(it[label]), cfg=c),
+            reps=calls)
+        result[label] += (device_ms, idle_ms)
+    del scan
+    for label, (total, by_kernel, device_ms, idle_ms) in result.items():
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        say(f"[hash] update_batch_ with the {label}: device {device_ms:.4f} ms "
+            f"per call by events (latency on an idle device {idle_ms:.4f} ms), "
+            f"{'not measured' if total is None else f'{total:.4f} ms'} by "
+            f"kernel (torch.profiler, {calls} calls): "
+            + ", ".join(f"{k[:60]} {v:.4f}" for k, v in top))
+
+
+def phase_hash(seed, warm_batches, rounds):
+    """The main path with the per-row dst hash: the same chain and traffic
+    as phase main, ``use_dst_hash=True`` (H = 512 lanes per row)."""
+    from repro_torch import core
+    from repro_torch.core.epoch import BackBufferLearner, EpochStore
+    cfg = core.MCConfig(num_rows=NUM_NODES, capacity=128, sort_passes=1,
+                        decay_block_rows=1024, max_new_per_batch=8192,
+                        use_dst_hash=True, impl="auto")
+    traffic = Traffic(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = core.init(cfg)
+    say(f"[hash] {cfg}")
+    say(f"[hash] row hashes {cfg.num_rows} x {cfg.resolved_dst_table_size()} "
+        f"lanes; state {torch.cuda.memory_allocated() / 2**30:.2f} GiB resident; "
+        f"rebuild threshold {cfg.dh_rebuild_threshold()} tombstones")
+    decay_threshold = 64
+    t0 = time.perf_counter()
+    for batch in range(warm_batches):
+        src, dst = traffic.batch(BATCH)
+        core.update_batch_(state, src, dst, cfg=cfg)
+        core.maybe_decay_(state, cfg=cfg, total_threshold=decay_threshold)
+        if batch % 10 == 9:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    say(f"[hash] warm-up: {warm_batches} batches of {BATCH} with maybe_decay_ "
+        f"in {time.perf_counter() - t0:.1f} s; counters "
+        f"{core.counter_stats(state)}")
+
+    side = core.private_copy(state)
+    for i in range(SIDE_ROUNDS):
+        src, dst = traffic.batch(BATCH)
+        if core.update_batch_(state, src, dst, cfg=cfg) is not state:
+            raise AssertionError("update_batch_ returned another state")
+        side = core.update_batch(side, src, dst, cfg=cfg)
+        equal_states(f"hash round {i}: update_batch_ vs update_batch", state, side)
+        core.maybe_decay_(state, cfg=cfg, total_threshold=decay_threshold)
+        side = core.maybe_decay(side, cfg=cfg, total_threshold=decay_threshold)
+        equal_states(f"hash round {i}: maybe_decay_ vs maybe_decay", state, side)
+    core.decay_(state, cfg=cfg)
+    equal_states("hash: decay_ vs decay", state, core.decay(side, cfg=cfg))
+    del side
+    say(f"[hash] {SIDE_ROUNDS} rounds of update_batch_ + maybe_decay_ and one "
+        f"decay_ equal to the functional calls on a side copy: all 18 leaves, "
+        f"row hashes included; peak device memory with the side copy "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    times = {}
+    with launch_window("hash", HASH_KERNELS) as launches:
+        for _ in range(rounds):
+            src, dst = traffic.batch(BATCH)
+            q = traffic.srcs(QUERIES)
+            timed(times, "update_batch_", no_sync, core.update_batch_, state,
+                  src, dst, cfg=cfg)
+            answers = timed(times, "query_threshold", no_sync,
+                            core.query_threshold, state, q, 0.9, cfg=cfg,
+                            max_items=16)
+            timed(times, "query_topk", no_sync, core.query_topk, state, q,
+                  cfg=cfg, k=8)
+            timed(times, "maybe_decay_", no_sync, core.maybe_decay_, state,
+                  cfg=cfg, total_threshold=decay_threshold)
+        timed(times, "decay_", no_sync, core.decay_, state, cfg=cfg)
+    torch.cuda.synchronize()
+    med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+           for k, v in times.items()}
+    say(f"[hash] {rounds} rounds; median ms per call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    say(f"[hash] observe {BATCH / med['update_batch_'] * 1e3:.0f} edges/s "
+        f"(device time by CUDA events, no synchronisation inside the calls); "
+        f"peak device memory over the rounds "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for key, fn in (
+            ("decay_", lambda: core.decay_(state, cfg=cfg)),
+            ("maybe_decay_[no fire]", lambda: core.maybe_decay_(
+                state, cfg=cfg, total_threshold=2 ** 31 - 1))):
+        device_ms, idle_ms = call_ms(lambda fn=fn: no_sync(fn))
+        say(f"[hash] {key}: device {device_ms:.4f} ms, latency on an idle "
+            f"device {idle_ms:.4f} ms (medians of 20, in turns)")
+    batches = iter([traffic.batch(BATCH) for _ in range(3)])
+    no_state_copies("update_batch_ (dst hash)", lambda: core.update_batch_(
+        state, *next(batches), cfg=cfg), cfg.num_rows)
+    no_state_copies("decay_ (dst hash, rolling)",
+                    lambda: core.decay_(state, cfg=cfg), cfg.num_rows)
+    no_state_copies("maybe_decay_ (dst hash)", lambda: core.maybe_decay_(
+        state, cfg=cfg, total_threshold=decay_threshold), cfg.num_rows)
+    say("[hash] update_batch_, the queries, maybe_decay_ and decay_ ran under "
+        "set_sync_debug_mode('error'): no device->host synchronisation")
+
+    # the back-buffer learner over the dst-hash chain: its catch-up copies
+    # the flagged rows' row hashes too
+    store = EpochStore(state)
+    learner = BackBufferLearner(store)
+    learned = []
+    with launch_window("hash/learner", ("copy_dirty_rows",)) as learner_launches:
+        for _ in range(4):
+            src, dst = traffic.batch(BATCH)
+            learned.append(timed(times, "learner write", no_sync, learner.write,
+                                 lambda s, dirty, src=src, dst=dst:
+                                 core.maybe_decay_(core.update_batch_(
+                                     s, src, dst, cfg=cfg, dirty=dirty),
+                                     cfg=cfg, total_threshold=decay_threshold,
+                                     dirty=dirty)))
+    launches["copy_dirty_rows"] = learner_launches["copy_dirty_rows"]
+    torch.cuda.synchronize()
+    say(f"[hash] learner writes (catch-up, update_batch_, maybe_decay_): "
+        f"median {statistics.median(s.elapsed_time(e) for s, e in times['learner write']):.3f} ms")
+    state = learned[-1]
+    del store, learner, learned
+
+    hash_against_scan(state, cfg, traffic)
+
+    # a rebuild of the warmed table, forced by a threshold of 0 tombstones:
+    # decided on the device inside decay_, then every invariant holds
+    force = dataclasses.replace(cfg, dh_rebuild_fraction=0.0)
+    before = core.maintenance_stats(state)
+    if before["dh_tombstones"] <= 0:
+        raise AssertionError(f"no tombstone to force a rebuild with: {before}")
+    rebuild = {}
+    timed(rebuild, "decay_", no_sync, core.decay_, state, cfg=force)
+    torch.cuda.synchronize()
+    after = core.maintenance_stats(state)
+    if after["dh_rebuilds"] != before["dh_rebuilds"] + 1 or after["dh_tombstones"]:
+        raise AssertionError(f"the forced rebuild did not run: {before} -> {after}")
+    rebuild_ms = rebuild["decay_"][0][0].elapsed_time(rebuild["decay_"][0][1])
+    inv = core.check_invariants(state, cfg)
+    say(f"[hash] forced rebuild of {cfg.num_rows} row hashes inside decay_ "
+        f"(threshold 0 tombstones, {before['dh_tombstones']} held): "
+        f"{rebuild_ms:.3f} ms by events, rebuilds {before['dh_rebuilds']} -> "
+        f"{after['dh_rebuilds']}; invariants {inv}")
+    if not all(v for k, v in inv.items() if k != "sorted_fraction"):
+        raise AssertionError(f"invariants violated after the rebuild: {inv}")
+    dk, pk, nn = answers
+    if dk.shape != (QUERIES, 16) or not bool(torch.isfinite(pk).all()) \
+            or not bool((nn > 0).any()):
+        raise AssertionError("dst-hash path: query answers are wrong")
+    say(f"[hash] counters {core.counter_stats(state)}; maintenance "
+        f"{core.maintenance_stats(state)}")
+    return state, cfg, traffic, launches
+
+
+def dh_probe_work(rows, keys_q, dh_keys, max_probes):
+    """What a stacked probe of ``keys_q`` in tables ``rows`` must read:
+    ``(lanes whose key is read + found lanes' values)``, as
+    :func:`probe_work` counts a flat one."""
+    from repro_torch.core import hashtable as ht
+    h = dh_keys.shape[1]
+    p = torch.arange(max_probes, device="cuda")
+    idx = ((ht.hash_u32(keys_q) & (h - 1)).unsqueeze(1) + p) & (h - 1)
+    win = dh_keys[rows.clamp(min=0).long().unsqueeze(1), idx]
+    key_p = ht.first_true(win == keys_q.unsqueeze(1), dim=1)[0]
+    empty_p = ht.first_true(win == -1, dim=1)[0]
+    live = (keys_q != -1) & (rows >= 0)
+    probed = torch.where(live, torch.minimum(key_p, empty_p)
+                         .clamp(max=max_probes - 1) + 1, 0)
+    return int(probed.sum()) + int((live & (key_p < empty_p)).sum())
+
+
+def hash_path_kernels(state, cfg, src, dst, launches):
+    """The dst-hash path's device code at that path's shapes and data, each
+    against its plain version (equal) and timed beside its bound: the
+    stacked probe as the classify calls it (beside the row scan it
+    replaces), the new-edge pass with the row-hash edits, the rolling decay
+    with the repair (beside the same call without it), the rebuild of
+    every row hash, and the learner's catch-up with the row hashes."""
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import slab as sl
+    from repro_torch.kernels import ops
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    n, c = cfg.num_rows, cfg.capacity
+    h = cfg.resolved_dst_table_size()
+    slabs, table = state.slabs, state.src_table
+    dh = dict(dh_keys=state.dh_keys, dh_vals=state.dh_vals)
+    entries = []
+
+    src, dst, w, m = mc._batch_inputs(state, src, dst, None, None)
+    u_src, u_dst, u_w, u_act, u_pos = mc._aggregate_batch(src, dst, w, m)
+    rows0, found_src0 = mc.lookup_rows(state, u_src, cfg)
+    _, found_d0 = mc._find_slots(state, rows0, u_dst, cfg)
+    fast = u_act & found_src0 & found_d0
+    p_src, p_dst, p_w, p_mask, _ = mc._take_new_prefix(
+        u_src, u_dst, u_w, u_pos, u_act & ~fast, cfg.resolved_max_new(BATCH))
+
+    # the classify: the stacked probe against the scan's gather of the rows
+    items = rows0.numel()
+    slot_reads = dh_probe_work(rows0, u_dst, state.dh_keys, cfg.max_probes)
+    rows64 = rows0.long()
+    scan_ms = time_ms(lambda: sl.find_slot(slabs, rows64, u_dst), flush=flush)
+    scan_bound, _ = bound(4 * (items * c + 3 * items), 2 * items * c)
+    kernel_entry(entries, launches, flush, "probe_find[hash, dh_find]",
+                 "probe_find", "probe.cu", "src/repro/kernels/probe.py:105",
+                 lambda impl: ops.dh_find(rows0, u_dst, state.dh_keys,
+                                          state.dh_vals,
+                                          max_probes=cfg.max_probes, impl=impl),
+                 bytes_moved=4 * (2 * items + slot_reads) + 5 * items,
+                 operations=12 * items + 3 * slot_reads,
+                 extra=dict(batch=items, table=f"{n}x{h}", scan_ms=scan_ms,
+                            scan_bound_ms=scan_bound))
+
+    # the new-edge pass with the row-hash edits, as update_batch_ runs it
+    counters = torch.stack([state.n_rows, state.dropped_rows,
+                            state.dropped_probes, state.evictions])
+    slow_path_entry(entries, launches, flush, "slow_path[hash]", cfg, table,
+                    slabs, counters, (p_src, p_dst, p_w, p_mask),
+                    sequential=False, row_hashes=(state.dh_keys, state.dh_vals))
+
+    # the rolling decay with the repair, as decay_ launches it, and the same
+    # call without the row hashes beside it
+    r = cfg.resolved_decay_rows()
+    tombs = state.dh_tombstones.reshape(())
+    rolling = (slabs.cnt, slabs.dst, slabs.order, slabs.tot, state.decay_cursor)
+    saved = [x.clone() for x in rolling]
+
+    def restore():
+        for x, y in zip(rolling, saved):
+            x.copy_(y)
+
+    plain_decay_ms = time_restored(lambda: ops.decay_sort_rolling_(
+        *rolling, block_rows=r), restore, flush)
+    restore()
+    del saved
+    cur = int(state.decay_cursor) % -(-n // r)
+    row0 = min(cur * r, n - r)
+    block_keys = state.dh_keys[row0:row0 + r]
+    block_vals = state.dh_vals[row0:row0 + r].clamp(0, c - 1).long()
+    halved = slabs.cnt[row0:row0 + r] >> 1
+    dead = int(((block_keys >= 0)
+                & (torch.gather(halved, 1, block_vals) == 0)).sum())
+    del block_vals, halved
+    inplace_entry(entries, launches, flush, "decay_sort[hash, rolling + repair]",
+                  "decay_sort", "decay_sort.cu", "src/repro/core/mcprioq.py:580",
+                  lambda impl, work, dirty: ops.decay_sort_rolling_(
+                      *work[:5], block_rows=r, dirty=dirty,
+                      dh_keys=work[5], dh_vals=state.dh_vals,
+                      tombstones=work[6], impl=impl),
+                  (*rolling, state.dh_keys, tombs),
+                  bytes_moved=lambda flagged: 4 * (6 * r * c + r + 2 + 2 * r * h
+                                                   + dead + 1) + flagged,
+                  operations=r * (c * 8 + 3 * h),
+                  extra=dict(rows=r, dead_lanes=dead,
+                             without_repair_ms=plain_decay_ms))
+    say(f"[kernels] the repair adds {entries[-1]['ms'] - plain_decay_ms:.4f} ms "
+        f"to the rolling decay of {r} rows ({plain_decay_ms:.4f} ms without "
+        f"the row hashes, {dead} lanes tombstoned)")
+
+    # the rebuild of every row hash, forced (threshold -1): cnt/dst read,
+    # the row hashes written, every row flagged
+    live = int((slabs.cnt > 0).sum())
+    inplace_entry(entries, launches, flush, "dh_rebuild[hash]", "dh_rebuild",
+                  "dh_rebuild.cu", "src/repro/core/mcprioq.py:196",
+                  lambda impl, work, dirty: ops.dh_rebuild_(
+                      slabs.cnt, slabs.dst, *work, threshold=-1,
+                      max_probes=cfg.max_probes, dirty=dirty, impl=impl),
+                  (state.dh_keys, state.dh_vals,
+                   torch.stack([state.dh_rebuilds, state.dh_tombstones])),
+                  bytes_moved=lambda flagged: 8 * n * c + 8 * n * h + flagged + 8,
+                  operations=4 * n * h + 16 * live, plain_reps=1,
+                  extra=dict(rows=n, live_slots=live))
+
+    # the learner's catch-up: a back buffer one update behind the front
+    back = mc.private_copy(state)
+    dirty = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    mc.update_batch_(state, src, dst, cfg=cfg, dirty=dirty)
+    front = (slabs.cnt, slabs.dst, slabs.order, slabs.tot, *table,
+             mc.scalars_of(state), state.dh_keys, state.dh_vals)
+    t_size = table.keys.numel()
+    inplace_entry(entries, launches, flush, "copy_dirty_rows[hash]",
+                  "copy_dirty_rows", "copy_rows.cu", "none (port-only learner)",
+                  lambda impl, work, flags: ops.copy_dirty_rows(
+                      front, work, flags, impl=impl),
+                  (back.slabs.cnt, back.slabs.dst, back.slabs.order,
+                   back.slabs.tot, *back.src_table, mc.scalars_of(back),
+                   back.dh_keys, back.dh_vals),
+                  bytes_moved=lambda flagged: n + flagged * 8 * (3 * c + 1 + 2 * h)
+                  + 16 * t_size + 80,
+                  operations=n, flags=dirty,
+                  extra=dict(rows_flagged_before=int(dirty.sum())))
+    del back
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the speculative drafter at full width
 # ---------------------------------------------------------------------------
 
 VOCAB = 152_064          # qwen2-7b's vocabulary (src/repro/configs/qwen2_7b.py)
@@ -1880,7 +2340,7 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the whole path, kernels vs plain versions, on the card
+# phase 6: the whole path, kernels vs plain versions, on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1896,10 +2356,24 @@ def equal_states(label, a, b):
 
 
 def phase_parity(seed, batches=32):
+    from repro_torch import core
+    cfg = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
+                        max_new_per_batch=192, decay_block_rows=128,
+                        impl="cuda")
+    parity_chain(seed, cfg, batches, "parity")
+    # the dst hash: row hashes of 64 lanes, a rebuild once 2 % are tombstones
+    hashed = dataclasses.replace(cfg, use_dst_hash=True, dst_table_size=64,
+                                 max_probes=16, dh_rebuild_fraction=0.02)
+    parity_chain(seed + 3, hashed, batches, "parity/hash")
+    parity_learner(seed, hashed)
+    parity_drafter(seed)
+
+
+def parity_chain(seed, cfg_k, batches, label):
+    """One chain stream, once with the CUDA kernels and once with the plain
+    versions: every state leaf equal after every batch, functional and
+    owner calls (with their row flags), fused and unfused answers equal."""
     from repro_torch import convert, core
-    cfg_k = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
-                          max_new_per_batch=192, decay_block_rows=128,
-                          impl="cuda")
     cfg_p = dataclasses.replace(cfg_k, impl="ref")
     unfused = [dataclasses.replace(c, fused_query=False, query_chunks=ch)
                for c, ch in ((cfg_k, 0), (cfg_p, 2))]
@@ -1911,6 +2385,7 @@ def phase_parity(seed, batches=32):
                                                   device="cuda"))
            for cfg in (cfg_k, cfg_p)}
     nodes, degree, size = 700, 96, 512
+    most_tombs = 0
     for i in range(batches):
         src = randint(gen, -2, nodes, (size,))          # a few negative ids
         hot = randint(gen, 0, 2, (size,)) == 1          # half on 16 hot nodes:
@@ -1931,37 +2406,72 @@ def phase_parity(seed, batches=32):
             sk, sp = core.decay(sk, cfg=cfg_k), core.decay(sp, cfg=cfg_p)
             for cfg in (cfg_k, cfg_p):
                 core.decay_(own[cfg.impl][0], cfg=cfg, dirty=own[cfg.impl][1])
-        equal_states(f"parity batch {i}", sk, sp)
-        equal_states(f"parity batch {i}: owner calls (kernels)", own["cuda"][0], sp)
-        equal_states(f"parity batch {i}: owner calls (plain)", own["ref"][0], sp)
-        compare(f"parity batch {i}: row flags", own["cuda"][1], own["ref"][1])
+        equal_states(f"{label} batch {i}", sk, sp)
+        equal_states(f"{label} batch {i}: owner calls (kernels)", own["cuda"][0], sp)
+        equal_states(f"{label} batch {i}: owner calls (plain)", own["ref"][0], sp)
+        compare(f"{label} batch {i}: row flags", own["cuda"][1], own["ref"][1])
+        most_tombs = max(most_tombs, int(sk.dh_tombstones))
         q = randint(gen, 0, nodes + 50, (300,))
         fused = core.query_threshold(sk, q, 0.8, cfg=cfg_k, max_items=12)
         fused_top = core.query_topk(sk, q, cfg=cfg_k, k=5)
-        compare(f"parity query_threshold batch {i}", fused,
+        compare(f"{label} query_threshold batch {i}", fused,
                 core.query_threshold(sp, q, 0.8, cfg=cfg_p, max_items=12))
-        compare(f"parity query_topk batch {i}", fused_top,
+        compare(f"{label} query_topk batch {i}", fused_top,
                 core.query_topk(sp, q, cfg=cfg_p, k=5))
         # the unfused read, kernel and plain version, against the fused one
         for cfg_u, st in zip(unfused, (sk, sp)):
-            compare(f"parity unfused query_threshold {cfg_u.impl} batch {i}",
+            compare(f"{label} unfused query_threshold {cfg_u.impl} batch {i}",
                     core.query_threshold(st, q, 0.8, cfg=cfg_u, max_items=12),
                     fused)
-            compare(f"parity unfused query_topk {cfg_u.impl} batch {i}",
+            compare(f"{label} unfused query_topk {cfg_u.impl} batch {i}",
                     core.query_topk(st, q, cfg=cfg_u, k=5), fused_top)
     stats = core.counter_stats(sk)
-    say(f"[parity] {batches} batches at {cfg_k.num_rows}x{cfg_k.capacity}: all "
-        f"{len(convert.LEAF_NAMES)} state leaves and all query answers, fused "
-        f"and unfused, equal after every batch, and the owner calls' states "
-        f"and row flags ({int(own['cuda'][1].sum())} rows flagged) too; "
-        f"counters {stats}")
-    for need in ("deferred_new", "evictions", "dropped_rows", "decay_steps"):
-        if stats[need] <= 0:
-            raise AssertionError(f"parity stream never exercised {need}")
+    say(f"[{label}] {batches} batches at {cfg_k.num_rows}x{cfg_k.capacity}"
+        + (f", row hashes of {cfg_k.resolved_dst_table_size()} lanes"
+           if cfg_k.use_dst_hash else "")
+        + f": all {len(convert.LEAF_NAMES)} state leaves and all query "
+        f"answers, fused and unfused, equal after every batch, and the owner "
+        f"calls' states and row flags ({int(own['cuda'][1].sum())} rows "
+        f"flagged) too; counters {stats}; most tombstones held {most_tombs}")
+    need = ["deferred_new", "evictions", "dropped_rows", "decay_steps"]
+    if cfg_k.use_dst_hash:
+        need.append("dh_rebuilds")
+        if most_tombs <= 0:
+            raise AssertionError(f"{label}: no decay ever left a tombstone")
+    for key in need:
+        if stats[key] <= 0:
+            raise AssertionError(f"{label} stream never exercised {key}")
     inv = core.check_invariants(sk, cfg_k)
     if not all(v for k, v in inv.items() if k != "sorted_fraction"):
-        raise AssertionError(f"parity: invariants violated: {inv}")
-    parity_drafter(seed)
+        raise AssertionError(f"{label}: invariants violated: {inv}")
+
+
+def parity_learner(seed, cfg, writes=16):
+    """The back-buffer learner on a chain with the dst hash, its writes
+    launching the kernels, against the functional calls with the plain
+    versions: every leaf of each published state equal."""
+    from repro_torch import core
+    from repro_torch.core.epoch import BackBufferLearner, EpochStore
+    cfg_p = dataclasses.replace(cfg, impl="ref")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 5)
+    learner = BackBufferLearner(EpochStore(core.init(cfg)))
+    functional = core.init(cfg_p)
+    for i in range(writes):
+        src = randint(gen, 0, 150, (512,))
+        dst = (src * 5 + randint(gen, 0, 60, (512,))) % 3000
+        functional = core.maybe_decay(core.update_batch(
+            functional, src, dst, cfg=cfg_p), cfg=cfg_p, total_threshold=8)
+        published = learner.write(
+            lambda s, dirty: core.maybe_decay_(core.update_batch_(
+                s, src, dst, cfg=cfg, dirty=dirty), cfg=cfg,
+                total_threshold=8, dirty=dirty))
+        equal_states(f"parity learner write {i}", published, functional)
+    stats = core.maintenance_stats(functional)
+    say(f"[parity] back-buffer learner with row hashes: {writes} writes equal "
+        f"to the functional calls' states, every leaf; {stats}")
+    if stats["decay_steps"] <= 0 or stats["dh_rebuilds"] <= 0:
+        raise AssertionError(f"parity learner never decayed and rebuilt: {stats}")
 
 
 def parity_drafter(seed, batches=24):
@@ -2059,6 +2569,13 @@ def main(argv=None):
                            lambda: core.update_batch_(state, *known[:2], None,
                                                       known[2], cfg=cfg))
         del state
+        torch.cuda.empty_cache()
+    if "hash" in phases:
+        state, cfg, traffic, launches = phase_hash(
+            args.seed, args.warm_batches, args.rounds)
+        src, dst = traffic.batch(BATCH)
+        kernels += hash_path_kernels(state, cfg, src, dst, launches)
+        del state, src, dst
         torch.cuda.empty_cache()
     if "drafter" in phases:
         kernels += phase_drafter(args.seed, args.warm_batches // 2,

@@ -132,10 +132,11 @@ def _chain(state) -> mc.MCState:
 
 def _copied(chain: mc.MCState):
     """What ``ops.copy_dirty_rows`` takes of a chain: the slab rows, the src
-    table and the scalars."""
+    table, the scalars and the row hashes (their rows are written under the
+    same flags as the slab's)."""
     slabs = chain.slabs
     return (slabs.cnt, slabs.dst, slabs.order, slabs.tot, *chain.src_table,
-            mc.scalars_of(chain))
+            mc.scalars_of(chain), chain.dh_keys, chain.dh_vals)
 
 
 def _leaves(chain: mc.MCState):
@@ -151,7 +152,8 @@ class BackBufferLearner:
     more.  :meth:`write` waits for the back's readers to leave (the store's
     reader accounting: ``synchronize``), catches the back up with the front
     (``ops.copy_dirty_rows``: the rows the last write changed, flagged in
-    ``dirty``, plus the src table and the scalars), applies the owner's
+    ``dirty``, their row hashes included, plus the src table and the
+    scalars), applies the owner's
     in-place write to the back with the flags tracking it, publishes the
     back and swaps the roles.  Two states' memory, and per write the rows
     the last write changed instead of a copy of the table.

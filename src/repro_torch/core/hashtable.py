@@ -97,27 +97,33 @@ def first_true(mask: torch.Tensor, dim: int = -1) -> Tuple[torch.Tensor, torch.T
     return idx, idx < n
 
 
-def _window(keys_tab: torch.Tensor, key: torch.Tensor, max_probes: int):
-    """Probe window of ``key`` (any batch shape ``[...]``) in a flat table.
+def _window(keys_tab: torch.Tensor, key: torch.Tensor, max_probes: int,
+            rows=None):
+    """Probe window of ``key`` (any batch shape ``[...]``) in a flat table,
+    or, given ``rows`` (the shape of ``key``), in table ``rows`` of a stack
+    ``keys_tab[N, H]``.
 
     Returns ``(idx[..., P], win[..., P])``: the visited slots in probe order
     and the keys they hold.
     """
-    size = keys_tab.shape[0]
+    size = keys_tab.shape[-1]
     key = key.to(torch.int64)
     p = torch.arange(max_probes, dtype=torch.int64, device=keys_tab.device)
     idx = (_slot0(key, size).unsqueeze(-1) + p) & (size - 1)
-    return idx, keys_tab[idx].to(torch.int64)
+    win = keys_tab[idx] if rows is None else keys_tab[rows.unsqueeze(-1), idx]
+    return idx, win.to(torch.int64)
 
 
-def _lookup_probe(table: HashTable, key: torch.Tensor, max_probes: int):
-    idx, win = _window(table.keys, key, max_probes)
+def _lookup_probe(table: HashTable, key: torch.Tensor, max_probes: int,
+                  rows=None):
+    idx, win = _window(table.keys, key, max_probes, rows)
     key64 = key.to(torch.int64).unsqueeze(-1)
     key_p, _ = first_true(win == key64)
     empty_p, _ = first_true(win == EMPTY)
     hit = key_p < empty_p
     slot = idx.gather(-1, key_p.clamp(max=max_probes - 1).unsqueeze(-1)).squeeze(-1)
-    val = torch.where(hit, table.vals[slot], EMPTY).to(torch.int32)
+    held = table.vals[slot] if rows is None else table.vals[rows, slot]
+    val = torch.where(hit, held, EMPTY).to(torch.int32)
     return val, slot, hit
 
 
@@ -150,9 +156,11 @@ def lookup_batch(table: HashTable, keys, max_probes: int = 64,
                        impl=impl)
 
 
-def insert_probe(keys_tab: torch.Tensor, key: torch.Tensor, max_probes: int):
-    """Where ``insert`` would write ``key``: ``(slot, ok)`` as 0-dim tensors
-    (``slot`` is -1 and ``ok`` False when the probe window is exhausted).
+def insert_probe(keys_tab: torch.Tensor, key: torch.Tensor, max_probes: int,
+                 rows=None):
+    """Where ``insert`` would write ``key``: ``(slot, ok)`` of the key's shape
+    (``slot`` is -1 and ``ok`` False when the probe window is exhausted);
+    ``rows`` as in :func:`_window` (slots are then columns of those rows).
 
     Lands on the key itself or on the first EMPTY (end of chain).  The first
     TOMB seen before that is preferred when (a) the walk stopped at EMPTY
@@ -160,7 +168,7 @@ def insert_probe(keys_tab: torch.Tensor, key: torch.Tensor, max_probes: int):
     (a tombstone-saturated chain).  In both cases the key is provably absent,
     so reuse keeps the chain invariant intact.
     """
-    idx, win = _window(keys_tab, key, max_probes)
+    idx, win = _window(keys_tab, key, max_probes, rows)
     key64 = key.to(torch.int64).unsqueeze(-1)
     stop_p, stopped = first_true((win == key64) | (win == EMPTY))
     pos = torch.arange(max_probes, dtype=torch.int64, device=keys_tab.device)
@@ -168,7 +176,8 @@ def insert_probe(keys_tab: torch.Tensor, key: torch.Tensor, max_probes: int):
     last = max_probes - 1
     stop_idx = idx.gather(-1, stop_p.clamp(max=last).unsqueeze(-1)).squeeze(-1)
     tomb_idx = idx.gather(-1, tomb_p.clamp(max=last).unsqueeze(-1)).squeeze(-1)
-    landed_key = torch.where(stopped, keys_tab[stop_idx].to(torch.int64), EMPTY)
+    landed = win.gather(-1, stop_p.clamp(max=last).unsqueeze(-1)).squeeze(-1)
+    landed_key = torch.where(stopped, landed, EMPTY)
     use_tomb = has_tomb & (~stopped | (landed_key == EMPTY))
     slot = torch.where(use_tomb, tomb_idx, torch.where(stopped, stop_idx, -1))
     return slot.to(torch.int32), slot >= 0

@@ -8,9 +8,13 @@ Data layout
   * slabs           : per-row stable edge slots (dst, cnt) + ``order`` perm
   * two counters    : per-edge ``cnt`` and per-row ``tot``; probability is
                       ``cnt/tot`` computed at query time (paper §II.3)
-  * optional dst hash: per-row table dst -> slot (paper §II.2); its fields
-                      are carried in the state, its maintenance belongs to
-                      the dst-hash slice (``use_dst_hash=True`` raises).
+  * optional dst hash: per-row open-addressing table dst -> slot (paper
+                      §II.2, ``use_dst_hash``); slots are stable, so the
+                      hash survives reordering.  The new-edge pass edits
+                      it, a decay tombstones the lanes whose slot died, and
+                      a full rebuild (``ops.dh_rebuild_``), decided on the
+                      device, runs once the tombstones cross
+                      ``dh_rebuild_fraction`` of its capacity.
 
 Update semantics (paper §II.A, batched)
 ---------------------------------------
@@ -46,8 +50,9 @@ flags).  On a CUDA state ``update_batch(_)``, the queries, ``decay(_)`` and
 synchronisation.
 
 The ten scalar leaves (``n_rows`` .. ``dh_tombstones``, in ``MCState``
-order) are views of one int32 tensor made by :func:`init`; the first four,
-the new-edge pass's counters, must be so for an owner call.
+order) are views of one int32 tensor made by :func:`init`; an owner call
+needs them so (the new-edge pass writes the first four as one tensor, the
+rebuild the last two).
 
 Kernel dispatch is selected by ``MCConfig.impl`` (``auto``/``ref``/``cuda``).
 ``update_batch_reference`` keeps the O(B) sequential semantics as an oracle.
@@ -65,7 +70,7 @@ from repro_torch.core import slab as sl
 from repro_torch.core.device import resolve_device
 from repro_torch.core.hashtable import EMPTY, TOMB, HashTable
 from repro_torch.core.slab import Slabs
-from repro_torch.kernels import decay_sort, ops
+from repro_torch.kernels import decay_sort, dh_rebuild, ops
 
 __all__ = [
     "EMPTY", "TOMB", "HashTable", "Slabs", "MCConfig", "MCState",
@@ -113,11 +118,6 @@ class MCConfig:
     def __post_init__(self):
         if self.impl not in _IMPLS:
             raise ValueError(f"impl must be one of {_IMPLS}, got {self.impl!r}")
-        if self.use_dst_hash:
-            raise NotImplementedError(
-                "use_dst_hash=True is not ported yet: the per-row dst-hash "
-                "maintenance (_dh_set/_dh_del/_dh_rebuild_all/_dh_repair_rows) "
-                "belongs to the dst-hash slice of the port")
 
     def resolved_table_size(self) -> int:
         return self.table_size or _next_pow2(4 * self.num_rows)
@@ -135,6 +135,12 @@ class MCConfig:
         if self.decay_block_rows <= 0:
             return self.num_rows
         return min(self.decay_block_rows, self.num_rows)
+
+    def dh_rebuild_threshold(self) -> int:
+        """Tombstones above which a decay rebuilds every row hash: the
+        reference's ``int32(dh_rebuild_fraction * num_rows * H)``."""
+        h = self.resolved_dst_table_size()
+        return min(int(self.dh_rebuild_fraction * self.num_rows * h), 2 ** 31 - 1)
 
 
 class MCState(NamedTuple):
@@ -166,8 +172,9 @@ def check_cuda_limits(cfg: MCConfig, device) -> None:
     """Refuse a configuration the CUDA kernels cannot run, before a state is
     built on ``device``: on a CUDA device with ``impl`` auto or cuda, a row
     wider than the decay kernel sorts (``decay_sort.MAX_CAPACITY``, the
-    smallest width limit of the kernels).  No fallback: ``impl="ref"`` runs
-    the plain versions at any width."""
+    smallest width limit of the kernels), or a row hash wider than the
+    rebuild kernel stages in shared memory (``dh_rebuild.MAX_TABLE``).  No
+    fallback: ``impl="ref"`` runs the plain versions at any width."""
     if torch.device(device).type != "cuda" or cfg.impl == "ref":
         return
     if cfg.capacity > decay_sort.MAX_CAPACITY:
@@ -175,6 +182,12 @@ def check_cuda_limits(cfg: MCConfig, device) -> None:
             f"capacity {cfg.capacity} is above {decay_sort.MAX_CAPACITY}, the "
             f"widest row the CUDA decay kernel (kernels/decay_sort.py) sorts "
             f"in one warp's registers")
+    h = cfg.resolved_dst_table_size()
+    if cfg.use_dst_hash and h > dh_rebuild.MAX_TABLE:
+        raise ValueError(
+            f"dst_table_size {h} is above {dh_rebuild.MAX_TABLE}, the widest "
+            f"row hash the CUDA rebuild kernel (kernels/dh_rebuild.py) stages "
+            f"in shared memory")
 
 
 def init(cfg: MCConfig, device=None) -> MCState:
@@ -204,7 +217,7 @@ def init(cfg: MCConfig, device=None) -> MCState:
         dh_rebuilds=int32(0),
         dh_tombstones=int32(0),
     )
-    return private_copy(state, table=False, slabs=())
+    return private_copy(state, table=False, slabs=(), dh=False)
 
 
 def scalars_of(state: MCState, count: int = len(SCALAR_FIELDS)) -> torch.Tensor:
@@ -229,17 +242,19 @@ def scalars_of(state: MCState, count: int = len(SCALAR_FIELDS)) -> torch.Tensor:
 
 
 def private_copy(state: MCState, *, table: bool = True,
-                 slabs=Slabs._fields) -> MCState:
+                 slabs=Slabs._fields, dh: bool = True) -> MCState:
     """A copy of ``state`` that the owner calls may write: the src table
-    (``table``) and the slab arrays named in ``slabs`` cloned, the scalar
-    leaves packed into one new int32 tensor; the other leaves shared with
-    ``state`` (the row hashes ``dh_keys``/``dh_vals`` always: nothing
-    writes them while the dst hash is unported)."""
+    (``table``), the slab arrays named in ``slabs`` and the row hashes
+    ``dh_keys``/``dh_vals`` (``dh``) cloned, the scalar leaves packed into
+    one new int32 tensor; the other leaves shared with ``state``."""
     scalars = torch.stack([getattr(state, f) for f in SCALAR_FIELDS])
     copy = state._replace(**{f: scalars[i] for i, f in enumerate(SCALAR_FIELDS)})
     if table:
         copy = copy._replace(src_table=HashTable(
             *(x.clone() for x in state.src_table)))
+    if dh:
+        copy = copy._replace(dh_keys=state.dh_keys.clone(),
+                             dh_vals=state.dh_vals.clone())
     return copy._replace(slabs=state.slabs._replace(
         **{f: getattr(state.slabs, f).clone() for f in slabs}))
 
@@ -276,9 +291,13 @@ def lookup_rows(state: MCState, src: torch.Tensor, cfg: MCConfig):
 
 def _find_slots(state: MCState, rows: torch.Tensor, dst: torch.Tensor,
                 cfg: MCConfig):
-    """Batched (row, dst) -> slot by row scan (paper §II.2); the dst-hash
-    branch (``ops.dh_find``) belongs to a later slice."""
-    del cfg
+    """Batched (row, dst) -> slot via the dst hash or a row scan (paper
+    §II.2).  The hash is one launch of the shared probe kernel in its
+    stacked mode (``ops.dh_find``); slot 0 where not found."""
+    if cfg.use_dst_hash:
+        slots, found = ops.dh_find(rows, dst, state.dh_keys, state.dh_vals,
+                                   max_probes=cfg.max_probes, impl=cfg.impl)
+        return torch.where(found, slots, 0), found
     return sl.find_slot(state.slabs, rows.to(torch.int64), dst)
 
 
@@ -343,16 +362,18 @@ def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig,
                dirty=None) -> MCState:
     """Insert pass for new edges / new rows (the paper's rare case), through
     the kernel layer (``ops.slow_path_``), written into ``state``'s src
-    table, ``dst``/``cnt``/``tot`` and counters: the caller owns them.
-    Returns ``state``.
+    table, ``dst``/``cnt``/``tot``, counters and, with the dst hash, the
+    row hashes: the caller owns them.  Returns ``state``.
 
     Deterministic (batch order), fully masked — inactive items are no-ops.
     """
     slabs, table = state.slabs, state.src_table
+    dh = (dict(dh_keys=state.dh_keys, dh_vals=state.dh_vals)
+          if cfg.use_dst_hash else {})
     ops.slow_path_(table.keys, table.vals, slabs.dst, slabs.cnt, slabs.tot,
                    slabs.order, scalars_of(state, _COUNTERS), src, dst, w,
                    active, max_probes=cfg.max_probes, dirty=dirty,
-                   impl=cfg.impl)
+                   impl=cfg.impl, **dh)
     return state
 
 
@@ -425,9 +446,11 @@ def update_batch(
     (``ops.slow_path_``; an empty pass is one short launch), then
     ``cfg.sort_passes`` odd-even passes (``ops.oddeven_sort``).  Functional:
     the kernels write into copies of what they write (the src table,
-    ``dst``/``cnt``/``tot``, the scalars) and a fresh ``order``.
+    ``dst``/``cnt``/``tot``, the scalars, the row hashes with the dst hash
+    on) and a fresh ``order``.
     """
-    return _update(private_copy(state, slabs=("dst", "cnt", "tot")),
+    return _update(private_copy(state, slabs=("dst", "cnt", "tot"),
+                                dh=cfg.use_dst_hash),
                    src, dst, weights, mask, cfg, owner=False)
 
 
@@ -465,7 +488,8 @@ def update_batch_reference(
 
     # fast path: scatter-add (duplicates aggregate, like contended atomics)
     # into copies of what this function writes
-    state = private_copy(state, slabs=("dst", "cnt", "tot"))
+    state = private_copy(state, slabs=("dst", "cnt", "tot"),
+                         dh=cfg.use_dst_hash)
     add_w = torch.where(fast, w, 0)
     slabs = state.slabs
     rows64 = rows0.to(torch.int64)
@@ -560,25 +584,38 @@ def _decay(state: MCState, cfg: MCConfig, *, fire=None, dirty=None,
     """The body of :func:`decay`, :func:`decay_` and :func:`maybe_decay_`,
     written into ``state``; ``fire`` (a 0-dim bool tensor) gates it on the
     device.  ``fresh``: the stop-the-world kernel writes every row into new
-    tensors instead (the functional twin: every row is written anyway)."""
+    tensors instead (the functional twin without the dst hash: every row is
+    written anyway).  With the dst hash the decay kernel repairs the
+    decayed rows' hashes (each lane whose slot died becomes TOMB, counted
+    in ``dh_tombstones``), then ``ops.dh_rebuild_`` rebuilds every row hash
+    if the tombstones crossed the threshold — both decided on the device."""
     n = cfg.num_rows
     r = cfg.resolved_decay_rows()
     slabs = state.slabs
+    dh = (dict(dh_keys=state.dh_keys, dh_vals=state.dh_vals,
+               tombstones=state.dh_tombstones) if cfg.use_dst_hash else {})
     if r >= n and fresh:  # stop-the-world: one full-table dispatch
         cnt, dst, order, tot = ops.decay_sort(
             slabs.cnt, slabs.dst, slabs.order, impl=cfg.impl)
         state = state._replace(slabs=Slabs(dst, cnt, tot, order))
     elif r >= n:
         ops.decay_sort_(slabs.cnt, slabs.dst, slabs.order, slabs.tot,
-                        fire=fire, dirty=dirty, impl=cfg.impl)
+                        fire=fire, dirty=dirty, impl=cfg.impl, **dh)
     else:
         # the last block is clamped so every call touches exactly r rows (it
         # overlaps the previous block when r does not divide n; halving is
         # not idempotent per row — kept as the reference has it)
         ops.decay_sort_rolling_(slabs.cnt, slabs.dst, slabs.order, slabs.tot,
                                 state.decay_cursor, block_rows=r, fire=fire,
-                                dirty=dirty, impl=cfg.impl)
+                                dirty=dirty, impl=cfg.impl, **dh)
     state.decay_steps.add_(1 if fire is None else fire)
+    if cfg.use_dst_hash:
+        first = SCALAR_FIELDS.index("dh_rebuilds")
+        ops.dh_rebuild_(slabs.cnt, slabs.dst, state.dh_keys, state.dh_vals,
+                        scalars_of(state)[first:first + 2],
+                        threshold=cfg.dh_rebuild_threshold(),
+                        max_probes=cfg.max_probes, fire=fire, dirty=dirty,
+                        impl=cfg.impl)
     return state
 
 
@@ -592,14 +629,18 @@ def decay(state: MCState, *, cfg: MCConfig) -> MCState:
     steps — per-call kernel work scales with R, not ``num_rows``, and readers
     see the paper's approximately-correct mid-maintenance state.  The block
     is found from the cursor on the device (``ops.decay_sort_rolling_``), so
-    neither mode synchronises with the host.  Functional: the rolling decay
-    writes into copies of the slabs and scalars, the stop-the-world one into
-    fresh tensors.
+    neither mode synchronises with the host.  With the dst hash the decayed
+    rows' hashes are repaired incrementally (tombstones, not rebuilds) and
+    a full rebuild runs only when the tombstones cross
+    ``dh_rebuild_fraction`` of the hash capacity.  Functional: the decay
+    writes into copies of the slabs, scalars and row hashes (the
+    stop-the-world one without the dst hash into fresh tensors).
     """
-    whole = cfg.resolved_decay_rows() >= cfg.num_rows
+    fresh = cfg.resolved_decay_rows() >= cfg.num_rows and not cfg.use_dst_hash
     return _decay(private_copy(state, table=False,
-                               slabs=() if whole else Slabs._fields),
-                  cfg, fresh=whole)
+                               slabs=() if fresh else Slabs._fields,
+                               dh=cfg.use_dst_hash),
+                  cfg, fresh=fresh)
 
 
 def decay_(state: MCState, *, cfg: MCConfig, dirty=None) -> MCState:
@@ -637,8 +678,29 @@ def maybe_decay_(state: MCState, *, cfg: MCConfig, total_threshold: int,
 # ---------------------------------------------------------------------------
 
 
+def _dh_consistent(state: MCState, cfg: MCConfig) -> torch.Tensor:
+    """Dst-hash invariant: every live slot is reachable through the hash and
+    every occupied hash lane points at a live slot holding its key (no stale
+    entries after decay/repair)."""
+    slabs = state.slabs
+    n, c = slabs.dst.shape
+    dev = slabs.dst.device
+    rows = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(c)
+    live = slabs.cnt.reshape(-1) > 0
+    slots, found = ops.dh_find(torch.where(live, rows, -1),
+                               slabs.dst.reshape(-1).clamp(min=0),
+                               state.dh_keys, state.dh_vals,
+                               max_probes=cfg.max_probes, impl=cfg.impl)
+    expect = torch.arange(c, dtype=torch.int32, device=dev).repeat(n)
+    live_ok = (~live | (found & (slots == expect))).all()
+    v = state.dh_vals.clamp(0, c - 1).to(torch.int64)
+    pointed_ok = ((torch.gather(slabs.dst, 1, v) == state.dh_keys)
+                  & (torch.gather(slabs.cnt, 1, v) > 0))
+    stale_ok = ((state.dh_keys < 0) | pointed_ok).all()
+    return live_ok & stale_ok
+
+
 def check_invariants(state: MCState, cfg: Optional[MCConfig] = None) -> dict:
-    del cfg  # the dst-hash clause belongs to a later slice
     slabs = state.slabs
     cap = slabs.order.shape[1]
     order_ok = (torch.sort(slabs.order, dim=1).values
@@ -647,13 +709,16 @@ def check_invariants(state: MCState, cfg: Optional[MCConfig] = None) -> dict:
     tot_ok = (slabs.tot == slabs.cnt.sum(dim=1).to(torch.int32)).all()
     free_ok = ((slabs.cnt == 0) == (slabs.dst == EMPTY)).all()
     nonneg = (slabs.cnt >= 0).all()
-    return {
+    out = {
         "order_is_permutation": bool(order_ok),
         "tot_matches_cnt_sum": bool(tot_ok),
         "free_slots_consistent": bool(free_ok),
         "counts_nonnegative": bool(nonneg),
         "sorted_fraction": float(sl.sorted_fraction(slabs.cnt, slabs.order)),
     }
+    if cfg is not None and cfg.use_dst_hash:
+        out["dst_hash_consistent"] = bool(_dh_consistent(state, cfg))
+    return out
 
 
 def maintenance_stats(state: MCState) -> dict:

@@ -13,6 +13,11 @@
   * :mod:`repro_torch.kernels.slow_path`   — sequential new-edge pass (§II.A)
   * :mod:`repro_torch.kernels.walk`        — k-step greedy draft walk
                                              (speculative decoding)
+  * :mod:`repro_torch.kernels.dh_rebuild`  — rebuild of every row's dst
+                                             hash, decided on the device
+                                             (§II.2)
+  * :mod:`repro_torch.kernels.copy_rows`   — the back-buffer learner's
+                                             catch-up by flagged rows
 
 Public API lives in :mod:`repro_torch.kernels.ops` (backend dispatch);
 ``ref.py`` holds the plain PyTorch version each kernel is held against;

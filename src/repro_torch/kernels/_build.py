@@ -42,13 +42,14 @@ SIGNATURES = {
     "mcq_cdf_query_fused": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                             _I, _I, _I, _P],
     "mcq_slow_path": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _P, _P, _P, _P],
+                      _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     "mcq_cdf_query": [_P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
     "mcq_draft_walk": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I,
                        _I, _P, _P, _I, _P],
     "mcq_decay_sort": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I,
-                       _P],
-    "mcq_copy_dirty_rows": [_P] * 15 + [_LL, _I, _LL, _I, _P],
+                       _P, _P, _I, _P, _P],
+    "mcq_copy_dirty_rows": [_P] * 19 + [_LL, _I, _LL, _I, _I, _P],
+    "mcq_dh_rebuild": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -161,6 +162,22 @@ def require_flags(name: str, dirty: Optional[torch.Tensor], rows: int) -> None:
     if dirty is not None and dirty.shape != (rows,):
         raise ValueError(f"{name}: dirty must be uint8[{rows}], one flag per "
                          f"row, got {tuple(dirty.shape)}")
+
+
+def require_row_hashes(name: str, dh_keys: Optional[torch.Tensor],
+                       dh_vals: Optional[torch.Tensor], rows: int) -> int:
+    """The per-row dst hashes ``dh_keys/dh_vals`` are both None, or both
+    ``[rows, H]`` with H a power of two (their type, device and contiguity
+    are checked with the other tensors).  Returns H, 0 for None."""
+    if dh_keys is None and dh_vals is None:
+        return 0
+    if dh_keys is None or dh_vals is None or dh_keys.dim() != 2 \
+            or dh_keys.shape != dh_vals.shape or dh_keys.shape[0] != rows:
+        raise ValueError(f"{name}: dh_keys/dh_vals must both be [{rows}, H]")
+    h = dh_keys.shape[1]
+    if h < 1 or h & (h - 1):
+        raise ValueError(f"{name}: H must be a power of two, got {h}")
+    return h
 
 
 def require_cuda_int32(name: str, *, strided=(), bools=(), flags=(),

@@ -33,6 +33,14 @@
 // touched.  fire (a device bool, or null for "always"): when it is false the
 // launches return at once and the cursor stays.  dirty (uint8 per row, or
 // null): set to 1 for every row decayed.
+//
+// The per-row dst hash (dh_keys/dh_vals[N, H], paper §II.2; null without
+// it) is repaired in the same pass, as src/repro/core/mcprioq.py:580
+// _dh_repair_rows does after a block decays: with the row's halved counts
+// staged in shared memory, the warp reads the row's H lanes (coalesced) and
+// makes every occupied lane (key >= 0) whose slot clip(val, 0, C-1) now
+// holds count 0 a TOMB; their number is added to *tombstones with one
+// integer atomic per row (a sum in any order gives the same bits).
 #include <climits>
 
 #include "common.cuh"
@@ -114,7 +122,10 @@ __global__ void __launch_bounds__(MCQ_DECAY_WARPS * MCQ_WARP)
                           const int32_t* __restrict__ cursor,
                           const uint8_t* __restrict__ fire,
                           uint8_t* __restrict__ dirty, long long num_rows,
-                          long long block_rows, int capacity) {
+                          long long block_rows, int capacity,
+                          int32_t* __restrict__ dh_keys,
+                          const int32_t* __restrict__ dh_vals, int dh_size,
+                          int32_t* __restrict__ tombstones) {
   constexpr int V = 1 << LOG_V;
   constexpr int P = V * MCQ_WARP;
   __shared__ int32_t smem[MCQ_DECAY_WARPS][2][P];
@@ -164,6 +175,23 @@ __global__ void __launch_bounds__(MCQ_DECAY_WARPS * MCQ_WARP)
     if (dirty != nullptr) dirty[row0 + local] = 1;
   }
   __syncwarp();
+
+  // the row hash: a lane whose slot died becomes TOMB
+  if (dh_keys != nullptr) {
+    const size_t hb = static_cast<size_t>(row0 + local) * dh_size;
+    int dead = 0;
+#pragma unroll 4
+    for (int j = lane; j < dh_size; j += MCQ_WARP) {
+      const int32_t k = dh_keys[hb + j];
+      const int32_t v = dh_vals[hb + j];
+      if (k >= 0 && s_cnt[min(max(v, 0), capacity - 1)] == 0) {
+        dh_keys[hb + j] = MCQ_TOMB;
+        ++dead;
+      }
+    }
+    dead = __reduce_add_sync(MCQ_FULL_MASK, dead);
+    if (lane == 0 && dead != 0) atomicAdd(tombstones, dead);
+  }
 
   // the halved counts in priority order; a row already non-increasing keeps
   // its order (a stable sort of a sorted row is the identity)
@@ -221,23 +249,28 @@ static void mcq_decay_sort_launch(unsigned blocks, cudaStream_t stream,
                                   int32_t* tot_out, const int32_t* cursor,
                                   const uint8_t* fire, uint8_t* dirty,
                                   long long num_rows, long long block_rows,
-                                  int capacity) {
+                                  int capacity, int32_t* dh_keys,
+                                  const int32_t* dh_vals, int dh_size,
+                                  int32_t* tombstones) {
   mcq_decay_sort_kernel<LOG_V><<<blocks, MCQ_DECAY_WARPS * MCQ_WARP, 0,
                                  stream>>>(
       cnt, dst, order, cnt_out, dst_out, order_out, tot_out, cursor, fire,
-      dirty, num_rows, block_rows, capacity);
+      dirty, num_rows, block_rows, capacity, dh_keys, dh_vals, dh_size,
+      tombstones);
 }
 
 // cursor == null: rows 0 .. block_rows (block_rows == num_rows, the whole
 // table), one launch.  Otherwise the rolling block the cursor selects
 // (1 <= block_rows <= num_rows), then the cursor's launch.  Outputs may be
-// the inputs.  1 <= capacity <= 1024.
+// the inputs.  1 <= capacity <= 1024.  dh_keys/dh_vals: null, or the row
+// hashes [num_rows, dh_size], repaired, with tombstones (int32) counting.
 extern "C" int mcq_decay_sort(const void* cnt, const void* dst,
                               const void* order, void* cnt_out, void* dst_out,
                               void* order_out, void* tot_out, void* cursor,
                               const void* fire, void* dirty,
                               long long num_rows, long long block_rows,
-                              int capacity, void* stream) {
+                              int capacity, void* dh_keys, const void* dh_vals,
+                              int dh_size, void* tombstones, void* stream) {
   if (block_rows <= 0 || capacity <= 0 || capacity > MCQ_DECAY_MAX_V * MCQ_WARP)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(
@@ -253,10 +286,14 @@ extern "C" int mcq_decay_sort(const void* cnt, const void* dst,
   auto* cur = static_cast<int32_t*>(cursor);
   const auto* f = static_cast<const uint8_t*>(fire);
   auto* dr = static_cast<uint8_t*>(dirty);
+  auto* hk = static_cast<int32_t*>(dh_keys);
+  const auto* hv = static_cast<const int32_t*>(dh_vals);
+  auto* tb = static_cast<int32_t*>(tombstones);
   const int v = (capacity + MCQ_WARP - 1) / MCQ_WARP;
 #define MCQ_DECAY_CASE(LOG_V)                                                  \
   mcq_decay_sort_launch<LOG_V>(blocks, s, c, d, o, co, dout, oo, to, cur, f,   \
-                               dr, num_rows, block_rows, capacity)
+                               dr, num_rows, block_rows, capacity, hk, hv,     \
+                               dh_size, tb)
   if (v <= 1) MCQ_DECAY_CASE(0);
   else if (v <= 2) MCQ_DECAY_CASE(1);
   else if (v <= 4) MCQ_DECAY_CASE(2);

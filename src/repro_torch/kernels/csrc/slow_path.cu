@@ -39,7 +39,13 @@
 //              caches the row's dst/cnt in shared memory and applies the
 //              run's items in item order; evictions are summed with integer
 //              atomics, tot[row] and dirty[row] are written by that warp
-//              alone.
+//              alone.  With the per-row dst hash (dh_keys/dh_vals[N, H],
+//              paper §II.2; null without it) the same warp then edits its
+//              row's table per item: delete the evicted dst where the tail
+//              was replaced, then insert d -> slot where d was not in the
+//              row (the insert may reuse the TOMB the delete made).  Its
+//              probes read what it wrote a step before: probe_window.cuh,
+//              volatile loads.
 // No float and no order between rows enters a result, so the state is the
 // scan's, bit for bit.
 //
@@ -51,6 +57,7 @@
 #include <limits.h>
 
 #include "probe.cuh"
+#include "probe_window.cuh"
 
 #define MCQ_SP_MISSING 0x7FFFFFFE  // row field: src missing, before A2
 #define MCQ_SP_NONE 0x7FFFFFFF     // row field: inactive item
@@ -93,55 +100,6 @@ __global__ void mcq_sp_lookup_kernel(const int32_t* __restrict__ src,
 }
 
 // ---- A2: the misses, in item order, on one warp ------------------------------
-
-// Probe window of `key` from its home slot, shared by the warp.
-// stop_p: first position holding the key or EMPTY (max_probes if none);
-// tomb_p: first TOMB before stop_p (max_probes if none).
-struct McqProbe {
-  int stop_p;
-  int tomb_p;
-  int32_t stop_key;
-  int32_t stop_val;  // tab_vals at stop_p (loaded beside the key)
-  uint32_t h0;
-};
-
-__device__ __forceinline__ McqProbe mcq_probe_window(
-    const volatile int32_t* tab_keys, const volatile int32_t* tab_vals,
-    uint32_t mask, int32_t key, int max_probes, int lane) {
-  McqProbe pr;
-  pr.stop_p = max_probes;
-  pr.tomb_p = max_probes;
-  pr.stop_key = MCQ_EMPTY;
-  pr.stop_val = MCQ_EMPTY;
-  pr.h0 = mcq_hash_u32(key) & mask;
-  for (int p0 = 0; p0 < max_probes; p0 += MCQ_WARP) {
-    const int p = p0 + lane;
-    int32_t k = MCQ_TOMB - 1;  // matches nothing
-    int32_t v = MCQ_EMPTY;
-    const bool in_win = p < max_probes;
-    if (in_win) {
-      const uint32_t idx = (pr.h0 + static_cast<uint32_t>(p)) & mask;
-      k = tab_keys[idx];
-      v = tab_vals[idx];
-    }
-    const unsigned stops =
-        __ballot_sync(MCQ_FULL_MASK, in_win && (k == key || k == MCQ_EMPTY));
-    unsigned tombs = __ballot_sync(MCQ_FULL_MASK, in_win && k == MCQ_TOMB);
-    if (stops) {
-      const int first = mcq_first_lane(stops);
-      tombs &= (1u << first) - 1u;  // only TOMBs before the stop
-      if (pr.tomb_p == max_probes && tombs)
-        pr.tomb_p = p0 + mcq_first_lane(tombs);
-      pr.stop_p = p0 + first;
-      pr.stop_key = __shfl_sync(MCQ_FULL_MASK, k, first);
-      pr.stop_val = __shfl_sync(MCQ_FULL_MASK, v, first);
-      break;
-    }
-    if (pr.tomb_p == max_probes && tombs)
-      pr.tomb_p = p0 + mcq_first_lane(tombs);
-  }
-  return pr;
-}
 
 // One block.  Every thread looks at one key per round (a round is 1,024
 // consecutive items).  Keys that have a row are appended to `with_row`
@@ -208,17 +166,14 @@ __global__ void mcq_sp_chain_kernel(const int32_t* __restrict__ src,
           const int32_t s = __shfl_sync(MCQ_FULL_MASK, my_s, t);
           const McqProbe pr =
               mcq_probe_window(tab_keys, tab_vals, mask, s, max_probes, lane);
-          const bool landed_on_key = pr.stop_p < max_probes && pr.stop_key == s;
-          int32_t got = landed_on_key ? pr.stop_val : MCQ_EMPTY;
+          int32_t got =
+              mcq_landed_on(pr, s, max_probes) ? pr.stop_val : MCQ_EMPTY;
           if (got == MCQ_EMPTY) {
             if (n_rows >= num_rows) {
               ++dropped_rows;
               continue;
             }
-            // the key's own slot or the first EMPTY, unless a TOMB came first
-            // and the walk did not land on the key
-            int ins_p = pr.stop_p;
-            if (pr.tomb_p < max_probes && !landed_on_key) ins_p = pr.tomb_p;
+            const int ins_p = mcq_insert_pos(pr, s, max_probes);
             if (ins_p >= max_probes) {
               ++dropped_probes;
               continue;
@@ -322,7 +277,9 @@ __global__ void mcq_sp_rows_kernel(const long long* __restrict__ keys,
                                    const int32_t* __restrict__ order,
                                    int32_t* counters,
                                    uint8_t* __restrict__ dirty, int num_rows,
-                                   int capacity) {
+                                   int capacity, int32_t* dh_keys,
+                                   int32_t* dh_vals, int dh_size,
+                                   int max_probes) {
   extern __shared__ int32_t row_cache[];
   const int lane = threadIdx.x & (MCQ_WARP - 1);
   const int warp_in_block = threadIdx.x / MCQ_WARP;
@@ -337,6 +294,13 @@ __global__ void mcq_sp_rows_kernel(const long long* __restrict__ keys,
     if (p > 0 && mcq_sp_row(keys[p - 1]) == row) continue;
     if (row < 0 || row >= num_rows) continue;
     const size_t base = static_cast<size_t>(row) * capacity;
+    volatile int32_t* hk = nullptr;
+    volatile int32_t* hv = nullptr;
+    if (dh_keys != nullptr) {
+      hk = dh_keys + static_cast<size_t>(row) * dh_size;
+      hv = dh_vals + static_cast<size_t>(row) * dh_size;
+    }
+    const uint32_t dh_mask = static_cast<uint32_t>(dh_size - 1);
     // no other warp writes this row, and this launch has not written it yet
     for (int j = lane; j < capacity; j += MCQ_WARP) {
       sd[j] = dst_slab[base + j];
@@ -373,17 +337,25 @@ __global__ void mcq_sp_rows_kernel(const long long* __restrict__ keys,
           }
         }
         const bool evict = slot_eq < 0 && slot_free < 0;
+        const int slot = slot_eq >= 0 ? slot_eq : slot_free >= 0 ? slot_free : tail;
+        int32_t evicted = MCQ_EMPTY;
         if (lane == 0) {
-          const int slot = slot_eq >= 0 ? slot_eq : slot_free >= 0 ? slot_free : tail;
+          evicted = sd[slot];
           const int32_t value = (slot_eq < 0 && slot_free >= 0 ? 0 : sc[slot]) + wi;
           sc[slot] = value;
           sd[slot] = d;
           cnt[base + slot] = value;
           dst_slab[base + slot] = d;
         }
+        evicted = __shfl_sync(MCQ_FULL_MASK, evicted, 0);
         row_tot += wi;
         evictions += evict;
         __syncwarp();
+        if (hk != nullptr && slot_eq < 0) {
+          if (evict)
+            mcq_table_delete(hk, hv, dh_mask, evicted, max_probes, lane);
+          mcq_table_insert(hk, hv, dh_mask, d, slot, max_probes, lane);
+        }
       }
       if (here < MCQ_WARP) break;
     }
@@ -403,7 +375,8 @@ static int mcq_next_pow2(int x) {
 }
 
 // keys, with_row: int64 scratch of n_items each; n_with: int32 scratch of
-// one; dirty: null, or uint8 per row.
+// one; dirty: null, or uint8 per row; dh_keys/dh_vals: null, or the row
+// hashes [num_rows, dh_size] (dh_size a power of two).
 extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
                              const void* active, int n_items, void* tab_keys,
                              void* tab_vals, int table_size, void* dst_slab,
@@ -411,7 +384,8 @@ extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
                              void* counters, void* dirty, int num_rows,
                              int capacity,
                              int max_probes, void* keys, void* with_row,
-                             void* n_with, void* stream) {
+                             void* n_with, void* dh_keys, void* dh_vals,
+                             int dh_size, void* stream) {
   if (n_items <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   long long* k_items = static_cast<long long*>(keys);
@@ -460,6 +434,8 @@ extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
       static_cast<const int32_t*>(w), static_cast<int32_t*>(dst_slab),
       static_cast<int32_t*>(cnt), static_cast<int32_t*>(tot),
       static_cast<const int32_t*>(order), static_cast<int32_t*>(counters),
-      static_cast<uint8_t*>(dirty), num_rows, capacity);
+      static_cast<uint8_t*>(dirty), num_rows, capacity,
+      static_cast<int32_t*>(dh_keys), static_cast<int32_t*>(dh_vals), dh_size,
+      max_probes);
   return mcq_launch_status();
 }

@@ -30,6 +30,14 @@ return at once when it is false (``maybe_decay_``).  The functional wrappers
 give the kernel fresh outputs (whole table) or copies of the state (rolling:
 an ``EpochStore`` reader may hold the tensors given).
 
+With the per-row dst hash (``dh_keys/dh_vals [N, H]``, paper §II.2) the same
+warp repairs the decayed row's table, as the reference's
+``core/mcprioq.py:580`` ``_dh_repair_rows`` does after the block: every
+occupied lane whose slot now holds count 0 becomes TOMB, and their number is
+added to the state's ``dh_tombstones`` with one integer atomic per row.
+That adds the row hash's read and the dead lanes' writes (8·H B per row:
+4 MiB for a 1024-row block at H = 512).
+
 Source: ``csrc/decay_sort.cu`` (entry ``mcq_decay_sort``).  Plain versions:
 :func:`decay_sort_ref`, :func:`decay_sort_rolling_ref` and their in-place
 forms; :func:`decay_sort_rows_ref` mirrors the kernel's decomposition.
@@ -56,10 +64,12 @@ launches = 0  # kernel launches made by this module's wrappers in this process
 MAX_CAPACITY = 1024   # 32 lanes x 32 registers: the widest row a warp sorts
 
 
-def _check(name, cnt, dst, order, fire=None, dirty=None, **more):
+def _check(name, cnt, dst, order, fire=None, dirty=None, dh_keys=None,
+           dh_vals=None, tombstones=None, **more):
     _build.require_cuda_int32(name, bools=("fire",), flags=("dirty",), cnt=cnt,
                               dst=dst, order=order, fire=fire, dirty=dirty,
-                              **more)
+                              dh_keys=dh_keys, dh_vals=dh_vals,
+                              tombstones=tombstones, **more)
     if cnt.dim() != 2 or not (cnt.shape == dst.shape == order.shape):
         raise ValueError(f"{name}: cnt/dst/order must be [N, C]")
     if not 1 <= cnt.shape[1] <= MAX_CAPACITY:
@@ -68,54 +78,79 @@ def _check(name, cnt, dst, order, fire=None, dirty=None, **more):
     if fire is not None and fire.dim() != 0:
         raise ValueError(f"{name}: fire must be a 0-dim bool tensor")
     _build.require_flags(name, dirty, cnt.shape[0])
+    dh_size = _build.require_row_hashes(name, dh_keys, dh_vals, cnt.shape[0])
+    if dh_size and (tombstones is None or tombstones.dim() != 0):
+        raise ValueError(f"{name}: the row hashes need tombstones, a 0-dim "
+                         f"int32 tensor")
+    return dh_size
 
 
-def _launch(cnt, dst, order, outs, cursor, fire, dirty, block_rows):
+def _launch(cnt, dst, order, outs, cursor, fire, dirty, block_rows, dh_size,
+            dh_keys=None, dh_vals=None, tombstones=None):
     global launches
     _build.launch("mcq_decay_sort", cnt.device, cnt.data_ptr(), dst.data_ptr(),
                   order.data_ptr(), *(x.data_ptr() for x in outs),
                   _build.ptr(cursor), _build.ptr(fire), _build.ptr(dirty),
-                  cnt.shape[0], block_rows, cnt.shape[1])
+                  cnt.shape[0], block_rows, cnt.shape[1], _build.ptr(dh_keys),
+                  _build.ptr(dh_vals), dh_size, _build.ptr(tombstones))
     launches += 1
 
 
-def decay_sort_cuda(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor):
+def decay_sort_cuda(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+                    *, dh_keys=None, dh_vals=None):
     """Every row of cnt/dst/order [N, C] decayed on the GPU in one launch.
-    Returns fresh ``(cnt', dst', order', tot')``."""
-    _check("decay_sort_cuda", cnt, dst, order)
+    Returns fresh ``(cnt', dst', order', tot')``; given the row hashes
+    dh_keys/dh_vals [N, H], also a repaired copy of ``dh_keys`` and the
+    number of lanes tombstoned (0-dim int32)."""
     outs = (torch.empty_like(cnt), torch.empty_like(dst),
             torch.empty_like(order),
             torch.empty(cnt.shape[:1], dtype=torch.int32, device=cnt.device))
+    dh = ()
+    if dh_keys is not None:
+        dh = (dh_keys.clone(),
+              torch.zeros((), dtype=torch.int32, device=cnt.device))
+    keys, tombs = dh or (None, None)
+    dh_size = _check("decay_sort_cuda", cnt, dst, order, dh_keys=keys,
+                     dh_vals=dh_vals, tombstones=tombs)
     if cnt.shape[0]:
-        _launch(cnt, dst, order, outs, None, None, None, cnt.shape[0])
-    return outs
+        _launch(cnt, dst, order, outs, None, None, None, cnt.shape[0], dh_size,
+                keys, dh_vals, tombs)
+    return outs + dh
 
 
 def decay_sort_cuda_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
-                     tot: torch.Tensor, *, fire=None, dirty=None) -> None:
+                     tot: torch.Tensor, *, fire=None, dirty=None, dh_keys=None,
+                     dh_vals=None, tombstones=None) -> None:
     """Every row of cnt/dst/order [N, C] and tot [N] decayed in place on the
     GPU, one launch; unless the device bool ``fire`` is false, when nothing
-    is written.  ``dirty`` (uint8 [N]): every decayed row's flag set."""
-    _check("decay_sort_cuda_", cnt, dst, order, fire, dirty, tot=tot)
+    is written.  ``dirty`` (uint8 [N]): every decayed row's flag set.  Given
+    the row hashes dh_keys/dh_vals [N, H], each row's is repaired in place
+    and ``tombstones`` (0-dim int32) counts the lanes tombstoned."""
+    dh = dict(dh_keys=dh_keys, dh_vals=dh_vals, tombstones=tombstones)
+    dh_size = _check("decay_sort_cuda_", cnt, dst, order, fire, dirty, tot=tot,
+                     **dh)
     if tot.shape != cnt.shape[:1]:
         raise ValueError("decay_sort_cuda_: tot must be [N]")
     if cnt.shape[0]:
         _launch(cnt, dst, order, (cnt, dst, order, tot), None, fire, dirty,
-                cnt.shape[0])
+                cnt.shape[0], dh_size, **dh)
 
 
 def decay_sort_rolling_cuda_(cnt: torch.Tensor, dst: torch.Tensor,
                              order: torch.Tensor, tot: torch.Tensor,
                              cursor: torch.Tensor, *, block_rows: int,
-                             fire=None, dirty=None) -> None:
+                             fire=None, dirty=None, dh_keys=None,
+                             dh_vals=None, tombstones=None) -> None:
     """The rolling block the device-side ``cursor`` (0-dim int32) selects,
     decayed in place on the GPU, and the cursor moved to the next block;
     rows ``row0 .. row0 + block_rows`` of cnt/dst/order [N, C] and tot [N]
     are written, no other.  Unless the device bool ``fire`` is false: then
     nothing is written and the cursor stays.  ``dirty`` (uint8 [N]): the
-    block's flags set."""
-    _check("decay_sort_rolling_cuda_", cnt, dst, order, fire, dirty, tot=tot,
-           cursor=cursor)
+    block's flags set.  Given the row hashes, the block's are repaired as
+    in :func:`decay_sort_cuda_`."""
+    dh = dict(dh_keys=dh_keys, dh_vals=dh_vals, tombstones=tombstones)
+    dh_size = _check("decay_sort_rolling_cuda_", cnt, dst, order, fire, dirty,
+                     tot=tot, cursor=cursor, **dh)
     n = cnt.shape[0]
     if tot.shape != (n,) or cursor.dim() != 0:
         raise ValueError("decay_sort_rolling_cuda_: tot must be [N] and cursor "
@@ -124,15 +159,20 @@ def decay_sort_rolling_cuda_(cnt: torch.Tensor, dst: torch.Tensor,
         raise ValueError(f"decay_sort_rolling_cuda_: block_rows {block_rows} "
                          f"outside 1..{n}")
     _launch(cnt, dst, order, (cnt, dst, order, tot), cursor, fire, dirty,
-            block_rows)
+            block_rows, dh_size, **dh)
 
 
 def decay_sort_rolling_cuda(cnt: torch.Tensor, dst: torch.Tensor,
                             order: torch.Tensor, tot: torch.Tensor,
-                            cursor: torch.Tensor, *, block_rows: int):
+                            cursor: torch.Tensor, *, block_rows: int,
+                            dh_keys=None, dh_vals=None, tombstones=None):
     """The rolling decay into copies: returns copies of cnt/dst/order [N, C]
-    and tot [N] with the cursor's block decayed, and the next cursor; the
-    inputs are not written."""
+    and tot [N] with the cursor's block decayed, and the next cursor (and,
+    given the row hashes, copies of ``dh_keys`` and ``tombstones`` repaired
+    and counted); the inputs are not written."""
     outs = tuple(x.clone() for x in (cnt, dst, order, tot, cursor))
-    decay_sort_rolling_cuda_(*outs, block_rows=block_rows)
-    return outs
+    dh = () if dh_keys is None else (dh_keys.clone(), tombstones.clone())
+    keys, tombs = dh or (None, None)
+    decay_sort_rolling_cuda_(*outs, block_rows=block_rows, dh_keys=keys,
+                             dh_vals=dh_vals, tombstones=tombs)
+    return outs + dh

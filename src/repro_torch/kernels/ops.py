@@ -24,6 +24,7 @@ from repro_torch.kernels import cdf_gather as _cg
 from repro_torch.kernels import cdf_query as _cdf
 from repro_torch.kernels import copy_rows as _cr
 from repro_torch.kernels import decay_sort as _ds
+from repro_torch.kernels import dh_rebuild as _dr
 from repro_torch.kernels import oddeven as _oe
 from repro_torch.kernels import probe as _pr
 from repro_torch.kernels import ref as _ref
@@ -89,62 +90,94 @@ def slab_update_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
 
 
 def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
-               *, impl: str = "auto"):
+               *, dh_keys=None, dh_vals=None, impl: str = "auto"):
     """§II.C decay: halve counters, evict dead edges, fully re-sort.
 
     On CUDA tensors one launch of the fused decay kernel; the plain version
     composes the halving with C/2+1 odd-even passes (a full odd-even
     transposition network sorts any input).  Returns (cnt', dst', order',
-    tot') with evicted slots at the order tail.
+    tot') with evicted slots at the order tail; given the row hashes
+    ``dh_keys/dh_vals [N, H]``, also a copy of ``dh_keys`` with every lane
+    whose slot died made TOMB, and their number (0-dim int32).
     """
     if _use_ref(impl, cnt):
-        return _ref.decay_sort_ref(cnt, dst, order)
-    return _ds.decay_sort_cuda(cnt, dst, order)
+        return _ref.decay_sort_ref(cnt, dst, order, dh_keys, dh_vals)
+    return _ds.decay_sort_cuda(cnt, dst, order, dh_keys=dh_keys,
+                               dh_vals=dh_vals)
 
 
 def decay_sort_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
-                tot: torch.Tensor, *, fire=None, dirty=None,
-                impl: str = "auto") -> None:
+                tot: torch.Tensor, *, fire=None, dirty=None, dh_keys=None,
+                dh_vals=None, tombstones=None, impl: str = "auto") -> None:
     """The decay of every row written into ``cnt, dst, order, tot``, every
     row flagged; nothing at all when the 0-dim bool tensor ``fire`` is
-    false (read on the device, never on the host)."""
+    false (read on the device, never on the host).  Given the row hashes,
+    their lanes whose slot died become TOMB in ``dh_keys`` and their number
+    is added to ``tombstones`` (0-dim int32)."""
+    dh = dict(dh_keys=dh_keys, dh_vals=dh_vals, tombstones=tombstones)
     if _use_ref(impl, cnt):
-        _ref.decay_sort_ref_(cnt, dst, order, tot, fire, dirty)
+        _ref.decay_sort_ref_(cnt, dst, order, tot, fire, dirty, **dh)
     else:
-        _ds.decay_sort_cuda_(cnt, dst, order, tot, fire=fire, dirty=dirty)
+        _ds.decay_sort_cuda_(cnt, dst, order, tot, fire=fire, dirty=dirty, **dh)
 
 
 def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                        order: torch.Tensor, tot: torch.Tensor,
                        cursor: torch.Tensor, *, block_rows: int,
+                       dh_keys=None, dh_vals=None, tombstones=None,
                        impl: str = "auto"):
     """Rolling §II.C decay of the ``block_rows``-row block the device-side
     ``cursor`` selects (the reference's clamped last block included), with
     no device->host synchronisation.  Returns ``(cnt', dst', order', tot',
     cursor')``: copies of the inputs with that block decayed, and the next
-    cursor; the inputs are not written."""
+    cursor; given the row hashes, also copies of ``dh_keys`` and
+    ``tombstones`` with the block's hashes repaired; the inputs are not
+    written."""
+    dh = dict(dh_keys=dh_keys, dh_vals=dh_vals, tombstones=tombstones)
     if _use_ref(impl, cnt):
         return _ref.decay_sort_rolling_ref(cnt, dst, order, tot, cursor,
-                                           block_rows)
+                                           block_rows, **dh)
     return _ds.decay_sort_rolling_cuda(cnt, dst, order, tot, cursor,
-                                       block_rows=block_rows)
+                                       block_rows=block_rows, **dh)
 
 
 def decay_sort_rolling_(cnt: torch.Tensor, dst: torch.Tensor,
                         order: torch.Tensor, tot: torch.Tensor,
                         cursor: torch.Tensor, *, block_rows: int, fire=None,
-                        dirty=None, impl: str = "auto") -> None:
+                        dirty=None, dh_keys=None, dh_vals=None,
+                        tombstones=None, impl: str = "auto") -> None:
     """The rolling decay written into ``cnt, dst, order, tot`` (the block's
     rows, flagged) and ``cursor`` (moved to the next block); nothing at all
-    when the 0-dim bool tensor ``fire`` is false.  No device->host
+    when the 0-dim bool tensor ``fire`` is false.  Given the row hashes,
+    the block's are repaired as in :func:`decay_sort_`.  No device->host
     synchronisation."""
+    dh = dict(dh_keys=dh_keys, dh_vals=dh_vals, tombstones=tombstones)
     if _use_ref(impl, cnt):
         _ref.decay_sort_rolling_ref_(cnt, dst, order, tot, cursor, block_rows,
-                                     fire, dirty)
+                                     fire, dirty, **dh)
     else:
         _ds.decay_sort_rolling_cuda_(cnt, dst, order, tot, cursor,
                                      block_rows=block_rows, fire=fire,
-                                     dirty=dirty)
+                                     dirty=dirty, **dh)
+
+
+def dh_rebuild_(cnt: torch.Tensor, dst: torch.Tensor, dh_keys: torch.Tensor,
+                dh_vals: torch.Tensor, counters: torch.Tensor, *,
+                threshold: int, max_probes: int = 64, fire=None, dirty=None,
+                impl: str = "auto") -> None:
+    """Rebuild every row hash ``dh_keys/dh_vals [N, H]`` from the slab
+    ``cnt/dst [N, C]`` when ``counters[1]`` (``dh_tombstones``) is above
+    ``threshold`` (and the 0-dim bool ``fire``, if given, holds): decided on
+    the device, no device->host synchronisation.  Then ``counters``
+    (``dh_rebuilds``, ``dh_tombstones``) becomes ``(+1, 0)`` and every row
+    is flagged."""
+    if _use_ref(impl, cnt):
+        _ref.dh_rebuild_ref_(cnt, dst, dh_keys, dh_vals, counters, threshold,
+                             max_probes, fire, dirty)
+    else:
+        _dr.dh_rebuild_cuda_(cnt, dst, dh_keys, dh_vals, counters,
+                             threshold=threshold, max_probes=max_probes,
+                             fire=fire, dirty=dirty)
 
 
 def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
@@ -245,20 +278,24 @@ def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
               dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
               order: torch.Tensor, counters: torch.Tensor,
               src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-              active: torch.Tensor, *, max_probes: int = 64,
-              impl: str = "auto"):
+              active: torch.Tensor, *, max_probes: int = 64, dh_keys=None,
+              dh_vals=None, impl: str = "auto"):
     """The new-edge pass (row allocation, slot allocation, Space-Saving
     replacement) over items ``src/dst/w[L]`` where ``active``, with the
     result of a sequential walk in item order; ``counters[4]`` = (n_rows,
-    dropped_rows, dropped_probes, evictions).  Returns ``(tab_keys,
-    tab_vals, dst_slab, cnt, tot, counters)``, all fresh."""
+    dropped_rows, dropped_probes, evictions).  Given the row hashes
+    ``dh_keys/dh_vals [N, H]``, each item also deletes the dst it evicted
+    and inserts its own.  Returns ``(tab_keys, tab_vals, dst_slab, cnt,
+    tot, counters)``, and ``(dh_keys, dh_vals)`` after them when given, all
+    fresh."""
     if _use_ref(impl, cnt):
         return _ref.slow_path_ref(tab_keys, tab_vals, dst_slab, cnt, tot,
                                   order, counters, src, dst, w, active,
-                                  max_probes)
+                                  max_probes, dh_keys, dh_vals)
     return _sp.slow_path_cuda(tab_keys, tab_vals, dst_slab, cnt, tot, order,
                               counters, src, dst, w, active.to(torch.int32),
-                              max_probes=max_probes)
+                              max_probes=max_probes, dh_keys=dh_keys,
+                              dh_vals=dh_vals)
 
 
 def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
@@ -266,24 +303,28 @@ def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                order: torch.Tensor, counters: torch.Tensor,
                src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                active: torch.Tensor, *, max_probes: int = 64, dirty=None,
-               impl: str = "auto") -> None:
+               dh_keys=None, dh_vals=None, impl: str = "auto") -> None:
     """The new-edge pass written into the src table, ``dst_slab``, ``cnt``,
-    ``tot`` and ``counters``; every row written is flagged."""
+    ``tot``, ``counters`` and, when given, the row hashes; every row
+    written is flagged."""
     if _use_ref(impl, cnt):
         _ref.slow_path_ref_(tab_keys, tab_vals, dst_slab, cnt, tot, order,
-                            counters, src, dst, w, active, max_probes, dirty)
+                            counters, src, dst, w, active, max_probes, dirty,
+                            dh_keys, dh_vals)
     else:
         _sp.slow_path_cuda_(tab_keys, tab_vals, dst_slab, cnt, tot, order,
                             counters, src, dst, w, active.to(torch.int32),
-                            max_probes=max_probes, dirty=dirty)
+                            max_probes=max_probes, dirty=dirty,
+                            dh_keys=dh_keys, dh_vals=dh_vals)
 
 
 def copy_dirty_rows(front, back, dirty: torch.Tensor, *,
                     impl: str = "auto") -> None:
     """Catch ``back`` up with ``front``, each ``(cnt, dst, order, tot,
-    table keys, table vals, scalars)``: the rows flagged in ``dirty`` and
-    the rest whole; then clear the flags."""
-    if _use_ref(impl, dirty):
-        _ref.copy_dirty_rows_ref(*front, *back, dirty)
-    else:
-        _cr.copy_dirty_rows_cuda(*front, *back, dirty)
+    table keys, table vals, scalars)`` and optionally ``(dh_keys,
+    dh_vals)`` after them: the rows flagged in ``dirty`` (the row hashes'
+    rows too) and the rest whole; then clear the flags."""
+    row_hashes = tuple(front[7:]) + tuple(back[7:]) or None
+    copy = _ref.copy_dirty_rows_ref if _use_ref(impl, dirty) \
+        else _cr.copy_dirty_rows_cuda
+    copy(*front[:7], *back[:7], dirty, row_hashes=row_hashes)

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core import hashtable as ht
 from repro_torch.core import slab as sl
-from repro_torch.core.hashtable import EMPTY, first_true
+from repro_torch.core.hashtable import EMPTY, TOMB, first_true
 
 # The in-place forms (a trailing underscore) write into the tensors they are
 # given, as the kernels do for the state's owner, and set ``dirty`` (None, or
@@ -76,17 +76,64 @@ def oddeven_sort_ref_(cnt: torch.Tensor, order: torch.Tensor, passes: int,
     order.copy_(new_order)
 
 
-def decay_sort_ref(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor):
+# ---------------------------------------------------------------------------
+# the per-row dst hash (paper §II.2): keys/vals [N, H], one open-addressing
+# table per slab row, dst -> slot.  Edits of several rows at once: the
+# ``rows`` of one call must be distinct.
+# ---------------------------------------------------------------------------
+
+
+def dh_delete_rows_(keys: torch.Tensor, rows: torch.Tensor, key: torch.Tensor,
+                    active: torch.Tensor, max_probes: int) -> None:
+    """``hashtable.delete`` of ``key[i]`` in table ``rows[i]`` where
+    ``active[i]``: the key's lane, if its chain holds it, becomes TOMB."""
+    table = ht.HashTable(keys, keys)   # the value the probe reads is unused
+    _, slot, hit = ht._lookup_probe(table, key, max_probes, rows)
+    old = keys[rows, slot]
+    keys[rows, slot] = torch.where(hit & active, TOMB, old).to(keys.dtype)
+
+
+def dh_insert_rows_(keys: torch.Tensor, vals: torch.Tensor,
+                    rows: torch.Tensor, key: torch.Tensor, val: torch.Tensor,
+                    active: torch.Tensor, max_probes: int) -> None:
+    """``hashtable.insert`` of ``key[i] -> val[i]`` in table ``rows[i]``
+    where ``active[i]``: the key's own lane or the first EMPTY, the first
+    TOMB before either when the key is absent (also when the window is
+    exhausted); an insert that finds no lane drops the key."""
+    slot, ok = ht.insert_probe(keys, key, max_probes, rows)
+    ok = ok & active
+    col = slot.clamp(min=0).to(torch.int64)
+    keys[rows, col] = torch.where(ok, key, keys[rows, col]).to(keys.dtype)
+    vals[rows, col] = torch.where(ok, val, vals[rows, col]).to(vals.dtype)
+
+
+def _dh_repair(cnt: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor):
+    """The row hashes ``keys/vals`` of decayed rows ``cnt``: every occupied
+    lane whose slot ``clip(val, 0, C-1)`` holds count 0 becomes TOMB.
+    Returns ``(keys', number of lanes tombstoned)``."""
+    pointed = torch.gather(cnt, 1, vals.clamp(0, cnt.shape[1] - 1).to(torch.int64))
+    dead = (keys >= 0) & (pointed == 0)
+    return (torch.where(dead, TOMB, keys).to(keys.dtype),
+            dead.sum(dtype=torch.int32))
+
+
+def decay_sort_ref(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
+                   dh_keys=None, dh_vals=None):
     """§II.C decay of every row given (the reference's composition): halve
     the counts, evict the edges whose count reaches 0, re-sum the rows, and
     sort with C//2+1 odd-even passes — a full transposition network, and a
     stable one, since only strictly out-of-order neighbours swap.  Returns
-    ``(cnt', dst', order', tot')``."""
+    ``(cnt', dst', order', tot')``; given the row hashes ``dh_keys/dh_vals
+    [N, H]``, also ``dh_keys'`` (each lane whose slot died a TOMB) and the
+    number of lanes tombstoned (0-dim int32)."""
     new_cnt = cnt >> 1
     new_dst = torch.where(new_cnt == 0, EMPTY, dst).to(torch.int32)
     new_tot = new_cnt.sum(dim=1).to(torch.int32)
     new_order = oddeven_sort_ref(new_cnt, order, cnt.shape[1] // 2 + 1)
-    return new_cnt, new_dst, new_order, new_tot
+    if dh_keys is None:
+        return new_cnt, new_dst, new_order, new_tot
+    return (new_cnt, new_dst, new_order, new_tot,
+            *_dh_repair(new_cnt, dh_keys, dh_vals))
 
 
 def _bitonic_sort_rows(keys: torch.Tensor) -> torch.Tensor:
@@ -139,12 +186,18 @@ def decay_sort_rows_ref(cnt: torch.Tensor, dst: torch.Tensor,
 
 
 def decay_sort_ref_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
-                    tot: torch.Tensor, fire=None, dirty=None) -> None:
+                    tot: torch.Tensor, fire=None, dirty=None, dh_keys=None,
+                    dh_vals=None, tombstones=None) -> None:
     """:func:`decay_sort_ref` of every row written into ``cnt, dst, order,
-    tot`` (unless ``fire`` is false); every decayed row is flagged."""
-    blocks = decay_sort_ref(cnt, dst, order)
-    for full, block in zip((cnt, dst, order, tot), blocks):
-        full.copy_(_fired(block, full, fire))
+    tot`` (unless ``fire`` is false); every decayed row is flagged.  Given
+    the row hashes, their dead lanes become TOMB in ``dh_keys`` and their
+    number is added to ``tombstones`` (0-dim int32)."""
+    blocks = decay_sort_ref(cnt, dst, order, dh_keys, dh_vals)
+    for full, block in zip((cnt, dst, order, tot, dh_keys), blocks):
+        if full is not None:
+            full.copy_(_fired(block, full, fire))
+    if dh_keys is not None:
+        tombstones.add_(_fired(blocks[5], 0, fire))
     _flag(dirty, torch.ones_like(tot, dtype=torch.bool) if fire is None
           else fire.expand(tot.shape))
 
@@ -152,21 +205,28 @@ def decay_sort_ref_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
 def decay_sort_rolling_ref_(cnt: torch.Tensor, dst: torch.Tensor,
                             order: torch.Tensor, tot: torch.Tensor,
                             cursor: torch.Tensor, block_rows: int, fire=None,
-                            dirty=None) -> None:
+                            dirty=None, dh_keys=None, dh_vals=None,
+                            tombstones=None) -> None:
     """Rolling decay of one ``block_rows``-row block, in place, found on the
     device as the reference finds it: ``cur = cursor mod ceil(n / r)``, first
     row ``min(cur * r, n - r)`` (the last block is clamped and overlaps the
     one before it when r does not divide n).  That block of ``cnt, dst,
     order, tot`` is decayed by :func:`decay_sort_ref` and flagged, and the
     cursor set to ``cur + 1`` — unless ``fire`` is false, when nothing
-    changes.  Nothing is read on the host."""
+    changes.  Given the row hashes, the block's are repaired as in
+    :func:`decay_sort_ref_`.  Nothing is read on the host."""
     n = cnt.shape[0]
     cur = torch.remainder(cursor, -(-n // block_rows))
     row0 = (cur.to(torch.int64) * block_rows).clamp(max=n - block_rows)
     rows = row0 + torch.arange(block_rows, device=cnt.device)
-    blocks = decay_sort_ref(cnt[rows], dst[rows], order[rows])
-    for full, block in zip((cnt, dst, order, tot), blocks):
-        full[rows] = _fired(block, full[rows], fire)
+    blocks = decay_sort_ref(cnt[rows], dst[rows], order[rows],
+                            *((None, None) if dh_keys is None
+                              else (dh_keys[rows], dh_vals[rows])))
+    for full, block in zip((cnt, dst, order, tot, dh_keys), blocks):
+        if full is not None:
+            full[rows] = _fired(block, full[rows], fire)
+    if dh_keys is not None:
+        tombstones.add_(_fired(blocks[5], 0, fire))
     cursor.copy_(_fired((cur + 1).to(torch.int32), cursor, fire))
     if dirty is not None:
         dirty[rows] |= 1 if fire is None else fire.to(torch.uint8)
@@ -174,13 +234,49 @@ def decay_sort_rolling_ref_(cnt: torch.Tensor, dst: torch.Tensor,
 
 def decay_sort_rolling_ref(cnt: torch.Tensor, dst: torch.Tensor,
                            order: torch.Tensor, tot: torch.Tensor,
-                           cursor: torch.Tensor, block_rows: int):
+                           cursor: torch.Tensor, block_rows: int,
+                           dh_keys=None, dh_vals=None, tombstones=None):
     """:func:`decay_sort_rolling_ref_` on copies: returns copies of ``cnt,
-    dst, order, tot`` with the cursor's block decayed, and the next cursor;
-    the inputs are not written."""
+    dst, order, tot`` with the cursor's block decayed, and the next cursor
+    (and, given the row hashes, copies of ``dh_keys`` and ``tombstones``
+    repaired and counted); the inputs are not written."""
     outs = tuple(x.clone() for x in (cnt, dst, order, tot, cursor))
-    decay_sort_rolling_ref_(*outs, block_rows)
-    return outs
+    if dh_keys is None:
+        decay_sort_rolling_ref_(*outs, block_rows)
+        return outs
+    dh = (dh_keys.clone(), tombstones.clone())
+    decay_sort_rolling_ref_(*outs, block_rows, dh_keys=dh[0], dh_vals=dh_vals,
+                            tombstones=dh[1])
+    return outs + dh
+
+
+def dh_rebuild_ref_(cnt: torch.Tensor, dst: torch.Tensor,
+                    dh_keys: torch.Tensor, dh_vals: torch.Tensor,
+                    counters: torch.Tensor, threshold: int, max_probes: int,
+                    fire=None, dirty=None) -> None:
+    """The full rebuild of every row hash, decided on the device: when
+    ``counters[1]`` (``dh_tombstones``) is above ``threshold`` and ``fire``
+    (a 0-dim bool, or None) holds, every row's table becomes a fresh EMPTY
+    table with ``dst[r, i] -> i`` inserted for i ascending wherever
+    ``cnt[r, i] > 0``, ``counters`` (``dh_rebuilds``, ``dh_tombstones``)
+    becomes ``(+1, 0)`` and every row is flagged; otherwise nothing
+    changes.  A loop over the C slots, each step one insert into every row
+    at once.  Nothing is read on the host."""
+    n, cap = cnt.shape
+    go = counters[1] > threshold
+    if fire is not None:
+        go = go & fire
+    keys, vals = torch.full_like(dh_keys, EMPTY), torch.full_like(dh_vals, EMPTY)
+    rows = torch.arange(n, device=cnt.device)
+    for i in range(cap):
+        dh_insert_rows_(keys, vals, rows, dst[:, i], torch.full_like(rows, i),
+                        cnt[:, i] > 0, max_probes)
+    dh_keys.copy_(torch.where(go, keys, dh_keys))
+    dh_vals.copy_(torch.where(go, vals, dh_vals))
+    counters.copy_(torch.where(go, torch.stack([counters[0] + 1,
+                                                torch.zeros_like(counters[1])]),
+                               counters))
+    _flag(dirty, go.expand(n))
 
 
 def slab_update_ref_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
@@ -373,13 +469,17 @@ def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,
 def _on_copies(pass_):
     """The functional form of an in-place new-edge pass: it runs on copies of
     what the pass writes and returns ``(tab_keys, tab_vals, dst_slab, cnt,
-    tot, counters)``; the inputs are not written."""
+    tot, counters)``, and ``(dh_keys, dh_vals)`` after them when the row
+    hashes are given; the inputs are not written."""
     def functional(tab_keys, tab_vals, dst_slab, cnt, tot, order, counters,
-                   src, dst, w, active, max_probes):
+                   src, dst, w, active, max_probes, dh_keys=None,
+                   dh_vals=None):
         out = [x.clone() for x in (tab_keys, tab_vals, dst_slab, cnt, tot,
                                    counters)]
-        pass_(*out[:5], order, out[5], src, dst, w, active, max_probes)
-        return tuple(out)
+        dh = [] if dh_keys is None else [dh_keys.clone(), dh_vals.clone()]
+        pass_(*out[:5], order, out[5], src, dst, w, active, max_probes,
+              None, *dh)
+        return tuple(out + dh)
     functional.__name__ = functional.__qualname__ = pass_.__name__[:-1]
     functional.__doc__ = f"``{pass_.__name__}`` on copies (see there)."
     return functional
@@ -390,7 +490,7 @@ def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                    order: torch.Tensor, counters: torch.Tensor,
                    src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                    active: torch.Tensor, max_probes: int,
-                   dirty=None) -> None:
+                   dirty=None, dh_keys=None, dh_vals=None) -> None:
     """Sequential insert pass for new edges / new rows (the paper's rare case).
 
     Deterministic (batch order); inactive items are no-ops.  For each active
@@ -401,13 +501,21 @@ def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     (Space-Saving: the newcomer inherits the victim's count; ``evictions`` =
     ``counters[3]``).  A later item sees the rows and slots an earlier one
     made.  Writes ``tab_keys, tab_vals, dst_slab, cnt, tot, counters`` in
-    place and flags every row it writes.  A sequential walk: it reads the
-    items on the host.
+    place and flags every row it writes.  Given the row hashes ``dh_keys/
+    dh_vals [N, H]`` (paper §II.2), an item then edits its row's table: it
+    deletes the evicted dst where it replaced the tail, then inserts ``dst
+    -> slot`` where the dst was not in the row (the insert may reuse the
+    TOMB the delete just made).  A sequential walk: it reads the items on
+    the host.
     """
     n_cap = cnt.shape[0]
     n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
     table = ht.HashTable(tab_keys, tab_vals)
     slabs = sl.Slabs(dst_slab, cnt, tot, order)
+
+    def one(x):  # one item's row-hash edit takes tensors of one element
+        return torch.full((1,), x, device=cnt.device)
+
     for i in torch.nonzero(active).flatten().tolist():
         s, d, wi = src[i], dst[i], w[i]
         # --- src row (lookup or allocate) -------------------------------
@@ -437,11 +545,18 @@ def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
             slot = int(sl.tail_slot(slabs, row))
             base = cnt[row, slot]
             evictions += 1
+        evicted = int(dst_slab[row, slot])
         cnt[row, slot] = base + wi
         dst_slab[row, slot] = d
         tot[row] += wi
         if dirty is not None:
             dirty[row] = 1
+        if dh_keys is not None and not bool(found_d):
+            if not bool(has_free):
+                dh_delete_rows_(dh_keys, one(row), one(evicted), one(True),
+                                max_probes)
+            dh_insert_rows_(dh_keys, dh_vals, one(row), d.view(1), one(slot),
+                            one(True), max_probes)
     counters.copy_(torch.tensor(
         [n_rows, dropped_rows, dropped_probes, evictions], dtype=torch.int32))
 
@@ -452,7 +567,7 @@ def slow_path_rows_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                         counters: torch.Tensor, src: torch.Tensor,
                         dst: torch.Tensor, w: torch.Tensor,
                         active: torch.Tensor, max_probes: int,
-                        dirty=None) -> None:
+                        dirty=None, dh_keys=None, dh_vals=None) -> None:
     """The same pass as :func:`slow_path_ref_`, computed the way the CUDA
     kernel decomposes it (same arguments, same results).
 
@@ -464,7 +579,9 @@ def slow_path_rows_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     the start, the chain is a count of the misses.  Phase B, slots: the
     items that have a row, grouped by (row, position); rows never see each
     other, so the k-th item of every row is applied at once, for k = 0, 1,
-    ...  Used by the tests and ``chip_smoke.py``, not on any path.
+    ...  Given the row hashes, each of those steps then applies its items'
+    deletes, then their inserts, all rows at once.  Used by the tests and
+    ``chip_smoke.py``, not on any path.
     """
     n_cap, cap = cnt.shape
     n_rows, dropped_rows, dropped_probes, evictions = counters.tolist()
@@ -514,10 +631,16 @@ def slow_path_rows_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
             tail = order[r, cap - 1].to(torch.int64)
             slot = torch.where(found_d, slot_eq, torch.where(has_free, slot_free, tail))
             base = torch.where(has_free & ~found_d, 0, cnt[r, slot])
+            evicted = dst_slab[r, slot]
             cnt[r, slot] = (base + wi).to(cnt.dtype)
             dst_slab[r, slot] = d.to(dst_slab.dtype)
             tot[r] += wi.to(tot.dtype)
             evictions += int((~found_d & ~has_free).sum())
+            if dh_keys is not None:
+                dh_delete_rows_(dh_keys, r, evicted, ~found_d & ~has_free,
+                                max_probes)
+                dh_insert_rows_(dh_keys, dh_vals, r, d, slot, ~found_d,
+                                max_probes)
         if dirty is not None:
             dirty[r_sorted] = 1
     counters.copy_(torch.tensor(
@@ -530,13 +653,18 @@ slow_path_rows_ref = _on_copies(slow_path_rows_ref_)
 
 def copy_dirty_rows_ref(f_cnt, f_dst, f_order, f_tot, f_keys, f_vals,
                         f_scalars, b_cnt, b_dst, b_order, b_tot, b_keys,
-                        b_vals, b_scalars, dirty) -> None:
+                        b_vals, b_scalars, dirty, row_hashes=None) -> None:
     """Catch the back state up with the front (plain version of
     ``copy_rows.py``): the ``cnt``/``dst``/``order`` rows and ``tot`` of
-    every row flagged in ``dirty``, the src table ``keys``/``vals`` and the
-    ``scalars`` whole; then clear the flags."""
+    every row flagged in ``dirty`` (and their row hashes, given
+    ``row_hashes`` = front ``dh_keys, dh_vals``, back ``dh_keys,
+    dh_vals``), the src table ``keys``/``vals`` and the ``scalars`` whole;
+    then clear the flags."""
     rows = dirty != 0
-    for f, b in ((f_cnt, b_cnt), (f_dst, b_dst), (f_order, b_order)):
+    by_row = ((f_cnt, b_cnt), (f_dst, b_dst), (f_order, b_order))
+    if row_hashes is not None:
+        by_row += tuple(zip(row_hashes[:2], row_hashes[2:]))
+    for f, b in by_row:
         b.copy_(torch.where(rows.unsqueeze(1), f, b))
     b_tot.copy_(torch.where(rows, f_tot, b_tot))
     for f, b in ((f_keys, b_keys), (f_vals, b_vals), (f_scalars, b_scalars)):

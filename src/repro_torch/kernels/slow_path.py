@@ -6,14 +6,20 @@ in item order: look the src up or allocate the next row (hash insert with
 tombstone reuse; ``dropped_rows`` / ``dropped_probes`` on failure), then the
 slot holding the dst, else the first free slot, else Space-Saving
 replacement of the order tail (the newcomer inherits the victim's count;
-``evictions``).  A later item sees what an earlier one wrote.
+``evictions``).  A later item sees what an earlier one wrote.  With the
+per-row dst hash (``dh_keys/dh_vals [N, H]``, paper §II.2; the reference's
+``_dh_del``/``_dh_set`` at ``core/mcprioq.py:356-358``) each item then
+deletes the dst it evicted and inserts its own dst -> slot in its row's
+table.
 
 Only two things chain an item to earlier ones: a missing src takes the next
 row, and items on one row share its slots.  So the kernel (four launches)
 looks every src up at once, walks only the misses in item order on one warp
 (a count and nothing more once every row is taken), sorts the items that
 have a row by (row, item) in shared memory, and gives each row to its own
-warp, which applies that row's items in order.  It reads how many items
+warp, which applies that row's items in order, the row-hash edits
+included (a warp-wide windowed probe, ``csrc/probe_window.cuh``, shared
+with the chain and the rebuild).  It reads how many items
 have a row on the device, so the sort's work follows that count, and an
 empty pass costs a few short launches and no device->host
 synchronisation.  Plain mirror of this decomposition:
@@ -56,16 +62,17 @@ def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                     counters: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor, w: torch.Tensor,
                     active: torch.Tensor, *, max_probes: int = 64,
-                    dirty=None) -> None:
+                    dirty=None, dh_keys=None, dh_vals=None) -> None:
     """The pass on the GPU, written into the given src table, ``dst_slab``,
-    ``cnt``, ``tot`` and ``counters`` (the caller owns all of them); no
-    copy.  ``dirty`` (uint8 [N]): the flag of every row written set.
-    Arguments as :func:`slow_path_cuda`."""
+    ``cnt``, ``tot``, ``counters`` and row hashes (the caller owns all of
+    them); no copy.  ``dirty`` (uint8 [N]): the flag of every row written
+    set.  Arguments as :func:`slow_path_cuda`."""
     global launches
     _build.require_cuda_int32(
         "slow_path_cuda", flags=("dirty",), tab_keys=tab_keys,
         tab_vals=tab_vals, dst_slab=dst_slab, cnt=cnt, tot=tot, order=order,
-        counters=counters, src=src, dst=dst, w=w, active=active, dirty=dirty)
+        counters=counters, src=src, dst=dst, w=w, active=active, dirty=dirty,
+        dh_keys=dh_keys, dh_vals=dh_vals)
     size = tab_keys.shape[0]
     if tab_keys.dim() != 1 or tab_vals.shape != tab_keys.shape or size < 1 \
             or size & (size - 1):
@@ -86,6 +93,8 @@ def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     if max_probes < 1:
         raise ValueError("slow_path_cuda: max_probes must be >= 1")
     _build.require_flags("slow_path_cuda", dirty, cnt.shape[0])
+    dh_size = _build.require_row_hashes("slow_path_cuda", dh_keys, dh_vals,
+                                        cnt.shape[0])
     n_items = src.shape[0]
     if n_items == 0:
         return
@@ -99,7 +108,8 @@ def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                   order.data_ptr(), counters.data_ptr(), _build.ptr(dirty),
                   cnt.shape[0],
                   cnt.shape[1], max_probes, keys.data_ptr(),
-                  with_row.data_ptr(), n_with.data_ptr())
+                  with_row.data_ptr(), n_with.data_ptr(), _build.ptr(dh_keys),
+                  _build.ptr(dh_vals), dh_size)
     launches += 1
 
 
@@ -108,14 +118,18 @@ def slow_path_cuda(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                    tot: torch.Tensor, order: torch.Tensor,
                    counters: torch.Tensor, src: torch.Tensor,
                    dst: torch.Tensor, w: torch.Tensor, active: torch.Tensor,
-                   *, max_probes: int = 64):
+                   *, max_probes: int = 64, dh_keys=None, dh_vals=None):
     """The new-edge pass on the GPU.  tab_keys/tab_vals[H] the src table,
     dst_slab/cnt/order[N, C], tot[N], counters[4] = (n_rows, dropped_rows,
     dropped_probes, evictions), items src/dst/w/active[L] (active int32,
-    non-zero = apply).  Returns ``(tab_keys, tab_vals, dst_slab, cnt, tot,
-    counters)``: fresh tensors, the inputs not written."""
+    non-zero = apply); optionally the row hashes dh_keys/dh_vals[N, H].
+    Returns ``(tab_keys, tab_vals, dst_slab, cnt, tot, counters)``, then
+    ``(dh_keys, dh_vals)`` when given: fresh tensors, the inputs not
+    written."""
     out = [x.clone() for x in (tab_keys, tab_vals, dst_slab, cnt, tot)]
     out.append(counters.clone())
+    dh = [] if dh_keys is None else [dh_keys.clone(), dh_vals.clone()]
     slow_path_cuda_(*out[:5], order, out[5], src, dst, w, active,
-                    max_probes=max_probes)
-    return tuple(out)
+                    max_probes=max_probes,
+                    **dict(zip(("dh_keys", "dh_vals"), dh)))
+    return tuple(out + dh)

@@ -89,7 +89,6 @@ def test_unfused_queries_equal_jax_and_the_fused_path(chunks):
 
 
 def test_fused_query_false_is_accepted():
-    # use_dst_hash=True still raises: test_torch_package.py
     assert not tmc.MCConfig(fused_query=False).fused_query
 
 

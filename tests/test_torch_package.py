@@ -37,6 +37,8 @@ KERNELS = {
                    "mcq_decay_sort"),
     "copy_rows": ("copy_dirty_rows_cuda", "copy_dirty_rows_ref", "copy_rows.cu",
                   "mcq_copy_dirty_rows"),
+    "dh_rebuild": ("dh_rebuild_cuda_", "dh_rebuild_ref_", "dh_rebuild.cu",
+                   "mcq_dh_rebuild"),
 }
 
 
@@ -109,6 +111,7 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
     lambda x, v: ops.slow_path_(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
     lambda x, v: ops.copy_dirty_rows((x, x, x, v, v, v, v), (x, x, x, v, v, v, v),
                                      v.to(torch.uint8), impl="cuda"),
+    lambda x, v: ops.dh_rebuild_(x, x, x, x, v[:2], threshold=0, impl="cuda"),
 ])
 def test_impl_cuda_on_cpu_tensors_raises(call):
     x = torch.zeros((4, 4), dtype=torch.int32)
@@ -129,10 +132,11 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
             "cdf_query": (x, x, v, 0.5), "walk": (x, v, v, x, x, v),
             "decay_sort": (x, x, x),
             "copy_rows": (x, x, x, v, v, v, v, x, x, x, v, v, v, v,
-                          v.to(torch.uint8))}[module]
+                          v.to(torch.uint8)),
+            "dh_rebuild": (x, x, x, x, v[:2])}[module]
     before = mod.launches
     with pytest.raises(ValueError, match="takes CUDA"):
-        wrapper(*args)
+        wrapper(*args, **({"threshold": 0} if module == "dh_rebuild" else {}))
     assert mod.launches == before
 
 
@@ -154,8 +158,17 @@ def test_config_rejects_unknown_impl(impl):
 @pytest.mark.parametrize("kw", [dict(use_dst_hash=True),
                                 dict(use_dst_hash=True, fused_query=False)])
 def test_options_of_later_slices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="dst-hash slice"):
-        tmc.MCConfig(**kw)
+    """The dst hash, the last option a later slice owed, no longer raises:
+    the option is accepted, and an update and a read (fused or not) run
+    on the CPU, through the row hashes."""
+    cfg = tmc.MCConfig(num_rows=8, capacity=4, **kw)
+    state = tmc.init(cfg, device="cpu")
+    assert state.dh_keys.shape == (8, 16)
+    state = tmc.update_batch(state, [1, 2, 1], [3, 4, 5], cfg=cfg)
+    assert int((state.dh_keys >= 0).sum()) == 3
+    dk, pk, nn = tmc.query_threshold(state, [1, 2, 9], 1.0, cfg=cfg)
+    assert nn.tolist() == [2, 1, 0] and sorted(dk[0, :2].tolist()) == [3, 5]
+    assert tmc.check_invariants(state, cfg)["dst_hash_consistent"]
 
 
 @pytest.mark.parametrize("make", [lambda d: tht.make(8, device=d),
@@ -193,7 +206,8 @@ def test_build_is_keyed_by_sources_and_targets_sm_90a(tmp_path):
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     cu, cuh = _build.sources()
     assert {p.name for p in cu} == {k[2] for k in KERNELS.values()}
-    assert {p.name for p in cuh} == {"common.cuh", "cdf_walk.cuh", "probe.cuh"}
+    assert {p.name for p in cuh} == {"common.cuh", "cdf_walk.cuh", "probe.cuh",
+                                     "probe_window.cuh"}
     assert re.fullmatch(r"[0-9a-f]{16}", _build.source_hash())
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
@@ -231,10 +245,12 @@ def _kernel_stand_ins(probe_calls, decay_calls):
     miss)`` of each call in ``probe_calls``; the decay stand-ins record
     ``(rows, block_rows)`` in ``decay_calls`` (``block_rows`` None for the
     whole-table forms) and the rolling ones check that their cursor is the
-    state's 0-dim int32 tensor."""
+    state's 0-dim int32 tensor.  Keyword tensors (the row hashes and their
+    tombstone count, the rebuild's and the learner's) are int32 and
+    contiguous too."""
     from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
-                                     decay_sort, oddeven, probe, ref,
-                                     slab_update, slow_path, walk)
+                                     decay_sort, dh_rebuild, oddeven, probe,
+                                     ref, slab_update, slow_path, walk)
 
     def check(name, strided, plain, bools=()):
         def wrapper(*args, **kw):
@@ -245,10 +261,12 @@ def _kernel_stand_ins(probe_calls, decay_calls):
                             else torch.int32)
                     assert a.dtype == want, (name, i, a.dtype)
                     assert i in strided or a.is_contiguous(), (name, i)
-            for key, want in (("fire", torch.bool), ("dirty", torch.uint8)):
-                if kw.get(key) is not None:
-                    assert kw[key].dtype == want and kw[key].is_contiguous(), \
-                        (name, key)
+            for key, value in kw.items():
+                for a in value if isinstance(value, tuple) else (value,):
+                    if isinstance(a, torch.Tensor):
+                        want = {"fire": torch.bool, "dirty": torch.uint8}.get(
+                            key, torch.int32)
+                        assert a.dtype == want and a.is_contiguous(), (name, key)
             return plain(*args, **kw)
         return wrapper
 
@@ -257,26 +275,34 @@ def _kernel_stand_ins(probe_calls, decay_calls):
         probe_calls.append((rows is None, miss))
         return ref.probe_find_ref(rows, keys_q, keys, vals, max_probes, miss)
 
-    def decay_plain(cnt, dst, order):
+    def decay_plain(cnt, dst, order, **dh):
         decay_calls.append((cnt.shape[0], None))
-        return ref.decay_sort_ref(cnt, dst, order)
+        return ref.decay_sort_ref(cnt, dst, order, **dh)
 
-    def decay_plain_(cnt, dst, order, tot, *, fire=None, dirty=None):
+    def decay_plain_(cnt, dst, order, tot, *, fire=None, dirty=None, **dh):
         assert fire is None or fire.dim() == 0, fire
         decay_calls.append((cnt.shape[0], None))
-        ref.decay_sort_ref_(cnt, dst, order, tot, fire, dirty)
+        ref.decay_sort_ref_(cnt, dst, order, tot, fire, dirty, **dh)
 
-    def rolling_plain(cnt, dst, order, tot, cursor, *, block_rows):
+    def rolling_plain(cnt, dst, order, tot, cursor, *, block_rows, **dh):
         assert cursor.dim() == 0 and cursor.device == cnt.device, cursor
         decay_calls.append((cnt.shape[0], block_rows))
-        return ref.decay_sort_rolling_ref(cnt, dst, order, tot, cursor, block_rows)
+        return ref.decay_sort_rolling_ref(cnt, dst, order, tot, cursor,
+                                          block_rows, **dh)
 
     def rolling_plain_(cnt, dst, order, tot, cursor, *, block_rows, fire=None,
-                       dirty=None):
+                       dirty=None, **dh):
         assert cursor.dim() == 0 and cursor.device == cnt.device, cursor
         decay_calls.append((cnt.shape[0], block_rows))
         ref.decay_sort_rolling_ref_(cnt, dst, order, tot, cursor, block_rows,
-                                    fire, dirty)
+                                    fire, dirty, **dh)
+
+    def rebuild_plain_(cnt, dst, keys, vals, counters, *, threshold,
+                       max_probes, fire=None, dirty=None):
+        assert counters.shape == (2,) and isinstance(threshold, int)
+        decay_calls.append((cnt.shape[0], "rebuild"))
+        ref.dh_rebuild_ref_(cnt, dst, keys, vals, counters, threshold,
+                            max_probes, fire, dirty)
 
     return [
         (probe, "probe_find_cuda", check("probe", (), probe_plain)),
@@ -294,11 +320,14 @@ def _kernel_stand_ins(probe_calls, decay_calls):
             "cdf_gather", (), lambda *a, max_items: ref.cdf_query_fused_ref(*a, max_items),
             bools=(1,))),
         (slow_path, "slow_path_cuda", check(
-            "slow_path", (), lambda *a, max_probes: ref.slow_path_ref(
-                *a[:-1], a[-1].to(torch.bool), max_probes))),
+            "slow_path", (), lambda *a, max_probes, dh_keys=None, dh_vals=None:
+            ref.slow_path_ref(*a[:-1], a[-1].to(torch.bool), max_probes,
+                              dh_keys, dh_vals))),
         (slow_path, "slow_path_cuda_", check(
-            "slow_path_", (), lambda *a, max_probes, dirty=None: ref.slow_path_ref_(
-                *a[:-1], a[-1].to(torch.bool), max_probes, dirty))),
+            "slow_path_", (), lambda *a, max_probes, dirty=None, dh_keys=None,
+            dh_vals=None: ref.slow_path_ref_(
+                *a[:-1], a[-1].to(torch.bool), max_probes, dirty, dh_keys,
+                dh_vals))),
         (cdf_query, "cdf_query_cuda", check(
             "cdf_query", (), lambda *a, max_items: ref.cdf_query_ref(*a, max_items))),
         (walk, "draft_walk_cuda", check("walk", (0, 5), lambda *a, **kw: (
@@ -311,6 +340,7 @@ def _kernel_stand_ins(probe_calls, decay_calls):
             "decay_sort_rolling_", (), rolling_plain_)),
         (copy_rows, "copy_dirty_rows_cuda", check(
             "copy_rows", (), ref.copy_dirty_rows_ref)),
+        (dh_rebuild, "dh_rebuild_cuda_", check("dh_rebuild_", (), rebuild_plain_)),
     ]
 
 
@@ -370,3 +400,51 @@ def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
     # every src lookup (update, both reads, candidates) is the flat probe
     # with lookup_rows' miss value 0: one launch, nothing around it
     assert probe_calls and set(probe_calls) == {(True, 0)}, set(probe_calls)
+
+
+@pytest.mark.parametrize("block", [8, 0], ids=["rolling", "stop_the_world"])
+def test_dst_hash_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
+                                                                  block):
+    """The same with the dst hash on: the classify's stacked probe, the
+    new-edge pass and the decay with the row hashes, the rebuild (forced by
+    a threshold of 0 tombstones, and kept off by the highest one), the
+    owner calls and the back-buffer learner, through the stand-ins."""
+    import dataclasses
+
+    from repro_torch.core import speculative as tspec
+    from repro_torch.core.epoch import BackBufferLearner, EpochStore
+    monkeypatch.setattr(ops, "_use_ref", lambda impl, x: impl == "ref")
+    probe_calls, decay_calls = [], []
+    for module, name, stand_in in _kernel_stand_ins(probe_calls, decay_calls):
+        monkeypatch.setattr(module, name, stand_in)
+    ncfg = tspec.NGramConfig(order=2, decay_threshold=4, mc=tmc.MCConfig(
+        num_rows=32, capacity=8, max_new_per_batch=16, decay_block_rows=block,
+        use_dst_hash=True, dh_rebuild_fraction=0.0))
+    rng = torch.Generator().manual_seed(1)
+    st = tspec.init(ncfg, device="cpu")
+    for _ in range(4):
+        toks = torch.randint(0, 12, (4, 17), generator=rng, dtype=torch.int32)
+        st = tspec.maintain(tspec.observe(st, toks, cfg=ncfg), cfg=ncfg)
+    column = toks[:, 3]                          # a strided view of srcs
+    tmc.update_batch(st.chain, column, toks[:, 4], cfg=ncfg.mc)
+    tmc.decay(st.chain, cfg=ncfg.mc)
+    own = tmc.private_copy(st.chain)
+    dirty = torch.zeros(32, dtype=torch.uint8)
+    tmc.update_batch_(own, column, toks[:, 4], cfg=ncfg.mc, dirty=dirty)
+    never = dataclasses.replace(ncfg.mc, dh_rebuild_fraction=1.0)
+    for cfg in (ncfg.mc, never):
+        tmc.decay_(own, cfg=cfg, dirty=dirty)
+        for threshold in (0, 2 ** 30):           # fires, and does not
+            tmc.maybe_decay_(own, cfg=cfg, total_threshold=threshold,
+                             dirty=dirty)
+    learner = BackBufferLearner(EpochStore(tspec.init(ncfg, device="cpu")))
+    for _ in range(3):
+        learner.write(lambda s, dirty: tspec.maintain_(tspec.observe_(
+            s, toks, cfg=ncfg, dirty=dirty), cfg=ncfg, dirty=dirty))
+    assert tmc.check_invariants(own, ncfg.mc)["dst_hash_consistent"]
+    assert tmc.maintenance_stats(own)["dh_rebuilds"] > 0
+    # every decay is followed by the rebuild's launch, decided on the device
+    kinds = {kind for _, kind in decay_calls}
+    assert kinds == {block or None, "rebuild"}, kinds
+    # the classify and the invariant are the stacked probe, miss EMPTY
+    assert set(probe_calls) == {(True, 0), (False, -1)}, set(probe_calls)
