@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as below
     python3 chip_smoke.py --phases device,kernels   # a subset, for debugging
     python3 chip_smoke.py --phases device,kernels,hash   # the dst-hash path
+    python3 chip_smoke.py --phases device,kernels,sharded   # the sharded chain
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
@@ -20,7 +21,9 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 rows running out mid-pass, 65,536 mostly inactive items,
                 30,000 items with rows sorted in tiles and merged, the
                 functional / in-place contract); every in-place form (the
-                row flags it sets included) and copy_dirty_rows; outputs
+                row flags it sets included) and copy_dirty_rows; the
+                cross-shard merge at S 1-32, M 1-300, n 1 to S·M+3 (ties,
+                dead tails, lists not descending, NaN heads); outputs
                 must be EQUAL (tolerance 0, integers and float32 alike);
   3. main     — the main path at full width: a chain of 2**20 source rows x 128
                 slots, warmed by streaming ``update_batch_`` calls of 65,536
@@ -74,13 +77,36 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 the path at the shapes and data it gave them, against its
                 plain version (equal) and timed beside its bound, the draft
                 walk also inside the learner loop;
-  6. parity   — the whole path at a small configuration, once with the CUDA
+  6. sharded  — the sharded chain at full width: 4 logical shards of phase
+                main's chain stacked on the card (4 x 2**20 rows x 128
+                slots), 4 x 65,536 transitions per update routed through
+                buckets of twice the fair share, 4 x 4,096 query srcs, the
+                global top-16; warmed by ``update_``; the owner calls held
+                equal to the functional callables on a side copy; rounds of
+                ``update_`` + query + ``maintain_`` + ``topn`` with launch
+                counts around them and no device->host synchronisation in
+                any; the profiler's no-copy check on ``update_`` and
+                ``maintain_``; a skewed round whose ``route_dropped``
+                equals ``predict_route_overflow``; the top-16 against a
+                stable sort of every shard's live edges on the host; then
+                shard 0's kernels at the shapes the routing gives them and
+                the merge at the top-n's shapes, beside its bound, the
+                launch floor and ``torch.sort``;
+  7. monitor  — the expert monitor at deepseek-moe-16b's routing widths
+                (28 layers x 64 experts, 6 per token): 20 steps of router
+                histograms over 4,096 tokens per layer, some layers
+                collapsed; every leaf, ``balance_report`` and
+                ``hot_experts`` equal to the same monitor's on the CPU
+                (plain versions); ms per ``observe`` and per report;
+  8. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
                 every query answer equal after every batch, the owner calls
                 and their row flags too; the same with the dst hash (rebuilds
                 firing) and through the back-buffer learner on it; the same
                 for the unfused read and for a small drafter stream, drafts
-                included.
+                included; and the sharded path at S = 4 (owner calls with
+                their row flags, functional callables, routed answers and
+                drops, the top-n).
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -100,13 +126,15 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "hash", "drafter", "parity")
+PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "monitor",
+          "parity")
 
 
 def say(*parts):
@@ -406,6 +434,7 @@ def small_kernel_checks(gen):
     small_decay_checks(gen, both, both_)
     small_dh_checks(gen, both, both_)
     small_copy_checks(gen)
+    small_topn_checks(gen, both)
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
         f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
@@ -828,35 +857,40 @@ QUERIES = 4_096
 
 class Traffic:
     """Zipf transition stream made on the device: uniform ``src`` over
-    2**20 nodes, Zipf(1.5) rank over 32 successors, ``dst`` a fixed hash of
-    ``(src, rank)``."""
+    ``nodes`` (2**20) nodes, Zipf(1.5) rank over 32 successors, ``dst`` a
+    fixed hash of ``(src, rank)``."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, nodes=NUM_NODES):
         self.gen = torch.Generator(device="cuda")
         self.gen.manual_seed(seed)
+        self.nodes = nodes
         ranks = torch.arange(1, OUT_DEGREE + 1, device="cuda", dtype=torch.float64)
         self.probs = (ranks ** -1.5 / (ranks ** -1.5).sum()).float()
 
     def batch(self, size):
+        src = randint(self.gen, 0, self.nodes, (size,))
+        return src, self.dsts(src)
+
+    def dsts(self, src):
+        """A successor of each src: its Zipf rank, hashed with the src."""
         from repro_torch.core.hashtable import hash_u32
-        src = randint(self.gen, 0, NUM_NODES, (size,))
-        rank = torch.multinomial(self.probs, size, replacement=True,
+        rank = torch.multinomial(self.probs, src.numel(), replacement=True,
                                  generator=self.gen)
-        dst = (hash_u32(src.long() * OUT_DEGREE + rank) & 0x7FFFFFFF).to(torch.int32)
-        return src, dst
+        return (hash_u32(src.long() * OUT_DEGREE + rank) & 0x7FFFFFFF).to(torch.int32)
 
     def srcs(self, size):
-        return randint(self.gen, 0, NUM_NODES + NUM_NODES // 16, (size,))
+        return randint(self.gen, 0, self.nodes + self.nodes // 16, (size,))
 
 
 def kernel_modules():
     from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
                                      decay_sort, dh_rebuild, oddeven, probe,
-                                     slab_update, slow_path, walk)
+                                     slab_update, slow_path, topn_merge, walk)
     return {"probe_find": probe, "slab_update": slab_update, "oddeven": oddeven,
             "cdf_query_fused": cdf_gather, "slow_path": slow_path,
             "cdf_query": cdf_query, "draft_walk": walk, "decay_sort": decay_sort,
-            "copy_dirty_rows": copy_rows, "dh_rebuild": dh_rebuild}
+            "copy_dirty_rows": copy_rows, "dh_rebuild": dh_rebuild,
+            "topn_merge": topn_merge}
 
 
 @contextlib.contextmanager
@@ -2340,7 +2374,496 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the whole path, kernels vs plain versions, on the card
+# phase 6: the sharded chain, four logical shards on the card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_NODES = int(0.95 * SHARDS * NUM_NODES)   # no shard runs out of rows
+TOP_N = 16
+SHARDED_KERNELS = MAIN_KERNELS + ("topn_merge",)
+
+
+def sharded_config():
+    from repro_torch import core
+    from repro_torch.core import sharded as sh
+    return sh.ShardedConfig(base=core.MCConfig(
+        num_rows=NUM_NODES, capacity=128, sort_passes=1, decay_block_rows=1024,
+        max_new_per_batch=8192), num_shards=SHARDS, bucket_factor=2.0)
+
+
+def host_topn(state, n):
+    """The global top-n by the plain definition, sorted on the host: every
+    shard's live edges listed in (shard, row, priority position) order,
+    ``cnt / max(tot, 1)``, a stable descending sort, the first n, labelled
+    with their src from the shard's src table; and the live edges beyond
+    each shard's n best (what the merge is not shown).  Only the edges at
+    or above the n-th probability leave the device."""
+    slabs = state.slabs
+    s, rows, c = slabs.cnt.shape
+    c_ord = torch.gather(slabs.cnt, 2, slabs.order.long())
+    d_ord = torch.gather(slabs.dst, 2, slabs.order.long())
+    prob = torch.where(c_ord > 0, c_ord.float() / slabs.tot.clamp(min=1)
+                       .float().unsqueeze(2), 0.0).view(-1)
+    live = (c_ord > 0).view(s, -1).sum(dim=1).tolist()
+    floor = torch.topk(prob, n).values[-1]
+    idx = torch.nonzero(prob >= floor).view(-1)
+    p = prob[idx].cpu().numpy()
+    d = d_ord.view(-1)[idx].cpu().numpy()
+    idx = idx.cpu().numpy()
+    keep = np.argsort(-p, kind="stable")[:n]
+    shard, row = idx[keep] // (rows * c), idx[keep] // c % rows
+    keys, vals = (x.cpu().numpy() for x in state.src_table)
+    src_of_row = np.full((s, rows), -1, dtype=np.int64)
+    for i in range(s):
+        valid = (keys[i] >= 0) & (vals[i] >= 0)
+        src_of_row[i, vals[i][valid]] = keys[i][valid]
+    srcs = src_of_row[shard, row]
+    live_top = p[keep] > 0
+    # each shard exposes its n best live edges to the merge
+    return (np.where(live_top, srcs, -1), np.where(live_top, d[keep], -1),
+            np.where(live_top, p[keep], 0.0).astype(np.float32),
+            sum(live) - sum(min(n, x) for x in live))
+
+
+def phase_sharded(seed, warm_batches, rounds):
+    from repro_torch import core
+    from repro_torch.core import sharded as sh
+    scfg = sharded_config()
+    cfg = scfg.base
+    batch, queries = SHARDS * BATCH, SHARDS * QUERIES
+    traffic = Traffic(seed + 11, nodes=SHARD_NODES)
+    w = torch.ones(batch, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    state = sh.init_sharded(scfg)
+    say(f"[sharded] {scfg}")
+    say(f"[sharded] {SHARDS} shards x {cfg.num_rows} rows x {cfg.capacity} slots "
+        f"(src tables of {cfg.resolved_table_size()} slots): "
+        f"{(torch.cuda.memory_allocated() - base_mem) / 2**30:.2f} GiB resident; "
+        f"src uniform over {SHARD_NODES} nodes; {batch} transitions per update "
+        f"({BATCH} per sender slice, bucket capacity "
+        f"{scfg.bucket_capacity(BATCH)}), {queries} srcs per query")
+
+    t0 = time.perf_counter()
+    for i in range(warm_batches):
+        sh.update_(state, *traffic.batch(batch), w, scfg=scfg)
+        if i % 10 == 9:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    stats = core.counter_stats(state)
+    say(f"[sharded] warm-up: {warm_batches} global batches of {batch} in "
+        f"{time.perf_counter() - t0:.1f} s; rows per shard "
+        f"{state.n_rows.tolist()}; counters {stats}")
+    offered = warm_batches * batch
+    say(f"[sharded] warm-up losses of {offered} transitions offered: "
+        f"{stats['dropped_probes']} new pairs dropped on a full probe window "
+        f"(dropped_probes, queue C 11: "
+        f"{100 * stats['dropped_probes'] / offered:.3f} %), "
+        f"{stats['deferred_new']} new pairs past the per-shard prefix "
+        f"(deferred_new: {100 * stats['deferred_new'] / offered:.3f} %), "
+        f"{stats['route_dropped']} routing drops")
+    if stats["dropped_rows"] or stats["route_dropped"]:
+        raise AssertionError(f"sharded warm-up dropped rows or routes: {stats}")
+
+    # the owner calls against the functional callables on a side copy
+    decay_threshold = 64
+    update = sh.make_update_fn(scfg)
+    maintain = sh.make_maintain_fn(scfg, decay_threshold)
+    side = core.private_copy(state)
+    for i in range(SIDE_ROUNDS):
+        src, dst = traffic.batch(batch)
+        if sh.update_(state, src, dst, w, scfg=scfg) is not state:
+            raise AssertionError("sharded update_ returned another state")
+        side = update(side, src, dst, w)
+        equal_states(f"sharded round {i}: update_ vs make_update_fn", state, side)
+        sh.maintain_(state, scfg=scfg, total_threshold=decay_threshold)
+        side = maintain(side)
+        equal_states(f"sharded round {i}: maintain_ vs make_maintain_fn",
+                     state, side)
+    sh.decay_(state, scfg=scfg)
+    equal_states("sharded: decay_ vs make_decay_fn", state,
+                 sh.make_decay_fn(scfg)(side))
+    del side
+    say(f"[sharded] {SIDE_ROUNDS} rounds of update_ + maintain_ and one decay_ "
+        f"(owner calls, in place) equal to the functional callables on a side "
+        f"copy: all 18 stacked leaves after every call; peak device memory "
+        f"with the side copy {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+    # measured rounds, launch counts around exactly them
+    times = {}
+    totals = []       # the row totals' sum around every update_ (no sync)
+    lost0 = core.counter_stats(state)
+    with launch_window("sharded", SHARDED_KERNELS) as launches:
+        for _ in range(rounds):
+            src, dst = traffic.batch(batch)
+            q = traffic.srcs(queries)
+            totals.append(state.slabs.tot.sum(dtype=torch.int64))
+            timed(times, "update_", no_sync, sh.update_, state, src, dst, w,
+                  scfg=scfg)
+            totals.append(state.slabs.tot.sum(dtype=torch.int64))
+            answers = timed(times, "query", no_sync, sh.query, state, q, 0.9,
+                            16, scfg=scfg)
+            timed(times, "maintain_", no_sync, sh.maintain_, state, scfg=scfg,
+                  total_threshold=decay_threshold)
+            top = timed(times, "topn", no_sync, sh.topn, state, TOP_N,
+                        scfg=scfg)
+    med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+           for k, v in times.items()}
+    say(f"[sharded] {rounds} rounds; median ms per call (events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    lost = {k: v - lost0[k] for k, v in core.counter_stats(state).items()
+            if k in ("dropped_probes", "deferred_new", "route_dropped",
+                     "dropped_rows")}
+    grown = torch.stack(totals).view(rounds, 2)
+    recorded = int((grown[:, 1] - grown[:, 0]).sum())   # weights are all 1
+    say(f"[sharded] observe {batch / med['update_'] * 1e3:.0f} transitions/s "
+        f"offered, {recorded / rounds / med['update_'] * 1e3:.0f} recorded "
+        f"({recorded} of {rounds * batch} = {100 * recorded / (rounds * batch):.2f} "
+        f"% added to the row totals; lost over the rounds: {lost}); query "
+        f"{queries / med['query'] * 1e3:.0f} srcs/s (no synchronisation inside "
+        f"the calls)")
+    say(f"[sharded] peak device memory over the rounds "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say("[sharded] update_, query, maintain_ and topn ran under "
+        "set_sync_debug_mode('error'): no device->host synchronisation")
+    src, dst = traffic.batch(batch)
+    q = traffic.srcs(queries)
+    for key, fn in (
+            ("update_", lambda: sh.update_(state, src, dst, w, scfg=scfg)),
+            ("query", lambda: sh.query(state, q, 0.9, 16, scfg=scfg)),
+            ("maintain_", lambda: sh.maintain_(
+                state, scfg=scfg, total_threshold=decay_threshold)),
+            ("topn", lambda: sh.topn(state, TOP_N, scfg=scfg))):
+        device_ms, idle_ms = call_ms(lambda fn=fn: no_sync(fn))
+        say(f"[sharded] {key}: device {device_ms:.4f} ms, latency on an idle "
+            f"device {idle_ms:.4f} ms, device busy {100 * device_ms / idle_ms:.1f} "
+            f"% of it (medians of 20, in turns)")
+    batches = iter([traffic.batch(batch) for _ in range(3)])
+    no_state_copies("sharded update_", lambda: sh.update_(
+        state, *next(batches), w, scfg=scfg), cfg.num_rows)
+    no_state_copies("sharded maintain_", lambda: sh.maintain_(
+        state, scfg=scfg, total_threshold=decay_threshold), cfg.num_rows)
+
+    queue_c11_checks(state, scfg, traffic, w)
+
+    # a skewed round: sender 0 sends 60 % of its slice to shard 0 (fair
+    # share 25 %, capacity 50 %); its drops are what the host predicts
+    cands = randint(traffic.gen, 0, SHARD_NODES, (1 << 18,))
+    hot = cands[scfg.resolved_ownership().owner_of(cands) == 0]
+    src, _ = traffic.batch(batch)
+    k = int(0.6 * BATCH)
+    src[:k] = hot[randint(traffic.gen, 0, hot.numel(), (k,)).long()]
+    dst = traffic.dsts(src)
+    predicted = sh.predict_route_overflow(scfg, src.cpu().numpy())
+    before = state.route_dropped.clone()
+    sh.update_(state, src, dst, w, scfg=scfg)
+    got = (state.route_dropped - before).tolist()
+    want = predicted.reshape(SHARDS, -1).sum(axis=1).tolist()
+    say(f"[sharded] skewed round: route_dropped per sender {got}, "
+        f"predict_route_overflow {want}")
+    if got != want or want[0] <= 0:
+        raise AssertionError(f"skewed round: route_dropped {got} != predicted {want}")
+
+    # what came out is right: the global top-n against the plain definition,
+    # the answers' shapes and values, every shard's invariants
+    m_src, m_dst, m_p, dropped = sh.topn(state, TOP_N, scfg=scfg)
+    h_src, h_dst, h_p, h_dropped = host_topn(state, TOP_N)
+    if not (np.array_equal(m_src.cpu().numpy(), h_src)
+            and np.array_equal(m_dst.cpu().numpy(), h_dst)
+            and np.array_equal(m_p.cpu().numpy(), h_p)
+            and int(dropped) == h_dropped):
+        raise AssertionError(f"global top-{TOP_N} differs from the host's sort: "
+                             f"{m_p.tolist()} vs {h_p.tolist()}")
+    say(f"[sharded] global top-{TOP_N} equal to a stable descending sort of every "
+        f"shard's live edges on the host: probs {m_p.tolist()}; {int(dropped)} "
+        f"live edges not exposed")
+    for s in range(SHARDS):
+        inv = core.check_invariants(sh.shard_state(state, s), cfg)
+        if not all(v for key, v in inv.items() if key != "sorted_fraction"):
+            raise AssertionError(f"shard {s}: invariants violated: {inv}")
+    dk, pk, nn, qdrop = answers
+    if dk.shape != (queries, 16) or nn.shape != (queries,) or qdrop.shape != (SHARDS,):
+        raise AssertionError("sharded query answers have the wrong shape")
+    if not bool(torch.isfinite(pk).all()) or not bool(((pk >= 0) & (pk <= 1)).all()):
+        raise AssertionError("sharded probabilities are not finite values in [0, 1]")
+    known = nn > 0
+    say(f"[sharded] queries: {int(known.sum())}/{queries} srcs known, mean "
+        f"n_needed {float(nn[known].float().mean()):.2f}, routing drops "
+        f"{qdrop.tolist()}; top-n of the last round {top[2].tolist()[:4]}...; "
+        f"counters {core.counter_stats(state)}")
+    return state, scfg, traffic, launches
+
+
+def queue_c11_checks(state, scfg, traffic, w):
+    """Queue C 11 on the card.  (1) Under the default map at S = 4 a src's
+    owner is bits 8-9 of ``hash_u32(src)``, the same bits as its home slot
+    in its shard's src table: every src that shard s holds has a home slot
+    whose bits 8-9 are s, a quarter of the table.  (2) The dropped probes of
+    one more update are the new (src, dst) pairs whose src that table still
+    lacks after it: a pair past the per-shard prefix is deferred instead,
+    so ``absent - deferred <= dropped_probes <= absent`` on every shard,
+    equal where nothing was deferred."""
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.hashtable import EMPTY, hash_u32
+    s = scfg.num_shards
+    if scfg.ownership is not None or 256 % s:
+        raise AssertionError("queue C 11's check reads the default map")
+    keys = state.src_table.keys
+    home = hash_u32(keys) & (keys.shape[1] - 1)
+    shard = torch.arange(s, device=keys.device).unsqueeze(1)
+    held = int((keys >= 0).sum())
+    off = int(((keys >= 0) & ((home >> 8) % s != shard)).sum())
+    if off:
+        raise AssertionError(f"queue C 11: {off} srcs of {held} sit on a home "
+                             f"slot outside their shard's quarter")
+    src, dst = traffic.batch(s * BATCH)
+    (rsrc, rdst), *_ = sh._route(scfg, state, src, (dst,))
+    before = torch.stack([state.dropped_probes, state.deferred_new])
+    sh.update_(state, src, dst, w, scfg=scfg)
+    dropped, deferred = (torch.stack([state.dropped_probes, state.deferred_new])
+                         - before).tolist()
+    absent = []
+    for r in range(s):
+        _, found = mc.lookup_rows(sh.shard_state(state, r), rsrc[r], scfg.base)
+        pairs = (rsrc[r].long() << 32) | (rdst[r].long() & 0xFFFFFFFF)
+        absent.append(torch.unique(
+            pairs[(rsrc[r] != EMPTY) & ~found]).numel())
+    say(f"[sharded] queue C 11: all {held} srcs held sit on home slots whose "
+        f"bits 8-9 name their shard (a quarter of each table); one more "
+        f"update: new pairs whose src is absent after it {absent}, "
+        f"dropped_probes {dropped}, deferred_new {deferred}")
+    for r in range(s):
+        if not absent[r] - deferred[r] <= dropped[r] <= absent[r]:
+            raise AssertionError(
+                f"queue C 11, shard {r}: dropped_probes {dropped[r]} is not "
+                f"the absent srcs' new pairs {absent[r]} (deferred "
+                f"{deferred[r]})")
+
+
+def sharded_path_kernels(state, scfg, traffic, launches):
+    """Shard 0's kernels at the shapes the sharded path gives them (its
+    receiver's bucket slots of one more global batch and of the queries),
+    against their plain versions and timed; then the merge at the top-n's
+    shapes, beside its bound, the launch floor and torch.sort."""
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.hashtable import EMPTY
+    from repro_torch.kernels import ops
+    batch, queries = SHARDS * BATCH, SHARDS * QUERIES
+    src, dst = traffic.batch(batch)
+    (rsrc, rdst), *_ = sh._route(scfg, state, src, (dst,))
+    (rq,), *_ = sh._route(scfg, state, traffic.srcs(queries))
+    entries = path_shape_kernels(sh.shard_state(state, 0), scfg.base, rsrc[0],
+                                 rdst[0], rq[0], launches, path="sharded",
+                                 reads=((0.9, 16),), unfused=False)
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    launch_floor = time_ms(lambda: torch.cuda._sleep(0), flush=flush)
+    probs, dsts, srcs, _ = sh.topn_lists(state, TOP_N, scfg=scfg)
+    s, m = probs.shape
+
+    def library():
+        """torch.sort of the flattened lists: on descending lists, which
+        the sharded read always gives, the merge's answer."""
+        v, i = torch.sort(probs.view(-1), descending=True, stable=True)
+        v, i = v[:TOP_N], i[:TOP_N]
+        live = v > 0
+        return (torch.where(live, srcs.view(-1)[i], EMPTY),
+                torch.where(live, dsts.view(-1)[i], EMPTY),
+                torch.where(live, v, 0.0))
+
+    merged = ops.topn_merge(probs, dsts, srcs, n=TOP_N)
+    compare("topn_merge vs torch.sort on the path's lists", merged, library())
+    winners = int((merged[2] > 0).sum())
+    kernel_entry(entries, launches, flush, "topn_merge[sharded]", "topn_merge",
+                 "topn_merge.cu", "src/repro/kernels/ref.py:185",
+                 lambda impl: ops.topn_merge(probs, dsts, srcs, n=TOP_N,
+                                             impl=impl),
+                 # the probabilities a pointer can reach staged once, the
+                 # live winners' srcs and dsts gathered, the n outputs
+                 # written once; an S-way comparison per step
+                 bytes_moved=4 * s * min(m, TOP_N) + 8 * winners + 12 * TOP_N,
+                 operations=TOP_N * s * 4, library=library,
+                 extra=dict(launch_floor_ms=launch_floor, lists=s, length=m,
+                            live_winners=winners))
+
+    # topn_lists' selection: a stable descending sort of every shard's
+    # flattened windows, then its first n
+    prob, _, _ = sh._windows(state, TOP_N)
+    select_ms = time_ms(lambda: sh._top_k(prob, TOP_N), flush=flush)
+    say(f"[sharded] top-n selection over {tuple(prob.shape)} window entries "
+        f"(a stable descending sort): {select_ms:.4f} ms (median of 10 by "
+        f"events, L2 flushed)")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the expert monitor at deepseek-moe-16b's routing widths
+# ---------------------------------------------------------------------------
+
+# src/repro/configs/deepseek_moe_16b.py:12,21-22: 28 layers, 64 routed
+# experts, 6 experts per token
+MOE_LAYERS, MOE_EXPERTS, MOE_TOP_K = 28, 64, 6
+MOE_TOKENS = 4_096
+
+
+def on_card(state):
+    """A chain's leaves copied to the card (for comparing with one there)."""
+    from repro_torch.core import mcprioq as mc
+    return mc.map_leaves(lambda x: x.cuda(), state)
+
+
+def phase_monitor(seed, steps=20):
+    """The monitor observes ``steps`` router histograms per layer (4,096
+    tokens x 6 experts, some layers collapsed onto a few experts) on the
+    card, and the same on the CPU, where every call runs the plain
+    versions: every leaf, ``balance_report`` and ``hot_experts`` equal."""
+    from repro_torch.core import expert_monitor as em
+    cfg = em.MonitorConfig(num_layers=MOE_LAYERS, num_experts=MOE_EXPERTS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    card, plain = em.init(cfg), em.init(cfg, device="cpu")
+    say(f"[monitor] {cfg}: {cfg.mc_config()}")
+    observe_ms = []
+    for step in range(steps):
+        for layer in range(MOE_LAYERS):
+            # layers 0, 7, 14, 21 collapse: a few hot experts take most tokens
+            weights = torch.ones(MOE_EXPERTS, device="cuda")
+            if layer % 7 == 0:     # drifting: the hot set moves every 5 steps
+                hot = (layer + step // 5 + torch.arange(MOE_TOP_K)) % MOE_EXPERTS
+                weights[hot] = 500.0
+            choice = torch.multinomial(weights.expand(MOE_TOKENS, -1), MOE_TOP_K,
+                                       generator=gen)
+            counts = torch.bincount(choice.view(-1), minlength=MOE_EXPERTS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = em.observe(card, layer, counts, cfg)
+            torch.cuda.synchronize()
+            observe_ms.append((time.perf_counter() - t0) * 1e3)
+            plain = em.observe(plain, layer, counts.cpu(), cfg)
+        equal_states(f"monitor step {step}", card, on_card(plain))
+    t0 = time.perf_counter()
+    report = em.balance_report(card, cfg, t=0.9)
+    report_ms = (time.perf_counter() - t0) * 1e3
+    if report != em.balance_report(plain, cfg, t=0.9):
+        raise AssertionError("balance_report differs from the plain versions'")
+    for layer in range(MOE_LAYERS):
+        got = em.hot_experts(card, layer, 0.5, cfg)
+        want = em.hot_experts(plain, layer, 0.5, cfg)
+        compare(f"hot_experts layer {layer}", got[:2], [x.cuda() for x in want[:2]])
+        if got[2] != want[2]:
+            raise AssertionError(f"hot_experts layer {layer}: n_needed differs")
+    collapsed = [report[layer] for layer in range(0, MOE_LAYERS, 7)]
+    balanced = [report[layer] for layer in range(MOE_LAYERS) if layer % 7]
+    say(f"[monitor] {steps} steps x {MOE_LAYERS} layers observed; every leaf "
+        f"after every step, balance_report and hot_experts equal to the plain "
+        f"versions' on the CPU; n_needed at t=0.9: collapsed layers {collapsed}, "
+        f"balanced layers {min(balanced)}-{max(balanced)} of {MOE_EXPERTS}; "
+        f"decay steps {int(card.decay_steps)}")
+    say(f"[monitor] observe: median {statistics.median(observe_ms):.3f} ms per "
+        f"call (host clock, synchronised); balance_report over {MOE_LAYERS} "
+        f"layers {report_ms:.3f} ms")
+    if max(collapsed) >= min(balanced):
+        raise AssertionError(f"the monitor does not flag the collapsed layers: {report}")
+
+
+def small_topn_checks(gen, both):
+    """The merge against its plain version at odd small shapes: S 1..32
+    lists of M 1..300, n from 1 to S·M + 3; descending lists with ties
+    within and across lists and dead tails, lists that are not descending,
+    all-zero lists, and lists with NaN, -0.0 and negative heads."""
+    from repro_torch.kernels import ops
+    cases = 0
+    for s in (1, 2, 3, 5, 8, 13, 17, 31, 32):
+        for m in (1, 2, 7, 64, 300):
+            for kind in ("descending", "unsorted", "zeros", "nan"):
+                probs = randint(gen, 0, 6, (s, m)).float() / 8
+                if kind == "descending":
+                    probs = torch.sort(probs, dim=1, descending=True).values
+                    probs[:, m // 2 + 1:] = 0.0
+                elif kind == "zeros":
+                    probs.zero_()
+                elif kind == "nan":
+                    r = torch.rand((3, s, m), generator=gen, device="cuda")
+                    probs[r[0] < 0.2] = float("nan")
+                    probs[r[1] < 0.2] = -0.0
+                    probs[r[2] < 0.1] = -0.5
+                live = probs > 0
+                dsts = torch.where(live, randint(gen, 0, 500, (s, m)), -1).to(torch.int32)
+                srcs = torch.where(live, randint(gen, 0, 500, (s, m)), -1).to(torch.int32)
+                # past S·M every list is exhausted; above 1,024 steps the
+                # kernel records its steps in more than one round, and at
+                # S·M > 9,216 it reads the heads past its staged prefix
+                for n in sorted({1, min(m, 17), 40, s * m + 3}):
+                    both(f"topn_merge S={s} M={m} n={n} {kind}", ops.topn_merge,
+                         probs, dsts, srcs, n=n)
+                    cases += 1
+    say(f"[kernels] topn_merge: {cases} small cases, S 1-32, M 1-300, n 1 to "
+        f"S*M+3; equal to the plain version")
+
+
+def parity_sharded(seed, batches=16):
+    """The sharded path at S = 4, kernels against plain versions: the owner
+    calls with their row flags and the functional callables, every stacked
+    leaf after every call, every routed answer and drop count, and the
+    top-n at n 8 and 40 equal."""
+    from repro_torch import core
+    from repro_torch.core import sharded as sh
+    base = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
+                         max_new_per_batch=192, decay_block_rows=128, impl="cuda")
+    cfgs = {impl: sh.ShardedConfig(base=dataclasses.replace(base, impl=impl),
+                                   num_shards=4, bucket_factor=1.0)
+            for impl in ("cuda", "ref")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 17)
+    own = {impl: (sh.init_sharded(c), torch.zeros((4, base.num_rows),
+                                                  dtype=torch.uint8, device="cuda"))
+           for impl, c in cfgs.items()}
+    fun = {impl: sh.init_sharded(c) for impl, c in cfgs.items()}
+    drops = 0
+    for i in range(batches):
+        src = randint(gen, -1, 900, (1024,))
+        hot = randint(gen, 0, 2, (1024,)) == 1
+        src = torch.where(hot, src % 24, src)
+        dst = (src * 7 + randint(gen, 0, 60, (1024,)) * 13) % 5000
+        w = randint(gen, 1, 4, (1024,))
+        q = randint(gen, -1, 950, (400,))
+        for impl, scfg in cfgs.items():
+            st, dirty = own[impl]
+            sh.update_(st, src, dst, w, scfg=scfg, dirty=dirty)
+            sh.maintain_(st, scfg=scfg, total_threshold=300, dirty=dirty)
+            fun[impl] = sh.make_maintain_fn(scfg, 300)(
+                sh.make_update_fn(scfg)(fun[impl], src, dst, w))
+            if i % 5 == 4:
+                sh.decay_(st, scfg=scfg, dirty=dirty)
+                fun[impl] = sh.make_decay_fn(scfg)(fun[impl])
+        for form, states in (("owner", {k: v[0] for k, v in own.items()}),
+                             ("functional", fun)):
+            equal_states(f"parity sharded batch {i} {form}", states["cuda"],
+                         states["ref"])
+        equal_states(f"parity sharded batch {i} owner vs functional",
+                     own["cuda"][0], fun["cuda"])
+        compare(f"parity sharded batch {i} row flags", own["cuda"][1], own["ref"][1])
+        answers = {impl: sh.query(own[impl][0], q, 0.8, 12, scfg=c)
+                   for impl, c in cfgs.items()}
+        compare(f"parity sharded query batch {i}", answers["cuda"], answers["ref"])
+        drops += int(answers["cuda"][3].sum())
+        for n in (8, 40):
+            compare(f"parity sharded topn n={n} batch {i}",
+                    *(sh.topn(own[impl][0], n, scfg=c) for impl, c in cfgs.items()))
+    stats = core.counter_stats(own["cuda"][0])
+    say(f"[parity] sharded, S=4 at {base.num_rows}x{base.capacity} per shard: "
+        f"{batches} batches, every stacked leaf (owner calls and functional "
+        f"callables), row flag, routed answer and top-n equal to the plain "
+        f"versions'; counters {stats}; query routing drops {drops}")
+    for key in ("route_dropped", "evictions", "decay_steps"):
+        if stats[key] <= 0:
+            raise AssertionError(f"parity sharded stream never exercised {key}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the whole path, kernels vs plain versions, on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2367,6 +2890,7 @@ def phase_parity(seed, batches=32):
     parity_chain(seed + 3, hashed, batches, "parity/hash")
     parity_learner(seed, hashed)
     parity_drafter(seed)
+    parity_sharded(seed)
 
 
 def parity_chain(seed, cfg_k, batches, label):
@@ -2528,8 +3052,9 @@ def main(argv=None):
                          "drafter's warm-up observes half as many")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="after the main and drafter phases, print device time "
-                         "by kernel (torch.profiler) over a few more rounds")
+                    help="after the main, drafter and sharded phases, print "
+                         "device time by kernel (torch.profiler) over a few "
+                         "more rounds")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -2581,6 +3106,29 @@ def main(argv=None):
         kernels += phase_drafter(args.seed, args.warm_batches // 2,
                                  args.rounds, args.profile)
         torch.cuda.empty_cache()
+    if "sharded" in phases:
+        state, scfg, traffic, launches = phase_sharded(
+            args.seed, args.warm_batches, args.rounds)
+        kernels += sharded_path_kernels(state, scfg, traffic, launches)
+        if args.profile:
+            from repro_torch.core import sharded as sh
+            w = torch.ones(SHARDS * BATCH, dtype=torch.int32, device="cuda")
+
+            def sharded_round():
+                src, dst = traffic.batch(SHARDS * BATCH)
+                sh.update_(state, src, dst, w, scfg=scfg)
+                sh.query(state, traffic.srcs(SHARDS * QUERIES), 0.9, 16,
+                         scfg=scfg)
+                sh.maintain_(state, scfg=scfg, total_threshold=64)
+
+            profile_window("sharded round (update_ + query + maintain_)",
+                           sharded_round)
+            profile_window("sharded topn", lambda: sh.topn(state, TOP_N,
+                                                           scfg=scfg))
+        del state
+        torch.cuda.empty_cache()
+    if "monitor" in phases:
+        phase_monitor(args.seed)
     if "parity" in phases:
         phase_parity(args.seed)
     torch.cuda.synchronize()

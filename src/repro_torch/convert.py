@@ -2,8 +2,10 @@
 
 The dict's keys are the leaf names of the reference's ``MCState`` pytree
 (``src_table.keys``, ``slabs.cnt``, ``n_rows``, ...), 18 int32 arrays in all,
-so a state learned by either package can be continued by the other.  This
-module sees numpy arrays only, never another framework's types.
+so a state learned by either package can be continued by the other.  The
+stacked pair does the same for a sharded chain (``core.sharded``): the same
+18 leaves, each with a leading ``[S]``.  This module sees numpy arrays
+only, never another framework's types.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from repro_torch.core.hashtable import HashTable
 from repro_torch.core.mcprioq import (MCConfig, MCState, private_copy,
-                                      resolve_device)
+                                      resolve_device, stack_states)
 from repro_torch.core.slab import Slabs
 
 _NESTED = {"src_table": HashTable, "slabs": Slabs}
@@ -74,3 +76,26 @@ def state_from_numpy(leaves: Dict[str, np.ndarray], cfg: MCConfig,
         else:
             fields[field] = leaf(field)
     return private_copy(MCState(**fields), table=False, slabs=())
+
+
+def sharded_state_to_numpy(state: MCState) -> Dict[str, np.ndarray]:
+    """Every leaf of a stacked state (leading ``[S]``) as a numpy array,
+    keyed by leaf name: :func:`state_to_numpy` itself, named to pair with
+    :func:`sharded_state_from_numpy`."""
+    return state_to_numpy(state)
+
+
+def sharded_state_from_numpy(leaves: Dict[str, np.ndarray], scfg,
+                             device=None) -> MCState:
+    """Build a stacked state of ``scfg.num_shards`` chains (``scfg`` a
+    ``core.sharded.ShardedConfig``) on ``device`` (default: the GPU) from
+    numpy leaves with a leading ``[S]``, each shard checked as
+    :func:`state_from_numpy` checks a chain."""
+    s = scfg.num_shards
+    for name, arr in leaves.items():
+        if np.ndim(arr) < 1 or np.shape(arr)[0] != s:
+            raise ValueError(f"leaf {name} has shape {np.shape(arr)}, a "
+                             f"sharded state wants a leading {s}")
+    return stack_states([
+        state_from_numpy({k: np.asarray(v)[i] for k, v in leaves.items()},
+                         scfg.base, device) for i in range(s)])

@@ -7,9 +7,14 @@ Public API:
     speculative decoding (observe/maintain/draft/candidates)
   * :mod:`repro_torch.core.epoch`       — RCU-style snapshot store, and
     the learner that writes in place into a back buffer
+  * :mod:`repro_torch.core.sharded`     — S logical shards of the chain on
+    one device: bucket routing, per-shard update/query/maintain, the
+    global top-n
+  * :mod:`repro_torch.core.expert_monitor` — MoE expert-popularity monitor
+    built on the chain
 """
 
-from repro_torch.core import epoch, speculative  # noqa: F401
+from repro_torch.core import epoch, expert_monitor, sharded, speculative  # noqa: F401
 from repro_torch.core.device import resolve_device  # noqa: F401
 from repro_torch.core.epoch import (  # noqa: F401
     BackBufferLearner,

@@ -61,7 +61,7 @@ Kernel dispatch is selected by ``MCConfig.impl`` (``auto``/``ref``/``cuda``).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,6 +75,7 @@ from repro_torch.kernels import decay_sort, dh_rebuild, ops
 __all__ = [
     "EMPTY", "TOMB", "HashTable", "Slabs", "MCConfig", "MCState",
     "resolve_device", "check_cuda_limits", "init", "private_copy",
+    "map_leaves", "stack_states",
     "lookup_rows", "update_batch", "update_batch_", "update_batch_reference",
     "query_impl", "query_threshold", "query_topk", "decay", "decay_",
     "maybe_decay", "maybe_decay_", "check_invariants", "maintenance_stats",
@@ -246,9 +247,12 @@ def private_copy(state: MCState, *, table: bool = True,
     """A copy of ``state`` that the owner calls may write: the src table
     (``table``), the slab arrays named in ``slabs`` and the row hashes
     ``dh_keys``/``dh_vals`` (``dh``) cloned, the scalar leaves packed into
-    one new int32 tensor; the other leaves shared with ``state``."""
-    scalars = torch.stack([getattr(state, f) for f in SCALAR_FIELDS])
-    copy = state._replace(**{f: scalars[i] for i, f in enumerate(SCALAR_FIELDS)})
+    one new int32 tensor; the other leaves shared with ``state``.  Works
+    on a stacked state too (``core.sharded``: every leaf with a leading
+    ``[S]``), whose scalars become the columns of one int32 ``[S, 10]``."""
+    scalars = torch.stack([getattr(state, f) for f in SCALAR_FIELDS], dim=-1)
+    copy = state._replace(**{f: scalars[..., i]
+                             for i, f in enumerate(SCALAR_FIELDS)})
     if table:
         copy = copy._replace(src_table=HashTable(
             *(x.clone() for x in state.src_table)))
@@ -257,6 +261,23 @@ def private_copy(state: MCState, *, table: bool = True,
                              dh_vals=state.dh_vals.clone())
     return copy._replace(slabs=state.slabs._replace(
         **{f: getattr(state.slabs, f).clone() for f in slabs}))
+
+
+def map_leaves(fn, *states: MCState) -> MCState:
+    """``fn`` over the leaves of ``states`` (nested tuples kept)."""
+    def one(*xs):
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*(one(*ys) for ys in zip(*xs)))
+        return fn(*xs)
+    return one(*states)
+
+
+def stack_states(states: Sequence[MCState]) -> MCState:
+    """S chains as one stacked state (copies), as ``core.sharded`` keeps
+    them: every leaf gains a leading ``[S]``, the scalar leaves become the
+    columns of one int32 ``[S, 10]`` tensor."""
+    stacked = map_leaves(lambda *xs: torch.stack(xs), *states)
+    return private_copy(stacked, table=False, slabs=(), dh=False)
 
 
 def _device_of(state: MCState) -> torch.device:

@@ -18,6 +18,9 @@
                                              (§II.2)
   * :mod:`repro_torch.kernels.copy_rows`   — the back-buffer learner's
                                              catch-up by flagged rows
+  * :mod:`repro_torch.kernels.topn_merge`  — the sharded chain's global
+                                             top-n: k-way merge of the
+                                             shards' top lists
 
 Public API lives in :mod:`repro_torch.kernels.ops` (backend dispatch);
 ``ref.py`` holds the plain PyTorch version each kernel is held against;

@@ -50,6 +50,7 @@ SIGNATURES = {
                        _P, _P, _I, _P, _P],
     "mcq_copy_dirty_rows": [_P] * 19 + [_LL, _I, _LL, _I, _I, _P],
     "mcq_dh_rebuild": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
+    "mcq_topn_merge": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -181,10 +182,11 @@ def require_row_hashes(name: str, dh_keys: Optional[torch.Tensor],
 
 
 def require_cuda_int32(name: str, *, strided=(), bools=(), flags=(),
-                       **tensors) -> None:
+                       floats=(), **tensors) -> None:
     """Every kernel takes contiguous int32 tensors on one CUDA device, but
-    the arguments named in ``bools``, which are torch.bool, and those named
-    in ``flags`` (per-row dirty flags), which are torch.uint8.  The arguments
+    the arguments named in ``bools``, which are torch.bool, those named in
+    ``flags`` (per-row dirty flags), which are torch.uint8, and those named
+    in ``floats``, which are torch.float32.  The arguments
     named in ``strided`` may have a strided leading dimension (the wrapper
     passes that stride to its kernel) but must be unit-stride along their
     last.  An argument given as None (an optional one left out) is
@@ -198,7 +200,8 @@ def require_cuda_int32(name: str, *, strided=(), bools=(), flags=(),
                 f"{name}: {arg} is on {x.device}; the CUDA kernel takes CUDA "
                 f"tensors (use impl='ref' or 'auto' for CPU tensors)")
         want = (torch.bool if arg in bools else
-                torch.uint8 if arg in flags else torch.int32)
+                torch.uint8 if arg in flags else
+                torch.float32 if arg in floats else torch.int32)
         if x.dtype != want:
             raise TypeError(f"{name}: {arg} must be {want}, got {x.dtype}")
         if arg in strided:

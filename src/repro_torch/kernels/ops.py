@@ -30,6 +30,7 @@ from repro_torch.kernels import probe as _pr
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import slab_update as _su
 from repro_torch.kernels import slow_path as _sp
+from repro_torch.kernels import topn_merge as _tm
 from repro_torch.kernels import walk as _wk
 
 _IMPLS = ("auto", "ref", "cuda")
@@ -252,6 +253,21 @@ def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                                         threshold, max_items)
     return _cg.cdf_query_fused_cuda(rows, found, cnt, dst, order, tot,
                                     threshold, max_items=max_items)
+
+
+def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
+               *, n: int, impl: str = "auto"):
+    """Cross-shard top-n merge: ``(srcs[n], dsts[n], probs[n])``.
+
+    Merges S per-shard top lists (``probs`` float32, ``dsts/srcs`` int32
+    ``[S, M]``, descending on the sharded read's path) into one list of n
+    by the reference's head-pointer steps — the reduce step of
+    ``core/sharded.py``'s global top-n.  On CUDA tensors one launch of a
+    one-block kernel (S <= 32).
+    """
+    if _use_ref(impl, probs):
+        return _ref.topn_merge_ref(probs, dsts, srcs, n)
+    return _tm.topn_merge_cuda(probs, dsts, srcs, n=n)
 
 
 def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,

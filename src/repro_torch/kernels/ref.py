@@ -431,6 +431,44 @@ def cdf_query_fused_ref(rows: torch.Tensor, found: torch.Tensor,
     return dk, pk, n_needed
 
 
+def topn_merge_ref(probs: torch.Tensor, dsts: torch.Tensor,
+                   srcs: torch.Tensor, n: int):
+    """Fixed-shape k-way merge of per-shard top lists (plain version of
+    ``topn_merge.py``).
+
+    probs float32 / dsts / srcs int32 [S, M]: each shard's local answer,
+    descending by prob on the sharded read's path (dead entries carry prob
+    0 / EMPTY at the tail).  The head-pointer merge as a loop of n steps:
+    each step reads the S list heads (a pointer past the end reads 0.0),
+    takes the first maximum — the lowest shard on ties, NaN above every
+    number, as ``jnp.argmax`` — and advances that shard's pointer, whatever
+    its head holds.  A head that is not ``> 0`` emits EMPTY/EMPTY/0.0.  The
+    same steps on any input, descending or not.  Returns
+    ``(srcs[n], dsts[n], probs[n])``.
+    """
+    s, m = probs.shape
+    dev = probs.device
+    lanes = torch.arange(s, device=dev)
+    ptr = torch.zeros((s,), dtype=torch.int64, device=dev)
+    out_s = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
+    out_d = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
+    out_p = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for step in range(n):
+        j = ptr.clamp(max=m - 1)
+        head = torch.where(ptr < m, probs[lanes, j], 0.0)
+        top = head.max()
+        first = (head == top) | (head.isnan() & top.isnan())
+        best = torch.where(first, lanes, s).min().view(1)
+        p = head[best]
+        live = p > 0
+        at = best * m + j[best]
+        out_s[step:step + 1] = torch.where(live, srcs.reshape(-1)[at], EMPTY)
+        out_d[step:step + 1] = torch.where(live, dsts.reshape(-1)[at], EMPTY)
+        out_p[step:step + 1] = torch.where(live, p, 0.0)
+        ptr.index_add_(0, best, torch.ones_like(best))
+    return out_s, out_d, out_p
+
+
 def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,
                    ht_vals: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
                    ord0: torch.Tensor, *, k: int, max_probes: int):

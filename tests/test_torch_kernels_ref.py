@@ -373,3 +373,41 @@ def test_draft_walk_reads_strided_views_and_empty_batches():
     assert_same(dense, strided, "strided views")
     toks0, ok0 = tops.draft_walk(context[:0, -2:], keys, vals, cnt, dst, order[:, 0], k=5)
     assert toks0.shape == ok0.shape == (0, 5)
+
+
+# ---------------------------------------------------------------------------
+# the cross-shard top-n merge: against the reference's lax.scan
+# ---------------------------------------------------------------------------
+
+
+def _merge_lists(rng, s, m, kind):
+    """Per-shard lists of one kind: descending with ties within and across
+    shards and dead tails, not descending, all zero, or with NaN and -0.0."""
+    probs = rng.integers(0, 6, (s, m)).astype(np.float32) / 8
+    if kind == "descending":
+        probs = -np.sort(-probs, axis=1)
+        probs[:, m // 2 + 1:] = 0.0                  # dead tails
+    elif kind == "zeros":
+        probs[:] = 0.0
+    elif kind == "nan":
+        probs[rng.random((s, m)) < 0.2] = np.nan
+        probs[rng.random((s, m)) < 0.2] = -0.0
+        probs[rng.random((s, m)) < 0.1] = -0.5
+    dsts = np.where(probs > 0, rng.integers(0, 500, (s, m)), EMPTY_ID)
+    srcs = np.where(probs > 0, rng.integers(0, 500, (s, m)), EMPTY_ID)
+    return probs.astype(np.float32), dsts.astype(np.int32), srcs.astype(np.int32)
+
+
+EMPTY_ID = -1
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("kind", ["descending", "unsorted", "zeros", "nan"])
+@pytest.mark.parametrize("s,m,n", [(1, 1, 3), (1, 7, 4), (3, 5, 16), (4, 6, 8),
+                                   (8, 3, 40), (5, 9, 9)])
+def test_topn_merge(jax_impl, kind, s, m, n):
+    """Every step of the head-pointer merge: S 1..8, ties (the lowest shard
+    first), dead tails, lists that are not descending, NaN and -0.0 heads,
+    n above M and above S·M (exhausted lists read 0)."""
+    rng = np.random.default_rng(s * 100 + m * 10 + n)
+    _both_impls("topn_merge", jax_impl, *_merge_lists(rng, s, m, kind), n=n)

@@ -15,8 +15,10 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import expert_monitor as tem
 from repro_torch.core import hashtable as tht
 from repro_torch.core import mcprioq as tmc
+from repro_torch.core import sharded as tsh
 from repro_torch.core import slab as tsl
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import _build, ops
@@ -39,6 +41,8 @@ KERNELS = {
                   "mcq_copy_dirty_rows"),
     "dh_rebuild": ("dh_rebuild_cuda_", "dh_rebuild_ref_", "dh_rebuild.cu",
                    "mcq_dh_rebuild"),
+    "topn_merge": ("topn_merge_cuda", "topn_merge_ref", "topn_merge.cu",
+                   "mcq_topn_merge"),
 }
 
 
@@ -112,6 +116,7 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
     lambda x, v: ops.copy_dirty_rows((x, x, x, v, v, v, v), (x, x, x, v, v, v, v),
                                      v.to(torch.uint8), impl="cuda"),
     lambda x, v: ops.dh_rebuild_(x, x, x, x, v[:2], threshold=0, impl="cuda"),
+    lambda x, v: ops.topn_merge(x.float(), x, x, n=3, impl="cuda"),
 ])
 def test_impl_cuda_on_cpu_tensors_raises(call):
     x = torch.zeros((4, 4), dtype=torch.int32)
@@ -133,10 +138,12 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
             "decay_sort": (x, x, x),
             "copy_rows": (x, x, x, v, v, v, v, x, x, x, v, v, v, v,
                           v.to(torch.uint8)),
-            "dh_rebuild": (x, x, x, x, v[:2])}[module]
+            "dh_rebuild": (x, x, x, x, v[:2]),
+            "topn_merge": (x.float(), x, x)}[module]
     before = mod.launches
     with pytest.raises(ValueError, match="takes CUDA"):
-        wrapper(*args, **({"threshold": 0} if module == "dh_rebuild" else {}))
+        wrapper(*args, **{"dh_rebuild": {"threshold": 0},
+                          "topn_merge": {"n": 3}}.get(module, {}))
     assert mod.launches == before
 
 
@@ -171,14 +178,24 @@ def test_options_of_later_slices_raise_not_implemented(kw):
     assert tmc.check_invariants(state, cfg)["dst_hash_consistent"]
 
 
-@pytest.mark.parametrize("make", [lambda d: tht.make(8, device=d),
-                                  lambda d: tsl.make(4, 3, device=d)],
-                         ids=["hashtable", "slab"])
+def _tensors(x):
+    """Every tensor of a (nested) tuple of tensors."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _tensors(y)]
+
+
+@pytest.mark.parametrize("make", [
+    lambda d: tht.make(8, device=d), lambda d: tsl.make(4, 3, device=d),
+    lambda d: tsh.init_sharded(tsh.ShardedConfig(
+        base=tmc.MCConfig(num_rows=8, capacity=4), num_shards=3), device=d),
+    lambda d: tem.init(tem.MonitorConfig(num_layers=2, num_experts=5), device=d),
+], ids=["hashtable", "slab", "sharded", "expert_monitor"])
 def test_constructors_default_to_the_gpu_and_never_to_the_cpu(make):
     assert not torch.cuda.is_available(), "this test describes a machine without a GPU"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make(None)
-    assert all(x.device.type == "cpu" for x in make("cpu"))
+    assert all(x.device.type == "cpu" for x in _tensors(make("cpu")))
 
 
 @pytest.mark.parametrize("module", list(KERNELS))
@@ -237,8 +254,9 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
 def _kernel_stand_ins(probe_calls, decay_calls):
     """Each CUDA wrapper replaced by its plain version behind a check of what
     the wrapper takes: int32 tensors, but bool where the wrapper takes bool
-    (the fused read's ``found``, the decay's ``fire``) and uint8 for the
-    ``dirty`` flags, contiguous except where the wrapper passes a stride to
+    (the fused read's ``found``, the decay's ``fire``), float32 for the
+    merge's probabilities and uint8 for the ``dirty`` flags, contiguous
+    except where the wrapper passes a stride to
     its kernel (the draft walk's window and order heads).  The probe's
     stand-in also checks its table against its mode (flat ``[H]`` when
     ``rows`` is None, stacked ``[N, H]`` otherwise) and records ``(flat,
@@ -250,13 +268,15 @@ def _kernel_stand_ins(probe_calls, decay_calls):
     contiguous too."""
     from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
                                      decay_sort, dh_rebuild, oddeven, probe,
-                                     ref, slab_update, slow_path, walk)
+                                     ref, slab_update, slow_path, topn_merge,
+                                     walk)
 
-    def check(name, strided, plain, bools=()):
+    def check(name, strided, plain, bools=(), floats=()):
         def wrapper(*args, **kw):
             for i, a in enumerate(args):
                 if isinstance(a, torch.Tensor):
                     want = (torch.bool if i in bools else
+                            torch.float32 if i in floats else
                             torch.uint8 if name == "copy_rows" and i == 14
                             else torch.int32)
                     assert a.dtype == want, (name, i, a.dtype)
@@ -341,6 +361,9 @@ def _kernel_stand_ins(probe_calls, decay_calls):
         (copy_rows, "copy_dirty_rows_cuda", check(
             "copy_rows", (), ref.copy_dirty_rows_ref)),
         (dh_rebuild, "dh_rebuild_cuda_", check("dh_rebuild_", (), rebuild_plain_)),
+        (topn_merge, "topn_merge_cuda", check(
+            "topn_merge", (), lambda p, d, s, *, n: ref.topn_merge_ref(p, d, s, n),
+            floats=(0,))),
     ]
 
 
@@ -448,3 +471,54 @@ def test_dst_hash_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
     assert kinds == {block or None, "rebuild"}, kinds
     # the classify and the invariant are the stacked probe, miss EMPTY
     assert set(probe_calls) == {(True, 0), (False, -1)}, set(probe_calls)
+
+
+@pytest.mark.parametrize("block", [8, 0], ids=["rolling", "stop_the_world"])
+def test_sharded_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
+                                                                 block):
+    """The sharded chain at S = 3 — the owner calls ``update_``,
+    ``maintain_`` (firing and not) and ``decay_`` with row flags, their
+    functional callables, the routed query and the global top-n (n below
+    and above C) — with the dispatch sent to the stand-ins of the CUDA
+    wrappers on CPU tensors: a strided or mistyped argument (a receiver's
+    slice of the transposed buckets, a column of the stacked top lists)
+    fails here, before it reaches the card."""
+    monkeypatch.setattr(ops, "_use_ref", lambda impl, x: impl == "ref")
+    probe_calls, decay_calls = [], []
+    for module, name, stand_in in _kernel_stand_ins(probe_calls, decay_calls):
+        monkeypatch.setattr(module, name, stand_in)
+    from repro_torch.kernels import topn_merge
+    scfg = tsh.ShardedConfig(base=tmc.MCConfig(
+        num_rows=32, capacity=8, max_new_per_batch=16, decay_block_rows=block),
+        num_shards=3, bucket_factor=1.0)
+    gen = torch.Generator().manual_seed(2)
+    state = tsh.init_sharded(scfg, device="cpu")
+    dirty = torch.zeros((3, 32), dtype=torch.uint8)
+    update = tsh.make_update_fn(scfg)
+    for _ in range(4):
+        batch = torch.randint(-1, 40, (2, 48), generator=gen, dtype=torch.int32)
+        src, dst = batch[0], batch[1]         # rows of one tensor
+        w = torch.randint(1, 4, (48,), generator=gen, dtype=torch.int32)
+        functional = update(state, src, dst, w)
+        tsh.update_(state, src, dst, w, scfg=scfg, dirty=dirty)
+        for leaf in ("cnt", "order", "tot"):
+            assert torch.equal(getattr(state.slabs, leaf),
+                               getattr(functional.slabs, leaf))
+        for threshold in (0, 2 ** 30):       # fires, and does not
+            tsh.maintain_(state, scfg=scfg, total_threshold=threshold,
+                          dirty=dirty)
+        tsh.make_maintain_fn(scfg, 0)(state)
+        tsh.make_decay_fn(scfg)(state)
+        tsh.decay_(state, scfg=scfg, dirty=dirty)
+        dk, pk, nn, dropped = tsh.query(state, batch[0, ::2], 0.5, 5, scfg=scfg)
+        assert dk.shape == (24, 5) and dropped.shape == (3,)
+    tsh.update_(state, src, dst, w, scfg=scfg)
+    launched = topn_merge.launches
+    for n in (3, 12):
+        srcs, dsts, probs, lost = tsh.topn(state, n, scfg=scfg)
+        assert srcs.shape == dsts.shape == probs.shape == (n,)
+        assert bool((probs[1:] <= probs[:-1]).all()) and probs[0] > 0
+    assert topn_merge.launches == launched   # the stand-in counts nothing
+    assert int(dirty.sum()) > 0 and int(state.route_dropped.sum()) > 0
+    assert set(probe_calls) == {(True, 0)}, set(probe_calls)
+    assert {rows for rows, _ in decay_calls} == {32}
