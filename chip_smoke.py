@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases device,kernels   # a subset, for debugging
     python3 chip_smoke.py --phases device,kernels,hash   # the dst-hash path
     python3 chip_smoke.py --phases device,kernels,sharded   # the sharded chain
+    python3 chip_smoke.py --phases device,persist   # durability (runs phase
+                                                    # sharded's warm-up first)
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
@@ -92,13 +94,33 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 shard 0's kernels at the shapes the routing gives them and
                 the merge at the top-n's shapes, beside its bound, the
                 launch floor and ``torch.sort``;
-  7. monitor  — the expert monitor at deepseek-moe-16b's routing widths
+  7. persist  — durability on the card.  Phase main's chain, warmed, is
+                snapshotted (sync), then 20 rounds log each batch to a WAL
+                before ``update_batch_`` + ``maybe_decay_`` (the decay fires,
+                a quarter of every fourth batch goes to new successors so new
+                pairs are deferred), with ``save_snapshot_async`` after round
+                10 while the later rounds write; then a "crash": the newest
+                complete snapshot restored into a fresh chain on the card and
+                the later records replayed through the same owner calls — all
+                18 leaves and ``counter_stats`` equal to the uninterrupted
+                chain's; the same snapshot restored on the CPU equal to the
+                card's; the replay's device busy share (torch.profiler);
+                appends under each fsync policy.  Then phase sharded's final
+                state (4 x 2**20 x 128; its warm-up alone when phase sharded
+                does not run) snapshotted, restored and resharded onto 2
+                shards of 2**21 rows: ``extract_edges`` on the card,
+                ``owner_of``, ``plan_batches`` (slices of 65,536), the routed
+                update with the new-edge bound lifted, ``settle_order_`` —
+                no routing drop, the edges conserved up to the counted
+                ``dropped_probes`` (whole srcs), each surviving src's ``tot``
+                unchanged, no inversion, every shard's invariants;
+  8. monitor  — the expert monitor at deepseek-moe-16b's routing widths
                 (28 layers x 64 experts, 6 per token): 20 steps of router
                 histograms over 4,096 tokens per layer, some layers
                 collapsed; every leaf, ``balance_report`` and
                 ``hot_experts`` equal to the same monitor's on the CPU
                 (plain versions); ms per ``observe`` and per report;
-  8. parity   — the whole path at a small configuration, once with the CUDA
+  9. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
                 every query answer equal after every batch, the owner calls
                 and their row flags too; the same with the dst hash (rebuilds
@@ -106,7 +128,9 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 for the unfused read and for a small drafter stream, drafts
                 included; and the sharded path at S = 4 (owner calls with
                 their row flags, functional callables, routed answers and
-                drops, the top-n).
+                drops, the top-n), and a small reshard, 4 -> 2 and 4 -> 8,
+                every stacked leaf equal after the unbounded ingest and the
+                settle.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -120,6 +144,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -133,8 +158,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "monitor",
-          "parity")
+PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "persist",
+          "monitor", "parity")
 
 
 def say(*parts):
@@ -971,11 +996,16 @@ def no_state_copies(label, fn, rows, calls=3):
         raise AssertionError(f"{label} copies state: {big}")
 
 
+def main_config():
+    from repro_torch import core
+    return core.MCConfig(num_rows=NUM_NODES, capacity=128, sort_passes=1,
+                         decay_block_rows=1024, max_new_per_batch=8192,
+                         impl="auto")
+
+
 def phase_main(seed, warm_batches, rounds):
     from repro_torch import core
-    cfg = core.MCConfig(num_rows=NUM_NODES, capacity=128, sort_passes=1,
-                        decay_block_rows=1024, max_new_per_batch=8192,
-                        impl="auto")
+    cfg = main_config()
     traffic = Traffic(seed)
     torch.cuda.reset_peak_memory_stats()
     state = core.init(cfg)
@@ -1156,6 +1186,12 @@ def profile_window(label, step, rounds=5):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(f"{label}: {rounds} rounds", prof, wall_ms)
+
+
+def report_profile(label, prof, wall_ms):
+    """Device busy share of a profiled window and its top kernels by device
+    time; returns the busy milliseconds."""
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1167,13 +1203,13 @@ def profile_window(label, step, rounds=5):
             rows.append((device_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    say(f"[profile] {label}: {rounds} rounds in {wall_ms:.1f} ms wall (profiler "
-        f"on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f} % of "
-        f"the window")
+    say(f"[profile] {label} in {wall_ms:.1f} ms wall (profiler on); device "
+        f"busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f} % of the window")
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     for ms, count, key in rows[:12]:
         say(f"[profile]   {ms:9.3f} ms  {100 * ms / busy_ms:5.1f} %  x{count:<5d} {key[:90]}")
+    return busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2446,11 +2482,7 @@ def phase_sharded(seed, warm_batches, rounds):
         f"{scfg.bucket_capacity(BATCH)}), {queries} srcs per query")
 
     t0 = time.perf_counter()
-    for i in range(warm_batches):
-        sh.update_(state, *traffic.batch(batch), w, scfg=scfg)
-        if i % 10 == 9:
-            torch.cuda.synchronize()
-    torch.cuda.synchronize()
+    warm_sharded(state, scfg, traffic, w, warm_batches)
     stats = core.counter_stats(state)
     say(f"[sharded] warm-up: {warm_batches} global batches of {batch} in "
         f"{time.perf_counter() - t0:.1f} s; rows per shard "
@@ -2699,7 +2731,557 @@ def sharded_path_kernels(state, scfg, traffic, launches):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the expert monitor at deepseek-moe-16b's routing widths
+# phase 7: durability — snapshot, WAL, crash recovery, the N -> M reshard
+# ---------------------------------------------------------------------------
+
+PERSIST_ROUNDS = 20       # WAL-logged rounds of the recovery
+PERSIST_ASYNC_AFTER = 10  # the async snapshot is taken after this round
+PERSIST_THRESHOLD = 64    # maybe_decay_'s threshold: it fires in every round
+RESHARD_TO = 2            # the sharded state's 4 shards onto this many
+RESHARD_SLICE = 65_536    # per-shard slice of a re-ingest batch
+INGEST_KERNELS = ("probe_find", "slab_update", "oddeven", "slow_path")
+
+
+def state_bytes(state):
+    from repro_torch.checkpoint import ckpt
+    return sum(x.numel() * x.element_size()
+               for x in ckpt._paths_and_leaves(state)[1])
+
+
+def persist_dir(need, label):
+    """A new temporary directory for ``need`` bytes of snapshots and logs,
+    on whichever of the temporary directory and the checkout's ``build/``
+    has more free space; raises, naming what it needs, when neither has
+    enough."""
+    import shutil
+    import tempfile
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    free = {d: shutil.disk_usage(d).free for d in (tempfile.gettempdir(),
+                                                   str(build))}
+    where = max(free, key=free.get)
+    if free[where] < need:
+        raise AssertionError(
+            f"{label} needs {need / 2**30:.2f} GiB free for its snapshots and "
+            f"logs; the most free is {free[where] / 2**30:.2f} GiB in {where}")
+    path = tempfile.mkdtemp(prefix="mcq_persist_", dir=where)
+    say(f"[persist] {label}: {need / 2**30:.2f} GiB of snapshots and logs in "
+        f"{path} ({free[where] / 2**30:.1f} GiB free)")
+    return path
+
+
+def gather_ms(state):
+    """Milliseconds of the snapshot's device->host gather alone (the copy
+    ``save_snapshot`` makes first)."""
+    from repro_torch.checkpoint import ckpt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [ckpt._gather(x) for x in ckpt._paths_and_leaves(state)[1]]
+    ms = (time.perf_counter() - t0) * 1e3
+    del host
+    return ms
+
+
+def replay_into(state, cfg, wal_dir, after_seq):
+    """WAL records after ``after_seq`` through the owner calls; returns
+    ``(records, wall ms)``."""
+    from repro_torch import core
+    from repro_torch.persist.wal import WriteAheadLog
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _, src, dst, w in WriteAheadLog(wal_dir).replay(after_seq=after_seq):
+        core.update_batch_(state, src, dst, w, cfg=cfg)
+        core.maybe_decay_(state, cfg=cfg, total_threshold=PERSIST_THRESHOLD)
+        n += 1
+    torch.cuda.synchronize()
+    return n, (time.perf_counter() - t0) * 1e3
+
+
+def wal_append_ms(wal_dir, src, dst, appends=12):
+    """Median ms per ``append`` of one batch under each fsync policy
+    (segments of 4 records, so ``rotate`` rotates)."""
+    from repro_torch.persist.wal import WriteAheadLog
+    out = {}
+    for policy in ("always", "rotate", "never"):
+        times = []
+        with WriteAheadLog(os.path.join(wal_dir, policy), segment_records=4,
+                           fsync=policy) as wal:
+            for _ in range(appends):
+                t0 = time.perf_counter()
+                wal.append(src, dst)
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[policy] = statistics.median(times)
+    return out
+
+
+def phase_persist(seed, warm_batches):
+    """Crash recovery of phase main's chain on the card, bit for bit: a
+    sync snapshot after the warm-up, 20 WAL-logged rounds of
+    ``update_batch_`` + ``maybe_decay_`` with an async snapshot after round
+    10 (the rounds after it write while its worker runs), a "crash", a
+    restore of the newest complete snapshot into a fresh chain on the card,
+    the replay of the later records through the same owner calls, and every
+    leaf and counter equal to the uninterrupted chain's; the same snapshot
+    restored on the CPU equal to the card's restore; appends under each
+    fsync policy."""
+    import shutil
+    from repro_torch import core
+    from repro_torch.persist import snapshot as snap_io
+    from repro_torch.persist.wal import WriteAheadLog
+    cfg = main_config()
+    traffic = Traffic(seed + 23)
+    state = core.init(cfg)
+    nbytes = state_bytes(state)
+    record = 3 * 4 * BATCH
+    root = persist_dir(2 * nbytes + (PERSIST_ROUNDS + 36) * record,
+                       "chain recovery")
+    snap_dir, wal_dir = os.path.join(root, "snap"), os.path.join(root, "wal")
+    meta = {"num_shards": 1, "base_cfg": dataclasses.asdict(cfg)}
+    try:
+        t0 = time.perf_counter()
+        for batch in range(warm_batches):
+            core.update_batch_(state, *traffic.batch(BATCH), cfg=cfg)
+            if batch % 10 == 9:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        say(f"[persist] chain {cfg.num_rows} x {cfg.capacity}, "
+            f"{nbytes / 2**30:.2f} GiB in 18 leaves; warm-up {warm_batches} "
+            f"batches of {BATCH} in {time.perf_counter() - t0:.1f} s; "
+            f"counters {core.counter_stats(state)}")
+
+        g_ms = gather_ms(state)
+        t0 = time.perf_counter()
+        snap_io.save_snapshot(state, snap_dir, 0, {**meta, "wal_seq": -1})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        write_ms = max(save_ms - g_ms, 1e-3)
+        say(f"[persist] save_snapshot (sync): {save_ms:.1f} ms; of it the "
+            f"device->host gather alone {g_ms:.1f} ms = "
+            f"{nbytes / g_ms / 1e6:.2f} GB/s, the npz write and commit "
+            f"{write_ms:.1f} ms = {nbytes / write_ms / 1e6:.2f} GB/s")
+
+        wal = WriteAheadLog(wal_dir, segment_records=8, fsync="rotate")
+        commit = []
+        for i in range(PERSIST_ROUNDS):
+            src, dst = traffic.batch(BATCH)
+            if i % 4 == 3:   # a quarter of the batch on new successors
+                fresh = torch.rand(BATCH, generator=traffic.gen,
+                                   device="cuda") < 0.25
+                dst = torch.where(fresh, randint(traffic.gen, 0, 2**30,
+                                                 (BATCH,)), dst)
+            seq = wal.append(src.cpu().numpy(), dst.cpu().numpy())
+            core.update_batch_(state, src, dst, cfg=cfg)
+            core.maybe_decay_(state, cfg=cfg,
+                              total_threshold=PERSIST_THRESHOLD)
+            if i == PERSIST_ASYNC_AFTER - 1:
+                at_snapshot = core.counter_stats(state)
+                t0 = time.perf_counter()
+                worker = snap_io.save_snapshot_async(
+                    state, snap_dir, 1, {**meta, "wal_seq": seq},
+                    on_complete=lambda t0=t0: commit.append(
+                        (time.perf_counter() - t0) * 1e3))
+                caller_ms = (time.perf_counter() - t0) * 1e3
+                wal_seq = seq
+        torch.cuda.synchronize()
+        wal.close()
+        rounds_done = time.perf_counter()
+        worker.join()
+        expect = core.counter_stats(state)
+        moved = {k: expect[k] - at_snapshot[k]
+                 for k in ("decay_steps", "deferred_new")}
+        say(f"[persist] save_snapshot_async after round {PERSIST_ASYNC_AFTER}: "
+            f"the caller waited {caller_ms:.1f} ms (sidecar + gather), the "
+            f"manifest committed {commit[0]:.1f} ms after the call while "
+            f"{PERSIST_ROUNDS - PERSIST_ASYNC_AFTER} more rounds wrote the "
+            f"chain (they ended {(rounds_done - t0) * 1e3:.1f} ms after it); "
+            f"moved in the replayed span: {moved}")
+        if min(moved.values()) <= 0:
+            raise AssertionError(f"the replayed span must decay and defer: {moved}")
+        step = snap_io.latest_complete_step(snap_dir)
+        if step != 1:
+            raise AssertionError(f"newest complete snapshot is {step}, not 1")
+
+        # the crash: recover from the files alone
+        t0 = time.perf_counter()
+        recovered, got_meta, _ = snap_io.restore_snapshot(core.init(cfg),
+                                                          snap_dir)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        on_cpu, _, _ = snap_io.restore_snapshot(recovered, snap_dir,
+                                                device="cpu")
+        equal_states("restore on the CPU vs on the card", on_card(on_cpu),
+                     recovered)
+        del on_cpu
+        core.scalars_of(recovered)
+        with launch_window("persist/replay", ("probe_find", "slab_update",
+                                              "oddeven", "slow_path",
+                                              "decay_sort")):
+            replayed, replay_ms = replay_into(recovered, cfg, wal_dir,
+                                              got_meta["wal_seq"])
+        if replayed != PERSIST_ROUNDS - PERSIST_ASYNC_AFTER or \
+                got_meta["wal_seq"] != wal_seq:
+            raise AssertionError(f"replayed {replayed} records after seq "
+                                 f"{got_meta['wal_seq']}")
+        equal_states("recovered vs uninterrupted chain", recovered, state)
+        if core.counter_stats(recovered) != expect:
+            raise AssertionError("recovered counter_stats differ")
+        say(f"[persist] restore_snapshot (newest complete, step 1, into a "
+            f"fresh chain on the card): {restore_ms:.1f} ms; the same "
+            f"snapshot restored on the CPU equal to it; replay of {replayed} "
+            f"records through update_batch_ + maybe_decay_: {replay_ms:.1f} "
+            f"ms wall = {replayed * BATCH / replay_ms * 1e3:.0f} "
+            f"transitions/s; all 18 leaves of the recovered chain equal to "
+            f"the uninterrupted one's, counter_stats equal {expect}")
+
+        # the replay's device busy share: the same replay under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        del recovered
+        again, _, _ = snap_io.restore_snapshot(core.init(cfg), snap_dir)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, prof_ms = replay_into(again, cfg, wal_dir, wal_seq)
+        busy_ms = report_profile(f"persist replay of {replayed} records", prof,
+                                 prof_ms)
+        equal_states("second recovery vs uninterrupted chain", again, state)
+        say(f"[persist] replay's device busy share: {busy_ms:.1f} ms of "
+            f"{prof_ms:.1f} ms wall with the profiler on = "
+            f"{100 * busy_ms / prof_ms:.1f} %; of the unprofiled wall "
+            f"{replay_ms:.1f} ms, {100 * busy_ms / replay_ms:.1f} %")
+        del again
+
+        appends = wal_append_ms(os.path.join(root, "fsync"),
+                                *(x.cpu().numpy() for x in traffic.batch(BATCH)))
+        say(f"[persist] WAL append of one {BATCH}-item batch "
+            f"({record / 1024:.0f} KiB record), median of 12: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in appends.items()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def warm_sharded(state, scfg, traffic, w, warm_batches):
+    """Phase sharded's warm-up: ``warm_batches`` global batches through
+    ``update_``."""
+    from repro_torch.core import sharded as sh
+    for i in range(warm_batches):
+        sh.update_(state, *traffic.batch(scfg.num_shards * BATCH), w, scfg=scfg)
+        if i % 10 == 9:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+
+
+def sharded_warm_state(seed, warm_batches):
+    """Phase sharded's state after its warm-up, without its rounds (for
+    ``--phases persist`` alone)."""
+    from repro_torch.core import sharded as sh
+    scfg = sharded_config()
+    state = sh.init_sharded(scfg)
+    t0 = time.perf_counter()
+    warm_sharded(state, scfg, Traffic(seed + 11, nodes=SHARD_NODES),
+                 torch.ones(SHARDS * BATCH, dtype=torch.int32, device="cuda"),
+                 warm_batches)
+    say(f"[persist] phase sharded's warm-up alone: {warm_batches} global "
+        f"batches in {time.perf_counter() - t0:.1f} s")
+    return state, scfg
+
+
+def row_totals(state):
+    """``(src, tot)`` of every row holding a src, over every shard, on the
+    device, sorted by src."""
+    from repro_torch.core import sharded as sh
+    s, n = state.slabs.tot.shape
+    src = sh._src_of_row(state, n).reshape(-1)
+    tot = state.slabs.tot.reshape(-1)
+    keep = src >= 0
+    src, order = torch.sort(src[keep])
+    return src, tot[keep][order]
+
+
+def edge_keys(src, dst, cnt):
+    """The (src, dst) key of each host triple as int64 on the card, sorted,
+    with its count."""
+    src = torch.from_numpy(src).cuda().to(torch.int64)
+    key = (src << 32) | (torch.from_numpy(dst).cuda().to(torch.int64) & 0xFFFFFFFF)
+    key, order = torch.sort(key)
+    return key, torch.from_numpy(cnt).cuda()[order], src[order]
+
+
+def persist_reshard(box, scfg, profile=False):
+    """The 4-shard state of phase sharded (``box``, a one-item list, so that
+    the old state can be freed) snapshotted, restored, and resharded onto
+    ``RESHARD_TO`` shards of twice the rows: ``extract_edges``,
+    ``owner_of`` under the new default map, ``plan_batches`` with a
+    per-shard slice of 65,536, the routed update with the new-edge bound
+    lifted, ``settle_order_``.  Checks: no routing drop; every extracted
+    edge is in the new state or counted in ``dropped_probes``; the new
+    state's triples are the old ones less the dropped srcs' (whole srcs:
+    a probe window only fills); each surviving src's ``tot`` unchanged; no
+    inversion; every shard's invariants."""
+    import shutil
+    from repro_torch import core
+    from repro_torch.core import sharded as sh
+    from repro_torch.core import slab as sl
+    from repro_torch.persist import reshard as rs
+    from repro_torch.persist import snapshot as snap_io
+    old = box.pop()
+    nbytes = state_bytes(old)
+    root = persist_dir(nbytes + 2**28, "reshard")
+    try:
+        own = scfg.resolved_ownership()
+        meta = {"wal_seq": -1, "num_shards": scfg.num_shards,
+                "base_cfg": dataclasses.asdict(scfg.base),
+                "ownership": {"num_buckets": own.num_buckets,
+                              "assignment": list(own.resolved_assignment())}}
+        g_ms = gather_ms(old)
+        t0 = time.perf_counter()
+        snap_io.save_snapshot(old, root, 0, meta)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        restored, got_meta, _ = snap_io.restore_snapshot(sh.init_sharded(scfg),
+                                                         root)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        equal_states("sharded snapshot restored vs saved", restored, old)
+        if got_meta != meta:
+            raise AssertionError("sharded snapshot's sidecar differs")
+        say(f"[persist] sharded state {nbytes / 2**30:.2f} GiB: save_snapshot "
+            f"{save_ms:.1f} ms (gather alone {g_ms:.1f} ms = "
+            f"{nbytes / g_ms / 1e6:.2f} GB/s; npz write "
+            f"{nbytes / max(save_ms - g_ms, 1e-3) / 1e6:.2f} GB/s); restore_snapshot "
+            f"into a fresh stacked state on the card {restore_ms:.1f} ms; "
+            f"every stacked leaf equal")
+        old_src, old_tot = row_totals(old)
+        del old
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        src, dst, cnt = rs.extract_edges(restored)
+        extract_ms = (time.perf_counter() - t0) * 1e3
+        del restored
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = dataclasses.replace(scfg.base,
+                                   num_rows=scfg.base.num_rows * scfg.num_shards
+                                   // RESHARD_TO)
+        new_scfg = sh.ShardedConfig(base=base, num_shards=RESHARD_TO,
+                                    bucket_factor=2.0)
+        t0 = time.perf_counter()
+        owner = new_scfg.resolved_ownership().owner_of(
+            torch.from_numpy(src).cuda()).cpu().numpy()
+        owner_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cap = new_scfg.bucket_capacity(RESHARD_SLICE)
+        batches = list(rs.plan_batches(src, dst, cnt, owner, RESHARD_TO,
+                                       RESHARD_SLICE, cap))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        say(f"[persist] extract_edges: {src.size} live edges in "
+            f"{extract_ms:.1f} ms; owner_of under the default map of "
+            f"{RESHARD_TO} shards {owner_ms:.1f} ms (edges per new shard "
+            f"{np.bincount(owner, minlength=RESHARD_TO).tolist()}); "
+            f"plan_batches {plan_ms:.1f} ms: {len(batches)} routed updates of "
+            f"{RESHARD_TO} x {RESHARD_SLICE} (bucket capacity {cap})")
+
+        ingest_scfg = dataclasses.replace(new_scfg, base=dataclasses.replace(
+            base, max_new_per_batch=0))
+        new = sh.init_sharded(new_scfg)
+
+        def ingest(batch):
+            sh.update_(new, *(torch.from_numpy(x).cuda() for x in batch),
+                       scfg=ingest_scfg)
+
+        def ingest_span(label, span, skip=0):
+            """``span``'s routed updates in a launch window of their own,
+            timed after the first ``skip`` (profiled) ones."""
+            pending = iter(span)
+            with launch_window(label, INGEST_KERNELS) as got:
+                if skip:
+                    profile_window("persist ingest (routed update, new-edge "
+                                   "bound lifted)", lambda: ingest(next(pending)),
+                                   rounds=skip)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i, batch in enumerate(pending):
+                    ingest(batch)
+                    if i % 10 == 9:
+                        torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                span_ms = (time.perf_counter() - t0) * 1e3
+            return got, span_ms
+
+        # the ingest in two halves, so that the new-edge pass is held against
+        # its plain version on the routed inputs of the update between them
+        # (outside both launch windows)
+        half = len(batches) // 2
+        skip = min(3, half) if profile else 0
+        timed_edges = sum(int((b[0] >= 0).sum()) for b in batches[skip:])
+        first, first_ms = ingest_span("persist/ingest, first half",
+                                      batches[:half], skip)
+        peak = torch.cuda.max_memory_allocated()
+        entry = reshard_slow_path_entry(new, ingest_scfg, batches[half])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        second, second_ms = ingest_span("persist/ingest, second half",
+                                        batches[half:])
+        launches = {k: first[k] + second[k] for k in first}
+        entry["launches"] = launches["slow_path"]
+        say(f"[persist/ingest] kernel launches over both halves: {launches}")
+        ingest_ms = first_ms + second_ms
+        del batches
+        t0 = time.perf_counter()
+        rs.settle_order_(new)
+        torch.cuda.synchronize()
+        settle_ms = (time.perf_counter() - t0) * 1e3
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        stats = core.counter_stats(new)
+        say(f"[persist] ingest into {ingest_scfg}: {ingest_ms:.1f} ms = "
+            f"{timed_edges / ingest_ms * 1e3:.0f} re-ingested edges/s"
+            f"{f' (the {skip} profiled updates left out)' if skip else ''}; "
+            f"settle_order_ {settle_ms:.1f} ms; rows per new shard "
+            f"{new.n_rows.tolist()}; counters {stats}; peak device memory "
+            f"of the ingest and the settle since the old state was freed "
+            f"{peak / 2**30:.2f} GiB (the kernel check between the halves "
+            f"left out)")
+
+        if stats["route_dropped"] or stats["deferred_new"] or stats["dropped_rows"]:
+            raise AssertionError(f"the reshard dropped routes, deferred or "
+                                 f"dropped rows: {stats}")
+        n_src, n_dst, n_cnt = rs.extract_edges(new)
+        dropped = stats["dropped_probes"]
+        if src.size != n_src.size + dropped:
+            raise AssertionError(f"{src.size} edges extracted, {n_src.size} in "
+                                 f"the new state + {dropped} dropped_probes")
+        key_o, cnt_o, src_o = edge_keys(src, dst, cnt)
+        key_n, cnt_n, _ = edge_keys(n_src, n_dst, n_cnt)
+        del src, dst, cnt, owner
+        new_src, new_tot = row_totals(new)
+        kept = torch.isin(src_o, new_src)
+        if not (torch.equal(key_o[kept], key_n) and torch.equal(cnt_o[kept], cnt_n)
+                and int((~kept).sum()) == dropped):
+            raise AssertionError("the new state's (src, dst, cnt) triples are "
+                                 "not the old ones less the dropped srcs'")
+        at = torch.searchsorted(old_src, new_src).clamp(max=old_src.numel() - 1)
+        if not (torch.equal(old_src[at], new_src) and torch.equal(old_tot[at], new_tot)):
+            raise AssertionError("a surviving src's tot changed")
+        inv_rows = 0
+        for r in range(RESHARD_TO):
+            one = sh.shard_state(new, r)
+            inv_rows += int((sl.inversions(one.slabs.cnt, one.slabs.order) > 0).sum())
+            inv = core.check_invariants(one, base)
+            if not all(v for k, v in inv.items() if k != "sorted_fraction"):
+                raise AssertionError(f"new shard {r}: invariants violated: {inv}")
+        if inv_rows:
+            raise AssertionError(f"{inv_rows} rows keep an inversion after the settle")
+        say(f"[persist] reshard 4 -> {RESHARD_TO}: no routing drop; "
+            f"{n_src.size} edges in the new state + {dropped} dropped_probes "
+            f"(queue C 11: {int((~kept).sum())} edges of "
+            f"{int(old_src.numel() - new_src.numel())} srcs) = the extracted "
+            f"edges; the triples equal the old ones less the dropped srcs'; "
+            f"{new_src.numel()} surviving srcs' tot unchanged; no inversion; "
+            f"every shard's invariants hold")
+        del new
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return [entry]
+
+
+def reshard_slow_path_entry(new, scfg, batch):
+    """The new-edge pass at the reshard's shapes: shard 0's items of one
+    routed ingest update (``batch``, the new-edge bound lifted) as
+    ``update_batch_`` hands them to ``ops.slow_path_`` on the half-filled
+    new state, held equal to its plain version and timed (``slow_path_entry``,
+    on copies).  Every item of a re-ingest is a new edge, so the fast path
+    leaves the state as it is and these are the pass's exact inputs.  The
+    entry's ``launches`` are the ingest's, filled in by the caller."""
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.hashtable import EMPTY
+    cfg = scfg.base
+    one = sh.shard_state(new, 0)
+    g_src, g_dst, g_w = (torch.from_numpy(x).cuda() for x in batch)
+    (rsrc, rdst, rw), *_ = sh._route(scfg, new, g_src, (g_dst, g_w))
+    src, dst, w, m = mc._batch_inputs(one, rsrc[0], rdst[0], rw[0],
+                                      rsrc[0] != EMPTY)
+    u_src, u_dst, u_w, u_act, u_pos = mc._aggregate_batch(src, dst, w, m)
+    rows0, found_src0 = mc.lookup_rows(one, u_src, cfg)
+    _, found_d0 = mc._find_slots(one, rows0, u_dst, cfg)
+    fast = u_act & found_src0 & found_d0
+    p_src, p_dst, p_w, p_mask, overflow = mc._take_new_prefix(
+        u_src, u_dst, u_w, u_pos, u_act & ~fast, cfg.resolved_max_new(len(src)))
+    if int(fast.sum()) or int(overflow):
+        raise AssertionError(f"a re-ingest update found {int(fast.sum())} "
+                             f"known edges and deferred {int(overflow)}")
+    counters = torch.stack([one.n_rows, one.dropped_rows, one.dropped_probes,
+                            one.evictions])
+    entries = []
+    slow_path_entry(entries, {"slow_path": None},
+                    torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda"),
+                    "slow_path[reshard]", cfg, one.src_table, one.slabs,
+                    counters, (p_src, p_dst, p_w, p_mask), sequential=False)
+    entries[0].update(bucket_slots=len(src), items_of_new_srcs=int(
+        (u_act & ~found_src0).sum()))
+    return entries[0]
+
+
+def parity_reshard(seed, batches=16):
+    """A small reshard, 4 -> 2 and 4 -> 8 at phase parity's sizes, once with
+    the CUDA kernels and once with the plain versions: the old states, and
+    every stacked leaf after the unbounded ingest and after the settle,
+    equal."""
+    from repro_torch import core
+    from repro_torch.core import sharded as sh
+    from repro_torch.persist import reshard as rs
+    base = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
+                         max_new_per_batch=192, decay_block_rows=128)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 29)
+    olds = {}
+    for impl in ("cuda", "ref"):
+        scfg = sh.ShardedConfig(base=dataclasses.replace(base, impl=impl),
+                                num_shards=4, bucket_factor=2.0)
+        olds[impl] = sh.init_sharded(scfg)
+    for i in range(batches):
+        src = randint(gen, -1, 900, (1024,))
+        src = torch.where(randint(gen, 0, 2, (1024,)) == 1, src % 24, src)
+        dst = (src * 7 + randint(gen, 0, 60, (1024,)) * 13) % 5000
+        w = randint(gen, 1, 4, (1024,))
+        for impl, st in olds.items():
+            scfg = sh.ShardedConfig(base=dataclasses.replace(base, impl=impl),
+                                    num_shards=4, bucket_factor=2.0)
+            sh.update_(st, src, dst, w, scfg=scfg)
+            sh.maintain_(st, scfg=scfg, total_threshold=300)
+    equal_states("parity reshard: the 4-shard states", olds["cuda"], olds["ref"])
+    src, dst, cnt = rs.extract_edges(olds["cuda"])
+    for m in (2, 8):
+        new = {}
+        for impl in ("cuda", "ref"):
+            scfg = sh.ShardedConfig(base=dataclasses.replace(base, impl=impl),
+                                    num_shards=m, bucket_factor=2.0)
+            ingest = dataclasses.replace(scfg, base=dataclasses.replace(
+                scfg.base, max_new_per_batch=0))
+            owner = scfg.resolved_ownership().owner_of(
+                torch.from_numpy(src)).numpy()
+            st = sh.init_sharded(scfg)
+            for b in rs.plan_batches(src, dst, cnt, owner, m, 256,
+                                     scfg.bucket_capacity(256)):
+                sh.update_(st, *(torch.from_numpy(x).cuda() for x in b),
+                           scfg=ingest)
+            new[impl] = st
+        equal_states(f"parity reshard 4 -> {m}: ingested", new["cuda"], new["ref"])
+        for st in new.values():
+            rs.settle_order_(st)
+        equal_states(f"parity reshard 4 -> {m}: settled", new["cuda"], new["ref"])
+        stats = core.counter_stats(new["cuda"])
+        if stats["route_dropped"] or stats["deferred_new"]:
+            raise AssertionError(f"parity reshard 4 -> {m} dropped: {stats}")
+        say(f"[parity] reshard 4 -> {m} at {base.num_rows}x{base.capacity} per "
+            f"shard: {src.size} edges re-ingested with the new-edge bound "
+            f"lifted (slices of 256), every stacked leaf equal to the plain "
+            f"versions' after the ingest and after settle_order_; counters "
+            f"{stats}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the expert monitor at deepseek-moe-16b's routing widths
 # ---------------------------------------------------------------------------
 
 # src/repro/configs/deepseek_moe_16b.py:12,21-22: 28 layers, 64 routed
@@ -2863,7 +3445,7 @@ def parity_sharded(seed, batches=16):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the whole path, kernels vs plain versions, on the card
+# phase 9: the whole path, kernels vs plain versions, on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2891,6 +3473,7 @@ def phase_parity(seed, batches=32):
     parity_learner(seed, hashed)
     parity_drafter(seed)
     parity_sharded(seed)
+    parity_reshard(seed)
 
 
 def parity_chain(seed, cfg_k, batches, label):
@@ -3054,7 +3637,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="after the main, drafter and sharded phases, print "
                          "device time by kernel (torch.profiler) over a few "
-                         "more rounds")
+                         "more rounds; in phase persist, over the reshard's "
+                         "first routed updates")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -3125,7 +3709,20 @@ def main(argv=None):
                            sharded_round)
             profile_window("sharded topn", lambda: sh.topn(state, TOP_N,
                                                            scfg=scfg))
-        del state
+        if "persist" in phases:
+            box = [state]
+            del state
+            kernels += persist_reshard(box, scfg, args.profile)
+        else:
+            del state
+        torch.cuda.empty_cache()
+    elif "persist" in phases:
+        kernels += persist_reshard(
+            list(sharded_warm_state(args.seed, args.warm_batches)[:1]),
+            sharded_config(), args.profile)
+        torch.cuda.empty_cache()
+    if "persist" in phases:
+        phase_persist(args.seed, args.warm_batches)
         torch.cuda.empty_cache()
     if "monitor" in phases:
         phase_monitor(args.seed)

@@ -13,6 +13,13 @@ counterpart of ``repro.x`` is ``repro_torch.x``:
     stream (numpy)
   * :mod:`repro_torch.analysis` — the ``requires_lock`` contract annotation
   * :mod:`repro_torch.convert` — state <-> dict of numpy leaves
+  * :mod:`repro_torch.sharding` — the two-level ownership map
+  * :mod:`repro_torch.checkpoint`, :mod:`repro_torch.persist` — checkpoints,
+    chain snapshots, the write-ahead log and the N -> M reshard, in the
+    reference's file formats
+  * :mod:`repro_torch.faults`, :mod:`repro_torch.obs`,
+    :mod:`repro_torch.runtime` — failpoints, telemetry and the retry
+    ladder (host-only)
 
 The package imports ``torch`` and never ``jax`` or ``repro``.  State lives on
 the GPU unless the caller asks for the CPU (``init(cfg, device="cpu")``),

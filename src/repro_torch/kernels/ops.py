@@ -17,6 +17,8 @@ per row), which it sets for every row whose ``cnt``, ``dst``, ``tot`` or
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.hashtable import EMPTY
@@ -32,6 +34,7 @@ from repro_torch.kernels import slab_update as _su
 from repro_torch.kernels import slow_path as _sp
 from repro_torch.kernels import topn_merge as _tm
 from repro_torch.kernels import walk as _wk
+from repro_torch.obs import tracing as _obs_tracing
 
 _IMPLS = ("auto", "ref", "cuda")
 
@@ -46,9 +49,25 @@ def _use_ref(impl: str, x: torch.Tensor) -> bool:
     return impl == "ref" or not x.is_cuda
 
 
+def _annotate(fn):
+    """Opt-in profiler annotation around a dispatcher: when
+    ``obs.tracing.KERNEL_ANNOTATE`` is on, the call runs under
+    ``torch.profiler.record_function("mcq.<op>")``, so the op's name spans
+    its launches (or its plain version's ops) in a profiler timeline; off,
+    the gate costs one module-global read per call."""
+    @functools.wraps(fn)
+    def dispatch(*args, **kwargs):
+        if _obs_tracing.KERNEL_ANNOTATE:
+            with torch.profiler.record_function(f"mcq.{fn.__name__}"):
+                return fn(*args, **kwargs)
+        return fn(*args, **kwargs)
+    return dispatch
+
+
 # ---------------------------------------------------------------------------
 
 
+@_annotate
 def oddeven_sort(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
                  impl: str = "auto") -> torch.Tensor:
     """k odd-even passes over every slab row; returns the new order
@@ -58,6 +77,7 @@ def oddeven_sort(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
     return _oe.oddeven_cuda(cnt, order, passes=passes)
 
 
+@_annotate
 def oddeven_sort_(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
                   dirty=None, impl: str = "auto") -> None:
     """The passes written into ``order``: only the rows that changed are
@@ -68,6 +88,7 @@ def oddeven_sort_(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
         _oe.oddeven_cuda_(cnt, order, passes=passes, dirty=dirty)
 
 
+@_annotate
 def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
                 dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
                 *, impl: str = "auto"):
@@ -79,6 +100,7 @@ def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
     return _su.slab_update_cuda(rows, dsts, w, dst_slab, cnt, tot)
 
 
+@_annotate
 def slab_update_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
                  dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
                  *, dirty=None, impl: str = "auto") -> None:
@@ -90,6 +112,7 @@ def slab_update_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
         _su.slab_update_cuda_(rows, dsts, w, dst_slab, cnt, tot, dirty=dirty)
 
 
+@_annotate
 def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                *, dh_keys=None, dh_vals=None, impl: str = "auto"):
     """§II.C decay: halve counters, evict dead edges, fully re-sort.
@@ -107,6 +130,7 @@ def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                                dh_vals=dh_vals)
 
 
+@_annotate
 def decay_sort_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                 tot: torch.Tensor, *, fire=None, dirty=None, dh_keys=None,
                 dh_vals=None, tombstones=None, impl: str = "auto") -> None:
@@ -122,6 +146,7 @@ def decay_sort_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
         _ds.decay_sort_cuda_(cnt, dst, order, tot, fire=fire, dirty=dirty, **dh)
 
 
+@_annotate
 def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                        order: torch.Tensor, tot: torch.Tensor,
                        cursor: torch.Tensor, *, block_rows: int,
@@ -142,6 +167,7 @@ def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                                        block_rows=block_rows, **dh)
 
 
+@_annotate
 def decay_sort_rolling_(cnt: torch.Tensor, dst: torch.Tensor,
                         order: torch.Tensor, tot: torch.Tensor,
                         cursor: torch.Tensor, *, block_rows: int, fire=None,
@@ -162,6 +188,7 @@ def decay_sort_rolling_(cnt: torch.Tensor, dst: torch.Tensor,
                                      dirty=dirty, **dh)
 
 
+@_annotate
 def dh_rebuild_(cnt: torch.Tensor, dst: torch.Tensor, dh_keys: torch.Tensor,
                 dh_vals: torch.Tensor, counters: torch.Tensor, *,
                 threshold: int, max_probes: int = 64, fire=None, dirty=None,
@@ -181,6 +208,7 @@ def dh_rebuild_(cnt: torch.Tensor, dst: torch.Tensor, dh_keys: torch.Tensor,
                              fire=fire, dirty=dirty)
 
 
+@_annotate
 def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
             dh_keys: torch.Tensor, dh_vals: torch.Tensor,
             *, max_probes: int = 64, impl: str = "auto"):
@@ -196,6 +224,7 @@ def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
                                max_probes=max_probes)
 
 
+@_annotate
 def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
             tab_vals: torch.Tensor, *, max_probes: int = 64,
             miss: int = EMPTY, impl: str = "auto"):
@@ -214,6 +243,7 @@ def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
                                max_probes=max_probes, miss=miss)
 
 
+@_annotate
 def cdf_query(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,
               threshold, *, max_items: int = 16, chunks: int = 0,
               topk: bool = False, impl: str = "auto"):
@@ -233,6 +263,7 @@ def cdf_query(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,
                                max_items=max_items)
 
 
+@_annotate
 def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                     cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                     tot: torch.Tensor, threshold, *, max_items: int = 16,
@@ -255,6 +286,7 @@ def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                                     threshold, max_items=max_items)
 
 
+@_annotate
 def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
                *, n: int, impl: str = "auto"):
     """Cross-shard top-n merge: ``(srcs[n], dsts[n], probs[n])``.
@@ -270,6 +302,7 @@ def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
     return _tm.topn_merge_cuda(probs, dsts, srcs, n=n)
 
 
+@_annotate
 def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,
                ht_vals: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
                ord0: torch.Tensor, *, k: int = 4, max_probes: int = 64,
@@ -290,6 +323,7 @@ def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,
     return toks, oks.to(torch.bool)
 
 
+@_annotate
 def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
               dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
               order: torch.Tensor, counters: torch.Tensor,
@@ -314,6 +348,7 @@ def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                               dh_vals=dh_vals)
 
 
+@_annotate
 def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
                order: torch.Tensor, counters: torch.Tensor,
@@ -334,6 +369,7 @@ def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                             dh_keys=dh_keys, dh_vals=dh_vals)
 
 
+@_annotate
 def copy_dirty_rows(front, back, dirty: torch.Tensor, *,
                     impl: str = "auto") -> None:
     """Catch ``back`` up with ``front``, each ``(cnt, dst, order, tot,
