@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases device,kernels,sharded   # the sharded chain
     python3 chip_smoke.py --phases device,persist   # durability (runs phase
                                                     # sharded's warm-up first)
+    python3 chip_smoke.py --phases device,engine    # the serving engine (the
+                                                    # same warm-up first)
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
@@ -94,6 +96,27 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 shard 0's kernels at the shapes the routing gives them and
                 the merge at the top-n's shapes, beside its bound, the
                 launch floor and ``torch.sort``;
+  6b. engine  — the serving engine (``serve.engine.ShardedEngine``) at
+                phase sharded's width: the launcher ``python -m
+                repro_torch.launch.serve --num-shards 4`` run twice, the
+                second time with ``--restore``; phase sharded's final state
+                snapshotted and restored into the engine; 20 observes of
+                262,144 transitions (WAL, back-buffer writes, ``maintain_``
+                decaying) while a query reader (16,384 srcs) and a top-16
+                reader loop in threads, launch counts around them, a
+                checkpoint(sync=False) after round 10; every stacked leaf,
+                the device counters and a query and top-16 equal to an
+                engine-free oracle (the same batches through ``sh.update_``
+                + ``sh.maintain_`` on a private copy); a crash, a fresh
+                engine, restore + WAL replay equal to the uninterrupted
+                state; observes with no reader and the reads' device time;
+                the stacked catch-up as ``copy_dirty_rows[engine]``; a
+                transient ``engine.publish`` fault retried and a persistent
+                ``engine.apply`` fault poisoning the writes (reads serve the
+                last epoch) healed by ``restore()``, each equal to the
+                oracle; a live ``reassign`` onto a rotated map with a
+                reader running, edges conserved up to ``dropped_probes``,
+                the top-16 kept;
   7. persist  — durability on the card.  Phase main's chain, warmed, is
                 snapshotted (sync), then 20 rounds log each batch to a WAL
                 before ``update_batch_`` + ``maybe_decay_`` (the decay fires,
@@ -130,7 +153,10 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 their row flags, functional callables, routed answers and
                 drops, the top-n), and a small reshard, 4 -> 2 and 4 -> 8,
                 every stacked leaf equal after the unbounded ingest and the
-                settle.
+                settle; and the engine script at S = 4 (observe, reads, a
+                retried and a poisoning fault healed, a down shard healed,
+                a crash and restore, reassign, an elastic restore 4 -> 2),
+                every stacked leaf, answer and stats counter equal.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -158,8 +184,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "persist",
-          "monitor", "parity")
+PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "engine",
+          "persist", "monitor", "parity")
 
 
 def say(*parts):
@@ -2731,6 +2757,723 @@ def sharded_path_kernels(state, scfg, traffic, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the serving engine at full width
+# ---------------------------------------------------------------------------
+
+ENGINE_ROUNDS = 20          # observe calls served while two readers loop
+ENGINE_CHECKPOINT_AFTER = 10  # checkpoint(sync=False) after this round
+ENGINE_QUERIES = 16_384     # srcs per reader query
+ENGINE_THRESHOLD = 64       # decay_threshold: maintain_ fires in the rounds
+ENGINE_SLICE = 65_536       # reingest_slice_len of the reassign (default 256)
+ENGINE_PLAIN_ROUNDS = 10    # observe calls timed with no reader running
+ENGINE_KERNELS = SHARDED_KERNELS + ("copy_dirty_rows",)
+
+
+def engine_config(root, scfg, **kw):
+    from repro_torch.runtime.fault_tolerance import RetryPolicy
+    from repro_torch.serve.engine import ShardedServeConfig
+    return ShardedServeConfig(
+        sharded=scfg, decay_threshold=ENGINE_THRESHOLD, topn=TOP_N,
+        snapshot_dir=os.path.join(root, "snap"),
+        wal_dir=os.path.join(root, "wal"), wal_fsync="rotate",
+        reingest_slice_len=ENGINE_SLICE,
+        retry=RetryPolicy(max_attempts=3, base_delay_s=1e-3, max_delay_s=1e-2),
+        **kw)
+
+
+def pct(values, q):
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def engine_launcher(root):
+    """Step 0: ``python -m repro_torch.launch.serve`` as a user runs it, with
+    a snapshot directory and a WAL, then again with ``--restore``; returns
+    the first run's printed rate (edges/s)."""
+    import re
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--num-shards",
+           "4", "--requests", "20", "--snapshot-dir",
+           os.path.join(root, "launcher_snap"), "--wal",
+           os.path.join(root, "launcher_wal")]
+    outs = {}
+    for run, extra in (("first", []), ("restore", ["--restore"])):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd + extra, env=env, cwd=repo, text=True,
+                             capture_output=True, timeout=600)
+        for line in out.stdout.splitlines():
+            say(f"[engine] launcher ({run}): {line}")
+        say(f"[engine] launcher ({run}): exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if out.returncode != 0:
+            raise AssertionError(f"the launcher ({run}) exited "
+                                 f"{out.returncode}: {out.stderr[-3000:]}")
+        outs[run] = out.stdout
+    restored = re.search(r"restored step (\d+) \(exact\), replayed (\d+) WAL "
+                         r"batches through seq (\d+)", outs["restore"])
+    if not restored:
+        raise AssertionError("the launcher's --restore run reported no "
+                             "restored snapshot step and replayed batches")
+    return float(re.search(r"\((\d+) edges/s\)", outs["first"]).group(1))
+
+
+def engine_meta(scfg):
+    """The meta ``ShardedEngine.checkpoint`` writes, for a state that no
+    engine wrote: WAL position -1, healthy, no retry queue."""
+    from repro_torch.runtime.fault_tolerance import ShardHealth
+    own = scfg.resolved_ownership()
+    return {"wal_seq": -1, "num_shards": scfg.num_shards,
+            "bucket_factor": scfg.bucket_factor,
+            "ownership": {"num_buckets": own.num_buckets,
+                          "assignment": list(own.resolved_assignment())},
+            "base_cfg": dataclasses.asdict(scfg.base), "store_version": 0,
+            "retry_queue": [], "health": ShardHealth(scfg.num_shards).dump()}
+
+
+# the engine's counters of reads its fault ladder answered: a dispatch that
+# raised is retried, then answered empty, and never raises to the reader
+READ_FAULTS = ("degraded_answers", "dispatch_retries", "query_retried",
+               "query_lost")
+
+
+class Readers:
+    """Reader threads looping on the engine's ``query`` and/or ``topn``
+    until :meth:`join`: each call timed on the host clock (a read ends with
+    the host reading its drop count, so the clock sees its latency), each
+    top-n checked sorted descending and each query's probabilities checked
+    (its rows' sorted share counted), the version each read pinned and the
+    epochs published while it ran recorded; an exception in a thread is
+    kept and re-raised by :meth:`join` on the caller's thread.  The engine
+    turns a failing read into an empty answer, so :meth:`join` also fails
+    on any read answered empty and on any ``READ_FAULTS`` counter that
+    moved while the threads ran."""
+
+    def __init__(self, engine, q, kinds=("query", "topn")):
+        import threading
+        self.engine, self.q = engine, q
+        self.stop = threading.Event()
+        self.errors, self.versions, self.lags = [], set(), []
+        self.sorted_rows = self.rows = self.empty = 0
+        stats = engine.stats_snapshot()
+        self.faults = {k: stats[k] for k in READ_FAULTS}
+        self.ms = {k: [] for k in kinds}
+        self.local = threading.local()
+        store = engine.store
+        self._acquire = store.acquire
+
+        def pinned():
+            snap = self._acquire()
+            self.local.version = snap.version
+            return snap
+        store.acquire = pinned
+        self.threads = [threading.Thread(target=self._loop, args=(k,),
+                                         name=f"reader-{k}") for k in kinds]
+        for t in self.threads:
+            t.start()
+
+    def _loop(self, kind):
+        try:
+            while not self.stop.is_set():
+                t0 = time.perf_counter()
+                if kind == "query":
+                    d, p, n = self.engine.query(self.q)
+                else:
+                    s, d, p = self.engine.topn(TOP_N)
+                ms = (time.perf_counter() - t0) * 1e3
+                self.ms[kind].append(ms)
+                self.versions.add(self.local.version)
+                self.lags.append(self.engine.store.version - self.local.version)
+                if not bool((d >= 0).any()):
+                    self.empty += 1
+                if kind == "topn":
+                    if not bool((p[:-1] >= p[1:]).all()):
+                        raise AssertionError("a top-n answer is not sorted "
+                                             "descending")
+                    continue
+                # a query answers in each row's priority order, which the
+                # odd-even passes keep approximately sorted (the paper's
+                # contract): its share of sorted rows is counted, not held
+                if d.shape != (self.q.size, 16) or not bool(
+                        (torch.isfinite(p) & (p >= 0) & (p <= 1)).all()
+                        & (p.sum(dim=1) <= 1 + 1e-5).all()):
+                    raise AssertionError("a query answer is not [B, 16] "
+                                         "probabilities in [0, 1]")
+                self.sorted_rows += int((p[:, :-1] >= p[:, 1:]).all(dim=1).sum())
+                self.rows += p.shape[0]
+        except BaseException as exc:       # re-raised on the main thread
+            self.errors.append(exc)
+
+    def join(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join()
+        del self.engine.store.acquire      # the store's own method again
+        if self.errors:
+            raise AssertionError(f"a reader thread raised: "
+                                 f"{self.errors[0]!r}") from self.errors[0]
+        stats = self.engine.stats_snapshot()
+        moved = {k: stats[k] - v for k, v in self.faults.items()
+                 if stats[k] != v}
+        if moved or self.empty:
+            raise AssertionError(f"the engine's fault ladder answered reads: "
+                                 f"{self.empty} answered empty, counters "
+                                 f"moved {moved}")
+
+
+class ObserveClock:
+    """``engine.observe`` timed per round on the host clock, beside the WAL
+    append inside it (its ``wal.append`` wrapped) and whether the engine's
+    async snapshot worker was writing while the round ran: what the tail of
+    an observe is made of."""
+
+    def __init__(self, engine):
+        self.engine, self.rounds, self.wal_ms = engine, [], []
+        append = engine.wal.append
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return append(*args, **kw)
+            finally:
+                self.wal_ms.append((time.perf_counter() - t0) * 1e3)
+        engine.wal.append = timed
+
+    def writing(self):
+        return any(t.is_alive() for t in self.engine._io_threads)
+
+    def observe(self, src, dst):
+        busy = self.writing()
+        t0 = time.perf_counter()
+        self.engine.observe(src, dst)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.rounds.append((ms, self.wal_ms[-1], busy or self.writing()))
+
+    @property
+    def ms(self):
+        return [ms for ms, _, _ in self.rounds]
+
+    def summary(self):
+        quiet = [ms for ms, _, busy in self.rounds if not busy]
+        tail = (f"p50 {pct(quiet, 50):.2f} ms p99 {pct(quiet, 99):.2f} ms"
+                if quiet else "none")
+        return ("per round, observe ms / its WAL append ms (S: the snapshot "
+                "worker was writing): " + " ".join(
+                    f"{ms:.1f}/{wal:.1f}{'S' if busy else ''}"
+                    for ms, wal, busy in self.rounds)
+                + f"; the {len(quiet)} rounds without the worker: {tail}")
+
+
+@contextlib.contextmanager
+def catch_up_events():
+    """CUDA events around every ``ops.copy_dirty_rows`` the learner launches
+    (its catch-up), read after the block: yields the list of ms."""
+    from repro_torch.kernels import ops
+    real, events, out = ops.copy_dirty_rows, [], []
+
+    def timed_copy(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(*args, **kw)
+        end.record()
+        events.append((start, end))
+
+    ops.copy_dirty_rows = timed_copy
+    try:
+        yield out
+    finally:
+        ops.copy_dirty_rows = real
+        torch.cuda.synchronize()
+        out.extend(s.elapsed_time(e) for s, e in events)
+
+
+def prune_snapshots(directory, keep):
+    """Remove every snapshot step directory but the newest ``keep``."""
+    import shutil
+    steps = sorted(d for d in os.listdir(directory) if d.startswith("step_"))
+    for d in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, d))
+
+
+def engine_answers(engine, q):
+    """One query and one top-n through the engine, as device tensors."""
+    return (*engine.query(q), *engine.topn(TOP_N))
+
+
+def oracle_answers(state, scfg, q):
+    from repro_torch.core import sharded as sh
+    return (*sh.query(state, q, 0.9, 16, scfg=scfg)[:3],
+            *sh.topn(state, TOP_N, scfg=scfg)[:3])
+
+
+def published(engine):
+    snap = engine.store.acquire()
+    engine.store.release(snap)
+    return snap.state
+
+
+def phase_engine(state, scfg, seed):
+    """The serving engine (``repro_torch.serve.engine.ShardedEngine``) at
+    phase sharded's full width, on ``state`` (phase sharded's final state,
+    left as it is): the launcher as a user runs it; the state snapshotted
+    and restored into the engine; 20 observes served while a query reader
+    and a top-n reader loop; every leaf against an engine-free oracle; a
+    crash and its recovery; the fault ladder; the stacked catch-up as a
+    kernels entry; a live reassign with a reader running."""
+    import gc
+    import shutil
+    from repro_torch import core, faults
+    from repro_torch.core import epoch
+    from repro_torch.core import sharded as sh
+    from repro_torch.kernels import ops
+    from repro_torch.persist import snapshot as snap_io
+    from repro_torch.runtime.fault_tolerance import EngineWriteUnavailable
+    from repro_torch.serve.engine import ShardedEngine
+    from repro_torch.sharding import Ownership
+    nbytes = state_bytes(state)
+    record_bytes = 12 * SHARDS * BATCH
+    root = persist_dir(2 * nbytes + 2 ** 30 + 64 * record_bytes, "engine")
+    entries = []
+    try:
+        # step 0: the launcher, as a user runs it
+        launcher_rate = engine_launcher(root)
+
+        # step 1: phase sharded's state, snapshotted, restored into the engine
+        cfg = engine_config(root, scfg)
+        t0 = time.perf_counter()
+        snap_io.save_snapshot(state, cfg.snapshot_dir, 0, engine_meta(scfg))
+        save_s = time.perf_counter() - t0
+        engine = ShardedEngine(cfg)
+        t0 = time.perf_counter()
+        info = engine.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if info != {"step": 0, "mode": "exact", "replayed": 0, "wal_seq": -1}:
+            raise AssertionError(f"engine restore of phase sharded's state: {info}")
+        equal_states("engine restore vs phase sharded's state",
+                     published(engine), state)
+        oracle = core.private_copy(published(engine))
+        say(f"[engine] {cfg}")
+        say(f"[engine] phase sharded's state ({nbytes / 2**30:.2f} GiB) "
+            f"snapshotted in {save_s:.1f} s, restored into the engine (exact) "
+            f"in {restore_s:.1f} s: every stacked leaf equal")
+
+        traffic = Traffic(seed + 31, nodes=SHARD_NODES)
+        batch = SHARDS * BATCH
+        q = traffic.srcs(ENGINE_QUERIES).cpu().numpy()
+        w = torch.ones(batch, dtype=torch.int32, device="cuda")
+
+        def host_batch():
+            src, dst = traffic.batch(batch)
+            return src.cpu().numpy(), dst.cpu().numpy()
+
+        def feed(src, dst):
+            sh.update_(oracle, torch.from_numpy(src).cuda(),
+                       torch.from_numpy(dst).cuda(), w, scfg=scfg)
+            sh.maintain_(oracle, scfg=scfg, total_threshold=ENGINE_THRESHOLD)
+
+        # step 2: serve while learning
+        batches = [host_batch() for _ in range(ENGINE_ROUNDS)]
+        decays = engine.stats["decay_steps"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock, stall_ms = ObserveClock(engine), None
+        with launch_window("engine", ENGINE_KERNELS) as launches, \
+                catch_up_events() as catch_ms:
+            readers = Readers(engine, q)
+            try:
+                for i, (src, dst) in enumerate(batches):
+                    clock.observe(src, dst)
+                    if i + 1 == ENGINE_CHECKPOINT_AFTER:
+                        t0 = time.perf_counter()
+                        engine.checkpoint(sync=False)
+                        stall_ms = (time.perf_counter() - t0) * 1e3
+                time.sleep(0.05)   # the readers meet the last version too
+            finally:
+                readers.join()
+        peak = torch.cuda.max_memory_allocated()
+        if engine.stats["decay_steps"] <= decays:
+            raise AssertionError("maintain_ never decayed in the rounds")
+        versions = sorted(readers.versions)
+        if len(versions) < 2:
+            raise AssertionError(f"the readers saw one version only: {versions}")
+        lags = np.bincount(readers.lags).tolist()
+        say(f"[engine] {ENGINE_ROUNDS} observes of {batch} transitions with a "
+            f"query reader ({ENGINE_QUERIES} srcs, t=0.9, k=16) and a top-"
+            f"{TOP_N} reader looping: observe p50 {pct(clock.ms, 50):.2f} ms "
+            f"p99 {pct(clock.ms, 99):.2f} ms = "
+            f"{batch / pct(clock.ms, 50) * 1e3:.0f} transitions/s at p50 "
+            f"({clock.summary()}); "
+            f"catch-up (copy_dirty_rows, events) p50 {pct(catch_ms, 50):.4f} "
+            f"ms; {len(readers.ms['query'])} queries p50 "
+            f"{pct(readers.ms['query'], 50):.2f} ms p99 "
+            f"{pct(readers.ms['query'], 99):.2f} ms = "
+            f"{ENGINE_QUERIES / pct(readers.ms['query'], 50) * 1e3:.0f} srcs/s; "
+            f"{len(readers.ms['topn'])} top-n p50 "
+            f"{pct(readers.ms['topn'], 50):.2f} ms p99 "
+            f"{pct(readers.ms['topn'], 99):.2f} ms; versions read "
+            f"{versions[0]}..{versions[-1]} ({len(versions)} distinct); "
+            f"epochs published while a read ran (count by lag 0, 1, ...) "
+            f"{lags}; checkpoint(sync=False) stalled the writer "
+            f"{stall_ms:.1f} ms; peak device memory {peak / 2**30:.2f} GiB "
+            f"(phase sharded's state, the oracle and the engine's two states "
+            f"among it); every top-n sorted, query rows in sorted order "
+            f"{readers.sorted_rows}/{readers.rows}; no reader raised, none "
+            f"answered empty, {', '.join(READ_FAULTS)} unmoved")
+
+        # step 3: the oracle, with no engine in between
+        for src, dst in batches:
+            feed(src, dst)
+        equal_states("engine vs the engine-free oracle", published(engine),
+                     oracle)
+        st, want = engine.stats_snapshot(), core.counter_stats(oracle)
+        if {k: st[k] for k in want} != want:
+            raise AssertionError(f"engine counters {st} vs oracle {want}")
+        compare("engine query and top-n vs the oracle's",
+                engine_answers(engine, q), oracle_answers(oracle, scfg, q))
+        say(f"[engine] oracle: the {ENGINE_ROUNDS} batches through sh.update_ "
+            f"+ sh.maintain_ on a private copy of the restored state: every "
+            f"stacked leaf, the device counters {want} and a query and top-"
+            f"{TOP_N} equal to the engine's")
+
+        # step 4: crash and recover
+        engine.close()
+        del engine, readers
+        gc.collect()
+        torch.cuda.empty_cache()
+        prune_snapshots(cfg.snapshot_dir, keep=1)
+        engine = ShardedEngine(cfg)
+        t0 = time.perf_counter()
+        info = engine.restore()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        want = {"step": ENGINE_CHECKPOINT_AFTER, "mode": "exact",
+                "replayed": ENGINE_ROUNDS - ENGINE_CHECKPOINT_AFTER,
+                "wal_seq": ENGINE_ROUNDS - 1}
+        if info != want:
+            raise AssertionError(f"recovery: {info}, expected {want}")
+        equal_states("recovered engine vs the uninterrupted state",
+                     published(engine), oracle)
+        say(f"[engine] crash after round {ENGINE_ROUNDS}, a fresh engine: "
+            f"restore + replay {info} in {recover_s:.1f} s; every stacked "
+            f"leaf equal to the uninterrupted state")
+
+        # observe with no reader running, its device busy share, the reads'
+        # device time and idle-device latency
+        plain = ObserveClock(engine)
+        with catch_up_events() as plain_catch_ms:
+            for _ in range(ENGINE_PLAIN_ROUNDS):
+                src, dst = host_batch()
+                plain.observe(src, dst)
+                feed(src, dst)
+        from torch.profiler import ProfilerActivity, profile
+        profiled = [host_batch() for _ in range(3)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for src, dst in profiled:
+                engine.observe(src, dst)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = report_profile("engine: 3 observes, no reader", prof, prof_ms)
+        for src, dst in profiled:
+            feed(src, dst)
+        # a read ends in a host read of its drop count, so its device time
+        # comes from the profiler, not from events behind a spin kernel
+        reads = {}
+        for key, fn in (("query", lambda: engine.query(q)),
+                        ("topn", lambda: engine.topn(TOP_N))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            reads[key] = (report_profile(f"engine: 5 {key} calls, no writer",
+                                         prof, wall_ms) / 5, wall_ms / 5)
+        say(f"[engine] {ENGINE_PLAIN_ROUNDS} observes with no reader, the "
+            f"first {ENGINE_PLAIN_ROUNDS} of the recovered engine: p50 "
+            f"{pct(plain.ms, 50):.2f} ms p99 {pct(plain.ms, 99):.2f} ms = "
+            f"{batch / pct(plain.ms, 50) * 1e3:.0f} transitions/s at p50 "
+            f"({plain.summary()}); "
+            f"catch-up p50 {pct(plain_catch_ms, 50):.4f} ms; device busy "
+            f"{100 * busy_ms / prof_ms:.1f} % of 3 profiled observes; "
+            + "; ".join(f"{k}: device {d:.3f} ms of {i:.3f} ms per call "
+                        f"(profiler on, 5 calls), busy {100 * d / i:.1f} %"
+                        for k, (d, i) in reads.items()))
+
+        # step 7 (before the fault ladder: the learner holds the flags of
+        # its last write here): the stacked catch-up at full width
+        lrn = engine._writer
+        front, back = epoch._copied(lrn._front), epoch._copied(lrn._back)
+        flags = lrn._dirty.view(-1).clone()
+        caught = [x.clone() for x in back]
+        ops.copy_dirty_rows(front, caught, flags.clone(), impl="cuda")
+        for i, (x, y) in enumerate(zip(caught, front)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"stacked catch-up: tensor {i} is not "
+                                     f"the front after it")
+        del caught
+        rows, c = front[0].shape
+        t_size, h = front[4].numel(), front[7].shape[1]
+        flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        inplace_entry(
+            entries, launches, flush, "copy_dirty_rows[engine]",
+            "copy_dirty_rows", "copy_rows.cu",
+            "none: the back-buffer learner's catch-up",
+            lambda impl, work, dirty: ops.copy_dirty_rows(
+                front, tuple(work), dirty, impl=impl),
+            back,
+            # the flags read and cleared, each flagged row (and its row-hash
+            # lane) read and written, the S tables and scalars whole
+            bytes_moved=lambda flagged: rows + flagged * (1 + 8 * (
+                3 * c + 1 + 2 * h)) + 8 * (2 * t_size + front[6].numel()),
+            operations=0, flags=flags,
+            extra=dict(rows=rows, shards=SHARDS, table_slots=t_size,
+                       rows_flagged_by_last_write=int(flags.sum())))
+        del front, back, flush
+
+        # step 5: the fault ladder on the card
+        src, dst = host_batch()
+        faults.arm("engine.publish", RuntimeError("transient publish fault"),
+                   count=1)
+        try:
+            engine.observe(src, dst)
+        finally:
+            faults.reset()
+        feed(src, dst)
+        if engine.stats["apply_retries"] != 1:
+            raise AssertionError(f"publish fault: apply_retries "
+                                 f"{engine.stats['apply_retries']}")
+        equal_states("after a retried publish fault vs the oracle",
+                     published(engine), oracle)
+        before = engine_answers(engine, q)
+        src, dst = host_batch()
+        faults.arm("engine.apply", RuntimeError("persistent apply fault"))
+        try:
+            engine.observe(src, dst)
+            raise AssertionError("a persistent apply fault did not poison")
+        except EngineWriteUnavailable:
+            pass
+        finally:
+            faults.reset()
+        if engine.write_available:
+            raise AssertionError("the write path is not poisoned")
+        compare("a poisoned engine serves the last epoch",
+                engine_answers(engine, q), before)
+        del before
+        t0 = time.perf_counter()
+        info = engine.restore()
+        heal_s = time.perf_counter() - t0
+        feed(src, dst)
+        if not engine.write_available or info["replayed"] != 1:
+            raise AssertionError(f"restore did not heal the poison: {info}")
+        equal_states("healed engine vs the oracle", published(engine), oracle)
+        say(f"[engine] fault ladder: a transient engine.publish fault retried "
+            f"(apply_retries 1), the state equal to the oracle's; a persistent "
+            f"engine.apply fault poisoned the write path while query and top-n "
+            f"served the last epoch unchanged; restore() from the poison's "
+            f"checkpoint-now + the ghost record {info} in {heal_s:.1f} s "
+            f"healed it, equal to the oracle")
+        del oracle
+        gc.collect()
+        torch.cuda.empty_cache()
+        prune_snapshots(cfg.snapshot_dir, keep=1)
+
+        # step 6: a live reassign, a reader querying
+        own = scfg.resolved_ownership()
+        new_own = Ownership(num_shards=SHARDS, num_buckets=own.num_buckets,
+                            assignment=tuple((a + 1) % SHARDS for a in
+                                             own.resolved_assignment()))
+        old = published(engine)
+        extracted = int(torch.count_nonzero(old.slabs.cnt))
+        del old
+        top_before = [x.cpu() for x in engine.topn(TOP_N)]
+        torch.cuda.reset_peak_memory_stats()
+        readers = Readers(engine, q, kinds=("query",))
+        try:
+            t0 = time.perf_counter()
+            engine.reassign(new_own)
+            torch.cuda.synchronize()
+            reassign_s = time.perf_counter() - t0
+        finally:
+            readers.join()
+        new = published(engine)
+        stats = core.counter_stats(new)
+        kept = int(torch.count_nonzero(new.slabs.cnt))
+        if engine.cfg.sharded.ownership != new_own:
+            raise AssertionError("reassign did not install the new map")
+        if stats["route_dropped"] or stats["deferred_new"] or stats["evictions"]:
+            raise AssertionError(f"reassign dropped or deferred: {stats}")
+        if extracted != kept + stats["dropped_probes"]:
+            raise AssertionError(f"reassign: {extracted} edges extracted, "
+                                 f"{kept} kept + {stats['dropped_probes']} "
+                                 f"dropped_probes")
+        top_after = [x.cpu() for x in engine.topn(TOP_N)]
+        if not torch.equal(top_after[2], top_before[2]):
+            raise AssertionError("reassign changed the global top-16's "
+                                 "probabilities")
+        strict = top_before[2] > top_before[2][-1]
+        pairs = [set(zip(t[0][strict].tolist(), t[1][strict].tolist()))
+                 for t in (top_before, top_after)]
+        if pairs[0] != pairs[1]:
+            raise AssertionError("reassign changed the global top-16's edges")
+        for s in range(SHARDS):
+            inv = core.check_invariants(sh.shard_state(new, s), scfg.base)
+            if not all(v for key, v in inv.items() if key != "sorted_fraction"):
+                raise AssertionError(f"reassigned shard {s}: {inv}")
+        del new
+        say(f"[engine] reassign onto a map rotated by one shard, a query "
+            f"reader running ({len(readers.ms['query'])} queries, versions "
+            f"{sorted(readers.versions)}, none answered empty, "
+            f"{', '.join(READ_FAULTS)} unmoved): {reassign_s:.1f} s, "
+            f"{extracted / reassign_s:.0f} edges/s; {extracted} edges "
+            f"extracted = {kept} kept + {stats['dropped_probes']} "
+            f"dropped_probes; no routing drop, deferral or eviction; the "
+            f"global top-{TOP_N} the same (probabilities, and the edges above "
+            f"the 16th's tie); every shard's invariants hold; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        engine.close()
+        del engine
+        say(f"[engine] the launcher's own printed rate at its default sizes: "
+            f"{launcher_rate:.0f} edges/s")
+    finally:
+        faults.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    return entries
+
+
+def engine_script(impl, root, batches, q):
+    """Every surface of the engine at phase parity's size, S = 4 with a WAL
+    and snapshots: observe, query, top-n; a transient publish fault and a
+    poisoned write, each healed; a down shard, deferred writes and
+    ``heal_shard``; an async checkpoint, a crash and a restore; ``reassign``
+    4 -> 4 and an elastic restore 4 -> 2.  Returns every stacked leaf,
+    answer and stats counter recorded, by name."""
+    from repro_torch import convert, core, faults
+    from repro_torch.core import sharded as sh
+    from repro_torch.runtime.fault_tolerance import (EngineWriteUnavailable,
+                                                     RetryPolicy)
+    from repro_torch.serve.engine import ShardedEngine, ShardedServeConfig
+    from repro_torch.sharding import Ownership
+    base = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
+                         max_new_per_batch=192, decay_block_rows=128,
+                         impl=impl)
+
+    def cfg_at(n):
+        return ShardedServeConfig(
+            sharded=sh.ShardedConfig(base=base, num_shards=n,
+                                     bucket_factor=1.0),
+            decay_threshold=64, topn=TOP_N,
+            snapshot_dir=os.path.join(root, "snap"),
+            wal_dir=os.path.join(root, "wal"), wal_fsync="never",
+            retry=RetryPolicy(max_attempts=3, base_delay_s=1e-4,
+                              max_delay_s=1e-3))
+
+    rec = {}
+
+    def snap(tag, eng):
+        for k, v in convert.state_to_numpy(published(eng)).items():
+            rec[f"{tag}/{k}"] = torch.from_numpy(v)
+        for k, v in sorted(eng.stats_snapshot().items()):
+            rec[f"{tag}/stats/{k}"] = torch.tensor(v)
+        for i, x in enumerate(engine_answers(eng, q)):
+            rec[f"{tag}/answer{i}"] = x.cpu()
+
+    feed = iter(batches)
+    eng = ShardedEngine(cfg_at(4))
+    for _ in range(6):
+        eng.observe(*next(feed))
+    snap("observed", eng)
+    faults.arm("engine.publish", RuntimeError("transient"), count=1)
+    eng.observe(*next(feed))
+    faults.reset()
+    snap("transient", eng)
+    eng.checkpoint()
+    faults.arm("engine.apply", RuntimeError("persistent"))
+    try:
+        eng.observe(*next(feed))
+        raise AssertionError("engine script: the write path did not poison")
+    except EngineWriteUnavailable:
+        pass
+    finally:
+        faults.reset()
+    snap("poisoned", eng)
+    eng.restore()
+    snap("healed", eng)
+    eng.mark_shard_down(1)
+    eng.observe(*next(feed))
+    snap("down", eng)
+    if eng.heal_shard(1) != 1:
+        raise AssertionError("engine script: heal_shard re-applied nothing")
+    snap("heal", eng)
+    eng.checkpoint(sync=False)
+    eng.observe(*next(feed))
+    eng.close()
+    eng = ShardedEngine(cfg_at(4))
+    info = eng.restore()
+    rec["recovered/replayed"] = torch.tensor(info["replayed"])
+    snap("recovered", eng)
+    eng.reassign(Ownership(num_shards=4, assignment=tuple(
+        (b + 1) % 4 for b in range(Ownership(num_shards=4).num_buckets))))
+    snap("reassigned", eng)
+    eng.observe(*next(feed))
+    eng.checkpoint()
+    eng.close()
+    eng = ShardedEngine(cfg_at(2))
+    info = eng.restore()
+    if info["mode"] != "reshard":
+        raise AssertionError(f"engine script: elastic restore {info}")
+    snap("elastic", eng)
+    eng.close()
+    return rec
+
+
+def parity_engine(seed, n_batches=12):
+    """The engine script (:func:`engine_script`) once with the CUDA kernels
+    and once with the plain versions: every stacked leaf, answer and stats
+    counter equal."""
+    import shutil
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 29)
+    batches = []
+    for _ in range(n_batches):
+        src = randint(gen, -1, 900, (1024,))
+        src = torch.where(randint(gen, 0, 2, (1024,)) == 1, src % 24, src)
+        dst = (src * 7 + randint(gen, 0, 60, (1024,)) * 13) % 5000
+        batches.append((src.cpu().numpy(), dst.cpu().numpy()))
+    q = randint(gen, -1, 950, (400,)).cpu().numpy()
+    root = persist_dir(2 ** 26, "parity engine")
+    try:
+        recs = {impl: engine_script(impl, os.path.join(root, impl), batches, q)
+                for impl in ("cuda", "ref")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if list(recs["cuda"]) != list(recs["ref"]):
+        raise AssertionError("engine script: the two runs recorded different "
+                             "things")
+    for name in recs["cuda"]:
+        compare(f"parity engine {name}", recs["cuda"][name], recs["ref"][name])
+    stats = {k.split("/")[-1]: int(v) for k, v in recs["cuda"].items()
+             if k.startswith("elastic/stats/")}
+    say(f"[parity] engine script at S=4 (512x32 per shard, WAL and "
+        f"snapshots): {len(recs['cuda'])} recorded leaves, answers and "
+        f"counters equal, CUDA kernels against plain versions; final "
+        f"(elastic 4 -> 2) stats {stats}")
+    for key, tag in (("apply_retries", "transient"), ("write_errors", "poisoned"),
+                     ("deferred_writes", "down"), ("route_dropped", "observed"),
+                     ("decay_steps", "observed")):
+        if int(recs["cuda"][f"{tag}/stats/{key}"]) <= 0:
+            raise AssertionError(f"engine script never exercised {key}")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: durability — snapshot, WAL, crash recovery, the N -> M reshard
 # ---------------------------------------------------------------------------
 
@@ -2971,7 +3714,7 @@ def warm_sharded(state, scfg, traffic, w, warm_batches):
 
 def sharded_warm_state(seed, warm_batches):
     """Phase sharded's state after its warm-up, without its rounds (for
-    ``--phases persist`` alone)."""
+    ``--phases persist`` or ``engine`` without phase sharded)."""
     from repro_torch.core import sharded as sh
     scfg = sharded_config()
     state = sh.init_sharded(scfg)
@@ -3474,6 +4217,7 @@ def phase_parity(seed, batches=32):
     parity_drafter(seed)
     parity_sharded(seed)
     parity_reshard(seed)
+    parity_engine(seed)
 
 
 def parity_chain(seed, cfg_k, batches, label):
@@ -3709,6 +4453,8 @@ def main(argv=None):
                            sharded_round)
             profile_window("sharded topn", lambda: sh.topn(state, TOP_N,
                                                            scfg=scfg))
+        if "engine" in phases:
+            kernels += phase_engine(state, scfg, args.seed)
         if "persist" in phases:
             box = [state]
             del state
@@ -3716,10 +4462,15 @@ def main(argv=None):
         else:
             del state
         torch.cuda.empty_cache()
-    elif "persist" in phases:
-        kernels += persist_reshard(
-            list(sharded_warm_state(args.seed, args.warm_batches)[:1]),
-            sharded_config(), args.profile)
+    elif "persist" in phases or "engine" in phases:
+        state, scfg = sharded_warm_state(args.seed, args.warm_batches)
+        if "engine" in phases:
+            kernels += phase_engine(state, scfg, args.seed)
+        box = [state]
+        del state
+        if "persist" in phases:
+            kernels += persist_reshard(box, scfg, args.profile)
+        del box
         torch.cuda.empty_cache()
     if "persist" in phases:
         phase_persist(args.seed, args.warm_batches)

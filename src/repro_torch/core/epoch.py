@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.analysis.invariants import requires_lock
 from repro_torch.core import mcprioq as mc
-from repro_torch.kernels import ops
+from repro_torch.kernels import copy_rows, ops
 
 
 class Snapshot(NamedTuple):
@@ -130,13 +130,33 @@ def _chain(state) -> mc.MCState:
     return getattr(state, "chain", state)
 
 
+def _scalars(chain: mc.MCState) -> torch.Tensor:
+    """The scalar leaves of a chain as one flat int32 view: ``[10]`` of a
+    chain, ``[S·10]`` of a stacked state (``core.sharded``: the scalars are
+    the columns of one contiguous ``[S, 10]`` tensor).  Raises when they
+    are not packed so."""
+    if chain.n_rows.dim() == 0:
+        return mc.scalars_of(chain)
+    k = len(mc.SCALAR_FIELDS)
+    mc.scalars_of(mc.map_leaves(lambda x: x[0], chain))   # shard 0 packed
+    if chain.n_rows.dim() != 1 or chain.n_rows.stride() != (k,):
+        raise ValueError("the stacked scalar leaves are not the columns of "
+                         "one contiguous [S, 10] int32 tensor")
+    return chain.n_rows.as_strided((chain.n_rows.shape[0] * k,), (1,))
+
+
 def _copied(chain: mc.MCState):
     """What ``ops.copy_dirty_rows`` takes of a chain: the slab rows, the src
     table, the scalars and the row hashes (their rows are written under the
-    same flags as the slab's)."""
+    same flags as the slab's).  A stacked state's leaves are contiguous, so
+    its ``S·N`` rows, ``S·T`` table slots and ``S·10`` scalars are flat
+    views of them: one catch-up for every shard."""
     slabs = chain.slabs
-    return (slabs.cnt, slabs.dst, slabs.order, slabs.tot, *chain.src_table,
-            mc.scalars_of(chain), chain.dh_keys, chain.dh_vals)
+    c, h = slabs.cnt.shape[-1], chain.dh_keys.shape[-1]
+    return (slabs.cnt.view(-1, c), slabs.dst.view(-1, c),
+            slabs.order.view(-1, c), slabs.tot.view(-1),
+            *(x.view(-1) for x in chain.src_table), _scalars(chain),
+            chain.dh_keys.view(-1, h), chain.dh_vals.view(-1, h))
 
 
 def _leaves(chain: mc.MCState):
@@ -161,7 +181,9 @@ class BackBufferLearner:
     The store's current state must be one the learner owns from now on
     (built by ``init``: its scalar leaves are views of one tensor); the back
     starts as a ``mcprioq.private_copy`` of it.  A state is an ``MCState``
-    or holds one as ``.chain``.
+    or holds one as ``.chain``, or a stacked state of S shards
+    (``core.sharded``, S <= 25): its flags are ``[S, N]`` and one
+    catch-up launch covers every shard.
 
     Stream rule: a host ``release`` does not mean the device has finished
     reading.  Readers must launch on the learner's stream (the current
@@ -177,7 +199,14 @@ class BackBufferLearner:
         store.release(snap)
         self._front = snap.state
         chain = _chain(snap.state)
-        mc.scalars_of(chain)         # the learner writes the scalars in place
+        scalars = _scalars(chain)    # the learner writes the scalars in place
+        if scalars.numel() > copy_rows.MAX_SCALARS:
+            raise ValueError(
+                f"a back-buffer learner catches up at most "
+                f"{copy_rows.MAX_SCALARS} scalars in one launch "
+                f"(kernels/copy_rows.py MAX_SCALARS): at most "
+                f"{copy_rows.MAX_SCALARS // len(mc.SCALAR_FIELDS)} shards, "
+                f"got {scalars.numel() // len(mc.SCALAR_FIELDS)}")
         back = mc.private_copy(chain)
         self._back = (snap.state._replace(chain=back)
                       if hasattr(snap.state, "chain") else back)
@@ -208,7 +237,8 @@ class BackBufferLearner:
         self._check_stream("the learner")
         self.store.synchronize()     # the back's version has no reader left
         front, back = _chain(self._front), _chain(self._back)
-        ops.copy_dirty_rows(_copied(front), _copied(back), self._dirty)
+        ops.copy_dirty_rows(_copied(front), _copied(back),
+                            self._dirty.view(-1))
         new = fn(self._back, *args, dirty=self._dirty, **kwargs)
         if [x.data_ptr() for x in _leaves(_chain(new))] != \
                 [x.data_ptr() for x in _leaves(back)]:

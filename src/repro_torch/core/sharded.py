@@ -65,7 +65,8 @@ __all__ = [
     "ShardedConfig", "owner_of", "init_sharded", "shard_state",
     "predict_route_overflow", "update_", "query", "maintain_",
     "decay_", "topn_lists", "topn", "make_update_fn", "make_query_fn",
-    "make_maintain_fn", "make_decay_fn", "make_topn_fn",
+    "make_maintain_fn", "make_decay_fn", "make_topn_fn", "make_update_fn_",
+    "make_maintain_fn_",
 ]
 
 
@@ -385,6 +386,23 @@ def make_update_fn(scfg: ShardedConfig):
     def fn(state, src, dst, w):
         own = mc.private_copy(state, dh=scfg.base.use_dst_hash)
         return update_(own, src, dst, w, scfg=scfg)
+    return fn
+
+
+def make_update_fn_(scfg: ShardedConfig):
+    """``(state, src[B], dst[B], w[B], *, dirty=None) -> state``, the owner
+    program: :func:`update_` under ``scfg``, writing into ``state``."""
+    def fn(state, src, dst, w, *, dirty=None):
+        return update_(state, src, dst, w, scfg=scfg, dirty=dirty)
+    return fn
+
+
+def make_maintain_fn_(scfg: ShardedConfig, total_threshold: int):
+    """``(state, *, dirty=None) -> state``, the owner program:
+    :func:`maintain_` under ``scfg``, writing into ``state``."""
+    def fn(state, *, dirty=None):
+        return maintain_(state, scfg=scfg, total_threshold=total_threshold,
+                         dirty=dirty)
     return fn
 
 

@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis.invariants import kernel_op
 from repro_torch.core.hashtable import EMPTY
 from repro_torch.kernels import cdf_gather as _cg
 from repro_torch.kernels import cdf_query as _cdf
@@ -67,6 +68,7 @@ def _annotate(fn):
 # ---------------------------------------------------------------------------
 
 
+@kernel_op(ref="oddeven_sort_ref", pallas="oddeven_pallas")
 @_annotate
 def oddeven_sort(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
                  impl: str = "auto") -> torch.Tensor:
@@ -77,6 +79,7 @@ def oddeven_sort(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
     return _oe.oddeven_cuda(cnt, order, passes=passes)
 
 
+@kernel_op(ref="oddeven_sort_ref_")
 @_annotate
 def oddeven_sort_(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
                   dirty=None, impl: str = "auto") -> None:
@@ -88,6 +91,7 @@ def oddeven_sort_(cnt: torch.Tensor, order: torch.Tensor, *, passes: int = 1,
         _oe.oddeven_cuda_(cnt, order, passes=passes, dirty=dirty)
 
 
+@kernel_op(ref="slab_update_ref", pallas="slab_update_pallas")
 @_annotate
 def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
                 dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
@@ -100,6 +104,7 @@ def slab_update(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
     return _su.slab_update_cuda(rows, dsts, w, dst_slab, cnt, tot)
 
 
+@kernel_op(ref="slab_update_ref_")
 @_annotate
 def slab_update_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
                  dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
@@ -112,6 +117,7 @@ def slab_update_(rows: torch.Tensor, dsts: torch.Tensor, w: torch.Tensor,
         _su.slab_update_cuda_(rows, dsts, w, dst_slab, cnt, tot, dirty=dirty)
 
 
+@kernel_op(ref="decay_sort_ref")
 @_annotate
 def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                *, dh_keys=None, dh_vals=None, impl: str = "auto"):
@@ -130,6 +136,7 @@ def decay_sort(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                                dh_vals=dh_vals)
 
 
+@kernel_op(ref="decay_sort_ref_")
 @_annotate
 def decay_sort_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
                 tot: torch.Tensor, *, fire=None, dirty=None, dh_keys=None,
@@ -146,6 +153,7 @@ def decay_sort_(cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
         _ds.decay_sort_cuda_(cnt, dst, order, tot, fire=fire, dirty=dirty, **dh)
 
 
+@kernel_op(ref="decay_sort_rolling_ref")
 @_annotate
 def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                        order: torch.Tensor, tot: torch.Tensor,
@@ -167,6 +175,7 @@ def decay_sort_rolling(cnt: torch.Tensor, dst: torch.Tensor,
                                        block_rows=block_rows, **dh)
 
 
+@kernel_op(ref="decay_sort_rolling_ref_")
 @_annotate
 def decay_sort_rolling_(cnt: torch.Tensor, dst: torch.Tensor,
                         order: torch.Tensor, tot: torch.Tensor,
@@ -188,6 +197,7 @@ def decay_sort_rolling_(cnt: torch.Tensor, dst: torch.Tensor,
                                      dirty=dirty, **dh)
 
 
+@kernel_op(ref="dh_rebuild_ref_")
 @_annotate
 def dh_rebuild_(cnt: torch.Tensor, dst: torch.Tensor, dh_keys: torch.Tensor,
                 dh_vals: torch.Tensor, counters: torch.Tensor, *,
@@ -208,6 +218,7 @@ def dh_rebuild_(cnt: torch.Tensor, dst: torch.Tensor, dh_keys: torch.Tensor,
                              fire=fire, dirty=dirty)
 
 
+@kernel_op(ref="dh_find_ref", pallas="probe_find_pallas")
 @_annotate
 def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
             dh_keys: torch.Tensor, dh_vals: torch.Tensor,
@@ -224,6 +235,7 @@ def dh_find(rows: torch.Tensor, dsts: torch.Tensor,
                                max_probes=max_probes)
 
 
+@kernel_op(ref="probe_find_ref", pallas="probe_find_pallas")
 @_annotate
 def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
             tab_vals: torch.Tensor, *, max_probes: int = 64,
@@ -243,6 +255,7 @@ def ht_find(keys_q: torch.Tensor, tab_keys: torch.Tensor,
                                max_probes=max_probes, miss=miss)
 
 
+@kernel_op(ref="cdf_query_ref", pallas="cdf_query_pallas")
 @_annotate
 def cdf_query(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,
               threshold, *, max_items: int = 16, chunks: int = 0,
@@ -263,6 +276,7 @@ def cdf_query(c_ord: torch.Tensor, d_ord: torch.Tensor, tot: torch.Tensor,
                                max_items=max_items)
 
 
+@kernel_op(ref="cdf_query_fused_ref", pallas="cdf_query_fused_pallas")
 @_annotate
 def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                     cnt: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
@@ -286,6 +300,7 @@ def cdf_query_fused(rows: torch.Tensor, found: torch.Tensor,
                                     threshold, max_items=max_items)
 
 
+@kernel_op(ref="topn_merge_ref", pallas=None)
 @_annotate
 def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
                *, n: int, impl: str = "auto"):
@@ -302,6 +317,7 @@ def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
     return _tm.topn_merge_cuda(probs, dsts, srcs, n=n)
 
 
+@kernel_op(ref="draft_walk_ref", pallas="draft_walk_pallas")
 @_annotate
 def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,
                ht_vals: torch.Tensor, cnt: torch.Tensor, dst: torch.Tensor,
@@ -323,6 +339,7 @@ def draft_walk(window: torch.Tensor, ht_keys: torch.Tensor,
     return toks, oks.to(torch.bool)
 
 
+@kernel_op(composes=("slow_path_",))
 @_annotate
 def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
               dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
@@ -348,6 +365,7 @@ def slow_path(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                               dh_vals=dh_vals)
 
 
+@kernel_op(ref="slow_path_ref_")
 @_annotate
 def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                dst_slab: torch.Tensor, cnt: torch.Tensor, tot: torch.Tensor,
@@ -369,6 +387,7 @@ def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                             dh_keys=dh_keys, dh_vals=dh_vals)
 
 
+@kernel_op(ref="copy_dirty_rows_ref")
 @_annotate
 def copy_dirty_rows(front, back, dirty: torch.Tensor, *,
                     impl: str = "auto") -> None:
