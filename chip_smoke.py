@@ -9,6 +9,8 @@
                                                     # sharded's warm-up first)
     python3 chip_smoke.py --phases device,engine    # the serving engine (the
                                                     # same warm-up first)
+    python3 chip_smoke.py --phases device,soak,examples   # the crash soak
+                                                    # and the chain examples
 
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
@@ -143,6 +145,25 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 collapsed; every leaf, ``balance_report`` and
                 ``hot_experts`` equal to the same monitor's on the CPU
                 (plain versions); ms per ``observe`` and per report;
+  8b. soak    — the port's kill-and-recover soak (``repro_torch.chaos.soak``)
+                at phase main's width: 2**20 rows x 16 slots (the soak's
+                capacity), batches of 65,536, a snapshot every 5 observes,
+                every batch WAL-logged with fsync; 8 worker processes on the
+                card, one cycle of its kill modes (4 external SIGKILLs, and
+                self-kills inside ``wal.append.write`` (twice),
+                ``wal.append.fsync``, ``snapshot.arrays_write`` and
+                ``snapshot.manifest_commit``); after each death a recovery
+                here on the card, every leaf, the WAL position and a probe
+                query and top-8 held bit for bit against an oracle that
+                replays every durable batch; each kill's records, replay
+                and recovery ms, the oracle's replay and the worker's
+                start-up; the last snapshot restored on the card and on the
+                CPU, equal; the path's kernels at the soak's shapes against
+                their plain versions, tagged ``[soak]``;
+  8c. examples — ``examples/torch_{telecom_paging,recommender_sessions,
+                quickstart}.py`` as a user runs them, on the card and with
+                ``--device cpu``, all six at once: each exits 0 and prints
+                the same lines on both (timings and a process id masked);
   9. parity   — the whole path at a small configuration, once with the CUDA
                 kernels and once with the plain versions, every state leaf and
                 every query answer equal after every batch, the owner calls
@@ -156,7 +177,15 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 settle; and the engine script at S = 4 (observe, reads, a
                 retried and a poisoning fault healed, a down shard healed,
                 a crash and restore, reassign, an elastic restore 4 -> 2),
-                every stacked leaf, answer and stats counter equal.
+                every stacked leaf, answer and stats counter equal; engines
+                of 40 shards (kernels and plain versions: every stacked
+                leaf, answer and top-16 equal, the top-16 equal to a host
+                sort), their catch-up over 400 scalars as
+                ``copy_dirty_rows[S=40]``, the merge at 33, 40 and 64 lists
+                (two rounds) against the flat plain version and its rounds,
+                a 64-shard top-16 against a host sort, the merges at the
+                engine's and the 64-shard chain's lists as
+                ``topn_merge[S=40]`` and ``topn_merge[S=64]``.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
@@ -185,7 +214,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
 PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "engine",
-          "persist", "monitor", "parity")
+          "persist", "monitor", "soak", "examples", "parity")
 
 
 def say(*parts):
@@ -506,15 +535,19 @@ def small_copy_checks(gen):
     sizes; the back's tensors and the cleared flags equal."""
     from repro_torch.kernels import ops
     cases = 0
-    for n, c, h, share, dh in (
-            (37, 1, 1, 0.3, 0), (37, 5, 16, 0.0, 0), (40, 32, 64, 1.0, 0),
-            (41, 128, 1024, 0.3, 0), (1000, 300, 4096, 0.1, 0),
-            (37, 5, 16, 0.4, 1), (41, 128, 64, 0.3, 8), (300, 128, 4096, 0.2, 512),
-            (33, 7, 32, 1.0, 4096)):
+    for n, c, h, share, dh, k in (
+            (37, 1, 1, 0.3, 0, 10), (37, 5, 16, 0.0, 0, 10),
+            (40, 32, 64, 1.0, 0, 10), (41, 128, 1024, 0.3, 0, 10),
+            (1000, 300, 4096, 0.1, 0, 10), (37, 5, 16, 0.4, 1, 10),
+            (41, 128, 64, 0.3, 8, 10), (300, 128, 4096, 0.2, 512, 10),
+            (33, 7, 32, 1.0, 4096, 10),
+            # the scalars of 40 and 257 stacked shards: more than one
+            # block's threads, and more than the table's slots
+            (40, 5, 16, 0.3, 0, 400), (257, 3, 8, 0.5, 0, 2570)):
         front = [*random_slabs(gen, n, c)]
         back = [*random_slabs(gen, n, c)]
         tables = [randint(gen, -2, 500, (h,)) for _ in range(4)]
-        scalars = [randint(gen, 0, 99, (10,)) for _ in range(2)]
+        scalars = [randint(gen, 0, 99, (k,)) for _ in range(2)]
         hashes = [randint(gen, -2, 500, (n, dh)) for _ in range(4)] if dh else []
         flags = (torch.rand(n, generator=gen, device="cuda") < share).to(torch.uint8)
         outs = []
@@ -529,10 +562,11 @@ def small_copy_checks(gen):
             outs.append(b + [dirty])
         torch.cuda.synchronize()
         compare(f"copy_dirty_rows N={n} C={c} T={h} row hashes H={dh} "
-                f"flagged {share}", *outs)
+                f"flagged {share} scalars {k}", *outs)
         cases += 1
     say(f"[kernels] copy_dirty_rows: {cases} cases equal to the plain version "
-        f"(torch.equal, flags cleared), row hashes of width 1 to 4096 in 4")
+        f"(torch.equal, flags cleared), row hashes of width 1 to 4096 in 4, "
+        f"10 to 2,570 scalars")
 
 
 def small_decay_checks(gen, both, both_):
@@ -2987,6 +3021,22 @@ def catch_up_events():
         out.extend(s.elapsed_time(e) for s, e in events)
 
 
+def commit_clock(io_thread, t0):
+    """Start timing an async snapshot's commit: returns a function that
+    waits for the worker and gives the milliseconds from ``t0`` to the
+    moment the worker ended (not to the moment it is asked)."""
+    import threading
+    ended = []
+    watcher = threading.Thread(
+        target=lambda: (io_thread.join(), ended.append(time.perf_counter())))
+    watcher.start()
+
+    def ms():
+        watcher.join()
+        return (ended[0] - t0) * 1e3
+    return ms
+
+
 def prune_snapshots(directory, keep):
     """Remove every snapshot step directory but the newest ``keep``."""
     import shutil
@@ -3088,9 +3138,13 @@ def phase_engine(state, scfg, seed):
                         t0 = time.perf_counter()
                         engine.checkpoint(sync=False)
                         stall_ms = (time.perf_counter() - t0) * 1e3
+                        # the worker's commit: capture to on_complete, its
+                        # fsyncs included
+                        commit = commit_clock(engine._io_threads[-1], t0)
                 time.sleep(0.05)   # the readers meet the last version too
             finally:
                 readers.join()
+        commit_ms = commit()
         peak = torch.cuda.max_memory_allocated()
         if engine.stats["decay_steps"] <= decays:
             raise AssertionError("maintain_ never decayed in the rounds")
@@ -3115,7 +3169,9 @@ def phase_engine(state, scfg, seed):
             f"{versions[0]}..{versions[-1]} ({len(versions)} distinct); "
             f"epochs published while a read ran (count by lag 0, 1, ...) "
             f"{lags}; checkpoint(sync=False) stalled the writer "
-            f"{stall_ms:.1f} ms; peak device memory {peak / 2**30:.2f} GiB "
+            f"{stall_ms:.1f} ms and its worker committed (fsynced) "
+            f"{commit_ms:.1f} ms after the call; peak device memory "
+            f"{peak / 2**30:.2f} GiB "
             f"(phase sharded's state, the oracle and the engine's two states "
             f"among it); every top-n sorted, query rows in sorted order "
             f"{readers.sorted_rows}/{readers.rows}; no reader raised, none "
@@ -4188,6 +4244,339 @@ def parity_sharded(seed, batches=16):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: the kill-and-recover soak at phase main's width
+# ---------------------------------------------------------------------------
+
+SOAK_KILLS = 8            # one cycle of the soak's KILL_MODES
+SOAK_ROWS = NUM_NODES     # 2**20 rows x 16 slots (the soak's capacity)
+SOAK_EVERY = 5            # observes between two background snapshots
+SOAK_KERNELS = ("probe_find", "slab_update", "oddeven", "slow_path",
+                "decay_sort", "cdf_query_fused", "copy_dirty_rows",
+                "topn_merge")   # the decay decided on the device, not firing
+
+
+def phase_soak(seed):
+    """``repro_torch.chaos.soak.run_soak`` with GPU workers: 8 lives, each
+    killed (external SIGKILL, or a self-kill inside ``wal.append.write``,
+    ``wal.append.fsync``, ``snapshot.arrays_write``,
+    ``snapshot.manifest_commit``), recovered here on the card and held bit
+    for bit against a replay oracle; then the last recovered snapshot
+    restored on the card and on the CPU, equal; then the path's kernels at
+    the soak's shapes against their plain versions."""
+    from repro_torch import convert, core
+    from repro_torch.chaos import soak
+    from repro_torch.core import sharded as sh
+    from repro_torch.persist import snapshot as snapshot_io
+    per_snapshot = SOAK_ROWS * 16 * 3 * 4 + 2 ** 25
+    workdir = persist_dir(40 * per_snapshot, "soak")
+    t0 = time.perf_counter()
+    with launch_window("soak", SOAK_KERNELS) as launches:
+        result = soak.run_soak(SOAK_KILLS, rows=SOAK_ROWS, batch=BATCH,
+                               seed=seed, snapshot_every=SOAK_EVERY,
+                               workdir=workdir, device="cuda")
+    wall = time.perf_counter() - t0
+    lives = [r for r in result["rows"] if "kill_mode" in r]
+    for k, r in enumerate(lives):
+        say(f"[soak] kill {k}: mode {r['kill_mode']}, "
+            f"{'killed by its failpoint' if r['armed_death'] else 'SIGKILL'} "
+            f"after {r['steps_seen']} steps; durable records {r['steps']}, "
+            f"replayed {r['replayed']}; recovery (restore + replay) "
+            f"{r['us_per_call'] / 1e3:.1f} ms; oracle replay of every durable "
+            f"record {r['oracle_s'] * 1e3:.1f} ms; worker start to READY "
+            + ("not reached" if r["start_s"] is None else
+               f"{r['start_s'] * 1e3:.1f} ms") + " (imports, engine and CUDA "
+            f"context {(r['engine_s'] or 0) * 1e3:.1f} ms, its restore "
+            + ("none: the base snapshot" if r["restore_s"] is None else
+               f"{r['restore_s'] * 1e3:.1f} ms") + ")"
+            + ("" if r["bitexact"] else f"; DIVERGED: {r['derived']}"))
+    rec = [r["us_per_call"] / 1e3 for r in lives]
+    say(f"[soak] {len(lives)} kills at {SOAK_ROWS} rows x 16 slots, batches "
+        f"of {BATCH}, a snapshot every {SOAK_EVERY} observes, WAL fsync "
+        f"always: recovery mean {statistics.mean(rec):.1f} ms, max "
+        f"{max(rec):.1f} ms; all bit-exact {result['ok']}; {wall:.1f} s")
+    if not result["ok"] or len(lives) < SOAK_KILLS:
+        raise AssertionError(f"soak: {len(lives)} of {SOAK_KILLS} kills "
+                             f"completed, all bit-exact {result['ok']}")
+    if [r["kill_mode"] for r in lives] != [m or "sigkill"
+                                            for m in soak.KILL_MODES]:
+        raise AssertionError("soak: the lives did not run one cycle of "
+                             "KILL_MODES")
+
+    # the newest complete snapshot, restored on the card and on the CPU
+    engines = {}
+    for device in ("cuda", "cpu"):
+        engines[device] = soak._build_engine(workdir, SOAK_ROWS, device=device)
+        info = engines[device].restore(replay=False)
+    card, cpu = (published(engines[d]) for d in ("cuda", "cpu"))
+    equal_states("soak: the last snapshot restored on the card vs the CPU",
+                 card, on_card(cpu))
+    engines["cpu"].close()
+    # the WAL tail replayed on the card gives the state the soak verified
+    step = snapshot_io.latest_complete_step(os.path.join(workdir, "snap"))
+    t0 = time.perf_counter()
+    engines["cuda"].restore()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    state = published(engines["cuda"])
+    say(f"[soak] snapshot step {step} ({info['mode']}, wal_seq "
+        f"{info['wal_seq']}) restored on the card and on the CPU: all "
+        f"{len(convert.LEAF_NAMES)} leaves equal; on the card with its WAL "
+        f"tail {replay_ms:.1f} ms; counters {core.counter_stats(state)}")
+
+    # the path's kernels at the soak's shapes: shard 0 of the recovered
+    # state, one more batch of the stream, the probe query's srcs
+    scfg = engines["cuda"].cfg.sharded
+    src, dst = (torch.from_numpy(x).cuda() for x in
+                soak.batch_for(seed, engines["cuda"]._seq + 1, SOAK_ROWS, BATCH))
+    q = torch.arange(QUERIES, dtype=torch.int32, device="cuda")
+    entries = path_shape_kernels(sh.shard_state(state, 0), scfg.base, src, dst,
+                                 q, launches, path="soak", reads=((0.9, 16),),
+                                 unfused=False)
+    engines["cuda"].close()
+    del engines, state, card, cpu
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the three chain examples on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("telecom_paging", "recommender_sessions", "quickstart")
+EXAMPLE_MASKS = (   # what differs from run to run: timings, a process id
+    (r'(mcq_engine_\w+_seconds\{quantile="[0-9.]+"\}) \S+', r"\1 <seconds>"),
+    (r"incident_(\d+)_\d+\.json", r"incident_\1_<pid>.json"),
+)
+
+
+def phase_examples():
+    """``examples/torch_*.py`` as a user runs them, on the card (their
+    default device), and again with ``--device cpu``, all six at once: each
+    exits 0, and every line a run prints (timings and a process id masked)
+    is the same on the card as on the CPU."""
+    import re
+    import threading
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(root / "src"),
+                                         env.get("PYTHONPATH", "")])
+    runs, done = {}, {}
+
+    env["OMP_NUM_THREADS"] = "2"   # six processes share the host's cores
+
+    def run(name, device):
+        args = [sys.executable, str(root / "examples" / f"torch_{name}.py")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(args + (["--device", "cpu"] if device == "cpu"
+                                      else []),
+                              cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        done[(name, device)] = time.perf_counter() - t0
+        runs[(name, device)] = proc
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(name, device))
+               for name in EXAMPLES for device in ("cuda", "cpu")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for (name, device), proc in sorted(runs.items()):
+        if proc.returncode != 0:
+            raise AssertionError(f"examples/torch_{name}.py on {device} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+
+    def masked(text):
+        for pattern, repl in EXAMPLE_MASKS:
+            text = re.sub(pattern, repl, text)
+        return text.splitlines()
+
+    for name in EXAMPLES:
+        card, cpu = (masked(runs[(name, d)].stdout) for d in ("cuda", "cpu"))
+        if card != cpu or len(card) < 5:
+            diff = [(a, b) for a, b in zip(card, cpu) if a != b][:3]
+            raise AssertionError(f"examples/torch_{name}.py prints other "
+                                 f"lines on the card than on the CPU: {diff}")
+        say(f"[examples] torch_{name}.py: exit 0 on the card in "
+            f"{done[(name, 'cuda')]:.1f} s and on the CPU in "
+            f"{done[(name, 'cpu')]:.1f} s (all six at once); its "
+            f"{len(card)} lines equal")
+        for line in runs[(name, "cuda")].stdout.splitlines():
+            say(f"[examples]   {line}")
+    say(f"[examples] three examples on the card and on the CPU in {wall:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# more shards than one warp's lists, kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+MANY_SHARDS = 40          # the engine: S > 25 (the catch-up's old limit)
+MANY_LISTS = 64           # the merge alone: two groups of 32 lists
+
+
+def parity_many_shards(seed):
+    """Engines of ``MANY_SHARDS`` shards, one with the kernels and one with
+    the plain versions: every stacked leaf after every observe, the routed
+    answers and the top-16 equal, and the top-16 equal to a stable host
+    sort of every shard's live edges; the stacked catch-up over S·10
+    scalars and the merge of 33, 40 and 64 lists (ties, NaN, zero and
+    negative heads, lists shorter than n) equal to their plain versions;
+    a 64-shard top-16.  Returns the kernel entries
+    ``copy_dirty_rows[S=40]``, ``topn_merge[S=40]`` and
+    ``topn_merge[S=64]``."""
+    from repro_torch import core
+    from repro_torch.core import epoch
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.hashtable import EMPTY
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import ShardedEngine, ShardedServeConfig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 41)
+    rng = np.random.default_rng(seed + 41)
+    base = dict(num_rows=256, capacity=16, sort_passes=2, decay_block_rows=64)
+    s = MANY_SHARDS
+    engines = {impl: ShardedEngine(ShardedServeConfig(
+        sharded=sh.ShardedConfig(base=core.MCConfig(**base, impl=impl),
+                                 num_shards=s, bucket_factor=4.0),
+        decay_threshold=48)) for impl in ("cuda", "ref")}
+    with launch_window(f"parity engine S={s}",
+                       ("copy_dirty_rows", "topn_merge")) as launches:
+        for i in range(12):
+            src = rng.integers(0, 6 * s, 32 * s).astype(np.int32)
+            dst = rng.integers(0, 40, src.size).astype(np.int32)
+            for engine in engines.values():
+                engine.observe(src, dst)
+            equal_states(f"parity S={s} engine observe {i}",
+                         *(published(e) for e in engines.values()))
+            q = rng.integers(-1, 7 * s, 8 * s).astype(np.int32)
+            compare(f"parity S={s} engine query {i}",
+                    *(e.query(q) for e in engines.values()))
+            tops = [e.topn(16) for e in engines.values()]
+            compare(f"parity S={s} engine top-16 {i}", *tops)
+            host = host_topn(published(engines["cuda"]), 16)
+            for got, want in zip(tops[0], host[:3]):
+                if not np.array_equal(got.cpu().numpy(), np.asarray(want)):
+                    raise AssertionError(f"parity S={s} engine top-16 {i} "
+                                         f"differs from a host sort")
+    stats = core.counter_stats(published(engines["cuda"]))
+    if stats["decay_steps"] <= 0 or stats["evictions"] <= 0:
+        raise AssertionError(f"parity S={s} engine never decayed: {stats}")
+    say(f"[parity] engine at S={s} x {base['num_rows']} rows x "
+        f"{base['capacity']} slots: 12 observes, every stacked leaf, query "
+        f"and top-16 equal to the plain versions', the top-16 to a stable "
+        f"host sort; counters {stats}")
+
+    entries = []
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    lrn = engines["cuda"]._writer
+    front, back = epoch._copied(lrn._front), epoch._copied(lrn._back)
+    flags = lrn._dirty.view(-1).clone()
+    rows, c = front[0].shape
+    t_size = front[4].numel()
+    inplace_entry(
+        entries, launches, flush, f"copy_dirty_rows[S={s}]",
+        "copy_dirty_rows", "copy_rows.cu",
+        "none: the back-buffer learner's catch-up",
+        lambda impl, work, dirty: ops.copy_dirty_rows(front, tuple(work), dirty,
+                                                      impl=impl),
+        back,
+        # the flags read and cleared, each flagged row read and written,
+        # the S tables and the S·10 scalars whole
+        bytes_moved=lambda flagged: rows + flagged * (1 + 8 * (3 * c + 1))
+        + 8 * (2 * t_size + front[6].numel()),
+        operations=0, flags=flags,
+        extra=dict(rows=rows, shards=s, scalars=front[6].numel()))
+    del front, back
+
+    def merge_entry(label, probs, dsts, srcs, n, launches):
+        lists, m = probs.shape
+        groups = -(-lists // 32)
+        merged = ops.topn_merge(probs, dsts, srcs, n=n)
+        winners = int((merged[2] > 0).sum())
+
+        def library():
+            v, i = torch.sort(probs.view(-1), descending=True, stable=True)
+            v, i = v[:n], i[:n]
+            live = v > 0
+            return (torch.where(live, srcs.view(-1)[i], EMPTY),
+                    torch.where(live, dsts.view(-1)[i], EMPTY),
+                    torch.where(live, v, 0.0))
+
+        kernel_entry(entries, launches, flush, label, "topn_merge",
+                     "topn_merge.cu", "src/repro/kernels/ref.py:185",
+                     lambda impl: ops.topn_merge(probs, dsts, srcs, n=n,
+                                                 impl=impl),
+                     # every list's reachable prefix staged once, each
+                     # group's n raw steps written and read once (12 B),
+                     # the winners' srcs and dsts, the n outputs
+                     bytes_moved=4 * lists * min(m, n) + 24 * groups * n
+                     + 8 * winners + 12 * n,
+                     operations=4 * n * (lists + groups), library=library,
+                     extra=dict(lists=lists, length=m, rounds=2
+                                if lists > 32 else 1, live_winners=winners))
+
+    merge_entry(f"topn_merge[S={s}]", *sh.topn_lists(
+        published(engines["cuda"]), 16, scfg=engines["cuda"].cfg.sharded)[:3],
+        16, launches)
+    for engine in engines.values():
+        engine.close()
+    del engines
+
+    # the merge alone at 33, 40 and 64 lists, any input
+    cases = 0
+    for lists in (33, 40, MANY_LISTS):
+        for m, n in ((5, 16), (16, 16), (3, 200), (40, 7)):
+            for kind in ("descending", "unsorted", "nan"):
+                probs = randint(gen, 0, 6, (lists, m)).float() / 8
+                if kind == "descending":
+                    probs = torch.sort(probs, dim=1, descending=True).values
+                    probs[:, m // 2 + 1:] = 0.0
+                elif kind == "nan":
+                    r = torch.rand((3, lists, m), generator=gen, device="cuda")
+                    probs[r[0] < 0.1] = float("nan")
+                    probs[r[1] < 0.2] = -0.0
+                    probs[r[2] < 0.1] = -0.5
+                live = probs > 0
+                dsts = torch.where(live, randint(gen, 0, 500, (lists, m)), -1
+                                   ).to(torch.int32)
+                srcs = torch.where(live, randint(gen, 0, 500, (lists, m)), -1
+                                   ).to(torch.int32)
+                got = ops.topn_merge(probs, dsts, srcs, n=n, impl="cuda")
+                compare(f"topn_merge S={lists} M={m} n={n} {kind}", got,
+                        ops.topn_merge(probs, dsts, srcs, n=n, impl="ref"))
+                compare(f"topn_merge S={lists} M={m} n={n} {kind} (rounds)",
+                        got, ref.topn_merge_rounds_ref(probs, dsts, srcs, n))
+                cases += 1
+    say(f"[parity] topn_merge: {cases} cases at 33, 40 and {MANY_LISTS} lists "
+        f"(two rounds), equal to the flat plain version and its rounds")
+
+    # a 64-shard chain's top-16 through the rounds, on the path
+    scfg = sh.ShardedConfig(base=core.MCConfig(num_rows=64, capacity=8,
+                                               sort_passes=2),
+                            num_shards=MANY_LISTS, bucket_factor=4.0)
+    state = sh.init_sharded(scfg)
+    with launch_window(f"parity top-16 at S={MANY_LISTS}",
+                       ("topn_merge",)) as launches:
+        for _ in range(4):
+            src = randint(gen, 0, 4 * MANY_LISTS, (16 * MANY_LISTS,))
+            dst = randint(gen, 0, 30, (16 * MANY_LISTS,))
+            sh.update_(state, src, dst, torch.ones_like(src), scfg=scfg)
+            got = sh.topn(state, 16, scfg=scfg)
+            host = host_topn(state, 16)
+            for a, b in zip(got[:3], host[:3]):
+                if not np.array_equal(a.cpu().numpy(), np.asarray(b)):
+                    raise AssertionError(f"top-16 at S={MANY_LISTS} differs "
+                                         f"from a host sort")
+    merge_entry(f"topn_merge[S={MANY_LISTS}]",
+                *sh.topn_lists(state, 16, scfg=scfg)[:3], 16, launches)
+    say(f"[parity] top-16 of a {MANY_LISTS}-shard chain equal to a stable host "
+        f"sort after each of 4 updates")
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the whole path, kernels vs plain versions, on the card
 # ---------------------------------------------------------------------------
 
@@ -4218,6 +4607,7 @@ def phase_parity(seed, batches=32):
     parity_sharded(seed)
     parity_reshard(seed)
     parity_engine(seed)
+    return parity_many_shards(seed)
 
 
 def parity_chain(seed, cfg_k, batches, label):
@@ -4394,12 +4784,21 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    seconds, last = {}, [t_start]
+
+    def lap(name):   # wall seconds of the phase that just ended
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
+
     card = phase_device()
+    lap("device")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     kernels = []
     if "kernels" in phases:
         small_kernel_checks(gen)
+        lap("kernels")
     if "main" in phases:
         state, cfg, traffic, launches, known = phase_main(
             args.seed, args.warm_batches, args.rounds)
@@ -4423,6 +4822,7 @@ def main(argv=None):
                                                       known[2], cfg=cfg))
         del state
         torch.cuda.empty_cache()
+        lap("main")
     if "hash" in phases:
         state, cfg, traffic, launches = phase_hash(
             args.seed, args.warm_batches, args.rounds)
@@ -4430,10 +4830,12 @@ def main(argv=None):
         kernels += hash_path_kernels(state, cfg, src, dst, launches)
         del state, src, dst
         torch.cuda.empty_cache()
+        lap("hash")
     if "drafter" in phases:
         kernels += phase_drafter(args.seed, args.warm_batches // 2,
                                  args.rounds, args.profile)
         torch.cuda.empty_cache()
+        lap("drafter")
     if "sharded" in phases:
         state, scfg, traffic, launches = phase_sharded(
             args.seed, args.warm_batches, args.rounds)
@@ -4453,12 +4855,15 @@ def main(argv=None):
                            sharded_round)
             profile_window("sharded topn", lambda: sh.topn(state, TOP_N,
                                                            scfg=scfg))
+        lap("sharded")
         if "engine" in phases:
             kernels += phase_engine(state, scfg, args.seed)
+            lap("engine")
         if "persist" in phases:
             box = [state]
             del state
             kernels += persist_reshard(box, scfg, args.profile)
+            lap("persist (reshard)")
         else:
             del state
         torch.cuda.empty_cache()
@@ -4472,15 +4877,26 @@ def main(argv=None):
             kernels += persist_reshard(box, scfg, args.profile)
         del box
         torch.cuda.empty_cache()
+        lap("engine, persist (reshard)")
     if "persist" in phases:
         phase_persist(args.seed, args.warm_batches)
         torch.cuda.empty_cache()
+        lap("persist (chain)")
     if "monitor" in phases:
         phase_monitor(args.seed)
+        lap("monitor")
+    if "soak" in phases:
+        kernels += phase_soak(args.seed)
+        lap("soak")
+    if "examples" in phases:
+        phase_examples()
+        lap("examples")
     if "parity" in phases:
-        phase_parity(args.seed)
+        kernels += phase_parity(args.seed)
+        lap("parity")
     torch.cuda.synchronize()
-    say(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
+    say(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s; "
+        f"seconds by phase {seconds}")
     say(card)
     if set(phases) != set(PHASES):
         say(json.dumps({"kernels": kernels}))

@@ -4,6 +4,10 @@ Counterpart of ``repro.checkpoint.ckpt``, with the same files:
 
 Layout:  <dir>/step_<n>/manifest.json + arrays.npz
 
+The manifest's rename is the commit, and it is durable: every file is
+fsynced before the rename and the directories around it after (``_write``).
+The reference commits with no fsync; the files are the same bytes.
+
 Each leaf is keyed by its '/'-joined tree path, spelled as the reference
 spells a jax tree path, and the leaves are listed in jax's flattening
 order: a NamedTuple field is ``.field`` (``.src_table/.keys`` for an
@@ -79,18 +83,39 @@ def _gather(x) -> np.ndarray:
     return np.array(x, copy=True)
 
 
+def fsync_path(path: str) -> None:
+    """Flush a file's or a directory's contents and metadata to the disk
+    (a directory: the names it holds), through a descriptor of its own."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def _write(path: str, step: int, keys, host) -> None:
+    """Write ``arrays.npz`` and commit ``manifest.json`` in ``path``, the
+    commit durable when this returns: the npz is fsynced, the manifest's
+    temp file is fsynced and renamed into place only once every other name
+    in ``path`` (and ``path``'s own in its parent) is on the disk, and the
+    rename is fsynced in turn.  So a manifest that survives a power loss
+    names arrays that survived it too."""
     failpoint("snapshot.arrays_write", path=path, step=step)
-    np.savez(os.path.join(path, "arrays.npz"),
-             **{f"a{i}": a for i, a in enumerate(host)})
+    arrays = os.path.join(path, "arrays.npz")
+    np.savez(arrays, **{f"a{i}": a for i, a in enumerate(host)})
+    fsync_path(arrays)
+    fsync_path(os.path.dirname(path))   # the step directory's own name
     manifest = {"step": step, "keys": list(keys),
                 "dtypes": [str(a.dtype) for a in host],
                 "shapes": [list(a.shape) for a in host]}
     tmp = os.path.join(path, "manifest.json.tmp")
     with open(tmp, "w") as f:
         json.dump(manifest, f)
+    fsync_path(tmp)
+    fsync_path(path)   # the npz's and the sidecar's names, before the commit
     failpoint("snapshot.manifest_commit", path=path, step=step)
     os.replace(tmp, os.path.join(path, "manifest.json"))  # atomic commit
+    fsync_path(path)   # the commit itself
 
 
 def save(tree: PyTree, directory: str, step: int) -> str:
@@ -108,9 +133,9 @@ def save_async(tree: PyTree, directory: str, step: int,
     thread and is complete when this returns, so the state's owner may
     write the state again at once (the port's owner calls write in place);
     file IO runs on a worker thread.  ``on_complete`` (a zero-arg callable)
-    runs on the worker thread strictly after the manifest rename commits —
-    the hook for actions that are only safe once the checkpoint is durable,
-    e.g. WAL truncation.  ``on_error`` receives any exception the worker
+    runs on the worker thread strictly after the manifest rename commits
+    and that rename is fsynced (``_write``) — the hook for actions that are
+    only safe once the checkpoint is on the disk, e.g. WAL truncation.  ``on_error`` receives any exception the worker
     hits (IO faults, a failing ``on_complete``); without it the exception
     propagates and the thread dies with a stderr traceback.
 

@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.analysis.invariants import requires_lock
 from repro_torch.core import mcprioq as mc
-from repro_torch.kernels import copy_rows, ops
+from repro_torch.kernels import ops
 
 
 class Snapshot(NamedTuple):
@@ -182,8 +182,8 @@ class BackBufferLearner:
     (built by ``init``: its scalar leaves are views of one tensor); the back
     starts as a ``mcprioq.private_copy`` of it.  A state is an ``MCState``
     or holds one as ``.chain``, or a stacked state of S shards
-    (``core.sharded``, S <= 25): its flags are ``[S, N]`` and one
-    catch-up launch covers every shard.
+    (``core.sharded``, any S): its flags are ``[S, N]`` and one catch-up
+    launch covers every shard.
 
     Stream rule: a host ``release`` does not mean the device has finished
     reading.  Readers must launch on the learner's stream (the current
@@ -199,14 +199,7 @@ class BackBufferLearner:
         store.release(snap)
         self._front = snap.state
         chain = _chain(snap.state)
-        scalars = _scalars(chain)    # the learner writes the scalars in place
-        if scalars.numel() > copy_rows.MAX_SCALARS:
-            raise ValueError(
-                f"a back-buffer learner catches up at most "
-                f"{copy_rows.MAX_SCALARS} scalars in one launch "
-                f"(kernels/copy_rows.py MAX_SCALARS): at most "
-                f"{copy_rows.MAX_SCALARS // len(mc.SCALAR_FIELDS)} shards, "
-                f"got {scalars.numel() // len(mc.SCALAR_FIELDS)}")
+        _scalars(chain)   # raises unless packed (the learner writes in place)
         back = mc.private_copy(chain)
         self._back = (snap.state._replace(chain=back)
                       if hasattr(snap.state, "chain") else back)

@@ -15,6 +15,7 @@ package and use the plain versions on CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -50,7 +51,7 @@ SIGNATURES = {
                        _P, _P, _I, _P, _P],
     "mcq_copy_dirty_rows": [_P] * 19 + [_LL, _I, _LL, _I, _I, _P],
     "mcq_dh_rebuild": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
-    "mcq_topn_merge": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "mcq_topn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -126,12 +127,21 @@ def _compile(lib_path: Path) -> None:
 
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if this source tree's build
-    is not there yet.  Raises when it cannot be built or loaded."""
+    is not there yet: under an exclusive lock on ``build.lock``, so that
+    processes starting together build it once (the rename in ``_compile``
+    alone keeps a reader from half a file, not two builds from running).
+    Raises when it cannot be built or loaded."""
     global _lib
     if _lib is None:
         lib_path = BUILD_DIR / f"libmcq_{source_hash()}.so"
         if not lib_path.exists():
-            _compile(lib_path)
+            # one build at a time across processes (soak workers start
+            # together): the first builds, the others find its library
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "build.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not lib_path.exists():
+                    _compile(lib_path)
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

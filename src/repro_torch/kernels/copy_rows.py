@@ -33,7 +33,6 @@ __all__ = ["copy_dirty_rows_cuda", "copy_dirty_rows_ref", "launches"]
 launches = 0  # kernel launches made by copy_dirty_rows_cuda in this process
 
 _NAMES = ("cnt", "dst", "order", "tot", "keys", "vals", "scalars")
-MAX_SCALARS = 256   # one block's threads copy the scalars (csrc/copy_rows.cu)
 
 
 def copy_dirty_rows_cuda(f_cnt, f_dst, f_order, f_tot, f_keys, f_vals,
@@ -72,8 +71,6 @@ def copy_dirty_rows_cuda(f_cnt, f_dst, f_order, f_tot, f_keys, f_vals,
     if f_keys.dim() != 1 or f_vals.shape != f_keys.shape or f_scalars.dim() != 1:
         raise ValueError("copy_dirty_rows_cuda: keys/vals must be [T], "
                          "scalars [S]")
-    if f_scalars.shape[0] > MAX_SCALARS:
-        raise ValueError(f"copy_dirty_rows_cuda: at most {MAX_SCALARS} scalars")
     _build.require_flags("copy_dirty_rows_cuda", dirty, n)
     dh_size = _build.require_row_hashes("copy_dirty_rows_cuda", *front[7:], n) \
         if row_hashes else 0

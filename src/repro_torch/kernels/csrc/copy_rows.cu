@@ -13,9 +13,9 @@
 // coalesced 32-byte load); the warp walks the set bits of the ballot and
 // copies each flagged row with all 32 lanes (coalesced), loads before
 // stores.  So the launch reads the N bytes of flags once and moves only the
-// flagged rows.  Table: the blocks after the row blocks copy keys and vals
-// with a grid-stride loop, the first of them the scalars too.  Front and
-// back are distinct tensors.
+// flagged rows.  Table: the blocks after the row blocks copy keys and vals,
+// and then the scalars (ten per shard of a stacked state, any number), each
+// with a grid-stride loop.  Front and back are distinct tensors.
 #include "common.cuh"
 
 #define MCQ_COPY_WARPS 8        // warps per block; a warp covers 32 rows
@@ -44,7 +44,8 @@ __global__ void __launch_bounds__(MCQ_COPY_WARPS * MCQ_WARP)
       b_keys[i] = k;
       b_vals[i] = v;
     }
-    if (t < n_scalars) b_scalars[t] = f_scalars[t];
+    for (long long i = t; i < n_scalars; i += stride)
+      b_scalars[i] = f_scalars[i];
     return;
   }
   const int lane = threadIdx.x & (MCQ_WARP - 1);
@@ -87,13 +88,13 @@ extern "C" int mcq_copy_dirty_rows(
     void* b_dh_vals, void* dirty, long long num_rows, int capacity,
     long long table_size, int n_scalars, int dh_size, void* stream) {
   if (num_rows < 0 || capacity <= 0 || table_size < 0 || n_scalars < 0 ||
-      n_scalars > MCQ_COPY_WARPS * MCQ_WARP ||
       (f_dh_keys != nullptr && dh_size <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows_per_block = MCQ_COPY_WARPS * MCQ_WARP;
   const long long row_blocks = (num_rows + rows_per_block - 1) / rows_per_block;
   const long long threads = MCQ_COPY_WARPS * MCQ_WARP;
-  long long table_blocks = (table_size + threads - 1) / threads;
+  const long long table_items = table_size > n_scalars ? table_size : n_scalars;
+  long long table_blocks = (table_items + threads - 1) / threads;
   if (table_blocks > MCQ_COPY_TABLE_BLOCKS) table_blocks = MCQ_COPY_TABLE_BLOCKS;
   if (table_blocks < 1) table_blocks = 1;  // the scalars
   mcq_copy_dirty_rows_kernel<<<static_cast<unsigned>(row_blocks + table_blocks),

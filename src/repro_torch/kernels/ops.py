@@ -310,7 +310,7 @@ def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
     ``[S, M]``, descending on the sharded read's path) into one list of n
     by the reference's head-pointer steps — the reduce step of
     ``core/sharded.py``'s global top-n.  On CUDA tensors one launch of a
-    one-block kernel (S <= 32).
+    one-block kernel for S <= 32, a round more per factor of 32 above.
     """
     if _use_ref(impl, probs):
         return _ref.topn_merge_ref(probs, dsts, srcs, n)

@@ -431,6 +431,41 @@ def cdf_query_fused_ref(rows: torch.Tensor, found: torch.Tensor,
     return dk, pk, n_needed
 
 
+def _merge_steps(probs: torch.Tensor, n: int):
+    """The n head-pointer steps over the lists ``probs`` [L, M]: each step
+    reads the L list heads (a pointer past the end reads 0.0), takes the
+    first maximum — the lowest list on ties, NaN above every number, as
+    ``jnp.argmax`` — and advances that list's pointer, whatever its head
+    holds.  Returns the heads taken as read (float32 [n]) and their flat
+    positions in ``probs`` (int64 [n], -1 for a pointer past the end)."""
+    s, m = probs.shape
+    dev = probs.device
+    lanes = torch.arange(s, device=dev)
+    ptr = torch.zeros((s,), dtype=torch.int64, device=dev)
+    heads = torch.zeros((n,), dtype=torch.float32, device=dev)
+    at = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for step in range(n):
+        j = ptr.clamp(max=m - 1)
+        head = torch.where(ptr < m, probs[lanes, j], 0.0)
+        top = head.max()
+        first = (head == top) | (head.isnan() & top.isnan())
+        best = torch.where(first, lanes, s).min().view(1)
+        heads[step:step + 1] = head[best]
+        at[step:step + 1] = torch.where(ptr[best] < m, best * m + j[best], -1)
+        ptr.index_add_(0, best, torch.ones_like(best))
+    return heads, at
+
+
+def _emit(heads, at, dsts, srcs):
+    """A merge's output from its steps: a head that is not ``> 0`` emits
+    EMPTY/EMPTY/0.0, the others their src and dst."""
+    live = heads > 0
+    at = at.clamp(min=0)
+    return (torch.where(live, srcs.reshape(-1)[at], EMPTY).to(torch.int32),
+            torch.where(live, dsts.reshape(-1)[at], EMPTY).to(torch.int32),
+            torch.where(live, heads, 0.0))
+
+
 def topn_merge_ref(probs: torch.Tensor, dsts: torch.Tensor,
                    srcs: torch.Tensor, n: int):
     """Fixed-shape k-way merge of per-shard top lists (plain version of
@@ -446,27 +481,30 @@ def topn_merge_ref(probs: torch.Tensor, dsts: torch.Tensor,
     same steps on any input, descending or not.  Returns
     ``(srcs[n], dsts[n], probs[n])``.
     """
-    s, m = probs.shape
-    dev = probs.device
-    lanes = torch.arange(s, device=dev)
-    ptr = torch.zeros((s,), dtype=torch.int64, device=dev)
-    out_s = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
-    out_d = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
-    out_p = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for step in range(n):
-        j = ptr.clamp(max=m - 1)
-        head = torch.where(ptr < m, probs[lanes, j], 0.0)
-        top = head.max()
-        first = (head == top) | (head.isnan() & top.isnan())
-        best = torch.where(first, lanes, s).min().view(1)
-        p = head[best]
-        live = p > 0
-        at = best * m + j[best]
-        out_s[step:step + 1] = torch.where(live, srcs.reshape(-1)[at], EMPTY)
-        out_d[step:step + 1] = torch.where(live, dsts.reshape(-1)[at], EMPTY)
-        out_p[step:step + 1] = torch.where(live, p, 0.0)
-        ptr.index_add_(0, best, torch.ones_like(best))
-    return out_s, out_d, out_p
+    return _emit(*_merge_steps(probs, n), dsts, srcs)
+
+
+def topn_merge_rounds_ref(probs: torch.Tensor, dsts: torch.Tensor,
+                          srcs: torch.Tensor, n: int, group: int = 32):
+    """:func:`topn_merge_ref` as the CUDA kernel computes it for more than
+    ``group`` lists (the plain mirror of ``csrc/topn_merge.cu``'s rounds):
+    each round merges consecutive groups of ``group`` lists into one list
+    of their n steps, the heads as read (NaN, zero and negative too) and
+    their positions in the original lists; the groups' lists are the next
+    round's, until one merge of ``group`` lists or fewer emits."""
+    lists, pos = probs, torch.arange(probs.numel(), device=probs.device)
+    while lists.shape[0] > group:
+        heads, at = [], []
+        for g in range(0, lists.shape[0], group):
+            h, a = _merge_steps(lists[g:g + group], n)
+            heads.append(h)
+            # a position of this group's lists -> of the original lists
+            at.append(torch.where(a < 0, -1, pos[(a + g * lists.shape[1])
+                                                 .clamp(min=0)]))
+        lists, pos = torch.stack(heads), torch.stack(at).reshape(-1)
+    heads, at = _merge_steps(lists, n)
+    return _emit(heads, torch.where(at < 0, -1, pos[at.clamp(min=0)]), dsts,
+                 srcs)
 
 
 def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,

@@ -21,12 +21,14 @@ return, so the owner may write the state again at once; only file IO runs
 on the async worker.
 
 Commit protocol (crash-safe): ``chain.json`` and ``arrays.npz`` are written
-first, ``manifest.json`` is renamed into place last (the atomic commit, same
-as ``ckpt.save``).  A crash mid-snapshot leaves a directory without a valid
-manifest — or, under weaker filesystems, a manifest with a truncated npz —
-so readers must use :func:`latest_complete_step`, which verifies every array
-actually loads before trusting a step, and falls back to the previous
-complete one.
+and fsynced first, ``manifest.json`` is renamed into place last (the atomic
+commit, ``ckpt._write``), and the rename is fsynced before the save returns
+or ``on_complete`` runs, so the commit survives a power loss, not only a
+process kill (the reference does not fsync: the same bytes, a weaker
+commit).  A crash mid-snapshot leaves a directory without a valid manifest,
+so readers must use :func:`latest_complete_step`, which verifies every
+array actually loads before trusting a step, and falls back to the
+previous complete one.
 """
 
 from __future__ import annotations
@@ -53,10 +55,14 @@ def step_dir(directory: str, step: int) -> str:
 
 
 def _write_meta(path: str, meta: dict) -> None:
+    """Write the sidecar, fsynced before its rename; the step directory's
+    fsync before the manifest's commit (``ckpt._write``) makes the name
+    durable."""
     failpoint("snapshot.meta_write", path=path)
     tmp = os.path.join(path, META_NAME + ".tmp")
     with open(tmp, "w") as f:
         json.dump(meta, f, indent=1)
+    ckpt.fsync_path(tmp)
     os.replace(tmp, os.path.join(path, META_NAME))
 
 
@@ -86,17 +92,17 @@ def save_snapshot_async(state: PyTree, directory: str, step: int,
     caller thread and is complete when this returns (the caller holds the
     state still until then: see the module docstring), file IO on a worker
     thread with the same commit ordering.
-    ``on_complete`` runs on the worker thread after the manifest commits —
-    the engine hangs WAL truncation off it, so segments are only GC'd once
-    the snapshot that supersedes them is durable.  ``on_error`` receives IO
+    ``on_complete`` runs on the worker thread after the manifest's rename
+    and its fsync — the engine hangs WAL truncation off it, so segments are
+    only GC'd once the snapshot that supersedes them is on the disk.  ``on_error`` receives IO
     faults from the worker (see ``ckpt.save_async``)."""
     metrics = metrics if metrics is not None else obs_metrics.GLOBAL
     t0 = time.monotonic()
 
     def _complete():
         # capture-to-commit wall time: the number that matters for the
-        # cadence budget is when the manifest is durable, not when the
-        # worker was spawned
+        # cadence budget is when the manifest is on the disk (fsynced), not
+        # when the worker was spawned
         metrics.hist_record("snapshot.save", time.monotonic() - t0)
         if on_complete is not None:
             on_complete()

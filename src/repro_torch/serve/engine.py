@@ -882,9 +882,11 @@ class ShardedEngine:
             "health": self.health.dump(),
         }
         # WAL GC rides the snapshot cadence: once a snapshot at wal_seq is
-        # COMMITTED (manifest renamed), every record with seq <= wal_seq is
-        # redundant for recovery, so closed segments up to it are unlinked
-        # (truncate_through is conservative and internally locked).  For the
+        # COMMITTED (manifest renamed, and the rename fsynced by
+        # ckpt._write, so the commit outlives a power loss), every record
+        # with seq <= wal_seq is redundant for recovery, so closed segments
+        # up to it are unlinked (truncate_through is conservative and
+        # internally locked).  For the
         # async path the truncation must wait for the commit, not the
         # capture — it runs as the worker's completion callback.
         gc = (functools.partial(self.wal.truncate_through, wal_seq)

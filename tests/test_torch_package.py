@@ -53,12 +53,14 @@ def _module_names():
 def test_every_module_imports_without_jax_or_the_reference_package():
     names = _module_names()
     assert "repro_torch.kernels.ops" in names and "repro_torch.convert" in names
+    assert "repro_torch.chaos.soak" in names
     script = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.'))\n"
+        " or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')"
+        " or m == 'tools' or m.startswith('tools.'))\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -68,9 +70,7 @@ def test_every_module_imports_without_jax_or_the_reference_package():
     assert out.stdout.startswith("clean")
 
 
-@pytest.mark.parametrize("name", _module_names())
-def test_no_source_file_mentions_jax_or_repro_imports(name):
-    path = Path(importlib.import_module(name).__file__)
+def _assert_imports_nothing_of_the_reference(path):
     for node in ast.walk(ast.parse(path.read_text())):
         mods = []
         if isinstance(node, ast.Import):
@@ -79,7 +79,23 @@ def test_no_source_file_mentions_jax_or_repro_imports(name):
             mods = [node.module or ""]
         for mod in mods:
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "triton"), (path, mod)
+            assert top not in ("jax", "jaxlib", "repro", "tools", "triton"), \
+                (path, mod)
+
+
+@pytest.mark.parametrize("name", _module_names())
+def test_no_source_file_mentions_jax_or_repro_imports(name):
+    _assert_imports_nothing_of_the_reference(
+        Path(importlib.import_module(name).__file__))
+
+
+@pytest.mark.parametrize("path", sorted(
+    (ROOT / "examples").glob("torch_*.py")), ids=lambda p: p.name)
+def test_port_examples_import_nothing_of_the_reference(path):
+    """The port's examples (and the soak they run) import the port only:
+    no jax, no ``repro.``, no ``tools.``."""
+    _assert_imports_nothing_of_the_reference(path)
+    assert "repro_torch" in path.read_text()
 
 
 def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
@@ -241,7 +257,55 @@ def test_chip_smoke_parses_and_imports_nothing_of_the_reference():
         elif isinstance(node, ast.ImportFrom):
             imported.add((node.module or "").split(".")[0])
     assert "repro_torch" in imported
-    assert not imported & {"jax", "jaxlib", "repro"}
+    assert not imported & {"jax", "jaxlib", "repro", "tools"}
+
+
+_BUILD_RACE = """
+import sys, time
+from pathlib import Path
+from repro_torch.kernels import _build
+build, log = Path(sys.argv[1]), Path(sys.argv[2])
+_build.BUILD_DIR = build
+
+def compile_(lib_path):          # nvcc stands in: slow, then the library
+    with open(log, "a") as f:
+        f.write("built\\n")
+    time.sleep(1.0)
+    lib_path.write_bytes(b"")
+
+class Lib:                       # ctypes stands in: every entry point
+    def __getattr__(self, name):
+        return type("Fn", (), {})()
+
+_build._compile = compile_
+_build.ctypes.CDLL = lambda path: Lib()
+Path(sys.argv[3]).touch()        # started
+while not Path(sys.argv[4]).exists():
+    time.sleep(0.01)             # both start the load together
+_build.load()
+print("loaded")
+"""
+
+
+def test_processes_loading_together_build_the_library_once(tmp_path):
+    """Soak workers start together on a machine where the library is not
+    built yet: ``_build.load`` takes an exclusive lock, so the first
+    builds and the other finds its library."""
+    log, go = tmp_path / "builds.log", tmp_path / "go"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BUILD_RACE, str(tmp_path / "build"), str(log),
+         str(tmp_path / f"started{i}"), str(go)],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    for i in range(2):
+        while not (tmp_path / f"started{i}").exists():
+            assert procs[i].poll() is None, procs[i].communicate()[1]
+    go.touch()
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0 and out.strip() == "loaded", err
+    assert log.read_text().splitlines() == ["built"]
 
 
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():

@@ -11,8 +11,8 @@ hold on both packages, and every stacked state leaf, query and top-n answer
 and ``stats_snapshot`` counter recorded is equal.  One shard runs
 in-process; the reference's 2- and 4-shard runs share ONE subprocess with
 8 fake devices.  Port-only: a reader holding a snapshot across a publish
-(the back buffer waits for it), the GPU default, and the learner's shard
-limit.
+(the back buffer waits for it), the GPU default, and engines of 26 and 40
+shards, more than one warp's lists in the top-n's merge.
 """
 
 import threading
@@ -120,10 +120,68 @@ def test_engine_defaults_to_the_gpu_and_raises_without_one():
         pkg.engine_mod.ShardedEngine(cfg)
 
 
+def _host_topn(state, n):
+    """The global top-n by the plain definition: every shard's live edges in
+    (shard, row, priority position) order, ``cnt / max(tot, 1)``, a stable
+    descending sort, the first n, labelled with their src."""
+    leaves = _leaves(state)
+    cnt, dst, order = (leaves[f"slabs.{k}"] for k in ("cnt", "dst", "order"))
+    tot = leaves["slabs.tot"]
+    s, rows, _ = cnt.shape
+    c_ord = np.take_along_axis(cnt, order, 2)
+    d_ord = np.take_along_axis(dst, order, 2)
+    prob = np.where(c_ord > 0, c_ord.astype(np.float32)
+                    / np.maximum(tot, 1).astype(np.float32)[..., None], 0.0)
+    keep = np.argsort(-prob.reshape(-1), kind="stable")[:n]
+    shard, row = np.unravel_index(keep, prob.shape)[:2]
+    src_of_row = np.full((s, rows), -1, np.int64)
+    keys, vals = leaves["src_table.keys"], leaves["src_table.vals"]
+    for i in range(s):
+        ok = (keys[i] >= 0) & (vals[i] >= 0)
+        src_of_row[i, vals[i][ok]] = keys[i][ok]
+    p = prob.reshape(-1)[keep].astype(np.float32)
+    live = p > 0
+    return (np.where(live, src_of_row[shard, row], -1),
+            np.where(live, d_ord.reshape(-1)[keep], -1), np.where(live, p, 0.0))
+
+
 def test_engine_refuses_more_shards_than_one_catch_up_launch_takes():
-    """The stacked catch-up copies every shard's ten scalars in one block
-    of the copy kernel: at most 25 shards."""
+    """The stacked catch-up once copied every shard's ten scalars with one
+    block of the copy kernel, and the engine refused more than 25 shards;
+    the kernel now copies them with a grid-stride loop and the top-n merges
+    more than 32 lists in rounds, so nothing refuses S.  At 26 and 40
+    shards the engine serves: every stacked leaf and a routed query equal
+    an engine-free oracle (the same batches through ``sh.update_`` +
+    ``sh.maintain_``), and ``topn(16)`` equals a stable host sort of every
+    shard's live edges."""
     pkg = es.port()
-    pkg.engine(pkg.config(dict(num_rows=16, capacity=4), 25, 2.0))
-    with pytest.raises(ValueError, match="at most 25 shards"):
-        pkg.engine(pkg.config(dict(num_rows=16, capacity=4), 26, 2.0))
+    sh = pkg.sh
+    base = dict(num_rows=16, capacity=4, sort_passes=4)
+    rng = np.random.default_rng(26)
+    for shards in (26, 40):
+        cfg = pkg.config(base, shards, 4.0, decay_threshold=24)
+        eng = pkg.engine(cfg)
+        oracle = sh.init_sharded(cfg.sharded, device="cpu")
+        for _ in range(8):
+            src = rng.integers(0, 3 * shards, 16 * shards).astype(np.int32)
+            dst = rng.integers(0, 12, src.size).astype(np.int32)
+            eng.observe(src, dst)
+            w = torch.ones(src.size, dtype=torch.int32)
+            sh.update_(oracle, torch.from_numpy(src), torch.from_numpy(dst),
+                       w, scfg=cfg.sharded)
+            sh.maintain_(oracle, scfg=cfg.sharded, total_threshold=24)
+        assert_same(_leaves(oracle), pkg.state(eng), f"{shards} shards")
+        stats = pkg.mc.counter_stats(oracle)
+        assert stats["decay_steps"] > 0 and stats["evictions"] > 0, stats
+        q = np.arange(-1, 4 * shards - 1, dtype=np.int32)   # S | len(q)
+        assert_same([pkg.host(x) for x in sh.query(
+            oracle, torch.from_numpy(q), 0.9, 16, scfg=cfg.sharded)[:3]],
+            [pkg.host(x) for x in eng.query(q)], f"query at {shards} shards")
+        got = [pkg.host(x) for x in eng.topn(16)]
+        snap = eng.store.acquire()
+        try:
+            assert_same(_host_topn(snap.state, 16), got, f"top-16 at {shards}")
+        finally:
+            eng.store.release(snap)
+        assert got[2][0] > 0 and np.all(np.diff(got[2]) <= 0)
+        eng.close()

@@ -1196,10 +1196,10 @@ _SUBPROCESS = textwrap.dedent(
     out_dir, items = sys.argv[1], json.loads(sys.argv[2])
 
     def run(item):
-        name, shards = item
+        name, shards, *kw = item
         rec, tmp = {}, os.path.join(out_dir, f"{name}_s{shards}")
         os.makedirs(tmp)
-        es.SCENARIOS[name](pkg, tmp, rec, shards=shards)
+        es.SCENARIOS[name](pkg, tmp, rec, shards=shards, **(kw[0] if kw else {}))
         np.savez(os.path.join(out_dir, f"{name}_s{shards}.npz"), **rec)
 
     with ThreadPoolExecutor(4) as pool:
@@ -1209,8 +1209,9 @@ _SUBPROCESS = textwrap.dedent(
 
 
 def run_reference_subprocess(out_dir, items, timeout=600):
-    """Run ``[(scenario, shards), ...]`` through the reference with 8 fake
-    devices; returns ``{(scenario, shards): record}``."""
+    """Run ``[(scenario, shards), ...]`` (or ``(scenario, shards, kwargs)``)
+    through the reference with 8 fake devices; returns ``{(scenario,
+    shards): record}``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
                                          env.get("PYTHONPATH", "")])
@@ -1221,7 +1222,31 @@ def run_reference_subprocess(out_dir, items, timeout=600):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAX-ENGINE-OK" in out.stdout
     return {(name, s): dict(np.load(Path(out_dir) / f"{name}_s{s}.npz"))
-            for name, s in items}
+            for name, s, *_ in items}
+
+
+# -- the crash soak's stream -------------------------------------------------
+
+
+@scenario
+def soak_stream(pkg, tmp, rec, shards=1, steps=0, rows=256, batch=128,
+                seed=0):
+    """The crash soak's oracle: ``batch_for(seed, 0..steps-1)`` observed by
+    the engine each package's soak builds, with no persistence; its state
+    and a probe query and top-8 recorded."""
+    if pkg.name == "port":
+        from repro_torch.chaos import soak
+        eng = soak._build_engine(None, rows, device="cpu")
+    else:
+        sys.path.insert(0, str(ROOT))
+        from tools.chaos import soak
+        eng = soak._build_engine(None, rows)
+    for i in range(steps):
+        eng.observe(*soak.batch_for(seed, i, rows, batch))
+    record(pkg, eng, rec, "end")
+    answers(pkg, eng, rec, "q", np.arange(min(rows, 64), dtype=np.int32))
+    top(pkg, eng, rec, "top", 8)
+    eng.close()
 
 
 # -- snapshots and WALs across the packages ---------------------------------
