@@ -87,7 +87,9 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 main's chain stacked on the card (4 x 2**20 rows x 128
                 slots), 4 x 65,536 transitions per update routed through
                 buckets of twice the fair share, 4 x 4,096 query srcs, the
-                global top-16; warmed by ``update_``; the owner calls held
+                global top-16; warmed by ``update_`` over half phase main's
+                warm-up batches (a cut of depth that keeps the script inside
+                its time); the owner calls held
                 equal to the functional callables on a side copy; rounds of
                 ``update_`` + query + ``maintain_`` + ``topn`` with launch
                 counts around them and no device->host synchronisation in
@@ -146,13 +148,15 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 ``hot_experts`` equal to the same monitor's on the CPU
                 (plain versions); ms per ``observe`` and per report;
   8b. soak    — the port's kill-and-recover soak (``repro_torch.chaos.soak``)
-                at phase main's width: 2**20 rows x 16 slots (the soak's
+                at half phase main's width (cut from 2**20 rows to keep the
+                script inside its time): 2**19 rows x 16 slots (the soak's
                 capacity), batches of 65,536, a snapshot every 5 observes,
                 every batch WAL-logged with fsync; 8 worker processes on the
-                card, one cycle of its kill modes (4 external SIGKILLs, and
+                card, one cycle of its kill modes (3 external SIGKILLs, and
                 self-kills inside ``wal.append.write`` (twice),
                 ``wal.append.fsync``, ``snapshot.arrays_write`` and
-                ``snapshot.manifest_commit``); after each death a recovery
+                ``snapshot.manifest_commit``, each of which must die by its
+                failpoint); after each death a recovery
                 here on the card, every leaf, the WAL position and a probe
                 query and top-8 held bit for bit against an oracle that
                 replays every durable batch; each kill's records, replay
@@ -1028,21 +1032,33 @@ def no_state_copies(label, fn, rows, calls=3):
     a state leaf has at least one per row.  The copy kernels and memcpys it
     does launch — dtype casts, ``torch.sort``'s copy of its input and a
     slice assignment, all of the batch's items — are counted and
-    printed."""
+    printed.  A trace that holds no device kernel at all (the profiler can
+    drop a short trace's few kernel records) is taken once more."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(calls):
-            fn()
+
+    def trace():
         torch.cuda.synchronize()
-    events = prof.events()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return prof.events()
+
+    def on_device(events):
+        return [ev.name for ev in events
+                if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+    events = trace()
+    if not on_device(events):
+        say(f"[kernels] {label}: the profiler recorded no device kernel; "
+            f"tracing again")
+        events = trace()
     big = sorted({f"{ev.name}{ev.input_shapes}" for ev in events
                   if ev.name in COPY_OPS and any(
                       shape and int(torch.tensor(shape).prod()) >= rows
                       for shape in (ev.input_shapes or []))})
-    device = [ev.name for ev in events
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device = on_device(events)
     memcpy = [k for k in device if "Memcpy DtoD" in k]
     casts = [k for k in device if "direct_copy" in k]
     say(f"[kernels] {label}: {len(device) / calls:g} device kernels per call "
@@ -2772,11 +2788,11 @@ def sharded_path_kernels(state, scfg, traffic, launches):
                  "topn_merge.cu", "src/repro/kernels/ref.py:185",
                  lambda impl: ops.topn_merge(probs, dsts, srcs, n=TOP_N,
                                              impl=impl),
-                 # the probabilities a pointer can reach staged once, the
-                 # live winners' srcs and dsts gathered, the n outputs
+                 # the S first heads and the head each step advances to,
+                 # the live winners' srcs and dsts gathered, the n outputs
                  # written once; an S-way comparison per step
-                 bytes_moved=4 * s * min(m, TOP_N) + 8 * winners + 12 * TOP_N,
-                 operations=TOP_N * s * 4, library=library,
+                 bytes_moved=4 * (s + TOP_N) + 8 * winners + 12 * TOP_N,
+                 operations=4 * TOP_N * s, library=library,
                  extra=dict(launch_floor_ms=launch_floor, lists=s, length=m,
                             live_winners=winners))
 
@@ -3768,6 +3784,13 @@ def warm_sharded(state, scfg, traffic, w, warm_batches):
     torch.cuda.synchronize()
 
 
+def sharded_warm(args):
+    """Phase sharded's warm-up batches: half of ``--warm-batches``, a cut of
+    depth (fewer edges for the engine's reassign and the reshard to move)
+    that keeps the whole script inside its time."""
+    return args.warm_batches // 2
+
+
 def sharded_warm_state(seed, warm_batches):
     """Phase sharded's state after its warm-up, without its rounds (for
     ``--phases persist`` or ``engine`` without phase sharded)."""
@@ -4248,7 +4271,8 @@ def parity_sharded(seed, batches=16):
 # ---------------------------------------------------------------------------
 
 SOAK_KILLS = 8            # one cycle of the soak's KILL_MODES
-SOAK_ROWS = NUM_NODES     # 2**20 rows x 16 slots (the soak's capacity)
+SOAK_ROWS = NUM_NODES // 2   # 2**19 rows x 16 slots (the soak's capacity):
+                             # cut from phase main's 2**20 for the time
 SOAK_EVERY = 5            # observes between two background snapshots
 SOAK_KERNELS = ("probe_find", "slab_update", "oddeven", "slow_path",
                 "decay_sort", "cdf_query_fused", "copy_dirty_rows",
@@ -4301,6 +4325,14 @@ def phase_soak(seed):
                                             for m in soak.KILL_MODES]:
         raise AssertionError("soak: the lives did not run one cycle of "
                              "KILL_MODES")
+    # a failpoint not reached within MAX_STEPS_PER_LIFE ends in a SIGKILL
+    # from outside while its life still names the failpoint
+    wrong = [(k, r["kill_mode"]) for k, r in enumerate(lives)
+             if r["armed_death"] != (r["kill_mode"] != "sigkill")]
+    if wrong:
+        raise AssertionError(f"soak: lives not ended by their kill mode "
+                             f"(failpoint lives by the failpoint, the others "
+                             f"by SIGKILL): {wrong}")
 
     # the newest complete snapshot, restored on the card and on the CPU
     engines = {}
@@ -4491,9 +4523,11 @@ def parity_many_shards(seed):
     del front, back
 
     def merge_entry(label, probs, dsts, srcs, n, launches):
+        from repro_torch.kernels import topn_merge
         lists, m = probs.shape
-        groups = -(-lists // 32)
-        merged = ops.topn_merge(probs, dsts, srcs, n=n)
+        before = topn_merge.launches
+        merged = ops.topn_merge(probs, dsts, srcs, n=n, impl="cuda")
+        rounds = topn_merge.launches - before   # one launch per round
         winners = int((merged[2] > 0).sum())
 
         def library():
@@ -4508,14 +4542,13 @@ def parity_many_shards(seed):
                      "topn_merge.cu", "src/repro/kernels/ref.py:185",
                      lambda impl: ops.topn_merge(probs, dsts, srcs, n=n,
                                                  impl=impl),
-                     # every list's reachable prefix staged once, each
-                     # group's n raw steps written and read once (12 B),
-                     # the winners' srcs and dsts, the n outputs
-                     bytes_moved=4 * lists * min(m, n) + 24 * groups * n
-                     + 8 * winners + 12 * n,
-                     operations=4 * n * (lists + groups), library=library,
-                     extra=dict(lists=lists, length=m, rounds=2
-                                if lists > 32 else 1, live_winners=winners))
+                     # the flat merge: the S first heads and the head each
+                     # step advances to, the winners' srcs and dsts, the n
+                     # outputs; an S-way comparison per step
+                     bytes_moved=4 * (lists + n) + 8 * winners + 12 * n,
+                     operations=4 * n * lists, library=library,
+                     extra=dict(lists=lists, length=m, rounds=rounds,
+                                live_winners=winners))
 
     merge_entry(f"topn_merge[S={s}]", *sh.topn_lists(
         published(engines["cuda"]), 16, scfg=engines["cuda"].cfg.sharded)[:3],
@@ -4838,7 +4871,7 @@ def main(argv=None):
         lap("drafter")
     if "sharded" in phases:
         state, scfg, traffic, launches = phase_sharded(
-            args.seed, args.warm_batches, args.rounds)
+            args.seed, sharded_warm(args), args.rounds)
         kernels += sharded_path_kernels(state, scfg, traffic, launches)
         if args.profile:
             from repro_torch.core import sharded as sh
@@ -4868,7 +4901,7 @@ def main(argv=None):
             del state
         torch.cuda.empty_cache()
     elif "persist" in phases or "engine" in phases:
-        state, scfg = sharded_warm_state(args.seed, args.warm_batches)
+        state, scfg = sharded_warm_state(args.seed, sharded_warm(args))
         if "engine" in phases:
             kernels += phase_engine(state, scfg, args.seed)
         box = [state]

@@ -484,14 +484,19 @@ def topn_merge_ref(probs: torch.Tensor, dsts: torch.Tensor,
     return _emit(*_merge_steps(probs, n), dsts, srcs)
 
 
+MERGE_GROUP = 32   # lists one warp of the merge kernel takes: one per lane
+
+
 def topn_merge_rounds_ref(probs: torch.Tensor, dsts: torch.Tensor,
-                          srcs: torch.Tensor, n: int, group: int = 32):
+                          srcs: torch.Tensor, n: int):
     """:func:`topn_merge_ref` as the CUDA kernel computes it for more than
-    ``group`` lists (the plain mirror of ``csrc/topn_merge.cu``'s rounds):
-    each round merges consecutive groups of ``group`` lists into one list
-    of their n steps, the heads as read (NaN, zero and negative too) and
-    their positions in the original lists; the groups' lists are the next
-    round's, until one merge of ``group`` lists or fewer emits."""
+    ``MERGE_GROUP`` lists (the plain mirror of ``csrc/topn_merge.cu``'s
+    rounds): each round merges consecutive groups of ``MERGE_GROUP`` lists
+    into one list of their n steps, the heads as read (NaN, zero and
+    negative too) and their positions in the original lists; the groups'
+    lists are the next round's, until one merge of ``MERGE_GROUP`` lists or
+    fewer emits."""
+    group = MERGE_GROUP
     lists, pos = probs, torch.arange(probs.numel(), device=probs.device)
     while lists.shape[0] > group:
         heads, at = [], []

@@ -39,7 +39,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import topn_merge_ref, topn_merge_rounds_ref
+from repro_torch.kernels.ref import (MERGE_GROUP, topn_merge_ref,
+                                    topn_merge_rounds_ref)
 
 # the plain versions are re-exported beside their kernel
 __all__ = ["topn_merge_cuda", "topn_merge_ref", "topn_merge_rounds_ref",
@@ -47,7 +48,7 @@ __all__ = ["topn_merge_cuda", "topn_merge_ref", "topn_merge_rounds_ref",
 
 launches = 0  # kernel launches made by topn_merge_cuda in this process
 
-GROUP = 32   # lists one warp merges in a round: one list head per lane
+GROUP = MERGE_GROUP   # lists one warp merges in a round (the .cu's MCQ_WARP)
 
 
 def topn_merge_cuda(probs: torch.Tensor, dsts: torch.Tensor,

@@ -1036,7 +1036,9 @@ class ShardedEngine:
                 raise FileNotFoundError(
                     f"no complete snapshot under {directory}")
         meta = snapshot_io.load_meta(directory, step)
-        base_old = mc.MCConfig(**meta["base_cfg"])
+        # the kernel dispatch is this engine's own, not the writer's
+        base_old = mc.MCConfig(**{**meta["base_cfg"],
+                                  "impl": self.cfg.sharded.base.impl})
         n_old = int(meta["num_shards"])
         replayed = 0
         # one write-lock hold end to end: a concurrent observe() slipping

@@ -108,3 +108,45 @@ def test_launcher_without_num_shards_raises_naming_the_lm_item():
     from repro_torch.launch import serve
     with pytest.raises(SystemExit, match="queue A 8"):
         serve.main(["--requests", "1"])
+
+
+def test_restore_keeps_the_engines_own_kernel_dispatch(tmp_path):
+    """A snapshot records its writer's ``MCConfig``, the kernel dispatch
+    included; an engine restoring it keeps its own dispatch (here the plain
+    versions, ``impl="ref"``, after a writer on ``auto``), and the snapshot
+    plus its WAL tail give the writer's state leaf for leaf."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    from repro_torch.serve.engine import ShardedEngine, ShardedServeConfig
+
+    def engine(impl):
+        base = mc.MCConfig(num_rows=64, capacity=8, impl=impl)
+        return ShardedEngine(ShardedServeConfig(
+            sharded=sh.ShardedConfig(base=base, num_shards=2,
+                                     bucket_factor=4.0),
+            snapshot_dir=str(tmp_path / "snap"),
+            wal_dir=str(tmp_path / "wal")), device="cpu")
+
+    rng = np.random.default_rng(7)
+    writer = engine("auto")
+    for i in range(5):
+        src = rng.integers(0, 48, 96).astype(np.int32)
+        writer.observe(src, rng.integers(0, 20, 96).astype(np.int32))
+        if i == 2:
+            writer.checkpoint(sync=True)
+    want = convert.sharded_state_to_numpy(writer.store.acquire().state)
+    writer.close()
+    reader = engine("ref")
+    info = reader.restore()
+    assert info["mode"] == "exact" and info["replayed"] == 2
+    assert reader.cfg.sharded.base.impl == "ref"
+    assert dataclasses.replace(reader.cfg.sharded.base, impl="auto") == \
+        writer.cfg.sharded.base
+    assert_same(want, convert.sharded_state_to_numpy(reader.store.acquire().state),
+                "restored through the plain versions")
+    reader.close()

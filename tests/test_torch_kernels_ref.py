@@ -404,36 +404,15 @@ EMPTY_ID = -1
 @pytest.mark.parametrize("jax_impl", JAX_IMPLS)
 @pytest.mark.parametrize("kind", ["descending", "unsorted", "zeros", "nan"])
 @pytest.mark.parametrize("s,m,n", [(1, 1, 3), (1, 7, 4), (3, 5, 16), (4, 6, 8),
-                                   (8, 3, 40), (5, 9, 9)])
+                                   (8, 3, 40), (5, 9, 9), (33, 5, 40),
+                                   (40, 6, 24), (64, 3, 200), (64, 9, 17)])
 def test_topn_merge(jax_impl, kind, s, m, n):
-    """Every step of the head-pointer merge: S 1..8, ties (the lowest shard
-    first), dead tails, lists that are not descending, NaN and -0.0 heads,
-    n above M and above S·M (exhausted lists read 0)."""
+    """Every step of the head-pointer merge: S 1..8 and 33..64 (past one
+    warp's 32 lists), ties (the lowest shard first), dead tails, lists that
+    are not descending, NaN and -0.0 heads, n above M and above S·M
+    (exhausted lists read 0)."""
     rng = np.random.default_rng(s * 100 + m * 10 + n)
     _both_impls("topn_merge", jax_impl, *_merge_lists(rng, s, m, kind), n=n)
-
-
-def _flat_merge_host(probs, dsts, srcs, n):
-    """The head-pointer merge written plainly on the host: the first maximum
-    of the S heads (NaN above every number, the lowest list on ties), a
-    pointer past its list reading 0.0; a head that is not > 0 emits
-    EMPTY/EMPTY/0.0."""
-    s, m = probs.shape
-    ptr = [0] * s
-    out_s, out_d, out_p = [], [], []
-    for _ in range(n):
-        heads = [float(probs[i, ptr[i]]) if ptr[i] < m else 0.0
-                 for i in range(s)]
-        nans = [i for i, h in enumerate(heads) if np.isnan(h)]
-        best = nans[0] if nans else max(range(s), key=lambda i: (heads[i], -i))
-        h = heads[best]
-        live = h > 0
-        out_s.append(srcs[best, ptr[best]] if live else EMPTY_ID)
-        out_d.append(dsts[best, ptr[best]] if live else EMPTY_ID)
-        out_p.append(h if live else 0.0)
-        ptr[best] += 1
-    return (np.array(out_s, np.int32), np.array(out_d, np.int32),
-            np.array(out_p, np.float32))
 
 
 @pytest.mark.parametrize("kind", ["descending", "unsorted", "zeros", "nan"])
@@ -442,16 +421,16 @@ def _flat_merge_host(probs, dsts, srcs, n):
 def test_topn_merge_over_32_lists_in_rounds(kind, s, m, n):
     """Past one warp's 32 lists the kernel merges in rounds (groups of 32
     carrying their raw heads, then a merge of the groups); its plain mirror
-    ``topn_merge_rounds_ref`` and ``topn_merge_ref`` both equal the flat
-    merge on the host: ties, NaN, -0.0, zero and negative heads, one list
-    shorter than n (every list is at these M), n past S·M, three rounds at
-    1,100 lists."""
+    ``topn_merge_rounds_ref`` and ``topn_merge_ref`` both equal the
+    reference's flat merge: ties, NaN, -0.0, zero and negative heads, one
+    list shorter than n (every list is at these M), n past S·M, three rounds
+    at 1,100 lists."""
     from repro_torch.kernels import ref
     rng = np.random.default_rng(s * 7 + m * 3 + n)
     probs, dsts, srcs = _merge_lists(rng, s, m, kind)
     if kind == "nan":
         probs[rng.random((s, m)) < 0.1] = -0.25
-    want = _flat_merge_host(probs, dsts, srcs, n)
+    want = jops.topn_merge(*to_jax([probs, dsts, srcs]), n=n, impl="ref")
     t = to_torch([probs, dsts, srcs])
     assert_same(want, ref.topn_merge_ref(*t, n), "topn_merge_ref")
     assert_same(want, ref.topn_merge_rounds_ref(*t, n), "rounds")
