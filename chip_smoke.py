@@ -83,6 +83,24 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 the path at the shapes and data it gave them, against its
                 plain version (equal) and timed beside its bound, the draft
                 walk also inside the learner loop;
+  5b. lm     — the LM serving path (``serve.engine.Engine`` with the
+                MCPrioQ drafter) at ``qwen2-7b``'s full width: ``python -m
+                repro_torch.launch.serve --arch qwen2-7b`` as a user runs
+                it (2 requests); then 30.5 GB of
+                random float32 parameters made on the card from a seeded
+                generator, bfloat16 compute, the reference launcher's
+                sizes (drafter 8,192 x 64, draft_len 4); 4 requests of
+                2 x 64 prompt tokens and 32 new tokens served with plain
+                greedy decoding and then with speculation (the path's
+                launch window), the tokens equal; prefill, decode and
+                extension ms, tokens/s, model calls, acceptance, learner
+                and draft ms, peak device memory; the drafter's published
+                chain equal to the learned histories replayed through the
+                plain versions on the card, a draft equal to its plain
+                version; the model at full width and a depth of 2 on the
+                card against the CPU (logits within a stated tolerance,
+                greedy tokens equal where the top-2 margin is clear); the
+                drafter's kernels at the path's shapes, tagged ``[lm]``;
   6. sharded  — the sharded chain at full width: 4 logical shards of phase
                 main's chain stacked on the card (4 x 2**20 rows x 128
                 slots), 4 x 65,536 transitions per update routed through
@@ -217,8 +235,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "hash", "drafter", "sharded", "engine",
-          "persist", "monitor", "soak", "examples", "parity")
+PHASES = ("device", "kernels", "main", "hash", "drafter", "lm", "sharded",
+          "engine", "persist", "monitor", "soak", "examples", "parity")
 
 
 def say(*parts):
@@ -3554,6 +3572,10 @@ PERSIST_ASYNC_AFTER = 10  # the async snapshot is taken after this round
 PERSIST_THRESHOLD = 64    # maybe_decay_'s threshold: it fires in every round
 RESHARD_TO = 2            # the sharded state's 4 shards onto this many
 RESHARD_SLICE = 65_536    # per-shard slice of a re-ingest batch
+RESHARD_CHECK_SHARE = 4   # the kernel check between the ingest's halves
+                          # takes the first 1/4 of each sender slice (its
+                          # plain mirror walks items one by one: a cut of
+                          # depth for the script's time)
 INGEST_KERNELS = ("probe_find", "slab_update", "oddeven", "slow_path")
 
 
@@ -3938,7 +3960,8 @@ def persist_reshard(box, scfg, profile=False):
         first, first_ms = ingest_span("persist/ingest, first half",
                                       batches[:half], skip)
         peak = torch.cuda.max_memory_allocated()
-        entry = reshard_slow_path_entry(new, ingest_scfg, batches[half])
+        entry = reshard_slow_path_entry(new, ingest_scfg, batches[half],
+                                        RESHARD_CHECK_SHARE)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         second, second_ms = ingest_span("persist/ingest, second half",
@@ -4006,20 +4029,24 @@ def persist_reshard(box, scfg, profile=False):
     return [entry]
 
 
-def reshard_slow_path_entry(new, scfg, batch):
+def reshard_slow_path_entry(new, scfg, batch, share=1):
     """The new-edge pass at the reshard's shapes: shard 0's items of one
-    routed ingest update (``batch``, the new-edge bound lifted) as
-    ``update_batch_`` hands them to ``ops.slow_path_`` on the half-filled
-    new state, held equal to its plain version and timed (``slow_path_entry``,
-    on copies).  Every item of a re-ingest is a new edge, so the fast path
-    leaves the state as it is and these are the pass's exact inputs.  The
-    entry's ``launches`` are the ingest's, filled in by the caller."""
+    routed ingest update (``batch``, the new-edge bound lifted; only the
+    first ``1/share`` of each sender's slice active) as ``update_batch_``
+    hands them to ``ops.slow_path_`` on the half-filled new state, held
+    equal to its plain version and timed (``slow_path_entry``, on copies).
+    Every item of a re-ingest is a new edge, so the fast path leaves the
+    state as it is and these are the pass's exact inputs.  The entry's
+    ``launches`` are the ingest's, filled in by the caller."""
     from repro_torch.core import mcprioq as mc
     from repro_torch.core import sharded as sh
     from repro_torch.core.hashtable import EMPTY
     cfg = scfg.base
     one = sh.shard_state(new, 0)
     g_src, g_dst, g_w = (torch.from_numpy(x).cuda() for x in batch)
+    per = g_src.numel() // scfg.num_shards
+    g_src = torch.where(torch.arange(g_src.numel(), device="cuda") % per
+                        < per // share, g_src, EMPTY)
     (rsrc, rdst, rw), *_ = sh._route(scfg, new, g_src, (g_dst, g_w))
     src, dst, w, m = mc._batch_inputs(one, rsrc[0], rdst[0], rw[0],
                                       rsrc[0] != EMPTY)
@@ -4040,7 +4067,7 @@ def reshard_slow_path_entry(new, scfg, batch):
                     "slow_path[reshard]", cfg, one.src_table, one.slabs,
                     counters, (p_src, p_dst, p_w, p_mask), sequential=False)
     entries[0].update(bucket_slots=len(src), items_of_new_srcs=int(
-        (u_act & ~found_src0).sum()))
+        (u_act & ~found_src0).sum()), active_share_of_the_update=1 / share)
     return entries[0]
 
 
@@ -4790,6 +4817,357 @@ def parity_drafter(seed, batches=24):
 
 
 # ---------------------------------------------------------------------------
+# phase lm: the LM serving path, Engine + MCPrioQ drafter, at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-7b"     # the reference launcher's default arch
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 4, 2, 64, 32
+LM_DRAFT = 4             # the reference launcher's --draft-len
+LM_CHECK_LAYERS = 2      # depth of the model held against the CPU
+LM_LOGIT_TOL = {          # |card - CPU| of a logit at depth 2, by dtype; a
+    "float32": 0.01,       # wrong computation moves a logit by about its
+    "bfloat16": 0.25,      # size (4-5); random attention scores of +-100
+}                          # amplify a sum's order (8 bf16 ulps at [4, 8))
+LM_KERNELS = ("draft_walk", "probe_find", "slab_update", "oddeven",
+              "decay_sort", "slow_path", "copy_dirty_rows")
+
+
+def lm_config(layers=None):
+    """``qwen2-7b`` at its published widths (``layers`` cuts its depth)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def lm_serve_config(draft_len):
+    """The reference launcher's ``run()`` sizes
+    (``src/repro/launch/serve.py:57-66``) at this phase's lengths."""
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import speculative as spec
+    from repro_torch.serve.engine import ServeConfig
+    return ServeConfig(
+        max_new_tokens=LM_NEW, max_cache_len=LM_PROMPT + LM_NEW + 8,
+        draft_len=draft_len, ngram=spec.NGramConfig(
+            order=2, decay_threshold=1 << 18, mc=mc.MCConfig(
+                num_rows=8192, capacity=64, sort_passes=1,
+                decay_block_rows=1024)))
+
+
+def lm_prompts(seed, vocab):
+    """R prompts of 2 x 64 tokens: a random one, the same one again (the
+    drafter has learned its continuation: drafts accepted whole), that one
+    with its last 8 tokens replaced (drafts accepted in part), and a new
+    random one."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        return rng.integers(0, vocab, shape).astype(np.int32)
+
+    first = draw((LM_BATCH, LM_PROMPT))
+    edited = first.copy()
+    edited[:, -8:] = draw((LM_BATCH, 8))
+    return [first, first.copy(), edited, draw((LM_BATCH, LM_PROMPT))]
+
+
+def lm_serve(model, params, draft_len, prompts):
+    """The prompts through a fresh ``Engine``, one request each, as a user
+    calls it.  Returns (tokens [R, B, N], engine, the histories handed to
+    ``_learn``, ms per ``_learn``, wall seconds)."""
+    from repro_torch.serve.engine import Engine
+    engine = Engine(model, params, lm_serve_config(draft_len))
+    histories, learn_ms = [], []
+    learn = engine._learn
+
+    def recorded(history):
+        histories.append(np.array(history, copy=True))
+        t0 = time.perf_counter()
+        learn(history)          # ends in host reads of the published state
+        learn_ms.append((time.perf_counter() - t0) * 1e3)
+
+    engine._learn = recorded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = np.stack([engine.generate({"tokens": p}) for p in prompts])
+    torch.cuda.synchronize()
+    return outs, engine, histories, learn_ms, time.perf_counter() - t0
+
+
+def lm_model_ms(model, params, prompt):
+    """Milliseconds per prefill, decode_step and extend_step (4 tokens) at
+    the served shapes: the latency a caller waits, by events on an idle
+    device (medians of 5).  A full-width step launches about 3,000 kernels,
+    more than the launch queue holds, so a spin kernel ahead of it cannot
+    hide the host: the device's busy time comes from ``--profile``."""
+    from repro_torch.serve import sampling
+    max_len = LM_PROMPT + LM_NEW + 8
+    tokens = torch.as_tensor(prompt, device="cuda")
+    logits, caches = model.prefill(params, {"tokens": tokens}, max_len)
+    cur = sampling.greedy(logits)[:, None]
+    pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device="cuda")
+    feed = torch.cat([cur, tokens[:, :LM_DRAFT - 1]], dim=1)
+    calls = {
+        "prefill": lambda: model.prefill(params, {"tokens": tokens}, max_len),
+        "decode_step": lambda: model.decode_step(params, caches, cur, pos),
+        f"extend_step[{LM_DRAFT}]": lambda: model.extend_step(
+            params, caches, feed, pos),
+    }
+    return {k: time_ms(fn, reps=5, warm=1) for k, fn in calls.items()}
+
+
+def lm_against_cpu(seed):
+    """``qwen2-7b`` at full width and a depth of LM_CHECK_LAYERS, the same
+    parameters on the card and on the CPU, computed in float32 and in
+    bfloat16: the logits of a prefill, a decode step and a 4-token
+    extension within LM_LOGIT_TOL of the dtype, and the greedy tokens equal
+    wherever the CPU's top-2 margin exceeds twice it."""
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import tree_map
+    base = lm_config(LM_CHECK_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    params = {"cuda": Model(base).init(gen)}
+    params["cpu"] = tree_map(lambda a: a.cpu(), params["cuda"])
+    prompt = torch.as_tensor(lm_prompts(seed + 11, base.vocab_size)[0])
+    max_len = LM_PROMPT + LM_NEW + 8
+    names = ("prefill", "decode_step", f"extend_step[{LM_DRAFT}]")
+    for dtype, tol in LM_LOGIT_TOL.items():
+        model = Model(dataclasses.replace(base, dtype=dtype))
+        logits = {}
+        t0 = time.perf_counter()
+        for dev in ("cpu", "cuda"):
+            p = params[dev]
+            first, caches = model.prefill(p, {"tokens": prompt.to(dev)},
+                                          max_len)
+            if dev == "cpu":
+                cur = first.argmax(dim=-1).to(torch.int32)[:, None]
+                feed = torch.cat([cur, prompt[:, :LM_DRAFT - 1]], dim=1)
+                pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32)
+            step, _ = model.decode_step(p, caches, cur.to(dev), pos.to(dev))
+            ext, _ = model.extend_step(p, caches, feed.to(dev), pos.to(dev))
+            logits[dev] = [x.float().cpu() for x in (first, step, ext)]
+        diffs = [float((got - want).abs().max())
+                 for want, got in zip(logits["cpu"], logits["cuda"])]
+        say(f"[lm] {LM_ARCH} at full width, {LM_CHECK_LAYERS} layers, "
+            f"{dtype} compute, the same parameters on the card and the CPU: "
+            f"largest |card - CPU| logit "
+            + ", ".join(f"{n} {d:.6f}" for n, d in zip(names, diffs))
+            + f" (tolerance {tol}; largest |logit| "
+            f"{float(logits['cpu'][0].abs().max()):.3f}; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        compared = total = 0
+        for name, want, got, diff in zip(names, logits["cpu"],
+                                         logits["cuda"], diffs):
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"lm: card {name} logits not finite")
+            if diff > tol:
+                raise AssertionError(f"lm: {dtype} card {name} logits differ "
+                                     f"from the CPU's by {diff} > {tol}")
+            top2 = want.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+            same = got.argmax(dim=-1) == want.argmax(dim=-1)
+            if not bool(same[clear].all()):
+                raise AssertionError(
+                    f"lm: {dtype} card {name} greedy tokens differ from the "
+                    f"CPU's where the top-2 margin exceeds {2 * tol}")
+            compared += int(clear.sum())
+            total += clear.numel()
+        say(f"[lm] {dtype}: greedy tokens equal at the {compared} of {total} "
+            f"positions whose top-2 margin exceeds {2 * tol}")
+    del params
+
+
+def lm_launcher():
+    """``python -m repro_torch.launch.serve --arch qwen2-7b`` as a user runs
+    it (2 requests, the launcher's other defaults), on the card: exit 0 and
+    its three lines."""
+    import re
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
+         "--requests", "2"], env=dict(os.environ, PYTHONPATH=str(repo / "src")),
+        cwd=repo, text=True, capture_output=True, timeout=600)
+    for line in out.stdout.splitlines():
+        say(f"[lm] launcher: {line}")
+    say(f"[lm] launcher: exit {out.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0 or not re.search(
+            r"2 requests, 128 tokens in .*\(plain greedy would use 62\)"
+            r".*maintenance: decay_steps=", out.stdout, re.S):
+        raise AssertionError(f"the LM launcher failed ({out.returncode}): "
+                             f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+
+
+def phase_lm(seed, card, profile=False):
+    """The LM serving path at ``qwen2-7b``'s full width: the launcher as a
+    user runs it; random float32
+    parameters from a seeded generator on the card, the launcher's sizes;
+    plain greedy, then speculation (the path's launch window) on the same
+    prompts, tokens equal; the drafter's chain equal to a plain replay of
+    the histories it learned; the model against the CPU at depth 2; the
+    drafter's kernels at the path's shapes, tagged ``[lm]``."""
+    from repro_torch import core
+    from repro_torch.core import speculative as spec
+    from repro_torch.kernels import ops, walk
+    from repro_torch.models import Model
+    lm_launcher()
+    cfg = lm_config()
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    weight_bytes = param_bytes(params)
+    say(f"[lm] {cfg}")
+    say(f"[lm] {LM_ARCH} at full width: {cfg.param_count()} parameters, "
+        f"{weight_bytes / 1e9:.2f} GB of float32 made on the card from a "
+        f"seeded generator in {time.perf_counter() - t0:.1f} s; "
+        f"{LM_REQUESTS} requests of {LM_BATCH} x {LM_PROMPT} prompt tokens, "
+        f"{LM_NEW} new tokens each ({card})")
+    prompts = lm_prompts(seed, cfg.vocab_size)
+    lm_serve(model, params, LM_DRAFT, prompts[:1])   # cuBLAS and kernels warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain, p_engine, _, _, p_wall = lm_serve(model, params, 0, prompts)
+    with launch_window("lm", LM_KERNELS) as launches:
+        toks, engine, histories, learn_ms, wall = lm_serve(
+            model, params, LM_DRAFT, prompts)
+    peak = torch.cuda.max_memory_allocated()
+    if toks.shape != (LM_REQUESTS, LM_BATCH, LM_NEW) or \
+            not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"lm: tokens of shape {toks.shape} out of range")
+    if not np.array_equal(toks, plain):
+        bad = np.argwhere(toks != plain)[0].tolist()
+        raise AssertionError(f"lm: speculative tokens differ from plain "
+                             f"greedy's, first at {bad}")
+    st, pst = engine.stats, p_engine.stats
+    if st["rounds"] <= 0 or st["accepted"] <= 0:
+        raise AssertionError(f"lm: no draft was verified and accepted: {st}")
+    n_tok = toks.size
+    say(f"[lm] speculative (draft_len {LM_DRAFT}) tokens == plain greedy "
+        f"tokens, all {n_tok}; model calls {st['model_calls']} against plain "
+        f"greedy's {pst['model_calls']}; {st['rounds']} verify rounds, "
+        f"{st['drafted']} drafted, {st['accepted']} accepted: acceptance "
+        f"{engine.acceptance_rate:.4f}; {st['draft_calls']} draft calls "
+        f"({card})")
+    say(f"[lm] tokens/s, host clock over the {LM_REQUESTS} requests (prefill, "
+        f"decode, learn): speculative {n_tok / wall:.1f} ({wall:.3f} s), "
+        f"plain greedy {n_tok / p_wall:.1f} ({p_wall:.3f} s) ({card})")
+    model_ms = lm_model_ms(model, params, prompts[0])
+    say(f"[lm] ms per call, latency on an idle device (events, medians of "
+        f"5): " + ", ".join(f"{k} {v:.3f}" for k, v in model_ms.items())
+        + f"; reading the float32 weights once takes "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({card})")
+    if profile:
+        cur = torch.as_tensor(toks[0, :, :1], device="cuda")
+        _, caches = model.prefill(params, {"tokens": torch.as_tensor(
+            prompts[0], device="cuda")}, LM_PROMPT + LM_NEW + 8)
+        pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        profile_window(f"lm decode_step ({LM_ARCH}, batch {LM_BATCH})",
+                       lambda: model.decode_step(params, caches, cur, pos),
+                       rounds=3)
+        del caches
+    say(f"[lm] peak device memory over both serves "
+        f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) ({card})")
+
+    # the drafter: its published chain == the histories replayed through
+    # the plain versions on the card, and a draft == the plain version's
+    ngram = engine.cfg.ngram
+    plain_ngram = dataclasses.replace(ngram, mc=dataclasses.replace(
+        ngram.mc, impl="ref"))
+    replay = spec.init(plain_ngram, device="cuda")
+    for h in histories:
+        spec.maintain_(spec.observe_(replay, h, cfg=plain_ngram),
+                       cfg=plain_ngram)
+    state = engine.drafter_store.acquire()
+    engine.drafter_store.release(state)
+    state = state.state
+    equal_states("lm: the engine's drafter vs the plain replay of its "
+                 "histories", state.chain, replay.chain)
+    # windows the drafter met: inside each learned continuation
+    ctx = torch.as_tensor(np.concatenate([
+        h[:, end - ngram.order:end] for h in histories
+        for end in range(LM_PROMPT, LM_PROMPT + LM_NEW, 8)]), device="cuda")
+    draft = spec.draft(state, ctx, cfg=ngram, k=LM_DRAFT)
+    compare("lm: draft vs its plain version", draft,
+            spec.draft(state, ctx, cfg=plain_ngram, k=LM_DRAFT))
+    draft_ms = call_ms(lambda: spec.draft(state, ctx, cfg=ngram, k=LM_DRAFT))
+    say(f"[lm] the drafter after {len(histories)} learner steps: its 18 "
+        f"leaves == a plain replay's (impl=ref, on the card); a draft of "
+        f"{ctx.shape[0]} windows == its plain version's "
+        f"({int(draft[1][:, 0].sum())} first steps ok); _learn ms "
+        + ", ".join(f"{x:.2f}" for x in learn_ms)
+        + f" (host clock); draft k={LM_DRAFT} {draft_ms[0]:.4f} ms device, "
+        f"{draft_ms[1]:.4f} ms on an idle device ({card})")
+
+    # the drafter's kernels at the shapes the path gave them: one more
+    # history (the last prompt with a new continuation, so the new-edge
+    # pass has new edges and new rows) through the chain's kernels, the
+    # draft windows through the walk, the learner's flags through the
+    # catch-up
+    fresh = histories[-1].copy()
+    fresh[:, LM_PROMPT:] = np.random.default_rng(seed + 12).integers(
+        0, cfg.vocab_size, fresh[:, LM_PROMPT:].shape)
+    hist = torch.as_tensor(fresh, device="cuda")
+    src = spec.context_ids(hist, ngram.order)[:, :-1].reshape(-1)
+    q = spec.context_ids(ctx, ngram.order)[:, -1].contiguous()
+    entries = path_shape_kernels(state.chain, ngram.mc, src,
+                                 hist[:, 1:].reshape(-1), q, launches,
+                                 path="lm", reads=(), unfused=False)
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    learner = engine._learner
+    front, back = learner._front.chain, learner._back.chain
+    flags = learner._dirty.clone()
+    n, c = ngram.mc.num_rows, ngram.mc.capacity
+    h = front.src_table.keys.shape[0]
+    inplace_entry(
+        entries, launches, flush, "copy_dirty_rows[lm]", "copy_dirty_rows",
+        "copy_rows.cu", "none: the back-buffer learner's catch-up",
+        lambda impl, work, dirty: ops.copy_dirty_rows(
+            (front.slabs.cnt, front.slabs.dst, front.slabs.order,
+             front.slabs.tot, *front.src_table, core.scalars_of(front)),
+            tuple(work), dirty, impl=impl),
+        (back.slabs.cnt, back.slabs.dst, back.slabs.order, back.slabs.tot,
+         *back.src_table, core.scalars_of(back)),
+        bytes_moved=lambda flagged: n + flagged * (1 + 8 * (3 * c + 1))
+        + 8 * (2 * h + len(core.SCALAR_FIELDS)),
+        operations=0, flags=flags, extra=dict(rows=n, table_slots=h))
+    chain = state.chain
+    window = ctx[:, -ngram.order:].contiguous()
+    walk_args = (window, chain.src_table.keys, chain.src_table.vals,
+                 chain.slabs.cnt, chain.slabs.dst, chain.slabs.order[:, 0])
+    probed, found_steps, steps, trips, trips_max = walk_work(
+        window, *draft, chain.src_table.keys, ngram.mc.max_probes, walk.LANES)
+    kernel_entry(
+        entries, launches, flush, f"draft_walk[lm, k={LM_DRAFT}]",
+        "draft_walk", "walk.cu", "src/repro/kernels/walk.py:123",
+        lambda impl: ops.draft_walk(*walk_args, k=LM_DRAFT,
+                                    max_probes=ngram.mc.max_probes, impl=impl),
+        bytes_moved=4 * (window.numel() + probed + 4 * found_steps)
+        + window.shape[0] * LM_DRAFT * 5,
+        operations=steps * (14 * ngram.order + 10) + 3 * probed,
+        extra=dict(windows=window.shape[0], trips_per_step=trips,
+                   trips_max=trips_max))
+    del params, flush, front, back
+    torch.cuda.empty_cache()
+    lm_against_cpu(seed)
+    return entries
+
+
+def param_bytes(tree):
+    """Bytes of every tensor in a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None):
@@ -4869,6 +5247,10 @@ def main(argv=None):
                                  args.rounds, args.profile)
         torch.cuda.empty_cache()
         lap("drafter")
+    if "lm" in phases:
+        kernels += phase_lm(args.seed, card, args.profile)
+        torch.cuda.empty_cache()
+        lap("lm")
     if "sharded" in phases:
         state, scfg, traffic, launches = phase_sharded(
             args.seed, sharded_warm(args), args.rounds)

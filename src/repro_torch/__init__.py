@@ -20,6 +20,11 @@ counterpart of ``repro.x`` is ``repro_torch.x``:
   * :mod:`repro_torch.faults`, :mod:`repro_torch.obs`,
     :mod:`repro_torch.runtime` — failpoints, telemetry and the retry
     ladder (host-only)
+  * :mod:`repro_torch.configs`, :mod:`repro_torch.models` — the ten archs'
+    configs and the dense decoder models (prefill, decode, extension)
+  * :mod:`repro_torch.serve`, :mod:`repro_torch.launch` — the LM engine
+    with the MCPrioQ drafter, sampling, the sharded chain's engine, and
+    their launcher
 
 The package imports ``torch`` and never ``jax`` or ``repro``.  State lives on
 the GPU unless the caller asks for the CPU (``init(cfg, device="cpu")``),

@@ -1,16 +1,20 @@
-"""Carry a chain's state between packages: ``MCState`` <-> numpy leaves.
+"""Carry state between packages: ``MCState`` <-> numpy leaves, and a
+model's parameter tree <-> numpy arrays.
 
-The dict's keys are the leaf names of the reference's ``MCState`` pytree
-(``src_table.keys``, ``slabs.cnt``, ``n_rows``, ...), 18 int32 arrays in all,
-so a state learned by either package can be continued by the other.  The
-stacked pair does the same for a sharded chain (``core.sharded``): the same
-18 leaves, each with a leading ``[S]``.  This module sees numpy arrays
-only, never another framework's types.
+The chain dict's keys are the leaf names of the reference's ``MCState``
+pytree (``src_table.keys``, ``slabs.cnt``, ``n_rows``, ...), 18 int32 arrays
+in all, so a state learned by either package can be continued by the other.
+The stacked pair does the same for a sharded chain (``core.sharded``): the
+same 18 leaves, each with a leading ``[S]``.  The model pair carries the
+tree of the reference's ``Model.init`` (nested dicts and lists of numpy
+arrays: ``emb``, ``final_norm``, ``stack``, ``tail``) to the port's
+parameters and back, bit for bit.  This module sees numpy arrays only,
+never another framework's types.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -99,3 +103,44 @@ def sharded_state_from_numpy(leaves: Dict[str, np.ndarray], scfg,
     return stack_states([
         state_from_numpy({k: np.asarray(v)[i] for k, v in leaves.items()},
                          scfg.base, device) for i in range(s)])
+
+
+def model_params_from_numpy(cfg, tree, device=None) -> Any:
+    """The port's parameters of ``models.Model(cfg)`` on ``device`` (default:
+    the GPU) from a tree of numpy arrays laid out as the reference's
+    ``Model.init`` lays out its parameters; every key, list length, shape
+    and dtype checked against ``Model(cfg).abstract_params()``."""
+    from repro_torch.models.model import Model
+    dev = resolve_device(device)
+
+    def one(want, got, path: str):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                have = sorted(got) if isinstance(got, dict) else type(got)
+                raise ValueError(f"params{path}: keys {have} != "
+                                 f"{sorted(want)}")
+            return {k: one(want[k], got[k], f"{path}.{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(got, (list, tuple)) or len(got) != len(want):
+                raise ValueError(f"params{path}: a list of {len(want)} "
+                                 f"blocks wanted")
+            return [one(w, g, f"{path}[{i}]")
+                    for i, (w, g) in enumerate(zip(want, got))]
+        arr = np.asarray(got)
+        want_np = torch.empty((), dtype=want.dtype).numpy().dtype
+        if arr.dtype != want_np or arr.shape != tuple(want.shape):
+            raise ValueError(f"params{path}: {arr.dtype}{arr.shape}, the "
+                             f"config wants {want_np}{tuple(want.shape)}")
+        return torch.from_numpy(np.array(arr, order="C", copy=True)).to(dev)
+
+    return one(Model(cfg).abstract_params(), tree, "")
+
+
+def model_params_to_numpy(params) -> Any:
+    """A parameter tree of tensors (on any device) as the same tree of numpy
+    arrays."""
+    if isinstance(params, dict):
+        return {k: model_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [model_params_to_numpy(v) for v in params]
+    return params.detach().cpu().numpy().copy()

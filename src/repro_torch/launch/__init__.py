@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (the sharded chain's serving launcher)."""
+"""Launchers of the port: ``serve`` (LM serving, and the sharded chain's
+serving launcher)."""

@@ -1,8 +1,19 @@
-"""Serving launcher of the port: shard-parallel chain serving.
+"""Serving launcher of the port: batched LM requests through the ``Engine``
+with the MCPrioQ speculative drafter, or shard-parallel chain serving.
 
-Routes synthetic transition traffic through the port's
-:class:`repro_torch.serve.engine.ShardedEngine` (the S shards are logical
-shards of one GPU):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
+      --requests 4 --prompt-len 32 --new-tokens 32
+
+serves ``qwen2-7b`` at full width with random parameters (float32, about
+30.5 GB, bfloat16 compute) on the GPU; ``--smoke --device cpu`` serves its
+reduced config on the CPU.  The dense family is ported (``qwen2-7b``,
+``starcoder2-3b``, ``starcoder2-7b``, ``granite-34b``); the encoder and
+vision archs are refused as the reference refuses them, and the other
+families by name (ROADMAP queue A 8d).
+
+Shard-parallel chain serving routes synthetic transition traffic through
+the port's :class:`repro_torch.serve.engine.ShardedEngine` (the S shards
+are logical shards of one GPU):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --num-shards 8 \
       --bucket-factor 2.0 --requests 16 --route-batch 4096
@@ -14,9 +25,8 @@ recover (optionally at a different shard count) with --restore:
       --wal /tmp/mc-wal
   ... --num-shards 4 --snapshot-dir /tmp/mc-snap --wal /tmp/mc-wal --restore
 
-Counterpart of ``repro.launch.serve``'s ``run_sharded`` and ``main``.  The
-LM serving loop (``--num-shards`` not given) waits for the port's
-``Engine`` (ROADMAP queue A 8): ``main`` raises instead of serving it.
+Counterpart of ``repro.launch.serve``'s ``run``, ``run_sharded`` and
+``main``.  Both serve on the GPU unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -25,13 +35,71 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import mcprioq as mc
 from repro_torch.core import sharded as sh
+from repro_torch.core import speculative as spec
+from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import MarkovGraphSampler
+from repro_torch.models.model import Model, check_ported
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.export import MetricsDumper, MetricsServer
-from repro_torch.serve.engine import ShardedEngine, ShardedServeConfig
+from repro_torch.serve.engine import (Engine, ServeConfig, ShardedEngine,
+                                      ShardedServeConfig)
+
+
+def run(arch: str, smoke: bool, requests: int, prompt_len: int,
+        new_tokens: int, draft_len: int, seed: int = 0,
+        decay_threshold: int = 1 << 18, decay_block_rows: int = 1024,
+        device=None):
+    """Serve ``requests`` batches of 2 random prompts through the LM
+    ``Engine`` on ``device`` (default: the GPU; an error without one), the
+    model's parameters random from ``seed``.  Returns (outputs, engine)."""
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if cfg.encoder_layers or cfg.frontend == "patch":
+        raise SystemExit("text-LM serving driver; see examples/ for encdec")
+    try:
+        check_ported(cfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"repro_torch.launch.serve: {e}") from None
+    dev = resolve_device(device)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    # rolling decay keeps learner-side maintenance bounded per request
+    # (DESIGN.md §6) instead of stalling serving on a full-table sweep
+    mc_cfg = mc.MCConfig(num_rows=8192, capacity=64, sort_passes=1,
+                         decay_block_rows=decay_block_rows)
+    scfg = ServeConfig(
+        max_new_tokens=new_tokens,
+        max_cache_len=prompt_len + new_tokens + 8,
+        draft_len=draft_len,
+        ngram=spec.NGramConfig(order=2, mc=mc_cfg,
+                               decay_threshold=decay_threshold),
+    )
+    engine = Engine(model, params, scfg, device=dev)
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    outs = []
+    for r in range(requests):
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (2, prompt_len)).astype(np.int32)}
+        outs.append(engine.generate(
+            batch, torch.Generator(device=dev).manual_seed(r)))
+    dt = time.time() - t0
+    total_tokens = sum(o.size for o in outs)
+    plain_calls = requests * (new_tokens - 1)
+    print(f"{requests} requests, {total_tokens} tokens in {dt:.1f}s "
+          f"({total_tokens/dt:.1f} tok/s)")
+    print(f"model calls {engine.stats['model_calls']} "
+          f"(plain greedy would use {plain_calls}), "
+          f"draft acceptance {engine.acceptance_rate:.2%}")
+    print(f"maintenance: decay_steps={engine.stats['decay_steps']} "
+          f"dh_rebuilds={engine.stats['dh_rebuilds']} "
+          f"dh_tombstones={engine.stats['dh_tombstones']}")
+    return outs, engine
 
 
 def run_sharded(num_shards: int, bucket_factor: float, requests: int,
@@ -147,15 +215,23 @@ def run_sharded(num_shards: int, bucket_factor: float, requests: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-7b")
+    ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--draft-len", type=int, default=4)
+    ap.add_argument("--device", default=None,
+                    help="serve on this torch device (default: the GPU; "
+                         "'cpu' runs the plain versions on the CPU)")
     ap.add_argument("--decay-threshold", type=int, default=1 << 18,
                     help="row-total threshold that triggers §II.C decay")
     ap.add_argument("--decay-block-rows", type=int, default=1024,
                     help="rolling decay block size; 0 = stop-the-world")
     ap.add_argument("--num-shards", type=int, default=0,
-                    help="> 0 serves the node-sharded chain (ShardedEngine), "
-                         "that many logical shards on one device; the LM "
-                         "loop (0) is not ported yet")
+                    help="> 0 serves the node-sharded chain (ShardedEngine) "
+                         "instead of the LM loop, that many logical shards "
+                         "on one device")
     ap.add_argument("--bucket-factor", type=float, default=2.0,
                     help="all_to_all bucket capacity as a multiple of the "
                          "fair per-shard share (overflow drops are counted)")
@@ -223,12 +299,13 @@ def main(argv=None):
                     metrics_dump=args.metrics_dump,
                     metrics_every=args.metrics_every,
                     incident_dir=args.incident_dir,
-                    metrics_linger=args.metrics_linger)
+                    metrics_linger=args.metrics_linger,
+                    device=args.device)
         return
-    raise SystemExit(
-        "repro_torch.launch.serve: the LM serving loop (no --num-shards) "
-        "waits for the port's Engine (ROADMAP queue A 8); "
-        "pass --num-shards N to serve the sharded chain")
+    run(args.arch, args.smoke, args.requests, args.prompt_len,
+        args.new_tokens, args.draft_len,
+        decay_threshold=args.decay_threshold,
+        decay_block_rows=args.decay_block_rows, device=args.device)
 
 
 if __name__ == "__main__":

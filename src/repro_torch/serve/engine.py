@@ -1,8 +1,25 @@
-"""Serving engine for the sharded chain: the port's ``ShardedEngine``.
+"""Serving engines: the LM ``Engine`` with the MCPrioQ speculative drafter,
+and the sharded chain's ``ShardedEngine``.
 
-Counterpart of ``repro.serve.engine``'s ``ShardedServeConfig`` and
-``ShardedEngine`` (the LM side, ``Engine`` and ``ServeConfig``, is not
-ported yet).  The host-side contract is the reference's, method by method:
+**The LM engine** (``ServeConfig``, ``Engine``) is the counterpart of
+``repro.serve.engine``'s: prefill, then draft-verify rounds — one
+``draft_walk`` launch proposes a draft, one ``extend_step`` verifies it,
+acceptance is the batch-wide longest prefix, and a partial acceptance
+re-extends from the kept pre-extend caches (the model never writes a cache
+it is given, so keeping them is the rollback) — and the emitted tokens are
+learned by the chain after every request (``_learn``, under
+``_learn_lock``, with the ``engine.learn`` failpoint).  Greedy speculation
+emits plain greedy decoding's tokens bit for bit (the model runs decode and
+extension calls at one shape: ``models.model.STEP_ROWS``).  One thing
+differs: the drafter's chain lives behind an ``EpochStore`` whose writer is
+a :class:`repro_torch.core.epoch.BackBufferLearner` over the owner calls
+``speculative.observe_`` + ``maintain_``, so a learner step catches a back
+state up by rows and writes into it instead of copying the chain.  Drafts
+pin the published front through the learner (the stream rule below).
+
+**The sharded engine** is the counterpart of ``ShardedServeConfig`` and
+``ShardedEngine``.  The host-side contract is the reference's, method by
+method:
 one writer under ``_write_lock`` (WAL append -> update -> maintain ->
 publish -> cadence snapshot), lock-free readers on ``EpochStore``
 snapshots, the fault ladder (retries, poison / heal, degraded reads, down
@@ -57,6 +74,7 @@ from repro_torch.analysis.invariants import requires_lock
 from repro_torch.core import epoch
 from repro_torch.core import mcprioq as mc
 from repro_torch.core import sharded as sh
+from repro_torch.core import speculative as spec
 from repro_torch.core.device import resolve_device
 from repro_torch.core.epoch import EpochStore
 from repro_torch.faults import arm_from_env, failpoint
@@ -69,14 +87,218 @@ from repro_torch.runtime.fault_tolerance import (EngineWriteUnavailable,
                                                  StepWatchdog, WatchdogConfig,
                                                  call_with_retry,
                                                  shard_from_exception)
+from repro_torch.serve import sampling
 from repro_torch.sharding.ownership import Ownership
 
-__all__ = ["ShardedServeConfig", "ShardedEngine"]
+__all__ = ["ServeConfig", "Engine", "ShardedServeConfig", "ShardedEngine"]
 
 
 def _host(x) -> np.ndarray:
     """A tensor (on any device) or array as a numpy array."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 64
+    max_cache_len: int = 512
+    draft_len: int = 4            # speculation depth (0 = disabled)
+    ngram: spec.NGramConfig = spec.NGramConfig()
+    greedy: bool = True
+    temperature: float = 1.0
+
+
+class Engine:
+    """Host-side orchestration of a model and its drafter on one device
+    (default: the GPU; an error without one)."""
+
+    # normative lock order + protection map (DESIGN.md §11, checked by
+    # tools/mcqlint): the learner lock serialises the learner's write (and
+    # so the publish inside it) AND the maintenance-gauge view derived from
+    # the published state
+    _MCQ_LOCK_ORDER = ("_learn_lock",)
+    _MCQ_LOCK_PROTECTS = {
+        "_learn_lock": ("drafter_store.publish", "_learner.write", "_maint"),
+    }
+
+    def __init__(self, model, params, cfg: ServeConfig, device=None):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.drafter_store = EpochStore(spec.init(cfg.ngram, self.device))
+        # the single writer of the drafter: a back buffer behind the store
+        # (two chains, one catch-up launch per learner step).  Two
+        # overlapping generate() calls must not write the back at once, so
+        # _learn holds _learn_lock; drafting stays lock-free.
+        self._learner = epoch.BackBufferLearner(self.drafter_store)
+        self._learn_lock = threading.Lock()
+        # telemetry (DESIGN.md §13): lock-free obs registry counters.
+        # model_calls counts decode+extend forwards (the latency metric);
+        # plain greedy needs exactly max_new_tokens-1 of them.
+        self.metrics = obs_metrics.Registry()
+        # maintenance gauges are absolute values read off the freshly
+        # published chain (not increments); surfaced through a provider so
+        # scrapes and the stats view share one source of truth
+        self._maint = {"decay_steps": 0, "dh_rebuilds": 0,
+                       "dh_tombstones": 0}
+        self.metrics.register_provider(lambda: dict(self._maint))
+        self._caches = None
+
+    # ------------------------------------------------------------------
+    def generate(self, batch: Dict, generator: Optional[torch.Generator]
+                 = None) -> np.ndarray:
+        """Generate max_new_tokens per sequence. Returns int32 [B, N].
+        ``generator`` (on the engine's device) draws the samples when
+        ``cfg.greedy`` is off."""
+        cfg = self.cfg
+        tokens = _host(batch["tokens"]).astype(np.int32)
+        b, s = tokens.shape
+        logits, caches = self.model.prefill(
+            self.params, dict(batch, tokens=torch.as_tensor(
+                tokens, device=self.device)), cfg.max_cache_len)
+        out = np.zeros((b, cfg.max_new_tokens), np.int32)
+        cur = self._sample(logits, generator)          # first new token
+        pos = torch.full((b,), s, dtype=torch.int32,
+                         device=self.device)           # cache position of cur
+        n_done = 0
+        history = tokens.copy()
+
+        while n_done < cfg.max_new_tokens:
+            cur_host = _host(cur)
+            out[:, n_done] = cur_host
+            history = np.concatenate([history, cur_host[:, None]], 1)
+            n_done += 1
+            if n_done >= cfg.max_new_tokens:
+                break
+            budget = cfg.max_new_tokens - n_done
+            if cfg.draft_len > 0 and budget > 1 and cfg.greedy:
+                cur, pos, emitted = self._speculative_round(
+                    caches, cur, pos, history, min(cfg.draft_len, budget - 1))
+                caches = self._caches  # updated by the round
+                for t in emitted:
+                    out[:, n_done] = t
+                    history = np.concatenate([history, t[:, None]], 1)
+                    n_done += 1
+                    if n_done >= cfg.max_new_tokens:
+                        break
+            else:
+                logits, caches = self.model.decode_step(
+                    self.params, caches, cur[:, None], pos)
+                self.metrics.counter_add("model_calls")
+                cur = self._sample(logits, generator)
+                pos = pos + 1
+
+        # online learning: feed emitted tokens back into the chain and
+        # publish a new snapshot for subsequent requests
+        self._learn(history)
+        return out
+
+    # ------------------------------------------------------------------
+    def _learn_step(self, state, toks, dirty=None):
+        spec.observe_(state, toks, cfg=self.cfg.ngram, dirty=dirty)
+        return spec.maintain_(state, cfg=self.cfg.ngram, dirty=dirty)
+
+    def _learn(self, history) -> None:
+        """Serialised learner step: observe emitted tokens, run §II.C
+        maintenance (rolling decay, decided on the device) in the back
+        state, publish it, and surface the maintenance counters in
+        ``stats``."""
+        toks = torch.as_tensor(_host(history).astype(np.int32))
+        with self._learn_lock, self.metrics.span("engine.learn"):
+            failpoint("engine.learn", tokens=int(toks.shape[-1]))
+            new_state = self._learner.write(self._learn_step, toks)
+            # inside the learn lock: a stale state's counters must not
+            # overwrite a newer learner's view
+            self._maint = {k: int(v) for k, v
+                           in mc.maintenance_stats(new_state.chain).items()
+                           if k in self._maint}
+
+    # ------------------------------------------------------------------
+    def _speculative_round(self, caches, cur, pos, history, k
+                           ) -> Tuple[torch.Tensor, torch.Tensor, list]:
+        """One draft-verify round.
+
+        Feeds [cur, draft_0..draft_{k-2}] (k tokens) through extend_step;
+        logits[i] is the model's choice after consuming token i.  Batch-wide
+        longest-prefix acceptance; on partial acceptance the pre-extend
+        caches are kept (free rollback) and re-extended with the accepted
+        tokens only.  Returns (next cur, next pos, [emitted token arrays]).
+        """
+        ngram = self.cfg.ngram
+        snap = self._learner.acquire()
+        try:
+            ctx = np.ascontiguousarray(history[:, -max(ngram.order, 2):])
+            draft, ok = spec.draft(snap.state, ctx, cfg=ngram,
+                                   k=max(self.cfg.draft_len, 1))
+            self.metrics.counter_add("draft_calls")  # one kernel launch
+        finally:
+            self.drafter_store.release(snap)
+        b = cur.shape[0]
+        draft = (_host(draft)[:, : k - 1] if k > 1
+                 else np.zeros((b, 0), np.int32))
+        ok = (_host(ok)[:, : k - 1] if k > 1 else np.zeros((b, 0), bool))
+        n_drafted = int(ok.all(axis=0).cumprod().sum()) if ok.size else 0
+        draft = draft[:, :n_drafted]
+
+        if n_drafted == 0:  # nothing usable: plain decode step
+            logits, self._caches = self.model.decode_step(
+                self.params, caches, cur[:, None], pos)
+            self.metrics.counter_add("model_calls")
+            return self._sample(logits, None), pos + 1, []
+
+        self.metrics.counter_add("rounds")
+        self.metrics.counter_add("drafted", int(draft.size))
+        feed = torch.cat([cur[:, None], torch.as_tensor(
+            draft, device=self.device)], dim=1)          # [B, 1+n]
+        logits, ext_caches = self.model.extend_step(self.params, caches,
+                                                    feed, pos)
+        self.metrics.counter_add("model_calls")
+        model_toks = _host(sampling.greedy(logits))      # [B, 1+n]
+
+        # longest batch-wide prefix where model agrees with the draft
+        agree = (model_toks[:, :-1] == draft).all(axis=0)
+        n_acc = int(np.cumprod(agree).sum())
+        self.metrics.counter_add("accepted", n_acc * draft.shape[0])
+
+        emitted = [model_toks[:, j] for j in range(n_acc)]
+        nxt = torch.as_tensor(model_toks[:, n_acc], device=self.device)
+        if n_acc == draft.shape[1]:
+            # fully accepted: keep the extended caches; bonus token is the
+            # model's continuation after the last draft token
+            self._caches = ext_caches
+            return nxt, pos + n_acc + 1, emitted
+        # partial: roll back (keep pre-extend caches) and re-extend with the
+        # accepted prefix only; the correction token came from the verify
+        _, self._caches = self.model.extend_step(self.params, caches,
+                                                 feed[:, : n_acc + 1], pos)
+        self.metrics.counter_add("model_calls")
+        return nxt, pos + n_acc + 1, emitted
+
+    # ------------------------------------------------------------------
+    def _sample(self, logits, generator):
+        if self.cfg.greedy:
+            return sampling.greedy(logits)
+        if generator is None:
+            raise ValueError("sampling (greedy=False) needs a torch.Generator "
+                             "on the engine's device")
+        return sampling.temperature(generator, logits, self.cfg.temperature)
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """Dict view over the obs registry (the registry is the one source
+        of truth; this is a point-in-time copy, so mutate metrics through
+        ``self.metrics``, not this dict)."""
+        scalars = self.metrics.scalars()
+        keys = ("model_calls", "accepted", "drafted", "rounds",
+                "draft_calls", "decay_steps", "dh_rebuilds",
+                "dh_tombstones")
+        return {k: int(scalars.get(k, 0)) for k in keys}
+
+    @property
+    def acceptance_rate(self) -> float:
+        st = self.stats
+        return st["accepted"] / max(1, st["drafted"])
 
 
 @dataclasses.dataclass

@@ -12,8 +12,8 @@ reference arms ``repro.faults``, the port ``repro_torch.faults``: the two
 registries are independent.  Added: a publish fault followed by its retry,
 on every third write of ten, equal to an engine that never faulted (the
 port's back buffer is written before the fault and caught up by the
-retry).  The LM ``Engine``'s ``engine.learn`` case waits for the port's
-``Engine``.
+retry).  The LM ``Engine``'s ``engine.learn`` case is in
+``test_torch_lm_engine.py``.
 """
 
 import os

@@ -103,11 +103,15 @@ def test_run_sharded_at_the_reference_defaults(capsys):
 
 
 def test_launcher_without_num_shards_raises_naming_the_lm_item():
-    """The LM serving loop is not ported: ``main`` refuses it, naming the
-    queue item, instead of falling back."""
+    """Without ``--num-shards`` ``main`` serves the LM loop on the GPU: with
+    none it raises (no fallback to the CPU); a family the port does not run
+    yet is refused by name, naming the queue item."""
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit, match="queue A 8"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--requests", "1"])
+    with pytest.raises(SystemExit, match="'ssm'.*queue A 8d"):
+        serve.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu",
+                    "--requests", "1"])
 
 
 def test_restore_keeps_the_engines_own_kernel_dispatch(tmp_path):
