@@ -222,6 +222,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -360,10 +361,27 @@ def phase_device():
         say(f"[device] kernels built in {_build.build_seconds:.1f} s "
             f"({len(_build.sources()[0])} sources, one nvcc each, into "
             f"{_build.BUILD_DIR})")
-        for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                say("[device]   " + line.strip())
+        for line in ptxas_summary(_build.build_log):
+            say("[device]   " + line)
     return card
+
+
+def ptxas_summary(log):
+    """One line per compiled kernel from ``-Xptxas -v``: its (mangled)
+    name, spills and registers; errors as they are."""
+    out, name, spills = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spills}")
+        elif "error" in line:
+            out.append(line.strip())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +551,7 @@ def small_kernel_checks(gen):
             st = mc._slow_path(st, src, dsts, w, active, cfg)
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
+    small_slab_cdf_checks(gen, both, both_)
     small_decay_checks(gen, both, both_)
     small_dh_checks(gen, both, both_)
     small_copy_checks(gen)
@@ -549,6 +568,68 @@ def misaligned(x):
     out = buf[1:].view(x.shape)
     out.copy_(x)
     return out
+
+
+def sorted_batch(gen, dst, heavy=40, tail=9):
+    """Items as the update hands them to ``slab_update``: sorted by (row,
+    dst) over a few rows, one row with ``heavy`` items (more than a warp),
+    repeated edges, a share of slots -1 among them (the aggregation's
+    non-heads and the new edges) and a -1 tail (inactive items)."""
+    n, c = dst.shape
+    rows = torch.cat([torch.full((heavy,), n // 2, dtype=torch.int32,
+                                 device="cuda"), randint(gen, 0, n, (50,))])
+    dsts = dst[rows.long(), randint(gen, 0, c, (rows.numel(),)).long()]
+    dsts[::7] = 54321                                    # absent edges
+    key = rows.long() * (1 << 32) + dsts.long() + (1 << 31)
+    perm = torch.sort(key, stable=True).indices
+    rows, dsts = rows[perm], dsts[perm].to(torch.int32)
+    rows[torch.rand(rows.numel(), generator=gen, device="cuda") < 0.2] = -1
+    pad = torch.full((tail,), -1, dtype=torch.int32, device="cuda")
+    w = randint(gen, 1, 9, (rows.numel() + tail,))
+    return torch.cat([rows, pad]), torch.cat([dsts, pad]), w
+
+
+def small_slab_cdf_checks(gen, both, both_):
+    """``slab_update`` (both forms) and ``cdf_query`` at the shapes their
+    designs branch on: rows of 1 to 1,024 slots (one scan step or many; a
+    lane's 4 slots or V positions cut by the row's end), rows 4 B past a
+    16 B boundary (scalar loads), a sorted batch with a row of more items
+    than a warp and a -1 tail, and 65,543 items over 37 rows in random order
+    (many blocks, many items per row in one warp: the combined tot
+    atomics)."""
+    from repro_torch.kernels import ops
+    for c in (1, 3, 16, 33, 64, 128, 129, 1024):
+        n = 37
+        dst, cnt, tot, order = random_slabs(gen, n, c)
+        dst[3] = torch.where(cnt[3] > 0, 77, -1)        # repeated dst: first slot
+        many = randint(gen, 0, n, (65_536 + 7,))
+        hit = dst[many.long(), randint(gen, 0, c, (many.numel(),)).long()]
+        batches = {"sorted": sorted_batch(gen, dst),
+                   "65,543 items": (many, hit, randint(gen, -3, 9,
+                                                       (many.numel(),)))}
+        for label, (rows, dsts, w) in batches.items():
+            for skew, slab in (("", dst), (" misaligned", misaligned(dst))):
+                name = f"slab_update C={c} {label}{skew}"
+                both(name, ops.slab_update, rows, dsts, w, slab, cnt, tot)
+                both_(name, ops.slab_update_, (4, 5), rows, dsts, w, slab,
+                      misaligned(cnt) if skew else cnt,
+                      misaligned(tot) if skew else tot)
+        # cdf over pre-ordered rows, aligned and 4 B off, both modes
+        if c not in (33, 64, 128, 129, 1024):
+            continue
+        rows = randint(gen, 0, n, (45,)).long()
+        found = torch.rand(45, generator=gen, device="cuda") < 0.8
+        ordr = order[rows].long()
+        c_ord = torch.where(found.unsqueeze(1), torch.gather(cnt[rows], 1, ordr), 0)
+        d_ord = torch.gather(dst[rows], 1, ordr)
+        for skew, (co, do) in (("", (c_ord, d_ord)),
+                               (" misaligned", (misaligned(c_ord),
+                                                misaligned(d_ord)))):
+            for max_items in (1, 16, c + 3):
+                for t in (0.0, 0.5, 0.9, 1.0, None):
+                    both(f"cdf_query C={c} B=45 k={max_items} t={t}{skew}",
+                         ops.cdf_query, co, do, tot[rows], t,
+                         max_items=max_items)
 
 
 def small_copy_checks(gen):

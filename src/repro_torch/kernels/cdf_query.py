@@ -14,16 +14,20 @@ positions over all C.
 Bound on this card: bytes, and few of them — a query needs the counts up to
 where its prefix crosses the threshold (all C in top-k mode, and for an
 unknown src whose zeroed row never crosses), the dsts it emits, its ``tot``,
-and (8·max_items + 4) B of output.  The design gives each query a warp that
-walks 32 positions at a time with a warp scan and an int32 carry (the device
-function ``csrc/cdf_walk.cuh`` shared with the fused kernel) and leaves the
-loop once the carry has crossed the threshold.  The TPU kernel leaves a
+and (8·max_items + 4) B of output.  The time is round trips: the rows arrive
+contiguous, so the design gives each query a warp that issues ``tot``, the
+counts of the first 32·V positions (V = ceil(C / 32) up to 8: the whole row
+for C <= 256, rounds of 256 above) and the dsts below ``max_items`` as
+independent loads before any arithmetic — 16-B loads where the rows are
+16-B aligned, scalar loads otherwise — and then walks in registers with
+the scan shared with the fused kernel (``csrc/cdf_walk.cuh``): a uint32
+prefix, an exit once it has crossed the threshold.  The TPU kernel leaves a
 chunk only when every query of its 128-query block is done; here each query
 leaves on its own, and by the integer-walk contract the bits are the same.
 
 :func:`auto_chunks` resolves and validates ``MCConfig.query_chunks``.  On
-the GPU a warp walks 32 positions at a time whatever ``chunks`` says: every
-chunking gives the same bits, so the value only has to be valid.
+the GPU a warp walks 32·V positions at a time whatever ``chunks`` says:
+every chunking gives the same bits, so the value only has to be valid.
 
 Source: ``csrc/cdf_query.cu`` (entry ``mcq_cdf_query``), walk in
 ``csrc/cdf_walk.cuh``.  Plain version: :func:`cdf_query_ref`.

@@ -32,17 +32,6 @@ __device__ __forceinline__ void mcq_load_chunk(const int32_t* __restrict__ p,
     out[v] = j0 + v < capacity ? __ldg(p + j0 + v) : 0;
 }
 
-// Positions j0 .. max_items - 1 that no round wrote: EMPTY / 0.0.
-__device__ __forceinline__ void mcq_cdf_fill_tail(int j0, int max_items,
-                                                  int32_t* __restrict__ dq,
-                                                  float* __restrict__ pq) {
-  const int lane = threadIdx.x & (MCQ_WARP - 1);
-  for (int j = j0 + lane; j < max_items; j += MCQ_WARP) {
-    dq[j] = MCQ_EMPTY;
-    pq[j] = 0.0f;
-  }
-}
-
 // The walk in rounds of 32 * V positions gathered from device memory: the
 // round's order positions, then their counts and (below max_items) dsts
 // together; stops after the round whose prefix crosses t * tot.

@@ -1,67 +1,20 @@
 // The cumulative-probability walk of one query by one warp (paper §II.B):
-// mcq_cdf_walk_warp, 32 positions at a time, for the pre-ordered kernel
-// (cdf_query.cu), and mcq_cdf_scan / mcq_cdf_emit, 32 * V positions held in
-// registers at once, for the fused row-gather kernel (cdf_gather.cu).
+// mcq_cdf_scan / mcq_cdf_emit, 32 * V positions held in registers at once,
+// shared by the pre-ordered kernel (cdf_query.cu) and the fused row-gather
+// kernel (cdf_gather.cu).
 //
 // The walk runs in exact integer count space: position j (priority order) is
 // needed iff float32(sum of counts before j) < float32(t) * float32(tot) and
-// cnt_j > 0 (top-k mode: cnt_j > 0).  The prefix is an int32 warp scan plus an
-// int32 carry, so any chunking gives the same bits; the only float ops are
-// the per-row t * tot and the per-item cnt / tot, both IEEE round-to-nearest.
-// The warp walks 32 positions at a time and leaves the loop once the carry
-// has crossed t * tot: prefix counts are monotone, so no later position can
-// be needed.  Every output element is written (EMPTY / 0.0 defaults).
+// cnt_j > 0 (top-k mode: cnt_j > 0).  The prefix is a uint32 scan plus a
+// uint32 carry (the int32 wrap-around in any order), so any chunking gives
+// the same bits; the only float ops are the per-row t * tot and the
+// per-item cnt / tot, both IEEE round-to-nearest.  A kernel leaves its walk
+// once the carry has crossed t * tot (mcq_cdf_crossed): prefix counts are
+// monotone, so no later position can be needed.  Every output element is
+// written (EMPTY / 0.0 defaults: mcq_cdf_fill_tail, mcq_cdf_write_empty).
 #pragma once
 
 #include "common.cuh"
-
-// Source must provide, for a priority position j < capacity:
-//   int32_t count(int j, int32_t* token)  — the count at j (token: whatever
-//                                           dst() needs to find the item)
-//   int32_t dst(int j, int32_t token)     — the dst id at j
-template <class Source>
-__device__ __forceinline__ void mcq_cdf_walk_warp(
-    const Source& source, int capacity, int32_t tot, float t, bool topk,
-    int max_items, int32_t* __restrict__ dst_out, float* __restrict__ prob_out,
-    int32_t* __restrict__ n_out) {
-  const int lane = threadIdx.x & (MCQ_WARP - 1);
-  const float totf = __int2float_rn(tot > 1 ? tot : 1);
-  const float tcnt = __fmul_rn(t, totf);
-  int32_t carry = 0;
-  int32_t n_needed = 0;
-  int c0 = 0;
-  for (; c0 < capacity; c0 += MCQ_WARP) {
-    const int j = c0 + lane;
-    int32_t token = 0;
-    const int32_t c = (j < capacity) ? source.count(j, &token) : 0;
-    // inclusive int32 scan across the warp
-    int32_t incl = c;
-#pragma unroll
-    for (int off = 1; off < MCQ_WARP; off <<= 1) {
-      const int32_t up = __shfl_up_sync(MCQ_FULL_MASK, incl, off);
-      if (lane >= off) incl += up;
-    }
-    const int32_t before = carry + incl - c;
-    const bool needed =
-        (c > 0) && (topk || (__int2float_rn(before) < tcnt));
-    n_needed += __popc(__ballot_sync(MCQ_FULL_MASK, needed));
-    if (j < max_items) {
-      dst_out[j] = needed ? source.dst(j, token) : MCQ_EMPTY;
-      prob_out[j] = needed ? __fdiv_rn(__int2float_rn(c), totf) : 0.0f;
-    }
-    carry += __shfl_sync(MCQ_FULL_MASK, incl, MCQ_WARP - 1);
-    if (!topk && !(__int2float_rn(carry) < tcnt)) {
-      c0 += MCQ_WARP;
-      break;
-    }
-  }
-  // positions never walked (early exit, or max_items > capacity)
-  for (int j = c0 + lane; j < max_items; j += MCQ_WARP) {
-    dst_out[j] = MCQ_EMPTY;
-    prob_out[j] = 0.0f;
-  }
-  if (lane == 0) *n_out = n_needed;
-}
 
 // One step of the walk over 32 * V priority positions already in registers:
 // lane L holds the counts c[] of positions j0 .. j0 + V - 1 (0 past the row).
@@ -124,6 +77,17 @@ __device__ __forceinline__ void mcq_cdf_emit(
       dst_out[j] = needed ? d[v] : MCQ_EMPTY;
       prob_out[j] = needed ? __fdiv_rn(__int2float_rn(c[v]), totf) : 0.0f;
     }
+  }
+}
+
+// Positions j0 .. max_items - 1 that no round wrote: EMPTY / 0.0.
+__device__ __forceinline__ void mcq_cdf_fill_tail(int j0, int max_items,
+                                                  int32_t* __restrict__ dq,
+                                                  float* __restrict__ pq) {
+  const int lane = threadIdx.x & (MCQ_WARP - 1);
+  for (int j = j0 + lane; j < max_items; j += MCQ_WARP) {
+    dq[j] = MCQ_EMPTY;
+    pq[j] = 0.0f;
   }
 }
 

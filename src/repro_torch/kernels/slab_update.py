@@ -5,15 +5,26 @@ Replaces the TPU kernel ``repro/kernels/slab_update.py::slab_update_pallas``
 ``dst_slab[row, :]`` equal to ``dst`` gets ``cnt += w`` and ``tot[row] += w``;
 an absent edge or ``row < 0`` is a no-op; duplicate items add up.
 
-Bound on this card: bytes — the B items in (3·B·4 B), each found edge's row
-prefix scanned up to its slot, and two int32 atomics per found edge: at
-2^20 x 128 and 65,536 items some 10 us.  The design parallelises over ITEMS,
-one warp each, with int32 atomics (exact, order-free), so it touches only
-the rows the batch names instead of sweeping the slab, and writes in place:
-the state's owner hands its own ``cnt``/``tot`` (``slab_update_cuda_``), and
-lane 0 of a hit sets the row's dirty flag when the caller keeps them.  The
-functional wrapper copies ``cnt``/``tot`` first (2·N·C·4 B read + written),
-then launches the same kernel on the copies.
+Bound on this card: bytes — the B items in (3·B·4 B), each found edge's
+row prefix scanned up to its slot, and two int32 atomics and a flag per
+found edge: 0.0009 ms at 2^20 x 128 and 65,536 items (``chip_smoke.py``'s
+``bound_ms`` for phase main), far below the launch floor (~0.005 ms).  The
+time is random DRAM accesses — per found item one row read and one ``cnt``
+and one ``tot`` read-modify-write, scattered over the whole state — and the
+round trips between them, so the design keeps many loads in flight: a warp loads a tile of 32 items in one coalesced trip, then each
+group of 8 lanes scans 8 items' rows, 32 slots per step (one 16-B load per
+lane per row where rows are 16-B aligned, scalar loads otherwise), all 8
+rows' loads issued before any compare; rows wider than 32 slots take more
+steps only for the items not found yet.  The lowest matching slot wins.
+Found edges add to ``cnt`` with int32 atomics; the items of one row
+combine their ``tot`` increments in the warp (``__match_any_sync``), so a
+row costs one ``tot`` atomic and one dirty flag per warp — the update's
+items arrive sorted by (src, dst), a row's items side by side.  int32
+wrap-around sums are exact in any order.  It touches only the rows the
+batch names and writes in place: the state's owner hands its own
+``cnt``/``tot`` (``slab_update_cuda_``).  The functional wrapper copies
+``cnt``/``tot`` first (2·N·C·4 B read + written), then launches the same
+kernel on the copies.
 
 Source: ``csrc/slab_update.cu`` (entry ``mcq_slab_update``).  Plain versions:
 :func:`slab_update_ref` and :func:`slab_update_ref_`.

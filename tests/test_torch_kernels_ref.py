@@ -53,7 +53,8 @@ def test_oddeven_sort(jax_impl, n, c, passes):
 
 
 @pytest.mark.parametrize("jax_impl", JAX_IMPLS)
-@pytest.mark.parametrize("n,c,batch", [(8, 16, 32), (7, 5, 19), (32, 8, 64)])
+@pytest.mark.parametrize("n,c,batch", [(8, 16, 32), (7, 5, 19), (32, 8, 64),
+                                       (9, 3, 50), (6, 129, 70), (4, 300, 40)])
 def test_slab_update(jax_impl, n, c, batch):
     rng = np.random.default_rng(n + c + batch)
     dst, cnt, tot, _ = _rand_slabs(rng, n, c)
@@ -65,6 +66,29 @@ def test_slab_update(jax_impl, n, c, batch):
     dsts = np.where(absent, 54321, dsts).astype(np.int32)
     rows[:4], dsts[:4] = rows[4:8], dsts[4:8]            # duplicate items add up
     w = rng.integers(1, 9, batch).astype(np.int32)
+    _both_impls("slab_update", jax_impl, rows, dsts, w, dst, cnt, tot)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("n,c", [(8, 16), (5, 3), (6, 129)])
+def test_slab_update_sorted_batch(jax_impl, n, c):
+    """A batch as the update hands it over: sorted by (src, dst), one row
+    with more items than a warp, repeated edges, -1 among the items (the
+    aggregation's non-heads, new edges) and a -1 tail (inactive items)."""
+    rng = np.random.default_rng(7 * n + c)
+    dst, cnt, tot, _ = _rand_slabs(rng, n, c)
+    dst[1, :] = np.where(cnt[1] > 0, 77, -1)             # duplicate dsts: first slot
+    rows = np.concatenate([np.full(40, n // 2), rng.integers(0, n, 30),
+                           np.ones(3, np.int64)])
+    dsts = dst[rows, rng.integers(0, c, rows.size)]
+    dsts[rows == 1] = 77
+    dsts[::6] = 54321                                    # absent edges
+    keep = np.lexsort((dsts, rows))
+    rows, dsts = rows[keep], dsts[keep]
+    rows[rng.random(rows.size) < 0.2] = -1
+    rows = np.concatenate([rows, np.full(9, -1)]).astype(np.int32)
+    dsts = np.concatenate([dsts, np.full(9, -1)]).astype(np.int32)
+    w = rng.integers(1, 9, rows.size).astype(np.int32)
     _both_impls("slab_update", jax_impl, rows, dsts, w, dst, cnt, tot)
 
 
@@ -272,6 +296,21 @@ def test_cdf_query(jax_impl, b, c, t, chunks):
     c_ord[0], tot[0] = 0, 0                              # an unknown src
     _both_impls("cdf_query", jax_impl, c_ord, d_ord, tot, threshold=t,
                 max_items=16, chunks=chunks)
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("b,c", [(45, 33), (16, 300)])
+@pytest.mark.parametrize("t", [0.5, 0.9, None])
+@pytest.mark.parametrize("max_items", [16, "past C"])
+def test_cdf_query_odd_and_wide_rows(jax_impl, b, c, t, max_items):
+    """Rows that end inside a lane's positions (C = 33) or take more than
+    one round of 256 (C = 300), in both modes, and an emission window
+    wider than the row."""
+    rng = np.random.default_rng(b + c)
+    c_ord, d_ord, tot = _ordered_counts(rng, b, c, 0.2)
+    c_ord[0], tot[0] = 0, 0                              # an unknown src
+    _both_impls("cdf_query", jax_impl, c_ord, d_ord, tot, threshold=t,
+                max_items=c + 5 if max_items == "past C" else max_items)
 
 
 @pytest.mark.parametrize("jax_impl", JAX_IMPLS)

@@ -586,3 +586,33 @@ def test_sharded_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
     assert int(dirty.sum()) > 0 and int(state.route_dropped.sum()) > 0
     assert set(probe_calls) == {(True, 0)}, set(probe_calls)
     assert {rows for rows, _ in decay_calls} == {32}
+
+
+def test_kernel_ablation_builds_its_variants_without_the_reference():
+    """``scripts/kernel_ablation.py`` imports nothing of the reference, finds
+    every anchor it edits in the current kernel sources, and refuses to run
+    without a GPU."""
+    path = ROOT / "scripts" / "kernel_ablation.py"
+    tree = ast.parse(path.read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add((node.module or "").split(".")[0])
+    assert not imported & {"jax", "jaxlib", "repro", "tools"}
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("kernel_ablation", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    for make, name in ((mod.slab_variants, "slab_update"),
+                       (mod.cdf_variants, "cdf_query")):
+        source = (csrc / f"{name}.cu").read_text()
+        variants = make(source)
+        assert variants[name] == source
+        changed = [v for k, v in variants.items() if k != name]
+        assert changed and all(v != source for v in changed)
+        assert len(set(changed)) == len(changed)
+    if not torch.cuda.is_available():
+        assert mod.main([]) == 2
