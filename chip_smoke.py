@@ -28,8 +28,12 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 30,000 items with rows sorted in tiles and merged, the
                 functional / in-place contract); every in-place form (the
                 row flags it sets included) and copy_dirty_rows; the
-                cross-shard merge at S 1-32, M 1-300, n 1 to S·M+3 (ties,
-                dead tails, lists not descending, NaN heads); outputs
+                cross-shard merge at S 1-32, M 1-300, n 1 to S·M+3 and at
+                33-1,100 lists (ties, dead tails, lists not descending, NaN
+                heads); the top-n's window kernel (block lists, counts and
+                the whole read) at S 1-40, N 1 to 1,000, C 1 to 1,024, n 1
+                to 300, tied, sparse, empty, src tables with lanes past the
+                rows, and 4 B off a 16 B boundary; outputs
                 must be EQUAL (tolerance 0, integers and float32 alike);
   3. main     — the main path at full width: a chain of 2**20 source rows x 128
                 slots, warmed by streaming ``update_batch_`` calls of 65,536
@@ -115,9 +119,12 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 ``maintain_``; a skewed round whose ``route_dropped``
                 equals ``predict_route_overflow``; the top-16 against a
                 stable sort of every shard's live edges on the host; then
-                shard 0's kernels at the shapes the routing gives them and
-                the merge at the top-n's shapes, beside its bound, the
-                launch floor and ``torch.sort``;
+                shard 0's kernels at the shapes the routing gives them; the
+                top-16's window kernel and the merge of its block lists
+                against their plain mirrors beside their bounds, the launch
+                floor, ``torch.topk`` / ``torch.sort`` and the plain
+                path's sort; a profiler check that ``sh.topn``
+                runs no sort and no op over the ``[S, N, k]`` windows;
   6b. engine  — the serving engine (``serve.engine.ShardedEngine``) at
                 phase sharded's width: the launcher ``python -m
                 repro_torch.launch.serve --num-shards 4`` run twice, the
@@ -204,7 +211,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 leaf, answer and top-16 equal, the top-16 equal to a host
                 sort), their catch-up over 400 scalars as
                 ``copy_dirty_rows[S=40]``, the merge at 33, 40 and 64 lists
-                (two rounds) against the flat plain version and its rounds,
+                (one launch each) against the flat plain version and the
+                mirror of its launches,
                 a 64-shard top-16 against a host sort, the merges at the
                 engine's and the 64-shard chain's lists as
                 ``topn_merge[S=40]`` and ``topn_merge[S=64]``.
@@ -556,6 +564,7 @@ def small_kernel_checks(gen):
     small_dh_checks(gen, both, both_)
     small_copy_checks(gen)
     small_topn_checks(gen, both)
+    small_topn_windows_checks(gen)
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
         f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
@@ -1073,12 +1082,14 @@ class Traffic:
 def kernel_modules():
     from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
                                      decay_sort, dh_rebuild, oddeven, probe,
-                                     slab_update, slow_path, topn_merge, walk)
+                                     slab_update, slow_path, topn_merge,
+                                     topn_windows, walk)
     return {"probe_find": probe, "slab_update": slab_update, "oddeven": oddeven,
             "cdf_query_fused": cdf_gather, "slow_path": slow_path,
             "cdf_query": cdf_query, "draft_walk": walk, "decay_sort": decay_sort,
             "copy_dirty_rows": copy_rows, "dh_rebuild": dh_rebuild,
-            "topn_merge": topn_merge}
+            "topn_merge": topn_merge, "topn_windows": topn_windows}
+
 
 
 @contextlib.contextmanager
@@ -2591,7 +2602,10 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
 SHARDS = 4
 SHARD_NODES = int(0.95 * SHARDS * NUM_NODES)   # no shard runs out of rows
 TOP_N = 16
-SHARDED_KERNELS = MAIN_KERNELS + ("topn_merge",)
+# sh.topn on the card: the window kernel, then topn_merge.cu's merge (or
+# the merge in the window kernel's last block) and its srcs' pass
+TOPN_KERNELS = ("topn_windows", "topn_merge")
+SHARDED_KERNELS = MAIN_KERNELS + TOPN_KERNELS
 
 
 def sharded_config():
@@ -2853,11 +2867,9 @@ def queue_c11_checks(state, scfg, traffic, w):
 def sharded_path_kernels(state, scfg, traffic, launches):
     """Shard 0's kernels at the shapes the sharded path gives them (its
     receiver's bucket slots of one more global batch and of the queries),
-    against their plain versions and timed; then the merge at the top-n's
-    shapes, beside its bound, the launch floor and torch.sort."""
+    against their plain versions and timed; then the top-n's kernels
+    (:func:`topn_path_kernels`)."""
     from repro_torch.core import sharded as sh
-    from repro_torch.core.hashtable import EMPTY
-    from repro_torch.kernels import ops
     batch, queries = SHARDS * BATCH, SHARDS * QUERIES
     src, dst = traffic.batch(batch)
     (rsrc, rdst), *_ = sh._route(scfg, state, src, (dst,))
@@ -2867,42 +2879,139 @@ def sharded_path_kernels(state, scfg, traffic, launches):
                                  reads=((0.9, 16),), unfused=False)
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     launch_floor = time_ms(lambda: torch.cuda._sleep(0), flush=flush)
-    probs, dsts, srcs, _ = sh.topn_lists(state, TOP_N, scfg=scfg)
-    s, m = probs.shape
+    entries += topn_path_kernels(state, scfg, launches, flush, launch_floor)
+    return entries
+
+
+def topn_path_kernels(state, scfg, launches, flush, launch_floor):
+    """``sh.topn`` on the card at phase sharded's shape: the window kernel
+    (``topn_windows``) and the merge of its block lists (``topn_merge``)
+    against their plain mirrors, timed beside their bounds, the launch
+    floor and a library call; the whole read; the plain path's sort; and, by torch.profiler, the device kernels of a call: no
+    sort and no op over the ``[S, N, k]`` windows."""
+    from repro_torch.core import sharded as sh
+    from repro_torch.kernels import ops, ref, topn_merge, topn_windows as tw
+    slabs = state.slabs
+    s, rows, c = slabs.cnt.shape
+    k = min(TOP_N, c)
+    args = (slabs.cnt, slabs.order, slabs.tot, slabs.dst, *state.src_table)
+    blocks = tw.blocks_for(slabs.cnt, TOP_N)
+    got = ops.topn_windows(*args, n=TOP_N)
+    winners = int((got[2] > 0).sum())
+    compare("sh.topn == ops.topn_windows", sh.topn(state, TOP_N, scfg=scfg), got)
+    compare("ops.topn_windows: the kernels vs their plain mirror", got,
+            ops.topn_windows(*args, n=TOP_N, impl="ref"))
+    prob, _, _ = sh._windows(state, TOP_N)     # the plain path's windows
+    read_ms = time_ms(lambda: tw.topn_windows_cuda(*args, n=TOP_N), reps=20,
+                      flush=flush)
+    entries = []
+    kernel_entry(
+        entries, launches, flush, "topn_windows[sharded]", "topn_windows",
+        "topn_windows.cu", "src/repro/core/sharded.py:270 (_topn_local's "
+        "window, lax.top_k and live count; no Pallas kernel)",
+        lambda impl: (tw.window_lists_cuda(*args[:3], n=TOP_N)
+                      if impl == "cuda" else ref.topn_window_lists_ref(
+                          *args[:3], TOP_N, blocks)),
+        # every row's counts, k order heads and total read once; the block
+        # lists and the counts written
+        bytes_moved=4 * s * rows * (c + k + 1) + 8 * s * blocks * TOP_N
+        + 16 * s, operations=s * rows * (c + 2 * k), plain_reps=2,
+        library=lambda: torch.topk(prob, TOP_N, dim=1),
+        extra=dict(read_ms=read_ms, blocks_per_shard=blocks,
+                   lists=s * blocks, live_winners=winners,
+                   library_is="torch.topk over the precomputed [S, N*k] "
+                              "windows (values; no tie order)"))
+    select_ms = time_ms(lambda: sh._top_k(prob, TOP_N), flush=flush)
+    say(f"[sharded] the plain path's selection over {tuple(prob.shape)} window "
+        f"entries (a stable descending sort): {select_ms:.4f} ms (median of "
+        f"10 by events, L2 flushed); ops.topn_windows (the window kernel, "
+        f"the merge, the srcs' pass) {read_ms:.4f} ms ({blocks} blocks a "
+        f"shard)")
+    del prob
+
+    # the merge alone on the plain path's S lists of n (its shape before
+    # this path read block lists)
+    plain_lists = sh.topn_lists(state, TOP_N, scfg=scfg)[:3]
+    compare("topn_merge on the plain path's lists",
+            ops.topn_merge(*plain_lists, n=TOP_N),
+            ops.topn_merge(*plain_lists, n=TOP_N, impl="ref"))
+    merge_s_ms = time_ms(lambda: ops.topn_merge(*plain_lists, n=TOP_N),
+                         reps=20, flush=flush)
+    del plain_lists
+
+    lists, counts = tw.window_lists_cuda(*args[:3], n=TOP_N)
+    compare("topn_windows lists vs their mirror", (lists, counts),
+            ref.topn_window_lists_ref(*args[:3], TOP_N, blocks))
+    live_lists = int((lists > 0).sum())
 
     def library():
-        """torch.sort of the flattened lists: on descending lists, which
-        the sharded read always gives, the merge's answer."""
-        v, i = torch.sort(probs.view(-1), descending=True, stable=True)
-        v, i = v[:TOP_N], i[:TOP_N]
-        live = v > 0
-        return (torch.where(live, srcs.view(-1)[i], EMPTY),
-                torch.where(live, dsts.view(-1)[i], EMPTY),
-                torch.where(live, v, 0.0))
+        """torch.sort of the lists' keys: on these lists, whose keys are
+        unique, the merge's picks (values only, no labels)."""
+        return torch.sort(lists.view(-1), descending=True).values[:TOP_N]
 
-    merged = ops.topn_merge(probs, dsts, srcs, n=TOP_N)
-    compare("topn_merge vs torch.sort on the path's lists", merged, library())
-    winners = int((merged[2] > 0).sum())
-    kernel_entry(entries, launches, flush, "topn_merge[sharded]", "topn_merge",
-                 "topn_merge.cu", "src/repro/kernels/ref.py:185",
-                 lambda impl: ops.topn_merge(probs, dsts, srcs, n=TOP_N,
-                                             impl=impl),
-                 # the S first heads and the head each step advances to,
-                 # the live winners' srcs and dsts gathered, the n outputs
-                 # written once; an S-way comparison per step
-                 bytes_moved=4 * (s + TOP_N) + 8 * winners + 12 * TOP_N,
-                 operations=4 * TOP_N * s, library=library,
-                 extra=dict(launch_floor_ms=launch_floor, lists=s, length=m,
-                            live_winners=winners))
-
-    # topn_lists' selection: a stable descending sort of every shard's
-    # flattened windows, then its first n
-    prob, _, _ = sh._windows(state, TOP_N)
-    select_ms = time_ms(lambda: sh._top_k(prob, TOP_N), flush=flush)
-    say(f"[sharded] top-n selection over {tuple(prob.shape)} window entries "
-        f"(a stable descending sort): {select_ms:.4f} ms (median of 10 by "
-        f"events, L2 flushed)")
+    kernel_entry(
+        entries, launches, flush, "topn_merge[sharded]", "topn_merge",
+        "topn_merge.cu", "src/repro/kernels/ref.py:185",
+        lambda impl: (topn_merge.merge_windows_cuda(
+            lists, counts, args[1], *args[3:], n=TOP_N, blocks=blocks)
+            if impl == "cuda" else ref.topn_merge_windows_ref(
+                lists, counts, args[1], *args[3:], TOP_N, blocks)),
+        # the flat merge over the block lists: every list's first head
+        # and the head each step advances to, the live winners' keys,
+        # order heads and dsts, the counts; the srcs' pass reads every
+        # table lane's value once and the winners' keys; the n outputs
+        # and the count written
+        bytes_moved=4 * (s * blocks + TOP_N) + 16 * winners + 16 * s
+        + 4 * state.src_table.vals.numel() + 12 * TOP_N + 4,
+        operations=4 * TOP_N * s * blocks, library=library,
+        extra=dict(launch_floor_ms=launch_floor, lists=s * blocks,
+                   length=TOP_N, merge_of_s_lists_ms=merge_s_ms,
+                   live_list_entries=live_lists,
+                   live_winners=winners,
+                   form="the merge's own launch after topn_windows, then "
+                        "the srcs' pass over the src tables"))
+    del lists, counts
+    topn_profile(state, scfg, (s, rows, k))
     return entries
+
+
+def topn_profile(state, scfg, windows, calls=10):
+    """Device kernels of ``sh.topn`` by torch.profiler (with shapes):
+    fails on a sort or top-k kernel, on any op over the ``[S, N, k]``
+    windows (flattened or not), or if the window kernel does not run;
+    prints the kernels and the launches per call."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import sharded as sh
+    from repro_torch.kernels import topn_merge, topn_windows
+    s, rows, k = windows
+    shapes = {(s, rows, k), (s, rows * k)}
+    torch.cuda.synchronize()
+    before = topn_windows.launches, topn_merge.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(calls):
+            sh.topn(state, TOP_N, scfg=scfg)
+        torch.cuda.synchronize()
+    per_call = [(topn_windows.launches - before[0]) / calls,
+                (topn_merge.launches - before[1]) / calls]
+    events = prof.events()
+    kernels = [ev.name for ev in events
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    sorts = sorted({n for n in kernels
+                    if any(w in n.lower() for w in ("sort", "topk", "radix"))})
+    over = sorted({ev.name for ev in events
+                   if ev.device_type == torch.autograd.DeviceType.CPU
+                   and any(tuple(x) in shapes for x in (ev.input_shapes or ())
+                           if isinstance(x, (list, tuple)))})
+    say(f"[sharded] sh.topn on the card: {len(kernels) / calls:g} device "
+        f"kernels per call by torch.profiler over {calls} calls "
+        f"{sorted(set(n[:50] for n in kernels))}; launches per call: "
+        f"topn_windows {per_call[0]:g}, topn_merge {per_call[1]:g}; sort "
+        f"kernels {sorts}; ops over the {sorted(shapes)} windows {over}")
+    if sorts or over or not any("mcq_topn_windows" in n for n in kernels):
+        raise AssertionError(f"sh.topn on the card ran a sort {sorts} or an "
+                             f"op over the windows {over}, or no window "
+                             f"kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -2915,6 +3024,7 @@ ENGINE_QUERIES = 16_384     # srcs per reader query
 ENGINE_THRESHOLD = 64       # decay_threshold: maintain_ fires in the rounds
 ENGINE_SLICE = 65_536       # reingest_slice_len of the reassign (default 256)
 ENGINE_PLAIN_ROUNDS = 10    # observe calls timed with no reader running
+TOPN_PACE_MS = 0.0          # least ms between two top-n reads (--topn-pace-ms)
 ENGINE_KERNELS = SHARDED_KERNELS + ("copy_dirty_rows",)
 
 
@@ -3038,6 +3148,9 @@ class Readers:
                     if not bool((p[:-1] >= p[1:]).all()):
                         raise AssertionError("a top-n answer is not sorted "
                                              "descending")
+                    rest = TOPN_PACE_MS / 1e3 - (time.perf_counter() - t0)
+                    if rest > 0:
+                        self.stop.wait(rest)
                     continue
                 # a query answers in each row's priority order, which the
                 # odd-even passes keep approximately sorted (the paper's
@@ -3278,7 +3391,8 @@ def phase_engine(state, scfg, seed):
             f"{pct(readers.ms['query'], 50):.2f} ms p99 "
             f"{pct(readers.ms['query'], 99):.2f} ms = "
             f"{ENGINE_QUERIES / pct(readers.ms['query'], 50) * 1e3:.0f} srcs/s; "
-            f"{len(readers.ms['topn'])} top-n p50 "
+            f"{len(readers.ms['topn'])} top-n (one started at most every "
+            f"{TOPN_PACE_MS:g} ms) p50 "
             f"{pct(readers.ms['topn'], 50):.2f} ms p99 "
             f"{pct(readers.ms['topn'], 99):.2f} ms; versions read "
             f"{versions[0]}..{versions[-1]} ({len(versions)} distinct); "
@@ -4282,37 +4396,128 @@ def phase_monitor(seed, steps=20):
 
 def small_topn_checks(gen, both):
     """The merge against its plain version at odd small shapes: S 1..32
-    lists of M 1..300, n from 1 to S·M + 3; descending lists with ties
-    within and across lists and dead tails, lists that are not descending,
-    all-zero lists, and lists with NaN, -0.0 and negative heads."""
+    lists of M 1..300, n from 1 to S·M + 3, and 33 to 1,100 lists (one
+    launch up to 1,024 lists at n <= 256, more above); descending lists
+    with ties within and across lists and dead tails, lists that are not
+    descending, all-zero lists, and lists with NaN, -0.0 and negative
+    heads."""
     from repro_torch.kernels import ops
+
+    def lists(s, m, kind):
+        probs = randint(gen, 0, 6, (s, m)).float() / 8
+        if kind == "descending":
+            probs = torch.sort(probs, dim=1, descending=True).values
+            probs[:, m // 2 + 1:] = 0.0
+        elif kind == "zeros":
+            probs.zero_()
+        elif kind == "nan":
+            r = torch.rand((3, s, m), generator=gen, device="cuda")
+            probs[r[0] < 0.2] = float("nan")
+            probs[r[1] < 0.2] = -0.0
+            probs[r[2] < 0.1] = -0.5
+        live = probs > 0
+        dsts = torch.where(live, randint(gen, 0, 500, (s, m)), -1).to(torch.int32)
+        srcs = torch.where(live, randint(gen, 0, 500, (s, m)), -1).to(torch.int32)
+        return probs, dsts, srcs
+
     cases = 0
     for s in (1, 2, 3, 5, 8, 13, 17, 31, 32):
         for m in (1, 2, 7, 64, 300):
             for kind in ("descending", "unsorted", "zeros", "nan"):
-                probs = randint(gen, 0, 6, (s, m)).float() / 8
-                if kind == "descending":
-                    probs = torch.sort(probs, dim=1, descending=True).values
-                    probs[:, m // 2 + 1:] = 0.0
-                elif kind == "zeros":
-                    probs.zero_()
-                elif kind == "nan":
-                    r = torch.rand((3, s, m), generator=gen, device="cuda")
-                    probs[r[0] < 0.2] = float("nan")
-                    probs[r[1] < 0.2] = -0.0
-                    probs[r[2] < 0.1] = -0.5
-                live = probs > 0
-                dsts = torch.where(live, randint(gen, 0, 500, (s, m)), -1).to(torch.int32)
-                srcs = torch.where(live, randint(gen, 0, 500, (s, m)), -1).to(torch.int32)
-                # past S·M every list is exhausted; above 1,024 steps the
-                # kernel records its steps in more than one round, and at
-                # S·M > 9,216 it reads the heads past its staged prefix
+                # past S·M every list is exhausted; above 256 steps the
+                # kernel writes its steps out in more than one round
                 for n in sorted({1, min(m, 17), 40, s * m + 3}):
                     both(f"topn_merge S={s} M={m} n={n} {kind}", ops.topn_merge,
-                         probs, dsts, srcs, n=n)
+                         *lists(s, m, kind), n=n)
                     cases += 1
-    say(f"[kernels] topn_merge: {cases} small cases, S 1-32, M 1-300, n 1 to "
-        f"S*M+3; equal to the plain version")
+    for s in (33, 100, 1024, 1100):
+        for m in (1, 7):
+            for kind in ("descending", "nan"):
+                for n in (1, 16, 300):
+                    both(f"topn_merge S={s} M={m} n={n} {kind}", ops.topn_merge,
+                         *lists(s, m, kind), n=n)
+                    cases += 1
+    say(f"[kernels] topn_merge: {cases} small cases, S 1-32 (M 1-300, n 1 to "
+        f"S*M+3) and 33-1,100 (n 1-300); equal to the plain version")
+
+
+def topn_state(gen, s, rows, c, kind, offset=False):
+    """Stacked slabs and src tables for the window kernel, ``(cnt, order,
+    tot, dst, tab_keys, tab_vals)``: counts 1-3 (``ties``: all 2; ``sparse``: 2 % live;
+    ``empty``: none) so probabilities tie often, an order sorted by count
+    with ties at random (``shuffled``: a random permutation), totals at or
+    above a row's sum; src tables whose free lanes hold, one in ten, a key
+    whose row is past the rows (N to N + 2: no row's src); ``offset`` puts
+    cnt and order 4 B off a 16-B boundary (the kernel's 4-B copies)."""
+    density = {"sparse": 0.02, "empty": 0.0}.get(kind, 0.6)
+    live = torch.rand((s, rows, c), generator=gen, device="cuda") < density
+    cnt = torch.where(live, randint(gen, 1, 4, (s, rows, c)), 0)
+    if kind == "ties":
+        cnt = torch.full_like(cnt, 2)
+    noise = torch.rand((s, rows, c), generator=gen, device="cuda")
+    key = noise if kind == "shuffled" else -cnt.float() - 0.5 * noise
+    order = torch.argsort(key, dim=2).to(torch.int32)
+    tot = cnt.sum(dim=2).to(torch.int32)
+    if kind not in ("ties", "empty"):
+        tot += randint(gen, 0, 3, (s, rows))
+    dst = randint(gen, 0, 5000, (s, rows, c))
+    # src tables of 2 N lanes: about 70 % of the rows held, at random lanes,
+    # some lanes TOMB, some free lanes past the rows
+    table = 2 * rows
+    lanes = torch.argsort(torch.rand((s, table), generator=gen,
+                                     device="cuda"), dim=1)
+    lane, free = lanes[:, :rows], lanes[:, rows:]
+    held = torch.rand((s, rows), generator=gen, device="cuda") < 0.7
+    keys = torch.full((s, table), -1, dtype=torch.int32, device="cuda")
+    vals = torch.full((s, table), -1, dtype=torch.int32, device="cuda")
+    node = torch.arange(s * rows, dtype=torch.int32, device="cuda").view(s, rows)
+    keys.scatter_(1, lane, torch.where(held, node * 7 + 3, -2).to(torch.int32))
+    vals.scatter_(1, lane, torch.arange(rows, dtype=torch.int32,
+                                        device="cuda").expand(s, rows).contiguous())
+    stray = torch.rand((s, rows), generator=gen, device="cuda") < 0.1
+    keys.scatter_(1, free, torch.where(stray, node * 7 + 5, -1).to(torch.int32))
+    vals.scatter_(1, free, torch.where(stray, rows + randint(gen, 0, 3, (s, rows)),
+                                       -1).to(torch.int32))
+    if offset:
+        cnt, order = (misaligned(x.to(torch.int32)).view(s, rows, c)
+                      for x in (cnt, order))
+    return cnt.to(torch.int32), order, tot, dst, keys, vals
+
+
+def small_topn_windows_checks(gen):
+    """The window kernel against its plain mirror at odd small shapes: its
+    block lists and counts (``window_lists_cuda`` == ``topn_window_lists_ref``
+    at the block count the card picks, so tiles that do not divide N), and
+    the whole read == ``topn_windows_ref`` (one block a shard: another
+    decomposition of the same answer).  S 1-40, N 1 to 1,000 and 3 tiles
+    +- 1 row, C 1 to 1,024, n 1 to 300, counts that tie everywhere, few
+    live entries, an empty slab, a shuffled order, src table lanes past the
+    rows, slabs 4 B off a 16-B boundary."""
+    from repro_torch.kernels import ref, topn_windows as tw
+    cases = 0
+    shapes = [(1, 1, 1, 1), (1, 37, 16, 8), (3, 37, 3, 5), (4, 1000, 128, 16),
+              (8, 1000, 37, 64), (4, 300, 4, 16), (33, 37, 16, 16),
+              (40, 10, 4, 16), (2, 50, 1024, 64), (3, 200, 64, 300),
+              (4, 3 * 64 + 1, 8, 16), (4, 3 * 64 - 1, 8, 16), (5, 1000, 16, 1)]
+    kinds = ("random", "ties", "sparse", "empty", "shuffled")
+    for i, (s, rows, c, n) in enumerate(shapes):
+        for j, kind in enumerate(kinds):
+            if n > rows * min(n, c):
+                continue
+            offset = (i + j) % 3 == 0 and c % 4 == 0
+            cnt, order, tot, dst, keys, vals = topn_state(gen, s, rows, c,
+                                                          kind, offset)
+            blocks = tw.blocks_for(cnt, n)
+            compare(f"topn_windows lists S={s} N={rows} C={c} n={n} {kind} "
+                    f"B={blocks}", tw.window_lists_cuda(cnt, order, tot, n=n),
+                    ref.topn_window_lists_ref(cnt, order, tot, n, blocks))
+            compare(f"topn_windows S={s} N={rows} C={c} n={n} {kind}",
+                    tw.topn_windows_cuda(cnt, order, tot, dst, keys, vals, n=n),
+                    ref.topn_windows_ref(cnt, order, tot, dst, keys, vals, n))
+            cases += 2
+    say(f"[kernels] topn_windows: {cases} small cases (lists and counts at the "
+        f"card's blocks, and the whole read), S 1-40, N 1-1,000, C 1-1,024, "
+        f"n 1-300; equal to the plain mirror")
 
 
 def parity_sharded(seed, batches=16):
@@ -4383,8 +4588,9 @@ SOAK_ROWS = NUM_NODES // 2   # 2**19 rows x 16 slots (the soak's capacity):
                              # cut from phase main's 2**20 for the time
 SOAK_EVERY = 5            # observes between two background snapshots
 SOAK_KERNELS = ("probe_find", "slab_update", "oddeven", "slow_path",
-                "decay_sort", "cdf_query_fused", "copy_dirty_rows",
-                "topn_merge")   # the decay decided on the device, not firing
+                "decay_sort", "cdf_query_fused",
+                "copy_dirty_rows") + TOPN_KERNELS   # the decay decided on
+                                                    # the device, not firing
 
 
 def phase_soak(seed):
@@ -4553,7 +4759,7 @@ def phase_examples():
 # ---------------------------------------------------------------------------
 
 MANY_SHARDS = 40          # the engine: S > 25 (the catch-up's old limit)
-MANY_LISTS = 64           # the merge alone: two groups of 32 lists
+MANY_LISTS = 64           # the merge alone: two groups of 32 lists, one launch
 
 
 def parity_many_shards(seed):
@@ -4582,7 +4788,7 @@ def parity_many_shards(seed):
                                  num_shards=s, bucket_factor=4.0),
         decay_threshold=48)) for impl in ("cuda", "ref")}
     with launch_window(f"parity engine S={s}",
-                       ("copy_dirty_rows", "topn_merge")) as launches:
+                       ("copy_dirty_rows",) + TOPN_KERNELS) as launches:
         for i in range(12):
             src = rng.integers(0, 6 * s, 32 * s).astype(np.int32)
             dst = rng.integers(0, 40, src.size).astype(np.int32)
@@ -4635,7 +4841,10 @@ def parity_many_shards(seed):
         lists, m = probs.shape
         before = topn_merge.launches
         merged = ops.topn_merge(probs, dsts, srcs, n=n, impl="cuda")
-        rounds = topn_merge.launches - before   # one launch per round
+        per_call = topn_merge.launches - before
+        if per_call != 1:    # up to 1,024 lists at n <= 256 take one
+            raise AssertionError(f"{label}: {per_call} launches for {lists} "
+                                 f"lists")
         winners = int((merged[2] > 0).sum())
 
         def library():
@@ -4655,7 +4864,8 @@ def parity_many_shards(seed):
                      # outputs; an S-way comparison per step
                      bytes_moved=4 * (lists + n) + 8 * winners + 12 * n,
                      operations=4 * n * lists, library=library,
-                     extra=dict(lists=lists, length=m, rounds=rounds,
+                     extra=dict(lists=lists, length=m,
+                                launches_per_call=per_call,
                                 live_winners=winners))
 
     merge_entry(f"topn_merge[S={s}]", *sh.topn_lists(
@@ -4691,15 +4901,16 @@ def parity_many_shards(seed):
                         got, ref.topn_merge_rounds_ref(probs, dsts, srcs, n))
                 cases += 1
     say(f"[parity] topn_merge: {cases} cases at 33, 40 and {MANY_LISTS} lists "
-        f"(two rounds), equal to the flat plain version and its rounds")
+        f"(one launch, two levels), equal to the flat plain version and the "
+        f"mirror of its launches")
 
-    # a 64-shard chain's top-16 through the rounds, on the path
+    # a 64-shard chain's top-16 through the window kernel, on the path
     scfg = sh.ShardedConfig(base=core.MCConfig(num_rows=64, capacity=8,
                                                sort_passes=2),
                             num_shards=MANY_LISTS, bucket_factor=4.0)
     state = sh.init_sharded(scfg)
     with launch_window(f"parity top-16 at S={MANY_LISTS}",
-                       ("topn_merge",)) as launches:
+                       TOPN_KERNELS) as launches:
         for _ in range(4):
             src = randint(gen, 0, 4 * MANY_LISTS, (16 * MANY_LISTS,))
             dst = randint(gen, 0, 30, (16 * MANY_LISTS,))
@@ -5265,7 +5476,13 @@ def main(argv=None):
                          "device time by kernel (torch.profiler) over a few "
                          "more rounds; in phase persist, over the reshard's "
                          "first routed updates")
+    ap.add_argument("--topn-pace-ms", type=float, default=0.0,
+                    help="in phase engine, the top-16 reader starts a read at "
+                         "most every this many ms (default 0: back to back), "
+                         "to hold the read rate while comparing the writer")
     args = ap.parse_args(argv)
+    global TOPN_PACE_MS
+    TOPN_PACE_MS = args.topn_pace_ms
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:

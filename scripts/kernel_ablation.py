@@ -164,17 +164,18 @@ __global__ void __launch_bounds__(MCQ_CDF_WARPS * MCQ_WARP)
     }
 
 
-def build(variants, includes):
+def build(variants, includes, out_dir=OUT_DIR):
     """Compile every variant (one nvcc each, all started together) into a
-    shared library of its own, with the headers of ``includes[name]`` (the
-    package's ``csrc/`` where not given); name -> ctypes library."""
+    shared library of its own under ``out_dir``, with the headers of
+    ``includes[name]`` (the package's ``csrc/`` where not given); name ->
+    ctypes library, its entries typed as the package's."""
     import chip_smoke as cs
     from repro_torch.kernels import _build
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     jobs = []
     for i, (name, text) in enumerate(variants.items()):
-        cu, so = OUT_DIR / f"v{i}.cu", OUT_DIR / f"v{i}.so"
+        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
         cu.write_text(text)
         jobs.append((name, so, subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-I",
@@ -189,7 +190,7 @@ def build(variants, includes):
         for line in cs.ptxas_summary(log):
             cs.say(f"[ablation] {name}: {line}")
         lib = ctypes.CDLL(str(so))
-        for entry in ("mcq_slab_update", "mcq_cdf_query"):
+        for entry in _build.SIGNATURES:
             if hasattr(lib, entry):
                 fn = getattr(lib, entry)
                 fn.argtypes = _build.SIGNATURES[entry]

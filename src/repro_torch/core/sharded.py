@@ -6,7 +6,9 @@ graph under the two-level ownership map (hash -> virtual bucket -> shard,
 to its owner shards through fixed-capacity buckets, each shard applies its
 local update, queries route the same way and their answers are routed
 back, and the headline top-n read is answered globally by a k-way merge of
-the shards' local answers (``ops.topn_merge``).
+the shards' local answers (``ops.topn_merge``; on the card
+``ops.topn_windows`` reads every shard's windows in one pass and merges
+its blocks' lists).
 
 The reference runs S shards as S devices under ``shard_map``.  Here the S
 shards are *logical* shards of one device, as the reference's own tests run
@@ -58,7 +60,7 @@ import torch
 
 from repro_torch.core import mcprioq as mc
 from repro_torch.core.hashtable import EMPTY
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.sharding.ownership import Ownership
 
 __all__ = [
@@ -227,14 +229,9 @@ def predict_route_overflow(scfg: ShardedConfig, src) -> np.ndarray:
 
 def _src_of_row(state: mc.MCState, num_rows: int) -> torch.Tensor:
     """Reverse map row -> src node id of every shard, ``[S, N]``, rebuilt
-    from the src tables by one scatter (invalid table lanes go to a sink
-    column, sliced off)."""
-    keys, vals = state.src_table
-    valid = (keys >= 0) & (vals >= 0)
-    idx = torch.where(valid, vals, num_rows).to(torch.int64)
-    out = torch.full((keys.shape[0], num_rows + 1), EMPTY, dtype=torch.int32,
-                     device=keys.device)
-    return out.scatter_(1, idx, keys)[:, :num_rows]
+    from the src tables by one scatter (``kernels/ref.py::src_of_row_ref``;
+    invalid table lanes go to a sink, sliced off)."""
+    return ref.src_of_row_ref(*state.src_table, num_rows)
 
 
 def _top_k(x: torch.Tensor, n: int):
@@ -366,12 +363,19 @@ def topn(state: mc.MCState, n: int, *, scfg: ShardedConfig):
     """The globally descending top-n edges of the whole sharded chain:
     ``(srcs[n], dsts[n], probs[n], dropped)``.
 
-    The S local answers of :func:`topn_lists` k-way merged by
-    ``ops.topn_merge``.  ``dropped`` counts the live edges the shards could
-    not expose to the merge.  Reads ``state`` only."""
+    The plain path: the S local answers of :func:`topn_lists` k-way merged
+    by ``ops.topn_merge``.  On the card (``impl`` auto or cuda on a CUDA
+    state) ``ops.topn_windows`` reads every shard's windows in one pass
+    and merges the blocks' lists: the same bits, no sort.
+    ``dropped`` counts the live edges the shards could not expose to the
+    merge.  Reads ``state`` only."""
+    slabs = state.slabs
+    impl = scfg.base.impl
+    if not ops._use_ref(impl, slabs.cnt):
+        return ops.topn_windows(slabs.cnt, slabs.order, slabs.tot, slabs.dst,
+                                *state.src_table, n=n, impl=impl)
     probs, dsts, srcs, dropped = topn_lists(state, n, scfg=scfg)
-    return (*ops.topn_merge(probs, dsts, srcs, n=n, impl=scfg.base.impl),
-            dropped)
+    return (*ops.topn_merge(probs, dsts, srcs, n=n, impl=impl), dropped)
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,11 @@
   * :mod:`repro_torch.kernels.copy_rows`   — the back-buffer learner's
                                              catch-up by flagged rows
   * :mod:`repro_torch.kernels.topn_merge`  — the sharded chain's global
-                                             top-n: k-way merge of the
-                                             shards' top lists
+                                             top-n: k-way merge of top
+                                             lists, the winners' labels
+  * :mod:`repro_torch.kernels.topn_windows` — the global top-n's one pass
+                                             over the stacked slabs: each
+                                             block's best window entries
 
 Public API lives in :mod:`repro_torch.kernels.ops` (backend dispatch);
 ``ref.py`` holds the plain PyTorch version each kernel is held against;

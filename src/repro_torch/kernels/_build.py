@@ -51,7 +51,11 @@ SIGNATURES = {
                        _P, _P, _I, _P, _P],
     "mcq_copy_dirty_rows": [_P] * 19 + [_LL, _I, _LL, _I, _I, _P],
     "mcq_dh_rebuild": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
-    "mcq_topn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mcq_topn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mcq_topn_merge_windows": [_P, _P] + [_I] * 6 + [_P] * 8,
+    "mcq_topn_label": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
+    "mcq_topn_windows": [_P] * 3 + [_I] * 6 + [_P] * 3,
+    "mcq_topn_windows_blocks": [_I] * 6,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -34,6 +34,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import slab_update as _su
 from repro_torch.kernels import slow_path as _sp
 from repro_torch.kernels import topn_merge as _tm
+from repro_torch.kernels import topn_windows as _tw
 from repro_torch.kernels import walk as _wk
 from repro_torch.obs import tracing as _obs_tracing
 
@@ -310,11 +311,36 @@ def topn_merge(probs: torch.Tensor, dsts: torch.Tensor, srcs: torch.Tensor,
     ``[S, M]``, descending on the sharded read's path) into one list of n
     by the reference's head-pointer steps — the reduce step of
     ``core/sharded.py``'s global top-n.  On CUDA tensors one launch of a
-    one-block kernel for S <= 32, a round more per factor of 32 above.
+    one-block kernel for up to 1,024 lists (n <= 256), a launch more per
+    factor of ``ref.merge_lists_per_launch(n)`` above.
     """
     if _use_ref(impl, probs):
         return _ref.topn_merge_ref(probs, dsts, srcs, n)
     return _tm.topn_merge_cuda(probs, dsts, srcs, n=n)
+
+
+@kernel_op(ref="topn_windows_ref", pallas=None)
+@_annotate
+def topn_windows(cnt: torch.Tensor, order: torch.Tensor, tot: torch.Tensor,
+                 dst: torch.Tensor, tab_keys: torch.Tensor,
+                 tab_vals: torch.Tensor, *, n: int, impl: str = "auto"):
+    """The sharded chain's global top-n from its stacked slabs and src
+    tables: ``(srcs[n], dsts[n], probs[n], dropped)``.
+
+    ``cnt/order/dst`` int32 ``[S, N, C]``, ``tot`` ``[S, N]``,
+    ``tab_keys/tab_vals`` ``[S, T]`` (node id -> row).  Every row's
+    ``min(n, C)``-item window, each shard's n best entries in
+    ``lax.top_k``'s order, their cross-shard merge (the lowest shard on
+    ties), labels, and the live edges no shard exposed.  On CUDA tensors a
+    kernel that reads each row once, one that merges its block lists, and a
+    pass over the src tables for the winners' srcs (``topn_windows.py``);
+    the plain version is the kernels' decomposition.
+    """
+    if _use_ref(impl, cnt):
+        return _ref.topn_windows_ref(cnt, order, tot, dst, tab_keys,
+                                     tab_vals, n)
+    return _tw.topn_windows_cuda(cnt, order, tot, dst, tab_keys, tab_vals,
+                                 n=n)
 
 
 @kernel_op(ref="draft_walk_ref", pallas="draft_walk_pallas")

@@ -484,32 +484,161 @@ def topn_merge_ref(probs: torch.Tensor, dsts: torch.Tensor,
     return _emit(*_merge_steps(probs, n), dsts, srcs)
 
 
-MERGE_GROUP = 32   # lists one warp of the merge kernel takes: one per lane
+MERGE_GROUP = 32        # lists one warp of the merge kernel takes: one per lane
+MERGE_REC_STEPS = 8192  # level-1 steps one merge block keeps in shared memory
+
+
+def merge_lists_per_launch(n: int) -> int:
+    """Lists one block of the merge kernel takes for n steps
+    (``csrc/topn_merge.cu``): 32 groups of 32, fewer groups above n = 256
+    so that the groups' n steps each fit its shared memory, and one group
+    at the least."""
+    groups = max(1, min(MERGE_GROUP, MERGE_REC_STEPS // max(n, 1)))
+    return MERGE_GROUP * groups
+
+
+def _block_merge_steps(probs: torch.Tensor, n: int):
+    """:func:`_merge_steps` as one block of the merge kernel takes them
+    (``csrc/topn_merge.cu``): above ``MERGE_GROUP`` lists, level 1 merges
+    each group of ``MERGE_GROUP`` consecutive lists into its n steps, and
+    level 2 merges the groups' step lists; the positions are flat positions
+    in ``probs`` (-1 past the end)."""
+    lists, m = probs.shape
+    if lists <= MERGE_GROUP:
+        return _merge_steps(probs, n)
+    heads, at = [], []
+    for g in range(0, lists, MERGE_GROUP):
+        h, a = _merge_steps(probs[g:g + MERGE_GROUP], n)
+        heads.append(h)
+        at.append(torch.where(a < 0, -1, a + g * m))
+    top, pos = _merge_steps(torch.stack(heads), n)
+    at = torch.stack(at).reshape(-1)
+    return top, torch.where(pos < 0, -1, at[pos.clamp(min=0)])
 
 
 def topn_merge_rounds_ref(probs: torch.Tensor, dsts: torch.Tensor,
                           srcs: torch.Tensor, n: int):
-    """:func:`topn_merge_ref` as the CUDA kernel computes it for more than
-    ``MERGE_GROUP`` lists (the plain mirror of ``csrc/topn_merge.cu``'s
-    rounds): each round merges consecutive groups of ``MERGE_GROUP`` lists
-    into one list of their n steps, the heads as read (NaN, zero and
-    negative too) and their positions in the original lists; the groups'
-    lists are the next round's, until one merge of ``MERGE_GROUP`` lists or
-    fewer emits."""
-    group = MERGE_GROUP
-    lists, pos = probs, torch.arange(probs.numel(), device=probs.device)
-    while lists.shape[0] > group:
+    """:func:`topn_merge_ref` as the CUDA kernel computes it (the plain
+    mirror of ``csrc/topn_merge.cu``'s launches): each launch merges
+    consecutive blocks of :func:`merge_lists_per_launch` lists, each block
+    in two levels (:func:`_block_merge_steps`), into one list of their n
+    steps, the heads as read (NaN, zero and negative too) and their
+    positions in the original lists; those lists are the next launch's,
+    until one block emits."""
+    per = merge_lists_per_launch(n)
+    lists, pos = probs, None
+    while True:
         heads, at = [], []
-        for g in range(0, lists.shape[0], group):
-            h, a = _merge_steps(lists[g:g + group], n)
+        for g in range(0, lists.shape[0], per):
+            h, a = _block_merge_steps(lists[g:g + per], n)
+            a = torch.where(a < 0, -1, a + g * lists.shape[1])
+            if pos is not None:   # a position of this launch's lists
+                a = torch.where(a < 0, -1, pos[a.clamp(min=0)])
             heads.append(h)
-            # a position of this group's lists -> of the original lists
-            at.append(torch.where(a < 0, -1, pos[(a + g * lists.shape[1])
-                                                 .clamp(min=0)]))
+            at.append(a)
+        if len(heads) == 1:
+            return _emit(heads[0], at[0], dsts, srcs)
         lists, pos = torch.stack(heads), torch.stack(at).reshape(-1)
-    heads, at = _merge_steps(lists, n)
-    return _emit(heads, torch.where(at < 0, -1, pos[at.clamp(min=0)]), dsts,
-                 srcs)
+
+
+def topn_window_lists_ref(cnt: torch.Tensor, order: torch.Tensor,
+                          tot: torch.Tensor, n: int, blocks: int):
+    """The window kernel's lists and counts (plain mirror of
+    ``csrc/topn_windows.cu``).
+
+    cnt/order int32 [S, N, C], tot [S, N].  Each row's window is its first
+    ``k = min(n, C)`` order positions, entry j's probability ``cnt /
+    max(tot, 1)`` (float32) where its count is > 0; a live entry's key is
+    ``(prob bits << 32) | (0xFFFFFFFF - (row * k + j))``, a dead one's 0.
+    Shard s's rows are cut into ``blocks`` tiles of ``ceil(N / blocks)``
+    consecutive rows; list ``s * blocks + b`` holds tile b's n largest keys,
+    descending, 0 past its live entries.  Returns ``(lists int64 [S *
+    blocks, n], counts int64 [S, 2])``, counts = each shard's live edges
+    (count > 0) and live window entries."""
+    s, rows, c = cnt.shape
+    k = min(n, c)
+    cnt_k = torch.gather(cnt, 2, order[:, :, :k].to(torch.int64))
+    live_k = cnt_k > 0
+    totf = tot.clamp(min=1).to(torch.float32)
+    prob = torch.where(live_k, cnt_k.to(torch.float32) / totf.unsqueeze(2), 0.0)
+    flat = torch.arange(rows * k, dtype=torch.int64,
+                        device=cnt.device).view(rows, k)
+    key = torch.where(live_k, (prob.view(torch.int32).to(torch.int64) << 32)
+                      | (0xFFFFFFFF - flat), 0)
+    tile = -(-rows // blocks)
+    width = max(tile * k, n)
+    tiles = torch.zeros((s, blocks * tile * k), dtype=torch.int64,
+                        device=cnt.device)
+    tiles[:, :rows * k] = key.view(s, -1)
+    tiles = torch.nn.functional.pad(tiles.view(s, blocks, tile * k),
+                                    (0, width - tile * k))
+    lists = torch.topk(tiles, n, dim=2).values.reshape(s * blocks, n)
+    counts = torch.stack([(cnt > 0).sum(dim=(1, 2)), live_k.sum(dim=(1, 2))],
+                         dim=1)
+    return lists, counts
+
+
+def src_of_row_ref(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """Reverse map row -> src node id of every shard, ``[S, N]`` and
+    contiguous, from the src tables ``tab_keys/tab_vals [S, T]`` by one
+    scatter into the flat ``S·N`` rows: each valid lane (key >= 0, 0 <=
+    value < N) writes its key at its row, every other row holds EMPTY
+    (invalid lanes go to a sink one past the end, sliced off, as the
+    reference's ``mode="drop"`` drops them)."""
+    s = tab_keys.shape[0]
+    valid = (tab_keys >= 0) & (tab_vals >= 0) & (tab_vals < rows)
+    base = torch.arange(s, dtype=torch.int64, device=tab_keys.device) * rows
+    idx = torch.where(valid, tab_vals + base.unsqueeze(1), s * rows)
+    out = torch.full((s * rows + 1,), EMPTY, dtype=torch.int32,
+                     device=tab_keys.device)
+    out.scatter_(0, idx.reshape(-1), tab_keys.reshape(-1))
+    return out[:s * rows].view(s, rows)
+
+
+def topn_merge_windows_ref(lists: torch.Tensor, counts: torch.Tensor,
+                           order: torch.Tensor, dst: torch.Tensor,
+                           tab_keys: torch.Tensor, tab_vals: torch.Tensor,
+                           n: int, blocks: int):
+    """The merge of the window lists and its labels (plain mirror of
+    ``csrc/topn_merge.cu``'s ``mcq_topn_merge_windows`` and
+    ``mcq_topn_label``): the block's merge steps over the
+    lists' probabilities (the keys' high words), the lowest list on ties; a
+    winner > 0 labelled from its key — shard ``list // blocks``, row and
+    window position from ``0xFFFFFFFF - low word``, dst at the slot
+    ``order[s, row, j]``, src through :func:`src_of_row_ref` of the src
+    tables — the others EMPTY / EMPTY / 0.0; ``dropped = sum_s (live_s -
+    min(n, window live_s))``.  Returns ``(srcs[n], dsts[n], probs[n],
+    dropped)``."""
+    k = min(n, order.shape[2])
+    probs = (lists >> 32).to(torch.int32).view(torch.float32)
+    heads, at = _block_merge_steps(probs, n)
+    live = heads > 0
+    at = torch.where(live, at, 0)
+    key = lists.reshape(-1)[at]
+    shard = at // n // blocks
+    flat = torch.where(live, 0xFFFFFFFF - (key & 0xFFFFFFFF), 0)
+    row, j = flat // k, flat % k
+    slot = order[shard, row, j].to(torch.int64)
+    src = src_of_row_ref(tab_keys, tab_vals, order.shape[1])[shard, row]
+    dropped = (counts[:, 0] - counts[:, 1].clamp(max=n)).sum()
+    return (torch.where(live, src, EMPTY).to(torch.int32),
+            torch.where(live, dst[shard, row, slot], EMPTY).to(torch.int32),
+            torch.where(live, heads, 0.0), dropped.to(torch.int32))
+
+
+def topn_windows_ref(cnt: torch.Tensor, order: torch.Tensor,
+                     tot: torch.Tensor, dst: torch.Tensor,
+                     tab_keys: torch.Tensor, tab_vals: torch.Tensor, n: int,
+                     blocks: int = 1):
+    """The sharded global top-n as the CUDA kernels decompose it (plain
+    version of ``topn_windows.py``): :func:`topn_window_lists_ref`, then
+    :func:`topn_merge_windows_ref`.  Equal to ``core/sharded.py``'s plain
+    ``topn_lists`` + :func:`topn_merge_ref` for every ``blocks``.  Returns
+    ``(srcs[n], dsts[n], probs[n], dropped)``."""
+    lists, counts = topn_window_lists_ref(cnt, order, tot, n, blocks)
+    return topn_merge_windows_ref(lists, counts, order, dst, tab_keys,
+                                  tab_vals, n, blocks)
 
 
 def draft_walk_ref(window: torch.Tensor, ht_keys: torch.Tensor,

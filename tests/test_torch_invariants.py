@@ -56,6 +56,8 @@ OPS = {
                         "cdf_query_fused_ref", "cdf_query_fused_pallas", ()),
     "topn_merge": ("topn_merge", "topn_merge_cuda", "topn_merge_ref", None,
                    ()),
+    "topn_windows": ("topn_windows", "topn_windows_cuda", "topn_windows_ref",
+                     None, ()),
     "draft_walk": ("walk", "draft_walk_cuda", "draft_walk_ref",
                    "draft_walk_pallas", ()),
     "slow_path": ("slow_path", "slow_path_cuda", None, None,

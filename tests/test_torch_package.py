@@ -43,6 +43,8 @@ KERNELS = {
                    "mcq_dh_rebuild"),
     "topn_merge": ("topn_merge_cuda", "topn_merge_ref", "topn_merge.cu",
                    "mcq_topn_merge"),
+    "topn_windows": ("topn_windows_cuda", "topn_windows_ref", "topn_windows.cu",
+                     "mcq_topn_windows"),
 }
 
 
@@ -133,6 +135,9 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
                                      v.to(torch.uint8), impl="cuda"),
     lambda x, v: ops.dh_rebuild_(x, x, x, x, v[:2], threshold=0, impl="cuda"),
     lambda x, v: ops.topn_merge(x.float(), x, x, n=3, impl="cuda"),
+    lambda x, v: ops.topn_windows(x.view(1, 4, 4), x.view(1, 4, 4), x[:1],
+                                  x.view(1, 4, 4), x[:1], x[:1], n=3,
+                                  impl="cuda"),
 ])
 def test_impl_cuda_on_cpu_tensors_raises(call):
     x = torch.zeros((4, 4), dtype=torch.int32)
@@ -155,11 +160,14 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
             "copy_rows": (x, x, x, v, v, v, v, x, x, x, v, v, v, v,
                           v.to(torch.uint8)),
             "dh_rebuild": (x, x, x, x, v[:2]),
-            "topn_merge": (x.float(), x, x)}[module]
+            "topn_merge": (x.float(), x, x),
+            "topn_windows": (x.view(1, 4, 4), x.view(1, 4, 4), x[:1],
+                             x.view(1, 4, 4), x[:1], x[:1])}[module]
     before = mod.launches
     with pytest.raises(ValueError, match="takes CUDA"):
         wrapper(*args, **{"dh_rebuild": {"threshold": 0},
-                          "topn_merge": {"n": 3}}.get(module, {}))
+                          "topn_merge": {"n": 3},
+                          "topn_windows": {"n": 3}}.get(module, {}))
     assert mod.launches == before
 
 
@@ -333,7 +341,7 @@ def _kernel_stand_ins(probe_calls, decay_calls):
     from repro_torch.kernels import (cdf_gather, cdf_query, copy_rows,
                                      decay_sort, dh_rebuild, oddeven, probe,
                                      ref, slab_update, slow_path, topn_merge,
-                                     walk)
+                                     topn_windows, walk)
 
     def check(name, strided, plain, bools=(), floats=()):
         def wrapper(*args, **kw):
@@ -428,6 +436,8 @@ def _kernel_stand_ins(probe_calls, decay_calls):
         (topn_merge, "topn_merge_cuda", check(
             "topn_merge", (), lambda p, d, s, *, n: ref.topn_merge_ref(p, d, s, n),
             floats=(0,))),
+        (topn_windows, "topn_windows_cuda", check(
+            "topn_windows", (), lambda *a, n: ref.topn_windows_ref(*a, n, 2))),
     ]
 
 
@@ -551,7 +561,8 @@ def test_sharded_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
     probe_calls, decay_calls = [], []
     for module, name, stand_in in _kernel_stand_ins(probe_calls, decay_calls):
         monkeypatch.setattr(module, name, stand_in)
-    from repro_torch.kernels import topn_merge
+    import dataclasses
+    from repro_torch.kernels import topn_merge, topn_windows
     scfg = tsh.ShardedConfig(base=tmc.MCConfig(
         num_rows=32, capacity=8, max_new_per_batch=16, decay_block_rows=block),
         num_shards=3, bucket_factor=1.0)
@@ -577,12 +588,18 @@ def test_sharded_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
         dk, pk, nn, dropped = tsh.query(state, batch[0, ::2], 0.5, 5, scfg=scfg)
         assert dk.shape == (24, 5) and dropped.shape == (3,)
     tsh.update_(state, src, dst, w, scfg=scfg)
-    launched = topn_merge.launches
+    launched = topn_merge.launches, topn_windows.launches
+    plain = tsh.ShardedConfig(base=dataclasses.replace(scfg.base, impl="ref"),
+                              num_shards=3)
     for n in (3, 12):
-        srcs, dsts, probs, lost = tsh.topn(state, n, scfg=scfg)
+        got = tsh.topn(state, n, scfg=scfg)
+        srcs, dsts, probs, lost = got
         assert srcs.shape == dsts.shape == probs.shape == (n,)
         assert bool((probs[1:] <= probs[:-1]).all()) and probs[0] > 0
-    assert topn_merge.launches == launched   # the stand-in counts nothing
+        for a, b in zip(got, tsh.topn(state, n, scfg=plain)):
+            assert torch.equal(a, b)
+    # the stand-ins count nothing
+    assert (topn_merge.launches, topn_windows.launches) == launched
     assert int(dirty.sum()) > 0 and int(state.route_dropped.sum()) > 0
     assert set(probe_calls) == {(True, 0)}, set(probe_calls)
     assert {rows for rows, _ in decay_calls} == {32}
