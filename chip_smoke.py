@@ -28,8 +28,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 30,000 items with rows sorted in tiles and merged, the
                 functional / in-place contract); every in-place form (the
                 row flags it sets included) and copy_dirty_rows; the
-                cross-shard merge at S 1-32, M 1-300, n 1 to S·M+3 and at
-                33-1,100 lists (ties, dead tails, lists not descending, NaN
+                cross-shard merge at S 1-32, M 1-300, n 1 to min(S·M+3,
+                400) and at 33-1,100 lists (ties, dead tails, lists not descending, NaN
                 heads); the top-n's window kernel (block lists, counts and
                 the whole read) at S 1-40, N 1 to 1,000, C 1 to 1,024, n 1
                 to 300, tied, sparse, empty, src tables with lanes past the
@@ -88,23 +88,32 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 plain version (equal) and timed beside its bound, the draft
                 walk also inside the learner loop;
   5b. lm     — the LM serving path (``serve.engine.Engine`` with the
-                MCPrioQ drafter) at ``qwen2-7b``'s full width: ``python -m
-                repro_torch.launch.serve --arch qwen2-7b`` as a user runs
-                it (2 requests); then 30.5 GB of
-                random float32 parameters made on the card from a seeded
-                generator, bfloat16 compute, the reference launcher's
-                sizes (drafter 8,192 x 64, draft_len 4); 4 requests of
-                2 x 64 prompt tokens and 32 new tokens served with plain
-                greedy decoding and then with speculation (the path's
-                launch window), the tokens equal; prefill, decode and
-                extension ms, tokens/s, model calls, acceptance, learner
-                and draft ms, peak device memory; the drafter's published
+                MCPrioQ drafter) at full width for ``qwen2-7b`` (dense),
+                ``deepseek-moe-16b`` (MoE, 65.5 GB), ``mamba2-130m`` (SSM)
+                and ``recurrentgemma-9b`` (RG-LRU + local attention):
+                ``python -m repro_torch.launch.serve --arch
+                deepseek-moe-16b`` as a user runs it (2 requests); then per
+                arch random float32 parameters made on the card from a
+                seeded generator, bfloat16 compute, the reference
+                launcher's sizes (drafter 8,192 x 64, draft_len 4); 4
+                requests of 2 x 64 prompt tokens and 32 new tokens served
+                with plain greedy decoding and then with speculation (the
+                arch's launch window), the tokens equal; a 4-token
+                extension's logits and caches equal to 4 decode steps';
+                prefill, decode and extension ms, tokens/s, model calls,
+                acceptance, learner and draft ms, device memory before the
+                init and the peak over the serves; the drafter's published
                 chain equal to the learned histories replayed through the
                 plain versions on the card, a draft equal to its plain
-                version; the model at full width and a depth of 2 on the
-                card against the CPU (logits within a stated tolerance,
-                greedy tokens equal where the top-2 margin is clear); the
-                drafter's kernels at the path's shapes, tagged ``[lm]``;
+                version; the model at full width and a depth of 2 (3 for
+                recurrentgemma: one whole period) on the card against the
+                CPU in float32 and bfloat16 (the largest and the mean
+                logit difference within stated bounds, the card's own
+                bfloat16 rounding at most 4x the CPU's, greedy tokens equal
+                where the top-2 margin is clear, at one position at
+                least); the drafter's kernels at
+                the path's shapes, tagged ``[lm]``, their launches summed
+                over the archs (each arch's in ``launches_by_arch``);
   6. sharded  — the sharded chain at full width: 4 logical shards of phase
                 main's chain stacked on the card (4 x 2**20 rows x 128
                 slots), 4 x 65,536 transitions per update routed through
@@ -193,7 +202,9 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 quickstart}.py`` as a user runs them, on the card and with
                 ``--device cpu``, all six at once: each exits 0 and prints
                 the same lines on both (timings and a process id masked);
-  9. parity   — the whole path at a small configuration, once with the CUDA
+  9. parity   — the whole path at a small configuration (16 batches, 32
+                with the dst hash, 8 on the sharded path and the reshard),
+                once with the CUDA
                 kernels and once with the plain versions, every state leaf and
                 every query answer equal after every batch, the owner calls
                 and their row flags too; the same with the dst hash (rebuilds
@@ -227,6 +238,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import functools
 import json
 import os
@@ -559,16 +571,21 @@ def small_kernel_checks(gen):
             st = mc._slow_path(st, src, dsts, w, active, cfg)
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
-    small_slab_cdf_checks(gen, both, both_)
-    small_decay_checks(gen, both, both_)
-    small_dh_checks(gen, both, both_)
-    small_copy_checks(gen)
-    small_topn_checks(gen, both)
-    small_topn_windows_checks(gen)
+    for group in (lambda: small_slab_cdf_checks(gen, both, both_),
+                  lambda: small_decay_checks(gen, both, both_),
+                  lambda: small_dh_checks(gen, both, both_),
+                  lambda: small_copy_checks(gen),
+                  lambda: small_topn_checks(gen, both),
+                  lambda: small_topn_windows_checks(gen)):
+        t0 = time.perf_counter()
+        group()
+        took(f"kernels, {checked} comparisons so far", t0)
     walk_ok = small_walk_checks(gen, both)
     say(f"[kernels] {checked} small-shape comparisons, kernel == plain version "
         f"(torch.equal) in all; {walk_ok} ok draft steps among the walks")
+    t0 = time.perf_counter()
     large_slow_path_checks(gen)
+    took("kernels, the large new-edge checks", t0)
 
 
 def misaligned(x):
@@ -1375,9 +1392,12 @@ def profile_window(label, step, rounds=5):
     report_profile(f"{label}: {rounds} rounds", prof, wall_ms)
 
 
-def report_profile(label, prof, wall_ms):
+def report_profile(label, prof, wall_ms, lost_ok=False):
     """Device busy share of a profiled window and its top kernels by device
-    time; returns the busy milliseconds."""
+    time; returns the busy milliseconds.  ``lost_ok``: a window that
+    launches only the hand-written kernels may come back with no device
+    record at all in a long run (CUPTI loses them); then None is returned
+    and the line says so, instead of raising."""
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1392,6 +1412,10 @@ def report_profile(label, prof, wall_ms):
     say(f"[profile] {label} in {wall_ms:.1f} ms wall (profiler on); device "
         f"busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f} % of the window")
     if not rows:
+        if lost_ok:
+            say(f"[profile] {label}: the profiler recorded no device record "
+                f"(not measured)")
+            return None
         raise AssertionError("the profiler recorded no device time")
     for ms, count, key in rows[:12]:
         say(f"[profile]   {ms:9.3f} ms  {100 * ms / busy_ms:5.1f} %  x{count:<5d} {key[:90]}")
@@ -3471,15 +3495,21 @@ def phase_engine(state, scfg, seed):
                         ("topn", lambda: engine.topn(TOP_N))):
             fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            reads[key] = (report_profile(f"engine: 5 {key} calls, no writer",
-                                         prof, wall_ms) / 5, wall_ms / 5)
+            busy = None
+            for attempt in range(3):   # a lost window is taken again
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        fn()
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                busy = report_profile(
+                    f"engine: 5 {key} calls, no writer (window {attempt + 1})",
+                    prof, wall_ms, lost_ok=True)
+                if busy is not None:
+                    break
+            reads[key] = (None if busy is None else busy / 5, wall_ms / 5)
         say(f"[engine] {ENGINE_PLAIN_ROUNDS} observes with no reader, the "
             f"first {ENGINE_PLAIN_ROUNDS} of the recovered engine: p50 "
             f"{pct(plain.ms, 50):.2f} ms p99 {pct(plain.ms, 99):.2f} ms = "
@@ -3487,7 +3517,9 @@ def phase_engine(state, scfg, seed):
             f"({plain.summary()}); "
             f"catch-up p50 {pct(plain_catch_ms, 50):.4f} ms; device busy "
             f"{100 * busy_ms / prof_ms:.1f} % of 3 profiled observes; "
-            + "; ".join(f"{k}: device {d:.3f} ms of {i:.3f} ms per call "
+            + "; ".join(f"{k}: device not measured (the profiler lost "
+                        f"every record), {i:.3f} ms per call" if d is None
+                        else f"{k}: device {d:.3f} ms of {i:.3f} ms per call "
                         f"(profiler on, 5 calls), busy {100 * d / i:.1f} %"
                         for k, (d, i) in reads.items()))
 
@@ -4396,7 +4428,7 @@ def phase_monitor(seed, steps=20):
 
 def small_topn_checks(gen, both):
     """The merge against its plain version at odd small shapes: S 1..32
-    lists of M 1..300, n from 1 to S·M + 3, and 33 to 1,100 lists (one
+    lists of M 1..300, n from 1 to min(S·M + 3, 400), and 33 to 1,100 lists (one
     launch up to 1,024 lists at n <= 256, more above); descending lists
     with ties within and across lists and dead tails, lists that are not
     descending, all-zero lists, and lists with NaN, -0.0 and negative
@@ -4425,8 +4457,10 @@ def small_topn_checks(gen, both):
         for m in (1, 2, 7, 64, 300):
             for kind in ("descending", "unsorted", "zeros", "nan"):
                 # past S·M every list is exhausted; above 256 steps the
-                # kernel writes its steps out in more than one round
-                for n in sorted({1, min(m, 17), 40, s * m + 3}):
+                # kernel writes its steps out in more than one round.  The
+                # plain version takes a step at a time, so n stops at 400
+                # (S·M + 3 up to S·M = 397: S 1 at M 300, S 1-5 at M 64)
+                for n in sorted({1, min(m, 17), 40, min(s * m + 3, 400)}):
                     both(f"topn_merge S={s} M={m} n={n} {kind}", ops.topn_merge,
                          *lists(s, m, kind), n=n)
                     cases += 1
@@ -4438,7 +4472,8 @@ def small_topn_checks(gen, both):
                          *lists(s, m, kind), n=n)
                     cases += 1
     say(f"[kernels] topn_merge: {cases} small cases, S 1-32 (M 1-300, n 1 to "
-        f"S*M+3) and 33-1,100 (n 1-300); equal to the plain version")
+        f"min(S*M+3, 400)) and 33-1,100 (n 1-300); equal to the plain "
+        f"version")
 
 
 def topn_state(gen, s, rows, c, kind, offset=False):
@@ -4944,22 +4979,40 @@ def equal_states(label, a, b):
             raise AssertionError(f"{label}: leaf {name} differs")
 
 
-def phase_parity(seed, batches=32):
+#: batches of the chains held kernel-vs-plain in phase parity: the plain
+#: chain cut from 32 for the script's time; the dst-hash chain keeps 32
+#: (24 reach no rebuild of its row hashes on the card)
+PARITY_BATCHES, PARITY_HASH_BATCHES = 16, 32
+PARITY_SHARDED_BATCHES = 8     # the sharded chain and the reshard, from 16
+
+
+def phase_parity(seed, batches=PARITY_BATCHES):
     from repro_torch import core
     cfg = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
                         max_new_per_batch=192, decay_block_rows=128,
                         impl="cuda")
-    parity_chain(seed, cfg, batches, "parity")
     # the dst hash: row hashes of 64 lanes, a rebuild once 2 % are tombstones
     hashed = dataclasses.replace(cfg, use_dst_hash=True, dst_table_size=64,
                                  max_probes=16, dh_rebuild_fraction=0.02)
-    parity_chain(seed + 3, hashed, batches, "parity/hash")
-    parity_learner(seed, hashed)
-    parity_drafter(seed)
-    parity_sharded(seed)
-    parity_reshard(seed)
-    parity_engine(seed)
-    return parity_many_shards(seed)
+    for name, part in (
+            ("chain", lambda: parity_chain(seed, cfg, batches, "parity")),
+            ("hash", lambda: parity_chain(seed + 3, hashed,
+                                          PARITY_HASH_BATCHES,
+                                          "parity/hash")),
+            ("learner", lambda: parity_learner(seed, hashed)),
+            ("drafter", lambda: parity_drafter(seed)),
+            ("sharded", lambda: parity_sharded(seed,
+                                               PARITY_SHARDED_BATCHES)),
+            ("reshard", lambda: parity_reshard(seed,
+                                               PARITY_SHARDED_BATCHES)),
+            ("engine", lambda: parity_engine(seed))):
+        t0 = time.perf_counter()
+        part()
+        took(f"parity {name}", t0)
+    t0 = time.perf_counter()
+    entries = parity_many_shards(seed)
+    took("parity many shards", t0)
+    return entries
 
 
 def parity_chain(seed, cfg_k, batches, label):
@@ -5112,24 +5165,40 @@ def parity_drafter(seed, batches=24):
 # phase lm: the LM serving path, Engine + MCPrioQ drafter, at full width
 # ---------------------------------------------------------------------------
 
-LM_ARCH = "qwen2-7b"     # the reference launcher's default arch
+#: the archs served at full width: the dense family (the reference
+#: launcher's default arch) and one of each family of queue A 8d that fits
+#: one 80 GB card (moonshot-v1-16b-a3b, 113.6 GB of float32, does not)
+LM_ARCHS = ("qwen2-7b", "deepseek-moe-16b", "mamba2-130m", "recurrentgemma-9b")
+LM_LAUNCHER_ARCH = "deepseek-moe-16b"   # the launcher check: the largest
 LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 4, 2, 64, 32
 LM_DRAFT = 4             # the reference launcher's --draft-len
-LM_CHECK_LAYERS = 2      # depth of the model held against the CPU
 LM_LOGIT_TOL = {          # |card - CPU| of a logit at depth 2, by dtype; a
     "float32": 0.01,       # wrong computation moves a logit by about its
     "bfloat16": 0.25,      # size (4-5); random attention scores of +-100
 }                          # amplify a sum's order (8 bf16 ulps at [4, 8))
+LM_MEAN_TOL = {           # the mean |card - CPU| of a call's logits, by dtype
+    "float32": 0.001,
+    "bfloat16": 0.15,      # the CPU tests' mean bound
+}
+LM_ROUNDING_RATIO = 4     # the card's |bfloat16 - float32| against the CPU's
 LM_KERNELS = ("draft_walk", "probe_find", "slab_update", "oddeven",
               "decay_sort", "slow_path", "copy_dirty_rows")
 
 
-def lm_config(layers=None):
-    """``qwen2-7b`` at its published widths (``layers`` cuts its depth)."""
+def lm_config(arch, layers=None):
+    """``arch`` at its published widths (``layers`` cuts its depth)."""
     from repro_torch.configs import get_config
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     return cfg if layers is None else dataclasses.replace(cfg,
                                                           num_layers=layers)
+
+
+def lm_check_layers(arch):
+    """Depth of the card-against-CPU check: 2 layers, or one whole period
+    with the leading dense layers (recurrentgemma: rglru, rglru,
+    local_attn), so every layer kind of the arch runs."""
+    cfg = lm_config(arch)
+    return max(2, cfg.first_dense_layers + len(cfg.pattern))
 
 
 def lm_serve_config(draft_len):
@@ -5188,9 +5257,11 @@ def lm_serve(model, params, draft_len, prompts):
 def lm_model_ms(model, params, prompt):
     """Milliseconds per prefill, decode_step and extend_step (4 tokens) at
     the served shapes: the latency a caller waits, by events on an idle
-    device (medians of 5).  A full-width step launches about 3,000 kernels,
-    more than the launch queue holds, so a spin kernel ahead of it cannot
-    hide the host: the device's busy time comes from ``--profile``."""
+    device (medians of 5).  A full-width step launches thousands of
+    kernels, more than the launch queue holds, so a spin kernel ahead of it
+    cannot hide the host: the device's busy time comes from ``--profile``.
+    Also holds the lossless mechanism directly: the 4-token extension's
+    logits and caches == 4 decode steps', bit for bit."""
     from repro_torch.serve import sampling
     max_len = LM_PROMPT + LM_NEW + 8
     tokens = torch.as_tensor(prompt, device="cuda")
@@ -5198,6 +5269,19 @@ def lm_model_ms(model, params, prompt):
     cur = sampling.greedy(logits)[:, None]
     pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device="cuda")
     feed = torch.cat([cur, tokens[:, :LM_DRAFT - 1]], dim=1)
+    ext, ext_caches = model.extend_step(params, caches, feed, pos)
+    steps, c = [], caches
+    for j in range(LM_DRAFT):
+        step, c = model.decode_step(params, c, feed[:, j:j + 1], pos + j)
+        steps.append(step)
+    got, want = tensor_leaves(ext_caches), tensor_leaves(c)
+    if not torch.equal(ext, torch.stack(steps, dim=1)) or \
+            len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"lm {model.cfg.name}: a {LM_DRAFT}-token "
+                             f"extension differs from {LM_DRAFT} decode "
+                             f"steps on the card")
+    del ext_caches, c, steps
     calls = {
         "prefill": lambda: model.prefill(params, {"tokens": tokens}, max_len),
         "decode_step": lambda: model.decode_step(params, caches, cur, pos),
@@ -5207,82 +5291,132 @@ def lm_model_ms(model, params, prompt):
     return {k: time_ms(fn, reps=5, warm=1) for k, fn in calls.items()}
 
 
-def lm_against_cpu(seed):
-    """``qwen2-7b`` at full width and a depth of LM_CHECK_LAYERS, the same
+def lm_against_cpu(arch, seed):
+    """``arch`` at full width and a depth of ``lm_check_layers``, the same
     parameters on the card and on the CPU, computed in float32 and in
-    bfloat16: the logits of a prefill, a decode step and a 4-token
-    extension within LM_LOGIT_TOL of the dtype, and the greedy tokens equal
-    wherever the CPU's top-2 margin exceeds twice it."""
+    bfloat16; every call decodes the greedy token of the CPU's float32
+    prefill.  Per call (a prefill, a decode step, a 4-token extension, and
+    the cache-free forward over the prompt, whose logits at every prompt
+    position give the token check positions enough) and dtype, with r the
+    CPU's own |dtype - float32| of the same call (0 at float32):
+
+      * the largest |card - CPU| logit at most max(LM_LOGIT_TOL, 2 r_max),
+        the mean at most max(LM_MEAN_TOL, 2 r_mean): a near tie of the MoE
+        router, or an ulp through random RG-LRU gates, moves a bfloat16
+        logit further than the order of a sum does;
+      * at bfloat16, the card's own |bfloat16 - float32| at most
+        LM_ROUNDING_RATIO times the CPU's, largest and mean: a wrong
+        bfloat16 computation on the card moves its logits off its float32
+        ones by about a logit's size;
+      * the greedy tokens equal wherever the CPU's top-2 margin exceeds
+        twice the position's largest |card - CPU|; the check fails when no
+        position of a dtype has such a margin."""
     from repro_torch.models import Model
+    from repro_torch.models.common import lm_logits
     from repro_torch.models.transformer import tree_map
-    base = lm_config(LM_CHECK_LAYERS)
+    layers = lm_check_layers(arch)
+    base = lm_config(arch, layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 11)
     params = {"cuda": Model(base).init(gen)}
     params["cpu"] = tree_map(lambda a: a.cpu(), params["cuda"])
     prompt = torch.as_tensor(lm_prompts(seed + 11, base.vocab_size)[0])
     max_len = LM_PROMPT + LM_NEW + 8
-    names = ("prefill", "decode_step", f"extend_step[{LM_DRAFT}]")
-    for dtype, tol in LM_LOGIT_TOL.items():
+    names = ("prefill", "decode_step", f"extend_step[{LM_DRAFT}]",
+             f"forward[{LM_PROMPT}]")
+    logits = {}
+
+    def gaps(a, b):
+        return [((x - y).abs().max().item(), (x - y).abs().mean().item())
+                for x, y in zip(a, b)]
+
+    for dtype in LM_LOGIT_TOL:   # float32 first
         model = Model(dataclasses.replace(base, dtype=dtype))
-        logits = {}
         t0 = time.perf_counter()
         for dev in ("cpu", "cuda"):
             p = params[dev]
             first, caches = model.prefill(p, {"tokens": prompt.to(dev)},
                                           max_len)
-            if dev == "cpu":
+            if dtype == "float32" and dev == "cpu":
                 cur = first.argmax(dim=-1).to(torch.int32)[:, None]
                 feed = torch.cat([cur, prompt[:, :LM_DRAFT - 1]], dim=1)
                 pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32)
             step, _ = model.decode_step(p, caches, cur.to(dev), pos.to(dev))
             ext, _ = model.extend_step(p, caches, feed.to(dev), pos.to(dev))
-            logits[dev] = [x.float().cpu() for x in (first, step, ext)]
-        diffs = [float((got - want).abs().max())
-                 for want, got in zip(logits["cpu"], logits["cuda"])]
-        say(f"[lm] {LM_ARCH} at full width, {LM_CHECK_LAYERS} layers, "
-            f"{dtype} compute, the same parameters on the card and the CPU: "
-            f"largest |card - CPU| logit "
-            + ", ".join(f"{n} {d:.6f}" for n, d in zip(names, diffs))
-            + f" (tolerance {tol}; largest |logit| "
-            f"{float(logits['cpu'][0].abs().max()):.3f}; "
-            f"{time.perf_counter() - t0:.1f} s)")
+            x, positions = model._embed_inputs(p, {"tokens": prompt.to(dev)})
+            x, _, _ = model._body(p, x, positions)
+            whole = lm_logits(p["emb"], x, model.cfg)
+            logits[dtype, dev] = [x.float().cpu()
+                                  for x in (first, step, ext, whole)]
+        wall = time.perf_counter() - t0
+        diffs = gaps(logits[dtype, "cuda"], logits[dtype, "cpu"])
+        rounding = gaps(logits[dtype, "cpu"], logits["float32", "cpu"])
+        card_rounding = gaps(logits[dtype, "cuda"], logits["float32", "cuda"])
+        tols = [(max(LM_LOGIT_TOL[dtype], 2 * r), max(LM_MEAN_TOL[dtype],
+                                                      2 * m))
+                for r, m in rounding]
+        biggest = max(float(x.abs().max()) for x in logits[dtype, "cpu"])
+        say(f"[lm] {arch} at full width, {layers} layers, {dtype} compute, "
+            f"the same parameters on the card and the CPU: |card - CPU| "
+            f"logit largest/mean (bounds; |CPU {dtype} - CPU float32|, "
+            f"|card {dtype} - card float32|) "
+            + ", ".join(f"{n} {d:.6f}/{dm:.6f} ({t:.4f}/{tm:.4f}; "
+                        f"{r:.4f}/{rm:.4f}, {c:.4f}/{cm:.4f})"
+                        for n, (d, dm), (t, tm), (r, rm), (c, cm)
+                        in zip(names, diffs, tols, rounding, card_rounding))
+            + f"; largest |logit| {biggest:.3f}; {wall:.1f} s")
         compared = total = 0
-        for name, want, got, diff in zip(names, logits["cpu"],
-                                         logits["cuda"], diffs):
+        for name, want, got, (d, dm), (t, tm), (r, rm), (c, cm) in zip(
+                names, logits[dtype, "cpu"], logits[dtype, "cuda"], diffs,
+                tols, rounding, card_rounding):
             if not bool(torch.isfinite(got).all()):
-                raise AssertionError(f"lm: card {name} logits not finite")
-            if diff > tol:
-                raise AssertionError(f"lm: {dtype} card {name} logits differ "
-                                     f"from the CPU's by {diff} > {tol}")
+                raise AssertionError(f"lm {arch}: card {name} logits not "
+                                     f"finite")
+            if d > t or dm > tm:
+                raise AssertionError(
+                    f"lm {arch}: {dtype} card {name} logits differ from the "
+                    f"CPU's by {d} (mean {dm}) > {t} (mean {tm})")
+            if dtype != "float32" and (c > LM_ROUNDING_RATIO * r
+                                       or cm > LM_ROUNDING_RATIO * rm):
+                raise AssertionError(
+                    f"lm {arch}: the card's {dtype} {name} logits lie {c} "
+                    f"(mean {cm}) from its float32 ones, more than "
+                    f"{LM_ROUNDING_RATIO} x the CPU's {r} (mean {rm})")
             top2 = want.topk(2, dim=-1).values
-            clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+            clear = (top2[..., 0] - top2[..., 1]) > \
+                2 * (got - want).abs().amax(dim=-1)
             same = got.argmax(dim=-1) == want.argmax(dim=-1)
             if not bool(same[clear].all()):
                 raise AssertionError(
-                    f"lm: {dtype} card {name} greedy tokens differ from the "
-                    f"CPU's where the top-2 margin exceeds {2 * tol}")
+                    f"lm {arch}: {dtype} card {name} greedy tokens differ "
+                    f"from the CPU's where the top-2 margin exceeds twice "
+                    f"the position's largest |card - CPU|")
             compared += int(clear.sum())
             total += clear.numel()
-        say(f"[lm] {dtype}: greedy tokens equal at the {compared} of {total} "
-            f"positions whose top-2 margin exceeds {2 * tol}")
+        say(f"[lm] {arch} {dtype}: greedy tokens equal at the {compared} of "
+            f"{total} positions whose top-2 margin exceeds twice the "
+            f"position's largest |card - CPU|")
+        if compared == 0:
+            raise AssertionError(f"lm {arch}: {dtype} greedy tokens compared "
+                                 f"at no position")
     del params
 
 
 def lm_launcher():
-    """``python -m repro_torch.launch.serve --arch qwen2-7b`` as a user runs
-    it (2 requests, the launcher's other defaults), on the card: exit 0 and
-    its three lines."""
+    """``python -m repro_torch.launch.serve --arch deepseek-moe-16b`` as a
+    user runs it (2 requests, the launcher's other defaults), on the card:
+    exit 0 and its three lines."""
     import re
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH,
-         "--requests", "2"], env=dict(os.environ, PYTHONPATH=str(repo / "src")),
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         LM_LAUNCHER_ARCH, "--requests", "2"],
+        env=dict(os.environ, PYTHONPATH=str(repo / "src")),
         cwd=repo, text=True, capture_output=True, timeout=600)
     for line in out.stdout.splitlines():
-        say(f"[lm] launcher: {line}")
-    say(f"[lm] launcher: exit {out.returncode} in "
+        say(f"[lm] launcher --arch {LM_LAUNCHER_ARCH}: {line}")
+    say(f"[lm] launcher --arch {LM_LAUNCHER_ARCH}: exit {out.returncode} in "
         f"{time.perf_counter() - t0:.1f} s")
     if out.returncode != 0 or not re.search(
             r"2 requests, 128 tokens in .*\(plain greedy would use 62\)"
@@ -5291,79 +5425,84 @@ def lm_launcher():
                              f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
 
 
-def phase_lm(seed, card, profile=False):
-    """The LM serving path at ``qwen2-7b``'s full width: the launcher as a
-    user runs it; random float32
-    parameters from a seeded generator on the card, the launcher's sizes;
-    plain greedy, then speculation (the path's launch window) on the same
-    prompts, tokens equal; the drafter's chain equal to a plain replay of
-    the histories it learned; the model against the CPU at depth 2; the
-    drafter's kernels at the path's shapes, tagged ``[lm]``."""
-    from repro_torch import core
+def lm_arch(arch, seed, card, profile, warm):
+    """One arch's serving path at full width: random float32 parameters
+    from a seeded generator on the card, the launcher's sizes; plain
+    greedy, then speculation (the path's launch window) on the same
+    prompts, tokens equal; latencies; the drafter's chain equal to a plain
+    replay of the histories it learned.  Returns (launches, engine,
+    histories, ctx, draft) for the kernel entries."""
     from repro_torch.core import speculative as spec
-    from repro_torch.kernels import ops, walk
     from repro_torch.models import Model
-    lm_launcher()
-    cfg = lm_config()
+    cfg = lm_config(arch)
     model = Model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 10)
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = model.init(gen)
     torch.cuda.synchronize()
     weight_bytes = param_bytes(params)
     say(f"[lm] {cfg}")
-    say(f"[lm] {LM_ARCH} at full width: {cfg.param_count()} parameters, "
+    say(f"[lm] {arch} at full width: {cfg.param_count()} parameters, "
         f"{weight_bytes / 1e9:.2f} GB of float32 made on the card from a "
-        f"seeded generator in {time.perf_counter() - t0:.1f} s; "
-        f"{LM_REQUESTS} requests of {LM_BATCH} x {LM_PROMPT} prompt tokens, "
-        f"{LM_NEW} new tokens each ({card})")
+        f"seeded generator in {time.perf_counter() - t0:.1f} s (device "
+        f"memory allocated before: {before / 2**30:.2f} GiB); {LM_REQUESTS} "
+        f"requests of {LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_NEW} new "
+        f"tokens each ({card})")
     prompts = lm_prompts(seed, cfg.vocab_size)
-    lm_serve(model, params, LM_DRAFT, prompts[:1])   # cuBLAS and kernels warm
+    if warm:   # cuBLAS and the drafter's kernels warm
+        lm_serve(model, params, LM_DRAFT, prompts[:1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     plain, p_engine, _, _, p_wall = lm_serve(model, params, 0, prompts)
-    with launch_window("lm", LM_KERNELS) as launches:
+    with launch_window(f"lm {arch}", LM_KERNELS) as launches:
         toks, engine, histories, learn_ms, wall = lm_serve(
             model, params, LM_DRAFT, prompts)
     peak = torch.cuda.max_memory_allocated()
     if toks.shape != (LM_REQUESTS, LM_BATCH, LM_NEW) or \
             not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-        raise AssertionError(f"lm: tokens of shape {toks.shape} out of range")
+        raise AssertionError(f"lm {arch}: tokens of shape {toks.shape} out "
+                             f"of range")
     if not np.array_equal(toks, plain):
         bad = np.argwhere(toks != plain)[0].tolist()
-        raise AssertionError(f"lm: speculative tokens differ from plain "
-                             f"greedy's, first at {bad}")
+        raise AssertionError(f"lm {arch}: speculative tokens differ from "
+                             f"plain greedy's, first at {bad}")
     st, pst = engine.stats, p_engine.stats
     if st["rounds"] <= 0 or st["accepted"] <= 0:
-        raise AssertionError(f"lm: no draft was verified and accepted: {st}")
+        raise AssertionError(f"lm {arch}: no draft was verified and "
+                             f"accepted: {st}")
     n_tok = toks.size
-    say(f"[lm] speculative (draft_len {LM_DRAFT}) tokens == plain greedy "
-        f"tokens, all {n_tok}; model calls {st['model_calls']} against plain "
-        f"greedy's {pst['model_calls']}; {st['rounds']} verify rounds, "
-        f"{st['drafted']} drafted, {st['accepted']} accepted: acceptance "
-        f"{engine.acceptance_rate:.4f}; {st['draft_calls']} draft calls "
+    say(f"[lm] {arch}: speculative (draft_len {LM_DRAFT}) tokens == plain "
+        f"greedy tokens, all {n_tok}; model calls {st['model_calls']} "
+        f"against plain greedy's {pst['model_calls']}; {st['rounds']} verify "
+        f"rounds, {st['drafted']} drafted, {st['accepted']} accepted: "
+        f"acceptance {engine.acceptance_rate:.4f}; {st['draft_calls']} draft "
+        f"calls ({card})")
+    say(f"[lm] {arch} tokens/s, host clock over the {LM_REQUESTS} requests "
+        f"(prefill, decode, learn): speculative {n_tok / wall:.1f} "
+        f"({wall:.3f} s), plain greedy {n_tok / p_wall:.1f} ({p_wall:.3f} s) "
         f"({card})")
-    say(f"[lm] tokens/s, host clock over the {LM_REQUESTS} requests (prefill, "
-        f"decode, learn): speculative {n_tok / wall:.1f} ({wall:.3f} s), "
-        f"plain greedy {n_tok / p_wall:.1f} ({p_wall:.3f} s) ({card})")
     model_ms = lm_model_ms(model, params, prompts[0])
-    say(f"[lm] ms per call, latency on an idle device (events, medians of "
-        f"5): " + ", ".join(f"{k} {v:.3f}" for k, v in model_ms.items())
+    say(f"[lm] {arch} ms per call, latency on an idle device (events, "
+        f"medians of 5): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in model_ms.items())
         + f"; reading the float32 weights once takes "
-        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({card})")
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; a {LM_DRAFT}-token "
+        f"extension == {LM_DRAFT} decode steps, logits and caches bit for "
+        f"bit ({card})")
     if profile:
         cur = torch.as_tensor(toks[0, :, :1], device="cuda")
         _, caches = model.prefill(params, {"tokens": torch.as_tensor(
             prompts[0], device="cuda")}, LM_PROMPT + LM_NEW + 8)
         pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
                          device="cuda")
-        profile_window(f"lm decode_step ({LM_ARCH}, batch {LM_BATCH})",
+        profile_window(f"lm decode_step ({arch}, batch {LM_BATCH})",
                        lambda: model.decode_step(params, caches, cur, pos),
                        rounds=3)
         del caches
-    say(f"[lm] peak device memory over both serves "
+    say(f"[lm] {arch} peak device memory over both serves "
         f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) ({card})")
 
     # the drafter: its published chain == the histories replayed through
@@ -5378,32 +5517,80 @@ def phase_lm(seed, card, profile=False):
     state = engine.drafter_store.acquire()
     engine.drafter_store.release(state)
     state = state.state
-    equal_states("lm: the engine's drafter vs the plain replay of its "
-                 "histories", state.chain, replay.chain)
+    equal_states(f"lm {arch}: the engine's drafter vs the plain replay of "
+                 f"its histories", state.chain, replay.chain)
     # windows the drafter met: inside each learned continuation
     ctx = torch.as_tensor(np.concatenate([
         h[:, end - ngram.order:end] for h in histories
         for end in range(LM_PROMPT, LM_PROMPT + LM_NEW, 8)]), device="cuda")
     draft = spec.draft(state, ctx, cfg=ngram, k=LM_DRAFT)
-    compare("lm: draft vs its plain version", draft,
+    compare(f"lm {arch}: draft vs its plain version", draft,
             spec.draft(state, ctx, cfg=plain_ngram, k=LM_DRAFT))
     draft_ms = call_ms(lambda: spec.draft(state, ctx, cfg=ngram, k=LM_DRAFT))
-    say(f"[lm] the drafter after {len(histories)} learner steps: its 18 "
-        f"leaves == a plain replay's (impl=ref, on the card); a draft of "
+    say(f"[lm] {arch}: the drafter after {len(histories)} learner steps: its "
+        f"18 leaves == a plain replay's (impl=ref, on the card); a draft of "
         f"{ctx.shape[0]} windows == its plain version's "
         f"({int(draft[1][:, 0].sum())} first steps ok); _learn ms "
         + ", ".join(f"{x:.2f}" for x in learn_ms)
         + f" (host clock); draft k={LM_DRAFT} {draft_ms[0]:.4f} ms device, "
         f"{draft_ms[1]:.4f} ms on an idle device ({card})")
+    del params, p_engine, replay
+    return launches, engine, histories, ctx, draft
 
-    # the drafter's kernels at the shapes the path gave them: one more
-    # history (the last prompt with a new continuation, so the new-edge
-    # pass has new edges and new rows) through the chain's kernels, the
-    # draft windows through the walk, the learner's flags through the
-    # catch-up
+
+def phase_lm(seed, card, profile=False):
+    """The LM serving path at full width for each of LM_ARCHS: the
+    launcher as a user runs it (``deepseek-moe-16b``); each arch served
+    plain and speculative (``lm_arch``), its model against the CPU at a
+    small depth; the drafter's kernels at the path's shapes (the first
+    arch's drafter and histories), tagged ``[lm]``, their launches the sum
+    over the archs' launch windows, each arch's beside it."""
+    t_phase = time.perf_counter()
+    lm_launcher()
+    took("lm launcher", t_phase)
+    counts, entries = {}, []
+    for i, arch in enumerate(LM_ARCHS):
+        t0 = time.perf_counter()
+        launches, engine, histories, ctx, draft = lm_arch(
+            arch, seed + 100 * i, card, profile, warm=i == 0)
+        counts[arch] = dict(launches)
+        if i == 0:
+            entries = lm_kernel_entries(engine, histories, ctx, draft,
+                                        launches, seed,
+                                        lm_config(arch).vocab_size)
+        # an Engine's metrics provider closes over it: a cycle, so the
+        # parameters it holds go at a collection, not at the del
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_against_cpu(arch, seed + 100 * i)
+        torch.cuda.empty_cache()
+        took(f"lm {arch}", t0)
+    say(f"[lm] kernel launches by arch: "
+        + "; ".join(f"{a} " + ", ".join(f"{k} {c[k]}" for k in LM_KERNELS)
+                    for a, c in counts.items()))
+    for entry in entries:    # the sum over the archs, each arch's beside it
+        base = entry["name"].split("[")[0]
+        entry["launches"] = sum(c[base] for c in counts.values())
+        entry["launches_by_arch"] = {a: c[base] for a, c in counts.items()}
+    return entries
+
+
+def lm_kernel_entries(engine, histories, ctx, draft, launches, seed, vocab):
+    """The drafter's kernels at the shapes the path gave them: one more
+    history (the last prompt with a new continuation, so the new-edge pass
+    has new edges and new rows) through the chain's kernels, the draft
+    windows through the walk, the learner's flags through the catch-up."""
+    from repro_torch import core
+    from repro_torch.core import speculative as spec
+    from repro_torch.kernels import ops, walk
+    ngram = engine.cfg.ngram
+    state = engine.drafter_store.acquire()
+    engine.drafter_store.release(state)
+    state = state.state
     fresh = histories[-1].copy()
     fresh[:, LM_PROMPT:] = np.random.default_rng(seed + 12).integers(
-        0, cfg.vocab_size, fresh[:, LM_PROMPT:].shape)
+        0, vocab, fresh[:, LM_PROMPT:].shape)
     hist = torch.as_tensor(fresh, device="cuda")
     src = spec.context_ids(hist, ngram.order)[:, :-1].reshape(-1)
     q = spec.context_ids(ctx, ngram.order)[:, -1].contiguous()
@@ -5444,10 +5631,32 @@ def phase_lm(seed, card, profile=False):
         operations=steps * (14 * ngram.order + 10) + 3 * probed,
         extra=dict(windows=window.shape[0], trips_per_step=trips,
                    trips_max=trips_max))
-    del params, flush, front, back
-    torch.cuda.empty_cache()
-    lm_against_cpu(seed)
     return entries
+
+
+def took(label, t0):
+    """Wall seconds of a part of a phase, for the cuts of depth."""
+    say(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+
+
+def cache_child_bytecode():
+    """The processes this script starts (the launchers, the soak's workers,
+    the examples) compile torch's Python sources on every start where the
+    environment forbids writing bytecode (about 10 s an ``import torch``):
+    they write it once under the checkout's ``build/pycache`` instead and
+    read it there after."""
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(
+        Path(__file__).resolve().parent / "build" / "pycache")
+
+
+def tensor_leaves(tree):
+    """Every tensor of nested dicts, lists and (named) tuples, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 def param_bytes(tree):
@@ -5492,6 +5701,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    cache_child_bytecode()
     t_start = time.perf_counter()
     seconds, last = {}, [t_start]
 

@@ -7,7 +7,8 @@ in all, so a state learned by either package can be continued by the other.
 The stacked pair does the same for a sharded chain (``core.sharded``): the
 same 18 leaves, each with a leading ``[S]``.  The model pair carries the
 tree of the reference's ``Model.init`` (nested dicts and lists of numpy
-arrays: ``emb``, ``final_norm``, ``stack``, ``tail``) to the port's
+arrays: ``emb``, ``final_norm``, ``pre``, ``stack``, ``tail``; the
+``moe``, ``ssm`` and ``rglru`` leaves among them) to the port's
 parameters and back, bit for bit.  This module sees numpy arrays only,
 never another framework's types.
 """

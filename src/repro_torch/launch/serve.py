@@ -6,10 +6,12 @@ with the MCPrioQ speculative drafter, or shard-parallel chain serving.
 
 serves ``qwen2-7b`` at full width with random parameters (float32, about
 30.5 GB, bfloat16 compute) on the GPU; ``--smoke --device cpu`` serves its
-reduced config on the CPU.  The dense family is ported (``qwen2-7b``,
-``starcoder2-3b``, ``starcoder2-7b``, ``granite-34b``); the encoder and
-vision archs are refused as the reference refuses them, and the other
-families by name (ROADMAP queue A 8d).
+reduced config on the CPU.  ``--arch deepseek-moe-16b`` (65.5 GB of float32
+parameters), ``--arch mamba2-130m`` and ``--arch recurrentgemma-9b`` serve
+the MoE, SSM and hybrid families the same way (``moonshot-v1-16b-a3b``,
+113.6 GB, does not fit one 80 GB card; ``--smoke`` serves it).  The encoder
+and vision archs (``whisper-base``, ``phi-3-vision-4.2b``) are refused as
+the reference refuses them.
 
 Shard-parallel chain serving routes synthetic transition traffic through
 the port's :class:`repro_torch.serve.engine.ShardedEngine` (the S shards
@@ -43,7 +45,7 @@ from repro_torch.core import sharded as sh
 from repro_torch.core import speculative as spec
 from repro_torch.core.device import resolve_device
 from repro_torch.data.synthetic import MarkovGraphSampler
-from repro_torch.models.model import Model, check_ported
+from repro_torch.models.model import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.export import MetricsDumper, MetricsServer
 from repro_torch.serve.engine import (Engine, ServeConfig, ShardedEngine,
@@ -60,10 +62,6 @@ def run(arch: str, smoke: bool, requests: int, prompt_len: int,
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if cfg.encoder_layers or cfg.frontend == "patch":
         raise SystemExit("text-LM serving driver; see examples/ for encdec")
-    try:
-        check_ported(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"repro_torch.launch.serve: {e}") from None
     dev = resolve_device(device)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed),

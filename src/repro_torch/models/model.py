@@ -1,28 +1,41 @@
 """Model facade: init / loss / prefill / decode / extend.
 
-Counterpart of ``repro.models.model`` for the dense family (``qwen2-7b``,
-``starcoder2-3b``, ``starcoder2-7b``, ``granite-34b``): the same parameter
-tree (``emb``, ``final_norm``, ``stack`` stacked over periods, ``tail``),
-shapes and dtypes, float32 parameters and the compute dtype of the config.
-The other families (``moe``, ``ssm``, ``hybrid``, ``encdec``, ``vlm``) are
-refused with ``NotImplementedError`` when the model is built (ROADMAP queue
-A 8d): a refusal, not a fallback.  There is no mesh, so the reference's
-``sharding.specs.constrain`` hints are nothing here.
+Counterpart of ``repro.models.model`` for the ``dense`` (``qwen2-7b``,
+``starcoder2-3b``, ``starcoder2-7b``, ``granite-34b``), ``moe``
+(``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``), ``ssm`` (``mamba2-130m``)
+and ``hybrid`` (``recurrentgemma-9b``) families: the same parameter tree
+(``emb``, ``final_norm``, ``pre`` (leading dense layers), ``stack`` stacked
+over periods, ``tail``), shapes and dtypes, float32 parameters and the
+compute dtype of the config.  The ``encdec`` and ``vlm`` families are
+refused with ``NotImplementedError`` when the model is built (ROADMAP
+queue A 8d, the encoder and patch-prefix slice): a refusal, not a
+fallback.  There is no mesh, so the reference's ``sharding.specs.constrain``
+hints are nothing here.
 
-Two things differ from the reference, both for a serving engine on a GPU:
+Three things differ from the reference, each for a serving engine on a
+GPU:
 
   * **decode and extension calls run at a fixed shape.**  A call that
     carries ``k <= STEP_ROWS`` tokens per sequence is computed on
     ``STEP_ROWS`` rows (the extra rows are token 0 at the next positions,
-    queries only: they never enter a cache, and their logits are dropped).
-    Every matmul and reduction of a ``decode_step`` and of an
-    ``extend_step`` then has the same shape, and a GPU library computes
-    each row of a given shape the same way whatever the other rows hold, so
-    a token's logits do not depend on how many tokens its call carried:
-    greedy speculative decoding gives plain greedy decoding's tokens bit
-    for bit.  (cuBLAS picks its algorithm by shape; at two shapes the same
-    row can round differently.)  The real rows' arithmetic is the
-    reference's;
+    pad rows: queries only for attention, never in a cache, never
+    dispatched to an expert, never stepped through a recurrence; their
+    logits are dropped).  Every matmul and reduction of a ``decode_step``
+    and of an ``extend_step`` then has the same shape, and a GPU library
+    computes each row of a given shape the same way whatever the other rows
+    hold, so a token's logits do not depend on how many tokens its call
+    carried: greedy speculative decoding gives plain greedy decoding's
+    tokens bit for bit.  (cuBLAS picks its algorithm by shape; at two
+    shapes the same row can round differently.)  The recurrent kinds
+    (``ssm``, ``rglru``) step an extension's tokens one at a time with the
+    decode arithmetic, so an extension of K tokens is K decodes, not the
+    reference's chunked or associative form (which sums in another order);
+    the prefill keeps the reference's forms;
+  * **a ``local_attn`` ring holds ``STEP_ROWS`` more positions than the
+    window**, so an extension into a ring that has wrapped computes what
+    its tokens' decodes compute, and a ring's prefill attends over the
+    prompt itself (the reference's cached calls lose keys in both cases;
+    ``init_caches``, ``transformer.block_forward``);
   * ``init`` takes a ``torch.Generator`` and draws other numbers than JAX;
     parity tests convert the reference's parameters
     (``repro_torch.convert.model_params_from_numpy``).
@@ -37,6 +50,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (
     apply_norm,
@@ -54,7 +69,7 @@ PyTree = Any
 #: at this many rows (see the module docstring)
 STEP_ROWS = 8
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -62,8 +77,8 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: model family {cfg.family!r} is not ported to "
-            f"repro_torch yet (ROADMAP queue A 8d); ported: "
-            f"{PORTED_FAMILIES}")
+            f"repro_torch yet (ROADMAP queue A 8d: the encoder and the "
+            f"patch prefix); ported: {PORTED_FAMILIES}")
     if cfg.first_dense_layers:
         tfm.check_kind(cfg, "dense_mlp")
     if cfg.encoder_layers:
@@ -100,6 +115,10 @@ class Model:
             "emb": make_embeddings(cfg, generator, device=dev),
             "final_norm": make_norm(cfg, device=dev),
         }
+        if cfg.first_dense_layers:   # leading dense layers (deepseek)
+            params["pre"] = [tfm.make_block(cfg, "dense_mlp", generator,
+                                            device=dev)
+                             for _ in range(cfg.first_dense_layers)]
         np_ = cfg.num_periods()
         if np_:
             params["stack"] = {
@@ -128,7 +147,7 @@ class Model:
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
         """Returns (x, positions): the text tokens (no prefix embeddings in
-        the ported family)."""
+        the ported families)."""
         tokens = torch.as_tensor(batch["tokens"], device=self._device(params))
         b, s_text = tokens.shape
         pos = torch.arange(s_text, dtype=torch.int32,
@@ -138,27 +157,36 @@ class Model:
 
     def _body(self, params, x, positions, caches=None,
               insert: Optional[int] = None):
-        """stack -> tail -> final norm. Returns (x, caches')."""
+        """pre -> stack -> tail -> final norm. Returns (x, aux, caches')."""
         cfg = self.cfg
+        aux_all: Dict[str, torch.Tensor] = {}
         new_caches: Dict[str, PyTree] = {}
+
+        def blocks(x, name, kinds):   # the unstacked blocks, in turn
+            out = []
+            for i, (bp, kind) in enumerate(zip(params[name], kinds)):
+                c = None if caches is None else caches[name][i]
+                x, aux, nc = tfm.block_forward(bp, x, cfg, kind,
+                                               positions=positions, cache=c,
+                                               insert=insert)
+                out.append(nc)
+                aux_all.update(aux)
+            new_caches[name] = out
+            return x
+
+        if "pre" in params:
+            x = blocks(x, "pre", ("dense_mlp",) * cfg.first_dense_layers)
         if "stack" in params:
-            x, _, cs = tfm.stack_forward(
+            x, aux, cs = tfm.stack_forward(
                 params["stack"], x, cfg, positions=positions,
                 caches=None if caches is None else caches["stack"],
                 insert=insert)
+            tfm.add_aux(aux_all, aux)
             new_caches["stack"] = cs
         if "tail" in params:
-            out_tail = []
-            for i, (bp, kind) in enumerate(zip(params["tail"],
-                                               cfg.tail_kinds())):
-                c = None if caches is None else caches["tail"][i]
-                x, _, nc = tfm.block_forward(bp, x, cfg, kind,
-                                             positions=positions, cache=c,
-                                             insert=insert)
-                out_tail.append(nc)
-            new_caches["tail"] = out_tail
+            x = blocks(x, "tail", cfg.tail_kinds())
         x = apply_norm(params["final_norm"], x, cfg)
-        return x, (new_caches if caches is not None else None)
+        return x, aux_all, (new_caches if caches is not None else None)
 
     # ------------------------------------------------------------------
     # loss (forward only: training is not ported yet, ROADMAP queue A 9)
@@ -167,34 +195,54 @@ class Model:
     def loss_fn(self, params: PyTree, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x, positions = self._embed_inputs(params, batch)
-        x, _ = self._body(params, x, positions)
+        x, aux, _ = self._body(params, x, positions)
         targets = torch.as_tensor(batch["targets"], device=x.device)
         mask = batch.get("loss_mask")
         mask = (torch.ones(targets.shape, dtype=torch.float32,
                            device=x.device) if mask is None else
                 torch.as_tensor(mask, device=x.device).to(torch.float32))
         ce = chunked_cross_entropy(params["emb"], x, targets, mask, self.cfg)
-        return ce, {"ce": ce, "loss": ce}
+        loss = ce
+        if "moe_lb_loss" in aux:
+            loss = loss + 1e-2 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+        metrics = {"ce": ce, "loss": loss}
+        for k2 in ("moe_lb_loss", "moe_z_loss"):
+            if k2 in aux:
+                metrics[k2] = aux[k2]
+        return loss, metrics
 
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
 
     def init_caches(self, b: int, max_len: int, *, device=None) -> PyTree:
-        """Empty caches on ``device`` (default: the GPU): ``stack`` a list
-        with one cache tree per period, ``tail`` one cache per block."""
+        """Empty caches on ``device`` (default: the GPU): ``pre`` and
+        ``tail`` one cache per block, ``stack`` a list with one cache tree
+        per period.  A ``local_attn`` ring holds ``local_window +
+        STEP_ROWS`` positions, the reference's ``local_window``: an
+        extension inserts its K tokens before its rows attend, and in a ring
+        of the window alone the K-th would overwrite a key the first still
+        needs once the ring has wrapped (ROADMAP queue C 30)."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = dtype_of(cfg)
         kv, hd = cfg.num_kv_heads, cfg.head_dim
 
-        def one(kind: str) -> attn_mod.KVCache:
+        def one(kind: str) -> PyTree:
             if kind == "local_attn":
-                return attn_mod.init_cache(b, min(cfg.local_window, max_len),
-                                           kv, hd, dt, ring=True, device=dev)
+                return attn_mod.init_cache(
+                    b, min(cfg.local_window + STEP_ROWS, max_len), kv, hd, dt,
+                    ring=True, device=dev)
+            if kind == "ssm":
+                return ssm_mod.init_ssm_cache(cfg, b, dt, device=dev)
+            if kind == "rglru":
+                return rglru_mod.init_rglru_cache(cfg, b, dt, device=dev)
             return attn_mod.init_cache(b, max_len, kv, hd, dt, device=dev)
 
         caches: Dict[str, PyTree] = {}
+        if cfg.first_dense_layers:
+            caches["pre"] = [one("dense_mlp")
+                             for _ in range(cfg.first_dense_layers)]
         if cfg.num_periods():
             caches["stack"] = [{f"pos{j}": one(kind)
                                 for j, kind in enumerate(cfg.pattern)}
@@ -209,7 +257,7 @@ class Model:
         """Process the prompt; returns (last-token logits [B, V], caches)."""
         x, positions = self._embed_inputs(params, batch)
         caches = self.init_caches(x.shape[0], max_len, device=x.device)
-        x, caches = self._body(params, x, positions, caches=caches)
+        x, _, caches = self._body(params, x, positions, caches=caches)
         logits = lm_logits(params["emb"], x[:, -1], self.cfg)
         return logits, caches
 
@@ -220,7 +268,8 @@ class Model:
         verification).  tokens: [B, K]; pos0: [B] absolute position of
         tokens[:, 0].  Returns (logits [B, K, V], caches').  The caches
         given are not written: rollback after a partial acceptance is the
-        caller keeping them.  Runs on ``max(K, STEP_ROWS)`` rows."""
+        caller keeping them.  Runs on ``max(K, STEP_ROWS)`` rows; the
+        recurrent caches returned are those after the K tokens."""
         cfg = self.cfg
         dev = self._device(params)
         tokens = torch.as_tensor(tokens, device=dev)
@@ -235,8 +284,8 @@ class Model:
             params["emb"], tokens, cfg,
             positions=None if cfg.use_rope else torch.clamp(
                 positions, 0, cfg.max_position_actual() - 1))
-        x, new_caches = self._body(params, x, positions, caches=caches,
-                                   insert=k)
+        x, _, new_caches = self._body(params, x, positions, caches=caches,
+                                      insert=k)
         logits = lm_logits(params["emb"], x, cfg)[:, :k]
         return logits, new_caches
 
@@ -244,8 +293,9 @@ class Model:
                     tokens: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, PyTree]:
         """One token per sequence. tokens: [B, 1]; pos: [B] absolute position
-        of that token. Returns (logits [B, V], caches').  For the ported
-        kinds the reference's decode is the extension by one token, and it
-        runs as one here, at the extension's shape."""
+        of that token. Returns (logits [B, V], caches').  The extension by
+        one token, at the extension's shape: for attention the reference's
+        decode is that extension, and the recurrent kinds take one decode
+        step either way."""
         logits, new_caches = self.extend_step(params, caches, tokens, pos)
         return logits[:, 0], new_caches

@@ -1,18 +1,26 @@
 """Block assembly: pre-norm residual blocks + a loop over stacked periods.
 
-Counterpart of ``repro.models.transformer`` for the layer kinds of the
-dense family, ``attn`` and ``local_attn``.  A config's ``pattern`` defines
-the cycled layer kinds; parameters are stacked with a leading
-``num_periods`` dim, as in the reference, and a Python loop over that dim
-takes the place of ``lax.scan``.  Each block's float32 weights are cast to
-the compute dtype at block entry (``cast_block_params``), one block at a
-time, so the peak holds one block's cast copy, not the whole stack's.
+Counterpart of ``repro.models.transformer`` for the decoder kinds
+``attn`` (with a dense MLP, or with experts when ``cfg.num_experts``),
+``local_attn``, ``dense_mlp`` (deepseek's first layer: attention and a
+wide MLP), ``ssm`` and ``rglru``.  A config's ``pattern`` defines the
+cycled layer kinds; parameters are stacked with a leading ``num_periods``
+dim, as in the reference, and a Python loop over that dim takes the place
+of ``lax.scan``.  Each block's float32 weights (every leaf of two or more
+dims) are cast to the compute dtype at block entry (``cast_block_params``),
+one block at a time, so the peak holds one block's cast copy, not the
+whole stack's (the reference's ``cast_stacked_params`` would cast the
+stack at once).
 
 Caches of the stack are a list with one cache tree per period (the
 reference's per-layer list layout), so a step writes new per-period tensors
-and never restacks.  The other kinds (``dense_mlp``, ``ssm``, ``rglru``,
-``enc_attn``, ``cross``, and ``attn`` with experts) are not ported yet and
-raise ``NotImplementedError`` (ROADMAP queue A 8d).
+and never restacks.  With a cache, ``insert`` says how many leading rows of
+each sequence are tokens (the rest are pad rows of a fixed-shape call,
+``models.model.STEP_ROWS``): attention inserts only those into its cache,
+the experts dispatch only those, and the recurrent kinds step through them
+one at a time with the decode arithmetic.  The encoder kinds (``enc_attn``,
+``cross``) are not ported yet and raise ``NotImplementedError`` (ROADMAP
+queue A 8d, the encoder slice).
 """
 
 from __future__ import annotations
@@ -24,11 +32,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, dtype_of, make_norm
 
 PyTree = Any
 
-PORTED_KINDS = ("attn", "local_attn")
+ATTN_KINDS = ("attn", "local_attn", "dense_mlp")
+PORTED_KINDS = ATTN_KINDS + ("ssm", "rglru")
 
 
 def check_kind(cfg: ModelConfig, kind: str) -> None:
@@ -36,11 +48,7 @@ def check_kind(cfg: ModelConfig, kind: str) -> None:
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported to repro_torch yet "
-            f"(ROADMAP queue A 8d)")
-    if kind == "attn" and cfg.num_experts:
-        raise NotImplementedError(
-            "mixture-of-experts blocks are not ported to repro_torch yet "
-            "(ROADMAP queue A 8d)")
+            f"(ROADMAP queue A 8d: the encoder and the patch prefix)")
 
 
 def tree_map(fn, tree: PyTree) -> PyTree:
@@ -54,8 +62,9 @@ def tree_map(fn, tree: PyTree) -> PyTree:
 
 def cast_block_params(p: PyTree, cfg: ModelConfig) -> PyTree:
     """Cast >=2-D float32 weights to the compute dtype once at block entry
-    (the per-matmul casts then do nothing); 1-D parameters (norm scales)
-    stay float32."""
+    (the per-matmul casts then do nothing); 1-D parameters (norm scales,
+    ``A_log``, biases) stay float32.  The 2-D gate biases of ``rglru``
+    pass through the compute dtype, as in the reference."""
     dt = dtype_of(cfg)
 
     def one(a):
@@ -86,12 +95,25 @@ def num_periods(stack: PyTree) -> int:
 def make_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
                device=None, lead: Tuple[int, ...] = ()) -> PyTree:
     check_kind(cfg, kind)
-    return {
-        "norm1": make_norm(cfg, device=device, lead=lead),
-        "attn": attn.make_attention(cfg, generator, device=device, lead=lead),
-        "norm2": make_norm(cfg, device=device, lead=lead),
-        "mlp": mlp_mod.make_mlp(cfg, generator, device=device, lead=lead),
-    }
+    kw = dict(device=device, lead=lead)
+    p: Dict[str, PyTree] = {"norm1": make_norm(cfg, **kw)}
+    if kind in ATTN_KINDS:
+        p["attn"] = attn.make_attention(cfg, generator, **kw)
+        p["norm2"] = make_norm(cfg, **kw)
+        if kind == "dense_mlp":
+            p["mlp"] = mlp_mod.make_mlp(
+                cfg, generator, d_ff=cfg.first_dense_d_ff or cfg.d_ff, **kw)
+        elif kind == "attn" and cfg.num_experts:
+            p["moe"] = moe_mod.make_moe(cfg, generator, **kw)
+        else:
+            p["mlp"] = mlp_mod.make_mlp(cfg, generator, **kw)
+    elif kind == "ssm":
+        p["ssm"] = ssm_mod.make_ssm(cfg, generator, **kw)
+    else:   # rglru
+        p["rglru"] = rglru_mod.make_rglru(cfg, generator, **kw)
+        p["norm2"] = make_norm(cfg, **kw)
+        p["mlp"] = mlp_mod.make_mlp(cfg, generator, **kw)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -99,47 +121,92 @@ def make_block(cfg: ModelConfig, kind: str, generator: torch.Generator, *,
 # ---------------------------------------------------------------------------
 
 
+def _recurrent(apply, step, p, h, cfg, cache, insert):
+    """A recurrent kind's mixer: the whole-sequence form without a cache or
+    with one and every row a token (prefill), the decode step over the
+    first ``insert`` rows otherwise.  Returns (y, cache')."""
+    if cache is None:
+        return apply(p, h, cfg), None
+    if insert is None:
+        return apply(p, h, cfg, return_state=True, initial=cache)
+    return step(p, h, cache, cfg, real=insert)
+
+
 def block_forward(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                   positions: torch.Tensor, cache: Optional[PyTree] = None,
                   insert: Optional[int] = None):
     """Returns (x', aux, cache').  cache' is None unless ``cache`` given.
 
-    With a cache this is an *extension*: the new K/V go into (a copy of)
-    the cache, then every query attends over the whole cache (empty slots
-    carry position -1 and mask out).  ``insert`` (default: all) is how many
-    leading positions of ``x`` enter the cache; the rows after them are
-    computed as queries only."""
+    With a cache and ``insert`` None this is the prefill: every row is a
+    token (a ``local_attn`` prefill attends over the prompt itself, then
+    keeps the prompt's last window in its ring: a ring that the prompt
+    overfills no longer holds the keys of the prompt's first rows).  With
+    ``insert`` it is an *extension* (or a decode): the first ``insert``
+    rows of each sequence are tokens and the rows after them are computed
+    as queries only — attention puts the tokens' K/V into (a copy of) the
+    cache and every query attends over the whole cache (empty slots carry
+    position -1 and mask out), the experts dispatch the tokens
+    only, and ``ssm`` / ``rglru`` step through the tokens one at a time."""
     check_kind(cfg, kind)
+    aux: Dict[str, torch.Tensor] = {}
     new_cache = cache
     p = cast_block_params(p, cfg)
     h = apply_norm(p["norm1"], x, cfg)
-    window = cfg.local_window if kind == "local_attn" else 0
-    q, k, v = attn.project_qkv(p["attn"], h, cfg,
-                               positions if cfg.use_rope else None)
-    if cache is not None:
-        n = k.shape[1] if insert is None else insert
-        lo = n - min(cfg.local_window, n) if kind == "local_attn" else 0
-        new_cache = attn.cache_insert(cache, k[:, lo:n], v[:, lo:n],
-                                      positions[:, lo:n])
-        o = attn.decode_attend(q, new_cache, window=window,
-                               q_positions=positions)
-    else:
-        o = attn.attend(q, k, v, causal=True, window=window,
-                        q_positions=positions, kv_positions=positions,
-                        kv_chunk=1024)
-    x = x + attn.project_out(p["attn"], o, x.dtype)
-    h2 = apply_norm(p["norm2"], x, cfg)
-    x = x + mlp_mod.apply_mlp(p["mlp"], h2, cfg)
-    return x, {}, new_cache
+    if kind in ATTN_KINDS:
+        window = cfg.local_window if kind == "local_attn" else 0
+        q, k, v = attn.project_qkv(p["attn"], h, cfg,
+                                   positions if cfg.use_rope else None)
+        ring_prefill = kind == "local_attn" and insert is None
+        if cache is not None:
+            n = k.shape[1] if insert is None else insert
+            lo = n - min(cfg.local_window, n) if kind == "local_attn" else 0
+            new_cache = attn.cache_insert(cache, k[:, lo:n], v[:, lo:n],
+                                          positions[:, lo:n])
+        if cache is not None and not ring_prefill:
+            o = attn.decode_attend(q, new_cache, window=window,
+                                   q_positions=positions)
+        else:   # a ring's prefill attends over the prompt itself (C 30)
+            o = attn.attend(q, k, v, causal=True, window=window,
+                            q_positions=positions, kv_positions=positions,
+                            kv_chunk=1024)
+        x = x + attn.project_out(p["attn"], o, x.dtype)
+        h2 = apply_norm(p["norm2"], x, cfg)
+        if "moe" in p:
+            y, aux = moe_mod.apply_moe(p["moe"], h2, cfg,
+                                       real=None if cache is None else insert)
+        else:
+            y = mlp_mod.apply_mlp(p["mlp"], h2, cfg)
+        x = x + y
+    elif kind == "ssm":
+        y, new_cache = _recurrent(ssm_mod.apply_ssm, ssm_mod.step_ssm,
+                                  p["ssm"], h, cfg, cache, insert)
+        x = x + y
+    else:   # rglru
+        y, new_cache = _recurrent(rglru_mod.apply_rglru, rglru_mod.step_rglru,
+                                  p["rglru"], h, cfg, cache, insert)
+        x = x + y
+        h2 = apply_norm(p["norm2"], x, cfg)
+        x = x + mlp_mod.apply_mlp(p["mlp"], h2, cfg)
+    return x, aux, new_cache
 
 
 def block_decode(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                  positions: torch.Tensor, cache: PyTree):
-    """x: [B, 1, D]; positions: [B, 1] absolute. Returns (x', cache').  For
-    the ported kinds a decode step is the extension by one token."""
+    """x: [B, S, D] (S = 1 in the reference); positions: [B, S] absolute.
+    Returns (x', cache'): every row a token, stepped as a decode."""
     x, _, new_cache = block_forward(p, x, cfg, kind, positions=positions,
-                                    cache=cache)
+                                    cache=cache, insert=x.shape[1])
     return x, new_cache
+
+
+def add_aux(total: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
+            ) -> None:
+    """Sum the floating aux entries into ``total`` (the reference sums only
+    those over periods, so ``moe_dropped`` and ``moe_expert_counts`` drop
+    out of a stack's aux)."""
+    for k2, v in aux.items():
+        if v.is_floating_point():
+            total[k2] = total[k2] + v if k2 in total else v
 
 
 # ---------------------------------------------------------------------------
@@ -157,18 +224,22 @@ def stack_forward(stack_params: PyTree, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (x, aux_sums, caches')."""
     pattern = kinds or cfg.pattern
     outs: Optional[List[PyTree]] = None if caches is None else []
+    aux_all: Dict[str, torch.Tensor] = {}
     for i in range(num_periods(stack_params)):
         params_i = period_params(stack_params, i)
         new_caches: Dict[str, PyTree] = {}
+        aux_i: Dict[str, torch.Tensor] = {}
         for j, kind in enumerate(pattern):
             c = None if caches is None else caches[i][f"pos{j}"]
-            x, _, nc = block_forward(params_i[f"pos{j}"], x, cfg, kind,
-                                     positions=positions, cache=c,
-                                     insert=insert)
+            x, aux, nc = block_forward(params_i[f"pos{j}"], x, cfg, kind,
+                                       positions=positions, cache=c,
+                                       insert=insert)
             new_caches[f"pos{j}"] = nc
+            add_aux(aux_i, aux)
+        add_aux(aux_all, aux_i)
         if outs is not None:
             outs.append(new_caches)
-    return x, {}, outs
+    return x, aux_all, outs
 
 
 def stack_decode(stack_params: PyTree, x: torch.Tensor, cfg: ModelConfig, *,

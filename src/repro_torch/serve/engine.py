@@ -77,6 +77,8 @@ from repro_torch.core import sharded as sh
 from repro_torch.core import speculative as spec
 from repro_torch.core.device import resolve_device
 from repro_torch.core.epoch import EpochStore
+from repro_torch.core.hashtable import HashTable
+from repro_torch.core.slab import Slabs
 from repro_torch.faults import arm_from_env, failpoint
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.persist import reshard as rs
@@ -1407,17 +1409,28 @@ class ShardedEngine:
     def _stacked_like(self, base: mc.MCConfig, num_shards: int):
         """Template with the stacked [num_shards, ...] shapes a snapshot at
         that config was written with, for ``restore_snapshot``: every array
-        leaf a broadcast zero (no memory at any width), the scalars the
-        columns of one ``[num_shards, 10]`` tensor, so that they restore
-        as views of one storage, as the writer's owner calls need them."""
-        one = mc.init(base, device="meta")   # shapes and dtypes only
-        like = mc.map_leaves(
-            lambda x: torch.zeros((), dtype=x.dtype, device=self.device)
-            .expand(num_shards, *x.shape), one)
+        leaf a broadcast int32 zero (no memory at any width), the scalars
+        the columns of one ``[num_shards, 10]`` tensor, so that they restore
+        as views of one storage, as the writer's owner calls need them.
+        The shapes are :func:`mc.init`'s, read off the config (no chain is
+        made: on the meta device its first ``arange`` imports torch's
+        Python decompositions, ~11 s in a fresh process)."""
+        n, c = base.num_rows, base.capacity
+        h = base.resolved_dst_table_size() if base.use_dst_hash else 1
+        t = base.resolved_table_size()
+
+        def zeros(*shape):
+            return torch.zeros((), dtype=torch.int32,
+                               device=self.device).expand(num_shards, *shape)
+
         scalars = torch.zeros((num_shards, len(mc.SCALAR_FIELDS)),
                               dtype=torch.int32, device=self.device)
-        return like._replace(**{f: scalars[:, i]
-                                for i, f in enumerate(mc.SCALAR_FIELDS)})
+        return mc.MCState(
+            src_table=HashTable(keys=zeros(t), vals=zeros(t)),
+            slabs=Slabs(dst=zeros(n, c), cnt=zeros(n, c), tot=zeros(n),
+                        order=zeros(n, c)),
+            dh_keys=zeros(n, h), dh_vals=zeros(n, h),
+            **{f: scalars[:, i] for i, f in enumerate(mc.SCALAR_FIELDS)})
 
     def _reingest(self, old_state: mc.MCState,
                   scfg: sh.ShardedConfig) -> mc.MCState:

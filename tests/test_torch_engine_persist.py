@@ -102,16 +102,21 @@ def test_run_sharded_at_the_reference_defaults(capsys):
     assert_same(*recs, "run_sharded")
 
 
-def test_launcher_without_num_shards_raises_naming_the_lm_item():
+def test_launcher_without_num_shards_raises_naming_the_lm_item(capsys):
     """Without ``--num-shards`` ``main`` serves the LM loop on the GPU: with
-    none it raises (no fallback to the CPU); a family the port does not run
-    yet is refused by name, naming the queue item."""
+    none it raises (no fallback to the CPU); the encoder and vision archs
+    are refused by name; the SSM family serves on the CPU when asked."""
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--requests", "1"])
-    with pytest.raises(SystemExit, match="'ssm'.*queue A 8d"):
-        serve.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu",
-                    "--requests", "1"])
+    for arch in ("whisper-base", "phi-3-vision-4.2b"):
+        with pytest.raises(SystemExit, match="encdec"):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "1"])
+    serve.main(["--arch", "mamba2-130m", "--smoke", "--device", "cpu",
+                "--requests", "1", "--prompt-len", "16", "--new-tokens",
+                "4"])
+    assert "1 requests, 8 tokens in" in capsys.readouterr().out
 
 
 def test_restore_keeps_the_engines_own_kernel_dispatch(tmp_path):
@@ -154,3 +159,38 @@ def test_restore_keeps_the_engines_own_kernel_dispatch(tmp_path):
     assert_same(want, convert.sharded_state_to_numpy(reader.store.acquire().state),
                 "restored through the plain versions")
     reader.close()
+
+
+@pytest.mark.parametrize("dst_hash", [False, True])
+def test_restore_template_has_inits_leaves_without_making_a_chain(
+        dst_hash, tmp_path, monkeypatch):
+    """``ShardedEngine._stacked_like`` (the template a restore reads a
+    snapshot into) has :func:`mc.init`'s leaves, shapes and dtypes, stacked
+    over the shards, its scalars the columns of one tensor, and makes no
+    chain: ``mc.init`` patched to raise while it runs."""
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    from repro_torch.serve.engine import ShardedEngine, ShardedServeConfig
+
+    base = mc.MCConfig(num_rows=40, capacity=33, use_dst_hash=dst_hash)
+    engine = ShardedEngine(ShardedServeConfig(
+        sharded=sh.ShardedConfig(base=base, num_shards=2),
+        snapshot_dir=str(tmp_path / "snap")), device="cpu")
+    one = mc.init(base, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the restore template made a chain")
+
+    monkeypatch.setattr(mc, "init", refuse)
+    like = engine._stacked_like(base, 3)
+    bad = []
+
+    def check(w, g):
+        if (g.shape, g.dtype) != ((3, *w.shape), w.dtype):
+            bad.append((w.shape, w.dtype, g.shape, g.dtype))
+
+    mc.map_leaves(check, one, like)
+    assert not bad, bad
+    assert len({getattr(like, f).untyped_storage().data_ptr()
+                for f in mc.SCALAR_FIELDS}) == 1
+    engine.close()

@@ -22,9 +22,10 @@ models run on the CPU with the reference's own parameters
 
 The reference's outputs are computed once per module (``ref_outputs``).
 Also here: the port's counterparts of ``test_models_smoke.py``'s
-forward-loss and prefill/decode tests, the refusal of the families the
-port does not run yet, and the port's own claim that an ``extend_step``
-of K tokens equals K ``decode_step`` calls bit for bit.
+forward-loss and prefill/decode tests, the refusal of the two archs the
+port does not run yet (the encoder and the patch prefix), and the port's
+own claim that an ``extend_step`` of K tokens equals K ``decode_step``
+calls bit for bit.
 """
 
 import dataclasses
@@ -51,7 +52,9 @@ from repro_torch.models import common
 from repro_torch.models import mlp as mlp_mod
 
 DENSE = ("qwen2-7b", "starcoder2-3b", "starcoder2-7b", "granite-34b")
-NOT_PORTED = tuple(sorted(set(ARCHS) - set(DENSE)))
+#: the encoder and the patch prefix (the MoE, SSM and hybrid families have
+#: files of their own: tests/test_torch_models_{moe,recurrent}.py)
+NOT_PORTED = ("phi-3-vision-4.2b", "whisper-base")
 B, S, MAX_LEN, K = 2, 12, 40, 4
 
 
@@ -94,7 +97,11 @@ def test_unknown_arch_is_a_key_error():
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_families_not_ported_are_refused_by_name(arch):
-    with pytest.raises(NotImplementedError, match="queue A 8d"):
+    assert set(ARCHS) - set(NOT_PORTED) >= {
+        "deepseek-moe-16b", "moonshot-v1-16b-a3b", "mamba2-130m",
+        "recurrentgemma-9b"}
+    with pytest.raises(NotImplementedError,
+                       match="queue A 8d: the encoder and the patch prefix"):
         Model(smoke_config(arch))
 
 
@@ -351,20 +358,47 @@ def test_prefill_decode_extend_match_at_float32(arch, ref_outputs):
         assert np.array_equal(want.argmax(-1), g.argmax(-1).numpy()), name
 
 
+PAST_TOL = 1e-3
+
+
 def test_local_attention_and_tail_match_at_float32():
-    """A dense config with the ``local_attn`` kind (a ring cache of 8 that
-    the 12-token prompt and the extension wrap) and a tail block (5 layers
-    over a period of 2): prefill, decode and a 4-token extension within
-    1e-4 of the reference, greedy tokens identical."""
+    """A dense config with the ``local_attn`` kind (a ring for a window of
+    8) and a tail block (5 layers over a period of 2).
+
+    Against the reference: a 4-token prompt, a decode and a 2-token
+    extension (the positions stay inside the window, where the reference's
+    cached calls are exact) within 1e-4, greedy tokens identical.  Past the
+    window: a 12-token prompt that overfills the ring, a decode and a
+    4-token extension that wraps it, within PAST_TOL of the reference's
+    cache-free forward over the whole sequence (``_embed_inputs``,
+    ``_body`` without caches, ``lm_logits``), greedy tokens identical, and
+    within 1e-5 of the port's own cache-free forward.  The reference's
+    cached calls lose keys there (its prefill attends over a ring the
+    prompt overfilled, and its extension overwrites keys its first rows
+    need; ROADMAP queue C 30), so its cache-free forward is what the
+    cached calls must equal.
+
+    PAST_TOL = 1e-3: over 17 tokens of these 5 layers, each library's
+    float32 forward lies up to 5e-4 (the reference) and 9e-4 (the port)
+    from the port's forward in float64 on the same weights, so two float32
+    forwards cannot be held to 1e-4 there (here they differ by up to
+    5.8e-4 at position 15); it is half the reference's own 2e-3 between
+    two forms of one computation (``tests/test_system.py``)."""
     cfg = dataclasses.replace(_f32(r_smoke_config("qwen2-7b")), num_layers=5,
                               pattern=("attn", "local_attn"), local_window=8)
     model = RModel(cfg)
     r_params = model.init(jax.random.key(9))
+    params = model_params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, r_params), device="cpu")
+    port = Model(cfg)
+    assert cfg.tail_kinds() == ("attn",)
     rng = np.random.default_rng(9)
-    ref = dict(params=jax.tree_util.tree_map(np.asarray, r_params),
-               prompt=rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-               feed=rng.integers(0, cfg.vocab_size, (B, K)).astype(np.int32),
-               pos=np.full((B,), S, np.int32))
+
+    # inside the window: the reference's cached calls
+    s, k = 4, 2
+    ref = dict(prompt=rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32),
+               feed=rng.integers(0, cfg.vocab_size, (B, k)).astype(np.int32),
+               pos=np.full((B,), s, np.int32))
     logits, caches = model.prefill(r_params,
                                    {"tokens": jnp.asarray(ref["prompt"])},
                                    MAX_LEN)
@@ -373,15 +407,43 @@ def test_local_attention_and_tail_match_at_float32():
                                      jnp.asarray(ref["pos"]))
     ext, _ = model.extend_step(r_params, caches, jnp.asarray(ref["feed"]),
                                jnp.asarray(ref["pos"] + 1))
-    port = Model(cfg)
-    assert cfg.tail_kinds() == ("attn",)
-    got = _port_logits(port, model_params_from_numpy(cfg, ref["params"],
-                                                     device="cpu"), ref)
+    got = _port_logits(port, params, ref)
     for name, want, g in zip(("prefill", "decode_step", "extend_step"),
                              (logits, step, ext), got):
         _close(want, g, 1e-4, f"local_attn {name}")
         assert np.array_equal(np.asarray(want).argmax(-1),
                               g.argmax(-1).numpy()), name
+
+    # past the window: the port's cached calls against the reference's
+    # cache-free forward over the whole sequence (and the port's own)
+    ref = dict(prompt=rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+               feed=rng.integers(0, cfg.vocab_size, (B, K)).astype(np.int32),
+               pos=np.full((B,), S, np.int32))
+
+    @jax.jit
+    def r_forward(tokens):
+        x, positions, _ = model._embed_inputs(r_params, {"tokens": tokens})
+        x, _, _ = model._body(r_params, x, positions)
+        return r_common.lm_logits(r_params["emb"], x, cfg)
+
+    def forward(tokens):
+        x, positions = port._embed_inputs(params, {"tokens": tokens})
+        x, _, _ = port._body(params, x, positions)
+        return common.lm_logits(params["emb"], x, cfg)
+
+    first = np.asarray(r_forward(jnp.asarray(ref["prompt"])))[:, -1]
+    ref["nxt"] = first.argmax(-1).astype(np.int32)[:, None]
+    tokens = np.concatenate([ref["prompt"], ref["nxt"], ref["feed"]], axis=1)
+    whole = np.asarray(r_forward(jnp.asarray(tokens)))
+    own = forward(tokens)
+    got = _port_logits(port, params, ref)
+    for name, want, mine, g in zip(
+            ("prefill", "decode_step", "extend_step"),
+            (first, whole[:, S], whole[:, S + 1:]),
+            (forward(ref["prompt"])[:, -1], own[:, S], own[:, S + 1:]), got):
+        _close(want, g, PAST_TOL, f"local_attn past the window {name}")
+        assert np.array_equal(want.argmax(-1), g.argmax(-1).numpy()), name
+        _close(mine.numpy(), g, TOL, f"local_attn past the window, own {name}")
 
 
 @pytest.mark.parametrize("arch", DENSE)
