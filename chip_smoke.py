@@ -113,14 +113,37 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 where the top-2 margin is clear, at one position at
                 least); the drafter's kernels at
                 the path's shapes, tagged ``[lm]``, their launches summed
-                over the archs (each arch's in ``launches_by_arch``);
+                over the archs (each arch's in ``launches_by_arch``); then
+                ``whisper-base`` (stub frames [2, 1500, 512]) and
+                ``phi-3-vision-4.2b`` (16.6 GB, stub patch embeddings [2,
+                256, 3072]), which no ``Engine`` serves, through ``Model``:
+                a prefill, 32 greedy decodes, latencies, peak memory, a
+                4-token extension == 4 decodes bit for bit (the encoder's
+                projected memory untouched), and the model at depth 2 on
+                the card against the CPU under the same rule (whisper's
+                ``wq``/``wk`` divided by 8 there, so its attention scores
+                no longer amplify rounding);
+  5c. train   — the training path: ``python -m repro_torch.launch.train``
+                on ``mamba2-130m`` at full width with the reference
+                launcher's defaults (batch 8 x 128), 20 steps in one process
+                and, at the same time, a run to step 10 that checkpoints
+                there, then a second process that resumes it to step 20:
+                the two final checkpoints equal leaf for leaf, bit for bit;
+                ``whisper-base`` through ``make_train_step`` at full width
+                (frames [4, 1500, 512], 128 tokens, 2 microbatches, int8
+                compression): losses, s/step, a microbatch's gradients twice
+                equal, its int8 codes, scales and residual == the CPU's on
+                the same gradients; no hand-written kernel launched; the
+                depth-2 float32 gradients and loss card vs CPU, each leaf
+                within 2e-3 of its largest, on ``mamba2-130m`` (batch 8 x
+                128) and on ``whisper-base`` (wq/wk divided by 8);
   6. sharded  — the sharded chain at full width: 4 logical shards of phase
                 main's chain stacked on the card (4 x 2**20 rows x 128
                 slots), 4 x 65,536 transitions per update routed through
                 buckets of twice the fair share, 4 x 4,096 query srcs, the
-                global top-16; warmed by ``update_`` over half phase main's
-                warm-up batches (a cut of depth that keeps the script inside
-                its time); the owner calls held
+                global top-16; warmed by ``update_`` over 3/8 of phase
+                main's warm-up batches (a cut of depth that keeps the script
+                inside its time); the owner calls held
                 equal to the functional callables on a side copy; rounds of
                 ``update_`` + query + ``maintain_`` + ``topn`` with launch
                 counts around them and no device->host synchronisation in
@@ -155,7 +178,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 oracle; a live ``reassign`` onto a rotated map with a
                 reader running, edges conserved up to ``dropped_probes``,
                 the top-16 kept;
-  7. persist  — durability on the card.  Phase main's chain, warmed, is
+  7. persist  — durability on the card.  Phase main's chain, warmed over
+                half phase main's batches (a cut of depth), is
                 snapshotted (sync), then 20 rounds log each batch to a WAL
                 before ``update_batch_`` + ``maybe_decay_`` (the decay fires,
                 a quarter of every fourth batch goes to new successors so new
@@ -228,6 +252,11 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 engine's and the 64-shard chain's lists as
                 ``topn_merge[S=40]`` and ``topn_merge[S=64]``.
 
+Cuts of depth that keep the script inside its time: the drafter's warm-up
+is a quarter of ``--warm-batches``, phase persist's chain half, phase
+sharded's 3/8; phase parity's sharded chain and reshard run 6 batches; the
+reshard's new-edge check takes 1/8 of each sender's slice.
+
 Any failing phase raises and the script exits non-zero; without a CUDA device
 it exits non-zero at once.  The last line of standard output is
 ``{"ok": true, "device": {...}}``, the line before it lists the kernels.
@@ -256,8 +285,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
-PHASES = ("device", "kernels", "main", "hash", "drafter", "lm", "sharded",
-          "engine", "persist", "monitor", "soak", "examples", "parity")
+PHASES = ("device", "kernels", "main", "hash", "drafter", "lm", "train",
+          "sharded", "engine", "persist", "monitor", "soak", "examples",
+          "parity")
 
 
 def say(*parts):
@@ -1749,13 +1779,15 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
 
 def inplace_entry(entries, launches, flush, name, module, source, replaces,
                   run, written, bytes_moved, operations, plain_reps=3,
-                  flags=None, extra=None):
+                  flags=None, extra=None, library=None):
     """An in-place form: ``run(impl, work, dirty)`` writes into ``work``
     (copies of the tensors ``written``) and into ``dirty`` (uint8, one per
     row; a copy of ``flags``, or zeros).  Held equal to its plain version on
     copies, the flags included; then timed in place, each call after the
     copies are restored (not timed).  ``bytes_moved(flagged rows)`` gives
-    the bound: the rows flagged in ``flags``, or by the call."""
+    the bound: the rows flagged in ``flags``, or by the call.
+    ``library()``, where given, computes the same tensors with PyTorch
+    calls (held equal too) and is timed as ``library_ms``."""
     rows = next(x.shape[0] for x in written if x.dim() == 2)
     if flags is None:
         flags = torch.zeros(rows, dtype=torch.uint8, device="cuda")
@@ -1767,6 +1799,8 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
         outs.append(work + [dirty])
         torch.cuda.synchronize()
     err = compare(f"{name} (in place, flags)", *outs)
+    if library is not None:
+        compare(f"{name} (the library calls)", library(), outs[0][:-1])
     flagged = int(torch.maximum(flags, outs[1][-1]).sum())
     work, dirty = outs[0][:-1], outs[0][-1]
     del outs
@@ -1779,6 +1813,7 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
     ms = time_restored(lambda: run("cuda", work, dirty), restore, flush)
     plain_ms = time_restored(lambda: run("ref", work, dirty), restore, flush,
                              reps=plain_reps, warm=1 if plain_reps > 1 else 0)
+    library_ms = None if library is None else time_ms(library, flush=flush)
     bound_ms, bound_by = bound(bytes_moved(flagged), operations)
     entries.append({
         "name": name, "route": "cuda",
@@ -1786,11 +1821,35 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
         "replaces": replaces, "launches": launches[module],
         "max_abs_err": err, "max_abs_diff": err, "equal": True,
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "in_place": True, "rows_flagged": flagged, **(extra or {})})
     say(f"[kernels] {name}: in place {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); {flagged} rows flagged; "
-        f"equal, flags included")
+        f"bound {bound_ms:.4f} ms ({bound_by}), library "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
+        f"{flagged} rows flagged; equal, flags included")
+
+
+def catch_up_leaves(chain):
+    """A chain's 7 tensors in ``copy_dirty_rows``' order."""
+    from repro_torch import core
+    return (chain.slabs.cnt, chain.slabs.dst, chain.slabs.order,
+            chain.slabs.tot, *chain.src_table, core.scalars_of(chain))
+
+
+#: positions of ``copy_dirty_rows``' tuple copied by row (the slabs, the
+#: row hashes); the src table and the scalars are copied whole
+CATCH_UP_ROW_LEAVES = (0, 1, 2, 3, 7, 8)
+
+
+def catch_up_library(front, back, flags):
+    """What ``copy_dirty_rows`` computes, one PyTorch call per leaf:
+    ``torch.where(flags, front, back)`` on each leaf copied by row (the
+    flags broadcast over its other dims), a copy of each leaf copied whole
+    (for ``library_ms``)."""
+    mask = flags.bool()
+    return [torch.where(mask.view((-1,) + (1,) * (f.dim() - 1)), f, b)
+            if i in CATCH_UP_ROW_LEAVES else f.clone()
+            for i, (f, b) in enumerate(zip(front, back))]
 
 
 def time_restored(fn, restore, flush, reps=10, warm=2):
@@ -2258,17 +2317,18 @@ def hash_path_kernels(state, cfg, src, dst, launches):
     front = (slabs.cnt, slabs.dst, slabs.order, slabs.tot, *table,
              mc.scalars_of(state), state.dh_keys, state.dh_vals)
     t_size = table.keys.numel()
+    backs = (back.slabs.cnt, back.slabs.dst, back.slabs.order,
+             back.slabs.tot, *back.src_table, mc.scalars_of(back),
+             back.dh_keys, back.dh_vals)
     inplace_entry(entries, launches, flush, "copy_dirty_rows[hash]",
                   "copy_dirty_rows", "copy_rows.cu", "none (port-only learner)",
                   lambda impl, work, flags: ops.copy_dirty_rows(
-                      front, work, flags, impl=impl),
-                  (back.slabs.cnt, back.slabs.dst, back.slabs.order,
-                   back.slabs.tot, *back.src_table, mc.scalars_of(back),
-                   back.dh_keys, back.dh_vals),
+                      front, work, flags, impl=impl), backs,
                   bytes_moved=lambda flagged: n + flagged * 8 * (3 * c + 1 + 2 * h)
                   + 16 * t_size + 80,
                   operations=n, flags=dirty,
-                  extra=dict(rows_flagged_before=int(dirty.sum())))
+                  extra=dict(rows_flagged_before=int(dirty.sum())),
+                  library=lambda: catch_up_library(front, backs, dirty))
     del back
     return entries
 
@@ -2560,24 +2620,22 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
                     lambda: learn(next(batches)), cfg.mc.num_rows)
     # copy_dirty_rows at the drafter's shapes, on the flags the last write
     # left: what the next write copies
-    front, back = learner._front.chain, learner._back.chain
+    front, back = (catch_up_leaves(x) for x in (learner._front.chain,
+                                                learner._back.chain))
     flags = learner._dirty.clone()
     n, c = cfg.mc.num_rows, cfg.mc.capacity
-    h = front.src_table.keys.shape[0]
+    h = front[4].shape[0]
     inplace_entry(
         entries, launches, flush, "copy_dirty_rows[drafter]", "copy_dirty_rows",
         "copy_rows.cu", "none: the back-buffer learner's catch-up",
         lambda impl, work, dirty: ops.copy_dirty_rows(
-            (front.slabs.cnt, front.slabs.dst, front.slabs.order,
-             front.slabs.tot, *front.src_table, core.scalars_of(front)),
-            tuple(work), dirty, impl=impl),
-        (back.slabs.cnt, back.slabs.dst, back.slabs.order, back.slabs.tot,
-         *back.src_table, core.scalars_of(back)),
+            front, tuple(work), dirty, impl=impl), back,
         # the flags read and cleared, each flagged row read and written,
         # the table and the scalars read and written whole
         bytes_moved=lambda flagged: n + flagged * (1 + 8 * (3 * c + 1))
         + 8 * (2 * h + len(core.SCALAR_FIELDS)),
-        operations=0, flags=flags, extra=dict(rows=n, table_slots=h))
+        operations=0, flags=flags, extra=dict(rows=n, table_slots=h),
+        library=lambda: catch_up_library(front, back, flags))
     del front, back, flags
     # the walk on the windows of the last round, over the state published now
     state = current()
@@ -3551,7 +3609,8 @@ def phase_engine(state, scfg, seed):
                 3 * c + 1 + 2 * h)) + 8 * (2 * t_size + front[6].numel()),
             operations=0, flags=flags,
             extra=dict(rows=rows, shards=SHARDS, table_slots=t_size,
-                       rows_flagged_by_last_write=int(flags.sum())))
+                       rows_flagged_by_last_write=int(flags.sum())),
+            library=lambda: catch_up_library(front, back, flags))
         del front, back, flush
 
         # step 5: the fault ladder on the card
@@ -3799,10 +3858,10 @@ PERSIST_ASYNC_AFTER = 10  # the async snapshot is taken after this round
 PERSIST_THRESHOLD = 64    # maybe_decay_'s threshold: it fires in every round
 RESHARD_TO = 2            # the sharded state's 4 shards onto this many
 RESHARD_SLICE = 65_536    # per-shard slice of a re-ingest batch
-RESHARD_CHECK_SHARE = 4   # the kernel check between the ingest's halves
-                          # takes the first 1/4 of each sender slice (its
+RESHARD_CHECK_SHARE = 8   # the kernel check between the ingest's halves
+                          # takes the first 1/8 of each sender slice (its
                           # plain mirror walks items one by one: a cut of
-                          # depth for the script's time)
+                          # depth for the script's time, from 1/4)
 INGEST_KERNELS = ("probe_find", "slab_update", "oddeven", "slow_path")
 
 
@@ -4034,10 +4093,11 @@ def warm_sharded(state, scfg, traffic, w, warm_batches):
 
 
 def sharded_warm(args):
-    """Phase sharded's warm-up batches: half of ``--warm-batches``, a cut of
-    depth (fewer edges for the engine's reassign and the reshard to move)
-    that keeps the whole script inside its time."""
-    return args.warm_batches // 2
+    """Phase sharded's warm-up batches: 3/8 of ``--warm-batches`` (1,650), a
+    cut of depth (fewer edges for the engine's reassign and the reshard to
+    move) that keeps the whole script inside its time (half until the
+    training phase came)."""
+    return args.warm_batches * 3 // 8
 
 
 def sharded_warm_state(seed, warm_batches):
@@ -4868,7 +4928,8 @@ def parity_many_shards(seed):
         bytes_moved=lambda flagged: rows + flagged * (1 + 8 * (3 * c + 1))
         + 8 * (2 * t_size + front[6].numel()),
         operations=0, flags=flags,
-        extra=dict(rows=rows, shards=s, scalars=front[6].numel()))
+        extra=dict(rows=rows, shards=s, scalars=front[6].numel()),
+        library=lambda: catch_up_library(front, back, flags))
     del front, back
 
     def merge_entry(label, probs, dsts, srcs, n, launches):
@@ -4983,7 +5044,8 @@ def equal_states(label, a, b):
 #: chain cut from 32 for the script's time; the dst-hash chain keeps 32
 #: (24 reach no rebuild of its row hashes on the card)
 PARITY_BATCHES, PARITY_HASH_BATCHES = 16, 32
-PARITY_SHARDED_BATCHES = 8     # the sharded chain and the reshard, from 16
+PARITY_SHARDED_BATCHES = 6     # the sharded chain and the reshard, from 8
+                               # (a decay_ fires at the fifth)
 
 
 def phase_parity(seed, batches=PARITY_BATCHES):
@@ -5183,14 +5245,46 @@ LM_MEAN_TOL = {           # the mean |card - CPU| of a call's logits, by dtype
 LM_ROUNDING_RATIO = 4     # the card's |bfloat16 - float32| against the CPU's
 LM_KERNELS = ("draft_walk", "probe_find", "slab_update", "oddeven",
               "decay_sort", "slow_path", "copy_dirty_rows")
+#: the encoder and patch-prefix archs: the reference's launcher and its
+#: Engine feed neither frames nor prefix embeddings, so they run through
+#: ``Model`` (prefill, greedy decodes, an extension == its decodes)
+LM_MODEL_ARCHS = ("whisper-base", "phi-3-vision-4.2b")
+LM_FRAMES = 1500         # whisper's 30 s window (arXiv:2212.04356), stub frames
 
 
 def lm_config(arch, layers=None):
-    """``arch`` at its published widths (``layers`` cuts its depth)."""
+    """``arch`` at its published widths (``layers`` cuts its depth, the
+    encoder's too)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          num_layers=layers)
+    if layers is None:
+        return cfg
+    enc = {"encoder_layers": layers} if cfg.encoder_layers else {}
+    return dataclasses.replace(cfg, num_layers=layers, **enc)
+
+
+def lm_prefix_len(cfg):
+    """Positions the stub frontend puts before the text (``vlm``)."""
+    return cfg.frontend_len if cfg.frontend == "patch" else 0
+
+
+def lm_extra(cfg, seed, batch=LM_BATCH, frames=LM_FRAMES):
+    """The stub frontend's inputs, normal draws from a seeded generator on
+    the CPU (so the card and the CPU get the same values): whisper's
+    frames [batch, frames, d], phi-3-vision's patch embeddings [batch,
+    frontend_len, d]; nothing for a text arch."""
+    gen = torch.Generator().manual_seed(seed + 13)
+    if cfg.encoder_layers:
+        return {"frames": torch.randn((batch, frames, cfg.d_model),
+                                      generator=gen)}
+    if cfg.frontend == "patch":
+        return {"prefix_embeds": torch.randn(
+            (batch, cfg.frontend_len, cfg.d_model), generator=gen)}
+    return {}
+
+
+def on(extra, dev):
+    return {k: v.to(dev) for k, v in extra.items()}
 
 
 def lm_check_layers(arch):
@@ -5254,20 +5348,25 @@ def lm_serve(model, params, draft_len, prompts):
     return outs, engine, histories, learn_ms, time.perf_counter() - t0
 
 
-def lm_model_ms(model, params, prompt):
+def lm_model_ms(model, params, prompt, extra=None):
     """Milliseconds per prefill, decode_step and extend_step (4 tokens) at
     the served shapes: the latency a caller waits, by events on an idle
     device (medians of 5).  A full-width step launches thousands of
     kernels, more than the launch queue holds, so a spin kernel ahead of it
     cannot hide the host: the device's busy time comes from ``--profile``.
     Also holds the lossless mechanism directly: the 4-token extension's
-    logits and caches == 4 decode steps', bit for bit."""
+    logits and caches == 4 decode steps', bit for bit, and a ``cross``
+    block's ``mem_k``/``mem_v`` as the prefill wrote them.  ``extra``: the
+    stub frontend's inputs (on the card)."""
     from repro_torch.serve import sampling
-    max_len = LM_PROMPT + LM_NEW + 8
-    tokens = torch.as_tensor(prompt, device="cuda")
-    logits, caches = model.prefill(params, {"tokens": tokens}, max_len)
+    npre = lm_prefix_len(model.cfg)
+    max_len = npre + LM_PROMPT + LM_NEW + 8
+    batch = {"tokens": torch.as_tensor(prompt, device="cuda"), **(extra or {})}
+    tokens = batch["tokens"]
+    logits, caches = model.prefill(params, batch, max_len)
     cur = sampling.greedy(logits)[:, None]
-    pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device="cuda")
+    pos = torch.full((LM_BATCH,), npre + LM_PROMPT, dtype=torch.int32,
+                     device="cuda")
     feed = torch.cat([cur, tokens[:, :LM_DRAFT - 1]], dim=1)
     ext, ext_caches = model.extend_step(params, caches, feed, pos)
     steps, c = [], caches
@@ -5281,14 +5380,48 @@ def lm_model_ms(model, params, prompt):
         raise AssertionError(f"lm {model.cfg.name}: a {LM_DRAFT}-token "
                              f"extension differs from {LM_DRAFT} decode "
                              f"steps on the card")
+    for before, after in zip(memory_leaves(caches), memory_leaves(ext_caches)):
+        if not torch.equal(before, after):
+            raise AssertionError(f"lm {model.cfg.name}: an extension wrote "
+                                 f"the encoder memory's projection")
     del ext_caches, c, steps
     calls = {
-        "prefill": lambda: model.prefill(params, {"tokens": tokens}, max_len),
+        "prefill": lambda: model.prefill(params, batch, max_len),
         "decode_step": lambda: model.decode_step(params, caches, cur, pos),
         f"extend_step[{LM_DRAFT}]": lambda: model.extend_step(
             params, caches, feed, pos),
     }
     return {k: time_ms(fn, reps=5, warm=1) for k, fn in calls.items()}
+
+
+def memory_leaves(tree):
+    """Every ``mem_k`` / ``mem_v`` of a cache tree, in jax's order."""
+    from repro_torch.checkpoint.ckpt import _paths_and_leaves
+    keys, leaves, _ = _paths_and_leaves(tree)
+    return [x for k, x in zip(keys, leaves)
+            if k.rsplit("/", 1)[-1] in ("mem_k", "mem_v")]
+
+
+def tamed(cfg):
+    """Whether ``tame_scores`` changes ``cfg``'s parameters."""
+    return bool(cfg.encoder_layers)
+
+
+def tame_scores(cfg, params):
+    """``whisper-base``'s parameters with every ``wq`` and ``wk`` divided by
+    8 (other archs' as given), for the card-vs-CPU checks.  Its random init
+    takes the fan-in of ``[d, heads, hd]`` from ``heads`` (8, as the
+    reference does), so its attention scores have a std of ~64: near-one-hot
+    softmaxes whose ties flip with a sum's last bit.  Untamed, the card lay
+    up to 0.086 in a logit and 0.23 of a leaf's largest gradient from the
+    CPU at depth 2 on rounding alone; with scores of std ~1 the fixed
+    bounds (0.01, 2e-3) can tell a wrong computation from rounding."""
+    if not tamed(cfg):
+        return params
+    from repro_torch.checkpoint.ckpt import _paths_and_leaves
+    keys, leaves, rebuild = _paths_and_leaves(params)
+    return rebuild([x / 8 if k.rsplit("/", 1)[-1] in ("wq", "wk") else x
+                    for k, x in zip(keys, leaves)])
 
 
 def lm_against_cpu(arch, seed):
@@ -5298,7 +5431,8 @@ def lm_against_cpu(arch, seed):
     prefill.  Per call (a prefill, a decode step, a 4-token extension, and
     the cache-free forward over the prompt, whose logits at every prompt
     position give the token check positions enough) and dtype, with r the
-    CPU's own |dtype - float32| of the same call (0 at float32):
+    CPU's own |dtype - float32| of the same call (0 at float32); whisper's
+    parameters tamed first (``tame_scores``):
 
       * the largest |card - CPU| logit at most max(LM_LOGIT_TOL, 2 r_max),
         the mean at most max(LM_MEAN_TOL, 2 r_mean): a near tie of the MoE
@@ -5313,15 +5447,16 @@ def lm_against_cpu(arch, seed):
         position of a dtype has such a margin."""
     from repro_torch.models import Model
     from repro_torch.models.common import lm_logits
-    from repro_torch.models.transformer import tree_map
     layers = lm_check_layers(arch)
     base = lm_config(arch, layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 11)
-    params = {"cuda": Model(base).init(gen)}
-    params["cpu"] = tree_map(lambda a: a.cpu(), params["cuda"])
+    params = {"cuda": tame_scores(base, Model(base).init(gen))}
+    params["cpu"] = model_params_cpu(params["cuda"])
     prompt = torch.as_tensor(lm_prompts(seed + 11, base.vocab_size)[0])
-    max_len = LM_PROMPT + LM_NEW + 8
+    extra = lm_extra(base, seed + 11)
+    npre = lm_prefix_len(base)
+    max_len = npre + LM_PROMPT + LM_NEW + 8
     names = ("prefill", "decode_step", f"extend_step[{LM_DRAFT}]",
              f"forward[{LM_PROMPT}]")
     logits = {}
@@ -5330,24 +5465,31 @@ def lm_against_cpu(arch, seed):
         return [((x - y).abs().max().item(), (x - y).abs().mean().item())
                 for x, y in zip(a, b)]
 
+    fed = {}
+
+    def run(model, p, dev):
+        """The four calls' logits (float32, on the CPU)."""
+        batch = {"tokens": prompt.to(dev), **on(extra, dev)}
+        first, caches = model.prefill(p, batch, max_len)
+        if not fed:   # the CPU's float32 prefill decides what is fed
+            cur = first.argmax(dim=-1).to(torch.int32)[:, None]
+            fed.update(cur=cur, feed=torch.cat([cur, prompt[:, :LM_DRAFT - 1]],
+                                               dim=1),
+                       pos=torch.full((LM_BATCH,), npre + LM_PROMPT,
+                                      dtype=torch.int32))
+        pos = fed["pos"].to(dev)
+        step, _ = model.decode_step(p, caches, fed["cur"].to(dev), pos)
+        ext, _ = model.extend_step(p, caches, fed["feed"].to(dev), pos)
+        x, positions, _ = model._embed_inputs(p, batch)
+        x, _, _ = model._body(p, x, positions, memory=model._memory(p, batch))
+        whole = lm_logits(p["emb"], x[:, npre:], model.cfg)
+        return [x.float().cpu() for x in (first, step, ext, whole)]
+
     for dtype in LM_LOGIT_TOL:   # float32 first
         model = Model(dataclasses.replace(base, dtype=dtype))
         t0 = time.perf_counter()
         for dev in ("cpu", "cuda"):
-            p = params[dev]
-            first, caches = model.prefill(p, {"tokens": prompt.to(dev)},
-                                          max_len)
-            if dtype == "float32" and dev == "cpu":
-                cur = first.argmax(dim=-1).to(torch.int32)[:, None]
-                feed = torch.cat([cur, prompt[:, :LM_DRAFT - 1]], dim=1)
-                pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32)
-            step, _ = model.decode_step(p, caches, cur.to(dev), pos.to(dev))
-            ext, _ = model.extend_step(p, caches, feed.to(dev), pos.to(dev))
-            x, positions = model._embed_inputs(p, {"tokens": prompt.to(dev)})
-            x, _, _ = model._body(p, x, positions)
-            whole = lm_logits(p["emb"], x, model.cfg)
-            logits[dtype, dev] = [x.float().cpu()
-                                  for x in (first, step, ext, whole)]
+            logits[dtype, dev] = run(model, params[dev], dev)
         wall = time.perf_counter() - t0
         diffs = gaps(logits[dtype, "cuda"], logits[dtype, "cpu"])
         rounding = gaps(logits[dtype, "cpu"], logits["float32", "cpu"])
@@ -5364,7 +5506,8 @@ def lm_against_cpu(arch, seed):
                         f"{r:.4f}/{rm:.4f}, {c:.4f}/{cm:.4f})"
                         for n, (d, dm), (t, tm), (r, rm), (c, cm)
                         in zip(names, diffs, tols, rounding, card_rounding))
-            + f"; largest |logit| {biggest:.3f}; {wall:.1f} s")
+            + f"; largest |logit| {biggest:.3f}"
+            + ("; wq and wk / 8" if tamed(base) else "") + f"; {wall:.1f} s")
         compared = total = 0
         for name, want, got, (d, dm), (t, tm), (r, rm), (c, cm) in zip(
                 names, logits[dtype, "cpu"], logits[dtype, "cuda"], diffs,
@@ -5566,6 +5709,14 @@ def phase_lm(seed, card, profile=False):
         lm_against_cpu(arch, seed + 100 * i)
         torch.cuda.empty_cache()
         took(f"lm {arch}", t0)
+    for i, arch in enumerate(LM_MODEL_ARCHS):
+        t0 = time.perf_counter()
+        lm_model_arch(arch, seed + 100 * (len(LM_ARCHS) + i), card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm_against_cpu(arch, seed + 100 * (len(LM_ARCHS) + i))
+        torch.cuda.empty_cache()
+        took(f"lm {arch}", t0)
     say(f"[lm] kernel launches by arch: "
         + "; ".join(f"{a} " + ", ".join(f"{k} {c[k]}" for k in LM_KERNELS)
                     for a, c in counts.items()))
@@ -5574,6 +5725,75 @@ def phase_lm(seed, card, profile=False):
         entry["launches"] = sum(c[base] for c in counts.values())
         entry["launches_by_arch"] = {a: c[base] for a, c in counts.items()}
     return entries
+
+
+def lm_model_arch(arch, seed, card):
+    """An encoder or patch-prefix arch at full width through ``Model``:
+    random float32 parameters from a seeded generator on the card, the stub
+    frontend's inputs (``lm_extra``), 2 x 64 prompt tokens, a prefill and
+    32 greedy decode steps (tokens in range, logits finite), then
+    ``lm_model_ms`` (an extension == its decodes, the memory untouched;
+    latencies); device memory before the init and the peak."""
+    from repro_torch.models import Model
+    from repro_torch.serve import sampling
+    cfg = lm_config(arch)
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 10)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    weight_bytes = param_bytes(params)
+    extra = on(lm_extra(cfg, seed), "cuda")
+    npre = lm_prefix_len(cfg)
+    shapes = ", ".join(f"{k} {list(v.shape)}" for k, v in extra.items())
+    say(f"[lm] {cfg}")
+    say(f"[lm] {arch} at full width through Model: {cfg.param_count()} "
+        f"parameters, {weight_bytes / 1e9:.2f} GB of float32 made on the card "
+        f"from a seeded generator in {time.perf_counter() - t0:.1f} s (device "
+        f"memory allocated before: {before / 2**30:.2f} GiB); {shapes}, "
+        f"{LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_NEW} greedy decodes "
+        f"({card})")
+    prompt = lm_prompts(seed, cfg.vocab_size)[0]
+    batch = {"tokens": torch.as_tensor(prompt, device="cuda"), **extra}
+    max_len = npre + LM_PROMPT + LM_NEW + 8
+    model.prefill(params, batch, max_len)     # cuBLAS warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch, max_len)
+    toks = []
+    for j in range(LM_NEW):
+        cur = sampling.greedy(logits)
+        toks.append(cur)
+        logits, caches = model.decode_step(
+            params, caches, cur[:, None].to(torch.int32),
+            torch.full((LM_BATCH,), npre + LM_PROMPT + j, dtype=torch.int32,
+                       device="cuda"))
+    toks = torch.stack(toks, dim=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if toks.shape != (LM_BATCH, LM_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"lm {arch}: greedy tokens {tuple(toks.shape)} "
+                             f"out of range or logits not finite")
+    say(f"[lm] {arch}: {LM_BATCH} x {LM_NEW} greedy tokens after a "
+        f"{npre + LM_PROMPT}-position prefill in {wall:.3f} s, host clock: "
+        f"{toks.numel() / wall:.1f} tokens/s ({card})")
+    model_ms = lm_model_ms(model, params, prompt, extra)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[lm] {arch} ms per call, latency on an idle device (events, "
+        f"medians of 5): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in model_ms.items())
+        + f"; a {LM_DRAFT}-token extension == {LM_DRAFT} decode steps, "
+        f"logits and caches bit for bit"
+        + (", mem_k/mem_v as the prefill wrote them" if cfg.encoder_layers
+           else "") + f"; peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB) ({card})")
+    del params, caches, logits
 
 
 def lm_kernel_entries(engine, histories, ctx, draft, launches, seed, vocab):
@@ -5599,22 +5819,20 @@ def lm_kernel_entries(engine, histories, ctx, draft, launches, seed, vocab):
                                  path="lm", reads=(), unfused=False)
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     learner = engine._learner
-    front, back = learner._front.chain, learner._back.chain
+    front, back = (catch_up_leaves(x) for x in (learner._front.chain,
+                                                learner._back.chain))
     flags = learner._dirty.clone()
     n, c = ngram.mc.num_rows, ngram.mc.capacity
-    h = front.src_table.keys.shape[0]
+    h = front[4].shape[0]
     inplace_entry(
         entries, launches, flush, "copy_dirty_rows[lm]", "copy_dirty_rows",
         "copy_rows.cu", "none: the back-buffer learner's catch-up",
         lambda impl, work, dirty: ops.copy_dirty_rows(
-            (front.slabs.cnt, front.slabs.dst, front.slabs.order,
-             front.slabs.tot, *front.src_table, core.scalars_of(front)),
-            tuple(work), dirty, impl=impl),
-        (back.slabs.cnt, back.slabs.dst, back.slabs.order, back.slabs.tot,
-         *back.src_table, core.scalars_of(back)),
+            front, tuple(work), dirty, impl=impl), back,
         bytes_moved=lambda flagged: n + flagged * (1 + 8 * (3 * c + 1))
         + 8 * (2 * h + len(core.SCALAR_FIELDS)),
-        operations=0, flags=flags, extra=dict(rows=n, table_slots=h))
+        operations=0, flags=flags, extra=dict(rows=n, table_slots=h),
+        library=lambda: catch_up_library(front, back, flags))
     chain = state.chain
     window = ctx[:, -ngram.order:].contiguous()
     walk_args = (window, chain.src_table.keys, chain.src_table.vals,
@@ -5632,6 +5850,266 @@ def lm_kernel_entries(engine, histories, ctx, draft, launches, seed, vocab):
         extra=dict(windows=window.shape[0], trips_per_step=trips,
                    trips_max=trips_max))
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase train: the training path (launcher, train step, compression) on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "mamba2-130m"     # the reference launcher's default arch
+TRAIN_STEPS, TRAIN_RESTART_AT = 20, 10
+TRAIN_GRAD_TOL = 2e-3          # |card - CPU| of a gradient, per leaf, as a
+                               # share of its largest |gradient| (the CPU
+                               # tests' bound against jax.grad)
+TRAIN_LOSS_TOL = 1e-5          # |card - CPU| of the loss, relative (theirs)
+WHISPER_TRAIN = dict(batch=4, tokens=128, microbatches=2, steps=4)
+#: sequences of the card-vs-CPU gradients by arch: the launcher's batch for
+#: the arch it trains, whisper's two (beside 1,500 frames each)
+TRAIN_GRAD_BATCH = {TRAIN_ARCH: 8, "whisper-base": 2}
+TRAIN_GRAD_TOKENS = 128        # tokens a sequence (the launcher's --seq)
+
+
+def train_launcher(runs):
+    """``python -m repro_torch.launch.train --arch mamba2-130m`` with the
+    reference launcher's defaults (``--batch 8 --seq 128``) as a user runs
+    it, once per ``(label, steps, ckpt_dir)`` of ``runs``, all at the same
+    time: their lines, and the first and last losses each printed."""
+    import re
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--steps", str(steps), "--ckpt-dir", ckpt_dir],
+        env=dict(os.environ, PYTHONPATH=str(repo / "src")), cwd=repo,
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for _, steps, ckpt_dir in runs]
+    losses = []
+    for (label, _, _), proc in zip(runs, procs):
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        for line in out.splitlines():
+            say(f"[train] launcher {label}: {line}")
+        say(f"[train] launcher {label}: exit {proc.returncode}, "
+            f"{time.perf_counter() - t0:.1f} s after the start")
+        m = re.search(r"first loss (\S+) -> last loss (\S+)", out)
+        if proc.returncode != 0 or m is None:
+            raise AssertionError(f"the train launcher failed "
+                                 f"({proc.returncode}): {out[-2000:]} "
+                                 f"{err[-3000:]}")
+        losses.append((float(m.group(1)), float(m.group(2))))
+    return losses
+
+
+def train_restart(card):
+    """The launcher at full width: 20 steps in one run and, beside it, a run
+    to step 10 that checkpoints there; then a second process that resumes
+    that to step 20 (alone: its s/step is the launcher's own); the two final
+    checkpoints equal leaf for leaf, bit for bit."""
+    import shutil
+    root = persist_dir(3 * 3 * 4 * 130_000_000, "train checkpoints")
+    try:
+        whole, cut = os.path.join(root, "whole"), os.path.join(root, "cut")
+        (first, last), _ = train_launcher([
+            (f"{TRAIN_STEPS} steps", TRAIN_STEPS, whole),
+            (f"to step {TRAIN_RESTART_AT}", TRAIN_RESTART_AT, cut)])
+        if not (np.isfinite(first) and np.isfinite(last)):
+            raise AssertionError(f"train: losses {first} -> {last}")
+        train_launcher([(f"resumed to step {TRAIN_STEPS}", TRAIN_STEPS, cut)])
+        step = f"step_{TRAIN_STEPS:08d}"
+        a = np.load(os.path.join(whole, step, "arrays.npz"))
+        b = np.load(os.path.join(cut, step, "arrays.npz"))
+        keys = [json.load(open(os.path.join(d, step, "manifest.json")))["keys"]
+                for d in (whole, cut)]
+        if keys[0] != keys[1] or sorted(a.files) != sorted(b.files):
+            raise AssertionError("train: the two checkpoints hold other leaves")
+        differ = [keys[0][int(f[1:])] for f in a.files
+                  if not np.array_equal(a[f], b[f])]
+        if differ:
+            raise AssertionError(f"train: stopped at step {TRAIN_RESTART_AT} "
+                                 f"and resumed, {len(differ)} leaves differ "
+                                 f"from the uninterrupted run's: {differ[:8]}")
+        say(f"[train] {TRAIN_ARCH}: stopped at step {TRAIN_RESTART_AT}, "
+            f"resumed in a second process to step {TRAIN_STEPS}: all "
+            f"{len(a.files)} leaves (params, AdamW's mu, nu and step) == the "
+            f"uninterrupted run's, bit for bit; loss {first:.4f} -> "
+            f"{last:.4f} ({card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_whisper(seed, card):
+    """``whisper-base`` at full width through ``make_train_step``: frames
+    [4, 1500, 512], 128 decoder tokens, ``microbatches=2``,
+    ``compress_grads=True``, a few steps (losses finite, s/step); the
+    gradients of a microbatch twice on the card, equal (the train path is
+    deterministic); one int8 compression of them on the card == the same
+    function on the CPU fed the same gradients and residual: codes, scales,
+    compressed gradients and residual, bit for bit."""
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import Model
+    from repro_torch.checkpoint.ckpt import _paths_and_leaves, tree_map
+    from repro_torch.train import compression
+    from repro_torch.train.train_step import (TrainConfig, grads_of,
+                                              init_state, make_train_step)
+    w = WHISPER_TRAIN
+    cfg = lm_config("whisper-base")
+    model = Model(cfg)
+    tcfg = TrainConfig(microbatches=w["microbatches"], compress_grads=True,
+                       total_steps=w["steps"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 20)
+    state = init_state(model, gen, tcfg)
+    step = make_train_step(model, tcfg)
+    stream = token_stream(cfg.vocab_size, w["batch"], w["tokens"], seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(w["steps"]):
+        batch = {**next(stream), **lm_extra(cfg, seed + i, batch=w["batch"])}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or int(state.opt.step) != w["steps"]:
+        raise AssertionError(f"train whisper-base: losses {losses}")
+    say(f"[train] whisper-base at full width through make_train_step: frames "
+        f"[{w['batch']}, {LM_FRAMES}, {cfg.d_model}], {w['tokens']} decoder "
+        f"tokens, microbatches {w['microbatches']}, int8 compression with "
+        f"error feedback, remat {cfg.remat!r}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; s/step "
+        + ", ".join(f"{x:.3f}" for x in secs) + f" (the first builds cuBLAS "
+        f"plans); ef_residual_sq {float(metrics['ef_residual_sq']):.6g}; "
+        f"peak device memory {peak / 2**30:.2f} GiB ({card})")
+    half = {k: torch.as_tensor(v)[:w["batch"] // w["microbatches"]]
+            for k, v in batch.items()}
+    grads, _, _ = grads_of(model, state.params, half)
+    again, _, _ = grads_of(model, state.params, half)
+    same = [torch.equal(a, b) for a, b in zip(_paths_and_leaves(grads)[1],
+                                              _paths_and_leaves(again)[1])]
+    if not all(same):
+        raise AssertionError(f"train whisper-base: the same microbatch's "
+                             f"gradients differ between two calls on the "
+                             f"card in {same.count(False)} leaves")
+    out = {"cuda": compression.compress(grads, state.ef)}
+    cpu = tree_map(lambda t: t.cpu(), grads)
+    cpu_ef = compression.EFState(tree_map(lambda t: t.cpu(),
+                                          state.ef.residual))
+    out["cpu"] = compression.compress(cpu, cpu_ef)
+    blocks = 0
+    for g, r, gc_, rc in zip(_paths_and_leaves(grads)[1],
+                             _paths_and_leaves(state.ef.residual)[1],
+                             _paths_and_leaves(cpu)[1],
+                             _paths_and_leaves(cpu_ef.residual)[1]):
+        q, sc = compression.quantize_int8(g + r)
+        qc, scc = compression.quantize_int8(gc_ + rc)
+        if not (torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc)):
+            raise AssertionError("train whisper-base: int8 codes or scales "
+                                 "differ between the card and the CPU")
+        blocks += q.shape[0]
+    for part in (0, 1):
+        tree = out["cuda"][part] if part == 0 else out["cuda"][1].residual
+        want = out["cpu"][part] if part == 0 else out["cpu"][1].residual
+        for a, b in zip(_paths_and_leaves(tree)[1],
+                        _paths_and_leaves(want)[1]):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("train whisper-base: compressed "
+                                     "gradients or residual differ between "
+                                     "the card and the CPU")
+    say(f"[train] whisper-base: a microbatch's gradients twice on the card, "
+        f"equal; their int8 compression ({blocks} blocks of "
+        f"{compression.BLOCK}, {len(same)} leaves) == the CPU's on the same "
+        f"gradients and residual: codes, scales, compressed gradients and "
+        f"residual, bit for bit ({card})")
+    del state, grads, again, out
+
+
+def train_grads_against_cpu(arch, seed, card, layers=2):
+    """``arch`` at full width and a depth of 2 (the encoder's too), float32
+    compute: ``loss_fn``'s gradients on the card and on the CPU from the
+    same parameters (``tame_scores``'d) and batch (TRAIN_GRAD_BATCH[arch]
+    sequences of 128 tokens; whisper's frames [2, 1500, 512]).  Per leaf,
+    |card - CPU| / the leaf's largest |CPU gradient| at most
+    TRAIN_GRAD_TOL, and the loss within TRAIN_LOSS_TOL relative."""
+    from repro_torch.checkpoint.ckpt import _paths_and_leaves
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import grads_of
+    cfg = dataclasses.replace(lm_config(arch, layers), dtype="float32")
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 21)
+    params = tame_scores(cfg, model.init(gen))
+    rows = TRAIN_GRAD_BATCH[arch]
+    batch = {**next(token_stream(cfg.vocab_size, rows, TRAIN_GRAD_TOKENS,
+                                 seed=seed + 1)),
+             **lm_extra(cfg, seed + 21, batch=rows)}
+    t0 = time.perf_counter()
+
+    def grads(p, dev):
+        g, loss, _ = grads_of(model, p, {k: torch.as_tensor(v).to(dev)
+                                         for k, v in batch.items()})
+        keys, leaves, _ = _paths_and_leaves(g)
+        return keys, [x.double().cpu() for x in leaves], float(loss)
+
+    keys, card_g, card_loss = grads(params, "cuda")
+    _, cpu_g, cpu_loss = grads(model_params_cpu(params), "cpu")
+    gap = [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+           for x, y in zip(card_g, cpu_g)]
+    worst = max(range(len(keys)), key=gap.__getitem__)
+    loss_gap = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    say(f"[train] {arch} at full width, {layers} layers"
+        + (" (encoder and decoder each)" if cfg.encoder_layers else "")
+        + f", float32, {rows} x {TRAIN_GRAD_TOKENS} tokens"
+        + ("; wq and wk / 8" if tamed(cfg) else "")
+        + f": loss_fn's gradients card vs CPU over {len(keys)} leaves, "
+        f"|card - CPU| / the leaf's largest |gradient| at most "
+        f"{gap[worst]:.3g} at {keys[worst]} (bound {TRAIN_GRAD_TOL}); loss "
+        f"{cpu_loss:.6f}, |card - CPU| {loss_gap:.3g} of it (bound "
+        f"{TRAIN_LOSS_TOL}); {time.perf_counter() - t0:.1f} s ({card})")
+    if not all(bool(torch.isfinite(x).all()) for x in card_g):
+        raise AssertionError(f"train {arch}: a card gradient is not finite")
+    if gap[worst] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train {arch}: card gradient {keys[worst]} "
+                             f"differs from the CPU's by {gap[worst]} of its "
+                             f"largest > {TRAIN_GRAD_TOL}")
+    if not loss_gap <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"train {arch}: card loss {card_loss} differs "
+                             f"from the CPU's {cpu_loss} by {loss_gap} of it")
+
+
+def model_params_cpu(params):
+    from repro_torch.checkpoint.ckpt import tree_map
+    return tree_map(lambda a: a.cpu(), params)
+
+
+def phase_train(seed, card):
+    """The training path at full width: the launcher on ``mamba2-130m``
+    (20 steps, and a stop at step 10 resumed in another process, equal to
+    the uninterrupted run bit for bit), ``whisper-base`` through
+    ``make_train_step`` with microbatches and compression (its int8 codes
+    == the CPU's on the same gradients), and depth-2 gradients card vs
+    CPU on both archs.  No hand-written kernel is on this path: the window
+    fails if one launches."""
+    with launch_window("train", ()) as launches:
+        t0 = time.perf_counter()
+        train_restart(card)
+        took("train launcher", t0)
+        t0 = time.perf_counter()
+        train_whisper(seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("train whisper-base", t0)
+    if any(launches.values()):
+        raise AssertionError(f"train: a hand-written kernel launched on the "
+                             f"training path: {launches}")
+    for arch in TRAIN_GRAD_BATCH:
+        t0 = time.perf_counter()
+        train_grads_against_cpu(arch, seed, card)
+        torch.cuda.empty_cache()
+        took(f"train {arch} gradients card vs CPU", t0)
 
 
 def took(label, t0):
@@ -5678,7 +6156,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--warm-batches", type=int, default=4400,
                     help="update batches of the main path's warm-up; the "
-                         "drafter's warm-up observes half as many")
+                         "drafter's warm-up observes a quarter as many, "
+                         "phase persist's chain half, phase sharded 3/8")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="after the main, drafter and sharded phases, print "
@@ -5751,7 +6230,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         lap("hash")
     if "drafter" in phases:
-        kernels += phase_drafter(args.seed, args.warm_batches // 2,
+        kernels += phase_drafter(args.seed, args.warm_batches // 4,
                                  args.rounds, args.profile)
         torch.cuda.empty_cache()
         lap("drafter")
@@ -5759,6 +6238,9 @@ def main(argv=None):
         kernels += phase_lm(args.seed, card, args.profile)
         torch.cuda.empty_cache()
         lap("lm")
+    if "train" in phases:
+        phase_train(args.seed, card)
+        lap("train")
     if "sharded" in phases:
         state, scfg, traffic, launches = phase_sharded(
             args.seed, sharded_warm(args), args.rounds)
@@ -5802,7 +6284,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         lap("engine, persist (reshard)")
     if "persist" in phases:
-        phase_persist(args.seed, args.warm_batches)
+        phase_persist(args.seed, args.warm_batches // 2)
         torch.cuda.empty_cache()
         lap("persist (chain)")
     if "monitor" in phases:

@@ -21,10 +21,13 @@ counterpart of ``repro.x`` is ``repro_torch.x``:
     :mod:`repro_torch.runtime` — failpoints, telemetry and the retry
     ladder (host-only)
   * :mod:`repro_torch.configs`, :mod:`repro_torch.models` — the ten archs'
-    configs and the dense decoder models (prefill, decode, extension)
+    configs and their models, every family (loss, prefill, decode,
+    extension)
+  * :mod:`repro_torch.optim`, :mod:`repro_torch.train` — AdamW, its
+    schedule, the train step and int8 gradient compression
   * :mod:`repro_torch.serve`, :mod:`repro_torch.launch` — the LM engine
     with the MCPrioQ drafter, sampling, the sharded chain's engine, and
-    their launcher
+    the serving and training launchers
 
 The package imports ``torch`` and never ``jax`` or ``repro``.  State lives on
 the GPU unless the caller asks for the CPU (``init(cfg, device="cpu")``),

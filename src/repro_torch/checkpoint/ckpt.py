@@ -74,6 +74,12 @@ def _paths_and_leaves(tree: PyTree):
     return keys, leaves, lambda new: build(iter(new))
 
 
+def tree_map(fn, tree: PyTree) -> PyTree:
+    """``fn`` on every leaf, the tree's structure kept."""
+    _, leaves, rebuild = _paths_and_leaves(tree)
+    return rebuild([fn(x) for x in leaves])
+
+
 def _gather(x) -> np.ndarray:
     """A host copy of one leaf, complete when this returns (a blocking
     device->host copy; a CPU tensor or an array is copied too), so the

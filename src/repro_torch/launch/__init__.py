@@ -1,2 +1,2 @@
 """Launchers of the port: ``serve`` (LM serving, and the sharded chain's
-serving launcher)."""
+serving launcher) and ``train`` (the training launcher)."""

@@ -11,7 +11,8 @@ parameters), ``--arch mamba2-130m`` and ``--arch recurrentgemma-9b`` serve
 the MoE, SSM and hybrid families the same way (``moonshot-v1-16b-a3b``,
 113.6 GB, does not fit one 80 GB card; ``--smoke`` serves it).  The encoder
 and vision archs (``whisper-base``, ``phi-3-vision-4.2b``) are refused as
-the reference refuses them.
+the reference refuses them: the ``Engine`` feeds neither frames nor patch
+embeddings (``models.Model`` runs both).
 
 Shard-parallel chain serving routes synthetic transition traffic through
 the port's :class:`repro_torch.serve.engine.ShardedEngine` (the S shards

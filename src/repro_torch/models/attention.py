@@ -77,7 +77,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhe->bshe")`` as one matmul over the flattened heads."""
     d, heads, hd = w.shape
     out = torch.matmul(x, w.to(x.dtype).reshape(d, heads * hd))
@@ -87,7 +87,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """x: [B, S, D] -> q [B,S,H,Dh], k,v [B,S,KV,Dh] (roped if configured)."""
-    q, k, v = (_project(x, p[name]) for name in ("wq", "wk", "wv"))
+    q, k, v = (project(x, p[name]) for name in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -135,7 +135,9 @@ def _flash_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq == 1:
         kv_chunk = t
     n_chunks = max(1, t // kv_chunk)
-    ck = kv_chunk if t >= kv_chunk else t
+    # one chunk is the whole of T, as in the reference (whisper's 1,500
+    # encoder frames at kv_chunk 1,024)
+    ck = kv_chunk if n_chunks > 1 else t
     if t % n_chunks or n_chunks * ck != t:
         raise ValueError(f"{t} KV positions do not split into chunks of "
                          f"{kv_chunk}")

@@ -6,7 +6,10 @@ device asked for) at the reference's scales; the draws differ from JAX's,
 so parity tests feed both packages the same numpy parameters
 (``repro_torch.convert.model_params_from_numpy``).  ``lead`` gives a leaf
 leading dimensions (the periods of a stacked layer scan) while the scale is
-still the one block's.
+still the one block's.  Every function here is differentiable by
+``torch.autograd`` (``train/train_step.py``); ``chunked_cross_entropy``
+recomputes each chunk's logits in the backward, as the reference's
+``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -136,9 +140,30 @@ def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal table [length, d] (float32), computed on the
+    CPU and moved to ``device``, so the card's table is the CPU's bit for
+    bit (within an ulp of XLA's ``exp``/``sin``/``cos``)."""
+    pos = torch.arange(length, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * dim / (d // 2 - 1))
+    ang = pos * inv
+    table = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return table if device is None else table.to(device)
+
+
 # ---------------------------------------------------------------------------
 # chunked cross-entropy: never materialise (B, S, V)
 # ---------------------------------------------------------------------------
+
+
+def _chunk_nll(emb_params, xc: torch.Tensor, tc: torch.Tensor,
+               mc: torch.Tensor, cfg: ModelConfig):
+    """One chunk's summed masked NLL and its token count."""
+    logits = lm_logits(emb_params, xc, cfg).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc.long().unsqueeze(-1))[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
 
 
 def chunked_cross_entropy(emb_params, x: torch.Tensor, targets: torch.Tensor,
@@ -146,22 +171,23 @@ def chunked_cross_entropy(emb_params, x: torch.Tensor, targets: torch.Tensor,
                           chunk: int = 512) -> torch.Tensor:
     """Mean CE over valid tokens, computing logits in sequence chunks.
 
-    x: [B, S, D] final hidden states; targets/mask: [B, S].  The forward of
-    the reference's scan: each step sees (B, chunk, V) and reduces it at
-    once.  No backward (training is not ported yet).
+    x: [B, S, D] final hidden states; targets/mask: [B, S].  Each step of
+    the reference's scan sees (B, chunk, V) and reduces it at once; under
+    autograd each chunk is recomputed in the backward (the reference's
+    ``@jax.checkpoint``), so the (B, chunk, V) logits are never stored.
     """
     s = x.shape[1]
     if s % chunk:
         chunk = s  # fallback for tiny smoke shapes
+    remat = torch.is_grad_enabled()
     tot_nll = torch.zeros((), dtype=torch.float32, device=x.device)
     tot_cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for start in range(0, s, chunk):
-        xc, tc = x[:, start:start + chunk], targets[:, start:start + chunk]
-        mc = mask[:, start:start + chunk]
-        logits = lm_logits(emb_params, xc, cfg).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tc.long().unsqueeze(-1))[..., 0]
-        nll = (logz - gold) * mc
-        tot_nll = tot_nll + nll.sum()
-        tot_cnt = tot_cnt + mc.sum()
+        args = (emb_params, x[:, start:start + chunk],
+                targets[:, start:start + chunk], mask[:, start:start + chunk],
+                cfg)
+        nll, cnt = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                    if remat else _chunk_nll(*args))
+        tot_nll = tot_nll + nll
+        tot_cnt = tot_cnt + cnt
     return tot_nll / torch.clamp(tot_cnt, min=1.0)

@@ -1,16 +1,19 @@
 """Model facade: init / loss / prefill / decode / extend.
 
-Counterpart of ``repro.models.model`` for the ``dense`` (``qwen2-7b``,
-``starcoder2-3b``, ``starcoder2-7b``, ``granite-34b``), ``moe``
-(``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``), ``ssm`` (``mamba2-130m``)
-and ``hybrid`` (``recurrentgemma-9b``) families: the same parameter tree
-(``emb``, ``final_norm``, ``pre`` (leading dense layers), ``stack`` stacked
-over periods, ``tail``), shapes and dtypes, float32 parameters and the
-compute dtype of the config.  The ``encdec`` and ``vlm`` families are
-refused with ``NotImplementedError`` when the model is built (ROADMAP
-queue A 8d, the encoder and patch-prefix slice): a refusal, not a
-fallback.  There is no mesh, so the reference's ``sharding.specs.constrain``
-hints are nothing here.
+Counterpart of ``repro.models.model`` for every family: ``dense``
+(``qwen2-7b``, ``starcoder2-3b``, ``starcoder2-7b``, ``granite-34b``),
+``moe`` (``deepseek-moe-16b``, ``moonshot-v1-16b-a3b``), ``ssm``
+(``mamba2-130m``), ``hybrid`` (``recurrentgemma-9b``), ``encdec``
+(``whisper-base``: an encoder over stub frame embeddings, ``batch["frames"]``
+[B, T, D], and ``cross`` decoder blocks) and ``vlm`` (``phi-3-vision-4.2b``:
+stub patch embeddings, ``batch["prefix_embeds"]`` [B, P, D], before the
+text).  The same parameter tree (``emb``, ``final_norm``, ``pre`` (leading
+dense layers), ``stack`` stacked over periods, ``tail``, ``enc_stack`` and
+``enc_norm``), shapes and dtypes, float32 parameters and the compute dtype
+of the config.  There is no mesh, so the reference's
+``sharding.specs.constrain`` hints are nothing here.  ``loss_fn`` is
+differentiable (``train/train_step.py`` takes its gradients with
+``torch.autograd``).
 
 Three things differ from the reference, each for a serving engine on a
 GPU:
@@ -36,6 +39,11 @@ GPU:
     its tokens' decodes compute, and a ring's prefill attends over the
     prompt itself (the reference's cached calls lose keys in both cases;
     ``init_caches``, ``transformer.block_forward``);
+  * a prefill or an extension whose tokens reach past a ``cross`` block's
+    self-cache (``min(decoder_max_len, max_len)`` positions: whisper's
+    learned decoder positions) raises ``ValueError``; the reference's
+    scatter drops such a write silently, and on the GPU it would be an
+    out-of-range index (ROADMAP queue C);
   * ``init`` takes a ``torch.Generator`` and draws other numbers than JAX;
     parity tests convert the reference's parameters
     (``repro_torch.convert.model_params_from_numpy``).
@@ -61,6 +69,7 @@ from repro_torch.models.common import (
     lm_logits,
     make_embeddings,
     make_norm,
+    sinusoidal_positions,
 )
 
 PyTree = Any
@@ -69,22 +78,22 @@ PyTree = Any
 #: at this many rows (see the module docstring)
 STEP_ROWS = 8
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless this package runs ``cfg``."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: model family {cfg.family!r} is not ported to "
-            f"repro_torch yet (ROADMAP queue A 8d: the encoder and the "
-            f"patch prefix); ported: {PORTED_FAMILIES}")
-    if cfg.first_dense_layers:
-        tfm.check_kind(cfg, "dense_mlp")
-    if cfg.encoder_layers:
-        tfm.check_kind(cfg, "enc_attn")
-    for kind in cfg.pattern:
-        tfm.check_kind(cfg, kind)
+def _cross_cache_len(caches: PyTree) -> int:
+    """Positions of the first ``cross`` block's self-cache in ``caches``."""
+    if isinstance(caches, dict):
+        if "self" in caches:
+            return caches["self"].k.shape[1]
+        todo = list(caches.values())
+    elif isinstance(caches, list):
+        todo = caches
+    else:
+        todo = []
+    for c in todo:
+        n = _cross_cache_len(c)
+        if n:
+            return n
+    return 0
 
 
 class Model:
@@ -92,7 +101,6 @@ class Model:
     parameters or the caches it is given."""
 
     def __init__(self, cfg: ModelConfig):
-        check_ported(cfg)
         self.cfg = cfg
         # the reference sums every matmul in float32; cuBLAS may otherwise
         # add a reduced-precision matmul's split-K partial sums in bfloat16
@@ -124,17 +132,29 @@ class Model:
             params["stack"] = {
                 f"pos{j}": tfm.make_block(cfg, kind, generator, device=dev,
                                           lead=(np_,))
-                for j, kind in enumerate(cfg.pattern)
+                for j, kind in enumerate(self._decoder_pattern())
             }
         tail = cfg.tail_kinds()
         if tail:
-            params["tail"] = [tfm.make_block(cfg, kind, generator, device=dev)
+            params["tail"] = [tfm.make_block(cfg, self._map_kind(kind),
+                                             generator, device=dev)
                               for kind in tail]
+        if cfg.encoder_layers:   # whisper's encoder
+            params["enc_stack"] = {"pos0": tfm.make_block(
+                cfg, "enc_attn", generator, device=dev,
+                lead=(cfg.encoder_layers,))}
+            params["enc_norm"] = make_norm(cfg, device=dev)
         return params
 
     def abstract_params(self) -> PyTree:
         """The parameter tree's shapes and dtypes, as meta tensors."""
         return self.init(None, device="meta")
+
+    def _map_kind(self, kind: str) -> str:
+        return "cross" if (self.cfg.encoder_layers and kind == "attn") else kind
+
+    def _decoder_pattern(self) -> Tuple[str, ...]:
+        return tuple(self._map_kind(k) for k in self.cfg.pattern)
 
     # ------------------------------------------------------------------
     # forward
@@ -144,19 +164,48 @@ class Model:
     def _device(params: PyTree) -> torch.device:
         return params["emb"]["tok"].device
 
+    def _encode(self, params: PyTree, frames) -> torch.Tensor:
+        """Whisper encoder over stub frame embeddings [B, T, D]."""
+        cfg = self.cfg
+        dev = self._device(params)
+        x = torch.as_tensor(frames, device=dev).to(dtype_of(cfg))
+        t = x.shape[1]
+        x = x + sinusoidal_positions(t, cfg.d_model, dev).to(x.dtype)[None]
+        pos = torch.arange(t, dtype=torch.int32, device=dev).expand(
+            x.shape[0], t)
+        x, _, _ = tfm.stack_forward(params["enc_stack"], x, cfg,
+                                    positions=pos, kinds=("enc_attn",))
+        return apply_norm(params["enc_norm"], x, cfg)
+
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-        """Returns (x, positions): the text tokens (no prefix embeddings in
-        the ported families)."""
-        tokens = torch.as_tensor(batch["tokens"], device=self._device(params))
+                                                    torch.Tensor, int]:
+        """Returns (x, positions, n_prefix): a ``vlm``'s prefix embeddings
+        then its text, positions over both; the text alone otherwise."""
+        cfg = self.cfg
+        dev = self._device(params)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
         b, s_text = tokens.shape
+        if cfg.frontend == "patch":
+            prefix = torch.as_tensor(batch["prefix_embeds"], device=dev).to(
+                dtype_of(cfg))
+            npre = prefix.shape[1]
+            pos = torch.arange(npre + s_text, dtype=torch.int32,
+                               device=dev).expand(b, npre + s_text)
+            x_tok = embed_tokens(params["emb"], tokens, cfg,
+                                 positions=pos[0, npre:])
+            return torch.cat([prefix, x_tok], dim=1), pos, npre
         pos = torch.arange(s_text, dtype=torch.int32,
-                           device=tokens.device).expand(b, s_text)
-        x = embed_tokens(params["emb"], tokens, self.cfg, positions=pos[0])
-        return x, pos
+                           device=dev).expand(b, s_text)
+        x = embed_tokens(params["emb"], tokens, cfg, positions=pos[0])
+        return x, pos, 0
+
+    def _memory(self, params, batch) -> Optional[torch.Tensor]:
+        return (self._encode(params, batch["frames"])
+                if self.cfg.encoder_layers else None)
 
     def _body(self, params, x, positions, caches=None,
-              insert: Optional[int] = None):
+              insert: Optional[int] = None,
+              memory: Optional[torch.Tensor] = None):
         """pre -> stack -> tail -> final norm. Returns (x, aux, caches')."""
         cfg = self.cfg
         aux_all: Dict[str, torch.Tensor] = {}
@@ -168,7 +217,7 @@ class Model:
                 c = None if caches is None else caches[name][i]
                 x, aux, nc = tfm.block_forward(bp, x, cfg, kind,
                                                positions=positions, cache=c,
-                                               insert=insert)
+                                               insert=insert, memory=memory)
                 out.append(nc)
                 aux_all.update(aux)
             new_caches[name] = out
@@ -180,22 +229,29 @@ class Model:
             x, aux, cs = tfm.stack_forward(
                 params["stack"], x, cfg, positions=positions,
                 caches=None if caches is None else caches["stack"],
-                insert=insert)
+                memory=memory, kinds=self._decoder_pattern(), insert=insert)
             tfm.add_aux(aux_all, aux)
             new_caches["stack"] = cs
         if "tail" in params:
-            x = blocks(x, "tail", cfg.tail_kinds())
+            x = blocks(x, "tail",
+                       tuple(self._map_kind(k) for k in cfg.tail_kinds()))
         x = apply_norm(params["final_norm"], x, cfg)
         return x, aux_all, (new_caches if caches is not None else None)
 
     # ------------------------------------------------------------------
-    # loss (forward only: training is not ported yet, ROADMAP queue A 9)
+    # training loss
     # ------------------------------------------------------------------
 
     def loss_fn(self, params: PyTree, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        x, positions = self._embed_inputs(params, batch)
-        x, aux, _ = self._body(params, x, positions)
+        """(loss, metrics) of a batch ``{"tokens", "targets"}`` (+
+        ``"loss_mask"``, ``"frames"`` for ``encdec``, ``"prefix_embeds"``
+        for ``vlm``; the prefix is dropped before the head)."""
+        memory = self._memory(params, batch)
+        x, positions, npre = self._embed_inputs(params, batch)
+        x, aux, _ = self._body(params, x, positions, memory=memory)
+        if npre:
+            x = x[:, npre:]
         targets = torch.as_tensor(batch["targets"], device=x.device)
         mask = batch.get("loss_mask")
         mask = (torch.ones(targets.shape, dtype=torch.float32,
@@ -215,14 +271,17 @@ class Model:
     # serving
     # ------------------------------------------------------------------
 
-    def init_caches(self, b: int, max_len: int, *, device=None) -> PyTree:
+    def init_caches(self, b: int, max_len: int, enc_len: int = 0, *,
+                    device=None) -> PyTree:
         """Empty caches on ``device`` (default: the GPU): ``pre`` and
         ``tail`` one cache per block, ``stack`` a list with one cache tree
         per period.  A ``local_attn`` ring holds ``local_window +
         STEP_ROWS`` positions, the reference's ``local_window``: an
         extension inserts its K tokens before its rows attend, and in a ring
         of the window alone the K-th would overwrite a key the first still
-        needs once the ring has wrapped (ROADMAP queue C 30)."""
+        needs once the ring has wrapped (ROADMAP queue C 30).  A ``cross``
+        block's cache is ``{"self": min(decoder_max_len, max_len) positions,
+        "mem_k", "mem_v": [b, enc_len, kv, hd]}``."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = dtype_of(cfg)
@@ -237,6 +296,15 @@ class Model:
                 return ssm_mod.init_ssm_cache(cfg, b, dt, device=dev)
             if kind == "rglru":
                 return rglru_mod.init_rglru_cache(cfg, b, dt, device=dev)
+            if kind == "cross":
+                mem = (b, enc_len, kv, hd)
+                return {
+                    "self": attn_mod.init_cache(
+                        b, min(cfg.decoder_max_len, max_len), kv, hd, dt,
+                        device=dev),
+                    "mem_k": torch.zeros(mem, dtype=dt, device=dev),
+                    "mem_v": torch.zeros(mem, dtype=dt, device=dev),
+                }
             return attn_mod.init_cache(b, max_len, kv, hd, dt, device=dev)
 
         caches: Dict[str, PyTree] = {}
@@ -245,20 +313,42 @@ class Model:
                              for _ in range(cfg.first_dense_layers)]
         if cfg.num_periods():
             caches["stack"] = [{f"pos{j}": one(kind)
-                                for j, kind in enumerate(cfg.pattern)}
+                                for j, kind in enumerate(
+                                    self._decoder_pattern())}
                                for _ in range(cfg.num_periods())]
         tail = cfg.tail_kinds()
         if tail:
-            caches["tail"] = [one(k) for k in tail]
+            caches["tail"] = [one(self._map_kind(k)) for k in tail]
         return caches
+
+    def _check_cross_positions(self, last: int, cache_len: int) -> None:
+        """Refuse tokens at ``last`` or before it that a ``cross`` block's
+        self-cache of ``cache_len`` positions cannot hold."""
+        if last >= cache_len:
+            raise ValueError(
+                f"{self.cfg.name}: a token at position {last} does not fit "
+                f"the decoder's self-cache of {cache_len} positions "
+                f"(min(decoder_max_len={self.cfg.decoder_max_len}, "
+                f"max_len)); the reference drops such a write silently")
 
     def prefill(self, params: PyTree, batch: Dict[str, Any],
                 max_len: int) -> Tuple[torch.Tensor, PyTree]:
-        """Process the prompt; returns (last-token logits [B, V], caches)."""
-        x, positions = self._embed_inputs(params, batch)
-        caches = self.init_caches(x.shape[0], max_len, device=x.device)
-        x, _, caches = self._body(params, x, positions, caches=caches)
-        logits = lm_logits(params["emb"], x[:, -1], self.cfg)
+        """Process the prompt (and ``frames`` / ``prefix_embeds``); returns
+        (last-token logits [B, V], caches).  A ``vlm``'s decode and
+        extension continue at position ``n_prefix + s_text``."""
+        cfg = self.cfg
+        if cfg.encoder_layers:
+            self._check_cross_positions(
+                tuple(batch["tokens"].shape)[1] - 1,
+                min(cfg.decoder_max_len, max_len))
+        memory = self._memory(params, batch)
+        x, positions, _ = self._embed_inputs(params, batch)
+        caches = self.init_caches(
+            x.shape[0], max_len, 0 if memory is None else memory.shape[1],
+            device=x.device)
+        x, _, caches = self._body(params, x, positions, caches=caches,
+                                  memory=memory)
+        logits = lm_logits(params["emb"], x[:, -1], cfg)
         return logits, caches
 
     def extend_step(self, params: PyTree, caches: PyTree,
@@ -269,12 +359,16 @@ class Model:
         tokens[:, 0].  Returns (logits [B, K, V], caches').  The caches
         given are not written: rollback after a partial acceptance is the
         caller keeping them.  Runs on ``max(K, STEP_ROWS)`` rows; the
-        recurrent caches returned are those after the K tokens."""
+        recurrent caches returned are those after the K tokens.  A
+        ``cross`` block reads the encoder's memory from its cache."""
         cfg = self.cfg
         dev = self._device(params)
         tokens = torch.as_tensor(tokens, device=dev)
         pos0 = torch.as_tensor(pos0, device=dev)
         b, k = tokens.shape
+        if cfg.encoder_layers:   # one host read of pos0 per call
+            self._check_cross_positions(
+                int(pos0.max()) + k - 1, _cross_cache_len(caches))
         rows = max(k, STEP_ROWS)
         if rows > k:
             tokens = torch.cat([tokens, tokens.new_zeros((b, rows - k))], 1)

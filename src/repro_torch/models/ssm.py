@@ -15,6 +15,12 @@ greedy speculation would no longer give plain greedy's tokens.  Rows after
 ``real`` (pad rows) never touch the state or the conv buffer.  Against the
 reference's ``extend_step`` (the chunked form from ``initial``) this
 differs by rounding only (ROADMAP queue C 29).
+
+The chunked form masks the intra-chunk decay's exponent (``exp`` of
+-inf above the diagonal) where the reference masks its exponential: the
+values are the same, and the backward stays finite where an exponent
+above the diagonal overflows (a chunk of 128 at full width), which makes
+the reference's gradient NaN (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -164,12 +170,15 @@ def apply_ssm(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     dt_c = dt.reshape(b, nc, q, h)
     da_cs = torch.cumsum(da.reshape(b, nc, q, h), dim=2)             # [b,nc,q,h]
 
-    # intra-chunk: L[i, j] = exp(da_cs[i] - da_cs[j]) for i >= j
+    # intra-chunk: L[i, j] = exp(da_cs[i] - da_cs[j]) for i >= j.  The
+    # exponent is masked, not the exponential: above the diagonal it can
+    # pass 88 and overflow, and the backward of a masked exp(inf) is
+    # 0 * inf = NaN (the reference's gradient; ROADMAP queue C)
     li = da_cs[:, :, :, None, :]
     lj = da_cs[:, :, None, :, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(li - lj),
-                        torch.zeros((), dtype=f32, device=x.device))
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
+                                  float("-inf")))
     hg = h // g
     c_h = torch.repeat_interleave(c_c, hg, dim=3)                    # [b,nc,q,h,n]
     b_h = torch.repeat_interleave(b_c, hg, dim=3)

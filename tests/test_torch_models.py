@@ -22,9 +22,10 @@ models run on the CPU with the reference's own parameters
 
 The reference's outputs are computed once per module (``ref_outputs``).
 Also here: the port's counterparts of ``test_models_smoke.py``'s
-forward-loss and prefill/decode tests, the refusal of the two archs the
-port does not run yet (the encoder and the patch prefix), and the port's
-own claim that an ``extend_step`` of K tokens equals K ``decode_step``
+forward-loss and prefill/decode tests, the two archs the launchers
+refuse as the reference's do (the encoder and the patch prefix, whose
+models run and are held to the reference in
+``tests/test_torch_models_encdec.py``), and the port's own claim that an ``extend_step`` of K tokens equals K ``decode_step``
 calls bit for bit.
 """
 
@@ -52,8 +53,9 @@ from repro_torch.models import common
 from repro_torch.models import mlp as mlp_mod
 
 DENSE = ("qwen2-7b", "starcoder2-3b", "starcoder2-7b", "granite-34b")
-#: the encoder and the patch prefix (the MoE, SSM and hybrid families have
-#: files of their own: tests/test_torch_models_{moe,recurrent}.py)
+#: the encoder and the patch prefix, which the launchers refuse (the MoE,
+#: SSM, hybrid, encdec and vlm models have files of their own:
+#: tests/test_torch_models_{moe,recurrent,encdec}.py)
 NOT_PORTED = ("phi-3-vision-4.2b", "whisper-base")
 B, S, MAX_LEN, K = 2, 12, 40, 4
 
@@ -97,12 +99,42 @@ def test_unknown_arch_is_a_key_error():
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_families_not_ported_are_refused_by_name(arch):
-    assert set(ARCHS) - set(NOT_PORTED) >= {
-        "deepseek-moe-16b", "moonshot-v1-16b-a3b", "mamba2-130m",
-        "recurrentgemma-9b"}
-    with pytest.raises(NotImplementedError,
-                       match="queue A 8d: the encoder and the patch prefix"):
-        Model(smoke_config(arch))
+    """``Model`` builds both archs with the reference's tree (keys, shapes
+    and dtypes of ``init`` at smoke size) and the same loss on the
+    reference's parameters (float32, within 1e-4); the serving and training
+    launchers refuse them by name, as the reference's do."""
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    cfg = _f32(smoke_config(arch))
+    r_model = RModel(_f32(r_smoke_config(arch)))
+    r_params = r_model.init(jax.random.key(5))
+    want = jax.tree_util.tree_leaves_with_path(r_params)
+    model = Model(cfg)
+    got = dict(jax.tree_util.tree_leaves_with_path(jax.tree_util.tree_map(
+        lambda t: t.numpy(), model.init(torch.Generator().manual_seed(5),
+                                        device="cpu"))))
+    assert len(want) == len(got)
+    for path, leaf in want:
+        assert got[path].shape == leaf.shape and got[path].dtype == leaf.dtype
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.standard_normal((B, 16, cfg.d_model)).astype(
+            np.float32)
+    else:
+        batch["prefix_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    r_loss, _ = r_model.loss_fn(r_params, {k: jnp.asarray(v)
+                                           for k, v in batch.items()})
+    loss, _ = model.loss_fn(model_params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, r_params), device="cpu"),
+        batch)
+    assert abs(float(loss) - float(r_loss)) <= 1e-4
+    with pytest.raises(SystemExit, match="see examples/ for encdec"):
+        serve_launch.run(arch, True, 1, 8, 4, 2, device="cpu")
+    with pytest.raises(SystemExit, match="use the multimodal examples"):
+        train_launch.run(arch, True, 1, 2, 8, None, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +459,7 @@ def test_local_attention_and_tail_match_at_float32():
         return r_common.lm_logits(r_params["emb"], x, cfg)
 
     def forward(tokens):
-        x, positions = port._embed_inputs(params, {"tokens": tokens})
+        x, positions, _ = port._embed_inputs(params, {"tokens": tokens})
         x, _, _ = port._body(params, x, positions)
         return common.lm_logits(params["emb"], x, cfg)
 

@@ -1,9 +1,12 @@
 """Shared parity checks of the port's LM families against the reference's
 (a helper, not collected): the reference's outputs at ``smoke_config``
 computed once (jitted) and the checks that hold the port to them.  Used by
-``tests/test_torch_models_moe.py`` and
-``tests/test_torch_models_recurrent.py``; the tolerances are stated in
-those files' docstrings and in each check's.
+``tests/test_torch_models_moe.py``,
+``tests/test_torch_models_recurrent.py`` and
+``tests/test_torch_models_encdec.py``; the tolerances are stated in those
+files' docstrings and in each check's.  An ``encdec`` arch's batches carry
+``frames`` [B, ENC_LEN, D] and a ``vlm``'s ``prefix_embeds`` [B, P, D]
+(``extra_inputs``); its decodes continue at ``P + s``.
 """
 
 import dataclasses
@@ -23,6 +26,23 @@ from repro_torch.models import Model
 from repro_torch.models.model import STEP_ROWS
 
 B, MAX_LEN, K = 2, 40, 4
+ENC_LEN = 24    # stub encoder frames of an encdec arch's batches
+
+
+def extra_inputs(cfg, rng):
+    """The stub frontend's inputs a batch of ``cfg`` carries besides its
+    tokens (normal draws from ``rng``): ``frames`` or ``prefix_embeds``."""
+    if cfg.encoder_layers:
+        return {"frames": rng.standard_normal(
+            (B, ENC_LEN, cfg.d_model)).astype(np.float32)}
+    if cfg.frontend == "patch":
+        return {"prefix_embeds": rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def n_prefix(cfg):
+    return cfg.frontend_len if cfg.frontend == "patch" else 0
 
 
 def close(want, got, tol, what):
@@ -53,10 +73,13 @@ def reference_outputs(cases, seed0=0):
             prompt = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
             feed = rng.integers(0, cfg.vocab_size, (B, K)).astype(np.int32)
             targets = rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
+            extra = extra_inputs(cfg, rng)
+            jextra = {k: jnp.asarray(v) for k, v in extra.items()}
             logits, caches = jax.jit(
-                lambda p, t: model.prefill(p, {"tokens": t}, MAX_LEN))(
-                    params, jnp.asarray(prompt))
-            pos = np.full((B,), s, np.int32)
+                lambda p, t, e: model.prefill(p, {"tokens": t, **e},
+                                              MAX_LEN))(
+                    params, jnp.asarray(prompt), jextra)
+            pos = np.full((B,), s + n_prefix(cfg), np.int32)
             decode = jax.jit(model.decode_step)
             seq, c = [], caches
             for j in range(K):
@@ -66,6 +89,7 @@ def reference_outputs(cases, seed0=0):
             rec = dict(
                 params=jax.tree_util.tree_map(np.asarray, params),
                 prompt=prompt, feed=feed, pos=pos, targets=targets,
+                extra=extra,
                 prefill=np.asarray(logits.astype(jnp.float32)),
                 seq=np.stack(seq, axis=1))
             if dtype == "float32":
@@ -73,7 +97,7 @@ def reference_outputs(cases, seed0=0):
                     params, caches, jnp.asarray(feed), jnp.asarray(pos))
                 _, metrics = jax.jit(model.loss_fn)(params, {
                     "tokens": jnp.asarray(prompt),
-                    "targets": jnp.asarray(targets)})
+                    "targets": jnp.asarray(targets), **jextra})
                 rec.update(ext=np.asarray(ext), caches=c,
                            metrics={k: float(v) for k, v in metrics.items()})
             out[arch, dtype, s] = rec
@@ -86,16 +110,18 @@ def port_outputs(arch, dtype, ref):
     cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
     model = Model(cfg)
     params = model_params_from_numpy(cfg, ref["params"], device="cpu")
-    logits, caches = model.prefill(params, {"tokens": ref["prompt"]}, MAX_LEN)
+    logits, caches = model.prefill(
+        params, {"tokens": ref["prompt"], **ref["extra"]}, MAX_LEN)
     ext, _ = model.extend_step(params, caches, torch.from_numpy(ref["feed"]),
                                torch.from_numpy(ref["pos"]))
     return model, params, logits, ext
 
 
-def check_float32(arch, ref):
+def check_float32(arch, ref, seq_tol=1e-4):
     _, _, logits, ext = port_outputs(arch, "float32", ref)
     close(ref["prefill"], logits, 1e-4, f"{arch} prefill")
-    close(ref["seq"], ext, 1e-4, f"{arch} extension vs sequential decodes")
+    close(ref["seq"], ext, seq_tol,
+          f"{arch} extension vs sequential decodes")
     close(ref["ext"], ext, 2e-3, f"{arch} extension vs extend_step")
     for want, got in ((ref["prefill"], logits), (ref["seq"], ext)):
         assert np.array_equal(want.argmax(-1), got.argmax(-1).numpy())
@@ -138,7 +164,8 @@ def check_bfloat16(arch, ref):
 def check_loss(arch, ref):
     model, params, _, _ = port_outputs(arch, "float32", ref)
     loss, metrics = model.loss_fn(params, {"tokens": ref["prompt"],
-                                           "targets": ref["targets"]})
+                                           "targets": ref["targets"],
+                                           **ref["extra"]})
     assert loss.shape == () and np.isfinite(float(loss))
     assert sorted(metrics) == sorted(ref["metrics"])
     for k, v in ref["metrics"].items():
@@ -186,10 +213,11 @@ def check_extend_bit_for_bit(arch, seed):
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(
         np.int32))
-    _, caches = model.prefill(params, {"tokens": tokens}, 40)
+    _, caches = model.prefill(params, {"tokens": tokens,
+                                       **extra_inputs(cfg, rng)}, 40)
     kept = jax.tree_util.tree_map(
         lambda t: t.clone() if isinstance(t, torch.Tensor) else t, caches)
-    pos = torch.full((2,), 16, dtype=torch.int32)
+    pos = torch.full((2,), 16 + n_prefix(cfg), dtype=torch.int32)
     for k in (3, STEP_ROWS):
         feed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, k)).astype(
             np.int32))
