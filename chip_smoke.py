@@ -15,6 +15,11 @@
 Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
   1. device   — card name and power limit, torch/CUDA versions, build time;
+                ``python -m repro_torch.launch.dryrun`` for
+                ``qwen2-7b/decode_32k`` and ``mamba2-130m/train_4k`` (meta
+                tensors: bytes by part, whether they fit one card, counted
+                FLOPs beside ``model_flops``, H100 roofline terms), their
+                JSON printed;
   2. kernels  — every kernel against its plain PyTorch version ON the card at
                 small odd shapes (ragged batches, padding rows, saturated
                 tables, duplicates, unknown srcs, ``max_items > C``, threshold
@@ -92,7 +97,7 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 ``deepseek-moe-16b`` (MoE, 65.5 GB), ``mamba2-130m`` (SSM)
                 and ``recurrentgemma-9b`` (RG-LRU + local attention):
                 ``python -m repro_torch.launch.serve --arch
-                deepseek-moe-16b`` as a user runs it (2 requests); then per
+                mamba2-130m`` as a user runs it (2 requests); then per
                 arch random float32 parameters made on the card from a
                 seeded generator, bfloat16 compute, the reference
                 launcher's sizes (drafter 8,192 x 64, draft_len 4); 4
@@ -122,12 +127,15 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 projected memory untouched), and the model at depth 2 on
                 the card against the CPU under the same rule (whisper's
                 ``wq``/``wk`` divided by 8 there, so its attention scores
-                no longer amplify rounding);
+                no longer amplify rounding); per served arch the decode
+                step's roofline (``launch/roofline.py``): its memory
+                floor's time at the phase's batch and context beside its
+                device time (torch.profiler) and latency, with the shares;
   5c. train   — the training path: ``python -m repro_torch.launch.train``
                 on ``mamba2-130m`` at full width with the reference
-                launcher's defaults (batch 8 x 128), 20 steps in one process
-                and, at the same time, a run to step 10 that checkpoints
-                there, then a second process that resumes it to step 20:
+                launcher's defaults (batch 8 x 128), 12 steps in one process
+                and, at the same time, a run to step 6 that checkpoints
+                there, then a second process that resumes it to step 12:
                 the two final checkpoints equal leaf for leaf, bit for bit;
                 ``whisper-base`` through ``make_train_step`` at full width
                 (frames [4, 1500, 512], 128 tokens, 2 microbatches, int8
@@ -136,12 +144,14 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 the same gradients; no hand-written kernel launched; the
                 depth-2 float32 gradients and loss card vs CPU, each leaf
                 within 2e-3 of its largest, on ``mamba2-130m`` (batch 8 x
-                128) and on ``whisper-base`` (wq/wk divided by 8);
+                128) and on ``whisper-base`` (wq/wk divided by 8); the
+                launcher's mfu (``model_flops`` of a step over 989 TFLOP/s
+                against its s/step);
   6. sharded  — the sharded chain at full width: 4 logical shards of phase
                 main's chain stacked on the card (4 x 2**20 rows x 128
                 slots), 4 x 65,536 transitions per update routed through
                 buckets of twice the fair share, 4 x 4,096 query srcs, the
-                global top-16; warmed by ``update_`` over 3/8 of phase
+                global top-16; warmed by ``update_`` over 1/8 of phase
                 main's warm-up batches (a cut of depth that keeps the script
                 inside its time); the owner calls held
                 equal to the functional callables on a side copy; rounds of
@@ -223,9 +233,13 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 CPU, equal; the path's kernels at the soak's shapes against
                 their plain versions, tagged ``[soak]``;
   8c. examples — ``examples/torch_{telecom_paging,recommender_sessions,
-                quickstart}.py`` as a user runs them, on the card and with
-                ``--device cpu``, all six at once: each exits 0 and prints
-                the same lines on both (timings and a process id masked);
+                quickstart,lm_speculative_serve}.py`` as a user runs them,
+                on the card and with ``--device cpu``, all eight at once:
+                each exits 0 and prints the same lines on both (timings and
+                a process id masked; the LM example's losses, rates,
+                acceptance and model calls too); the LM example's model
+                calls on the card at most plain greedy's, its step-10 loss
+                within a bound from the CPU's own bfloat16 rounding;
   9. parity   — the whole path at a small configuration (16 batches, 32
                 with the dst hash, 8 on the sharded path and the reshard),
                 once with the CUDA
@@ -254,7 +268,10 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
 
 Cuts of depth that keep the script inside its time: the drafter's warm-up
 is a quarter of ``--warm-batches``, phase persist's chain half, phase
-sharded's 3/8; phase parity's sharded chain and reshard run 6 batches; the
+sharded's 1/8; phase lm serves 3 requests an arch and runs the launcher on
+``mamba2-130m``; phase train's launcher runs 12 steps, stopped at 6; phase
+parity's sharded
+chain and reshard run 6 batches; the
 reshard's new-edge check takes 1/8 of each sender's slice.
 
 Any failing phase raises and the script exits non-zero; without a CUDA device
@@ -393,8 +410,49 @@ def random_perm_rows(gen, n, c):
 # ---------------------------------------------------------------------------
 
 
+#: cells of ``python -m repro_torch.launch.dryrun`` in phase device (the
+#: whole grid, ``--all``, is not run here)
+DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("mamba2-130m", "train_4k"))
+
+
+def dryrun_cells():
+    """``python -m repro_torch.launch.dryrun`` for each of DRYRUN_CELLS as a
+    user runs it, all at once on the host (meta tensors: no device, no
+    memory); returns a function that waits for them, prints each cell's
+    JSON and checks it (called after phase kernels, which the two
+    processes overlap on the host)."""
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), OMP_NUM_THREADS="1")
+    procs = [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+         "--shape", cell[1]], cwd=repo, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        for cell in DRYRUN_CELLS]
+    t0 = time.perf_counter()
+
+    def finish():
+        for (arch, shape), proc in procs:
+            try:
+                out, err = proc.communicate(timeout=600)
+            finally:
+                proc.kill()
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            if proc.returncode != 0 or len(lines) != 1:
+                raise AssertionError(f"dryrun {arch}/{shape} exited "
+                                     f"{proc.returncode}: {out[-2000:]} "
+                                     f"{err[-2000:]}")
+            res = json.loads(lines[0])
+            if res["status"] != "ok" or not res["counted_flops"] > 0:
+                raise AssertionError(f"dryrun {arch}/{shape}: {res}")
+            say(f"[device] dryrun {arch}/{shape} (meta device, "
+                f"{time.perf_counter() - t0:.1f} s after the start): "
+                f"{lines[0]}")
+    return finish
+
+
 def phase_device():
     from repro_torch.kernels import _build
+    dryrun_done = dryrun_cells()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -413,7 +471,7 @@ def phase_device():
             f"{_build.BUILD_DIR})")
         for line in ptxas_summary(_build.build_log):
             say("[device]   " + line)
-    return card
+    return card, dryrun_done
 
 
 def ptxas_summary(log):
@@ -4093,11 +4151,11 @@ def warm_sharded(state, scfg, traffic, w, warm_batches):
 
 
 def sharded_warm(args):
-    """Phase sharded's warm-up batches: 3/8 of ``--warm-batches`` (1,650), a
+    """Phase sharded's warm-up batches: 1/8 of ``--warm-batches`` (550), a
     cut of depth (fewer edges for the engine's reassign and the reshard to
     move) that keeps the whole script inside its time (half until the
-    training phase came)."""
-    return args.warm_batches * 3 // 8
+    training phase came, 3/8 until the LM example came)."""
+    return args.warm_batches // 8
 
 
 def sharded_warm_state(seed, warm_batches):
@@ -4715,13 +4773,23 @@ def phase_soak(seed):
             f"after {r['steps_seen']} steps; durable records {r['steps']}, "
             f"replayed {r['replayed']}; recovery (restore + replay) "
             f"{r['us_per_call'] / 1e3:.1f} ms; oracle replay of every durable "
-            f"record {r['oracle_s'] * 1e3:.1f} ms; worker start to READY "
+            f"record {r['oracle_s'] * 1e3:.1f} ms; worker warm-up (imports, "
+            f"CUDA context, kernels; "
+            + ("cold, its spawn just before the life" if k == 0 else
+               "during the life before") + ") "
+            + ("not reached" if r["warm_s"] is None else
+               f"{r['warm_s'] * 1e3:.1f} ms") + ", "
+            f"GO to READY "
             + ("not reached" if r["start_s"] is None else
-               f"{r['start_s'] * 1e3:.1f} ms") + " (imports, engine and CUDA "
-            f"context {(r['engine_s'] or 0) * 1e3:.1f} ms, its restore "
+               f"{r['start_s'] * 1e3:.1f} ms") + " (engine "
+            f"{(r['engine_s'] or 0) * 1e3:.1f} ms, its restore "
             + ("none: the base snapshot" if r["restore_s"] is None else
                f"{r['restore_s'] * 1e3:.1f} ms") + ")"
             + ("" if r["bitexact"] else f"; DIVERGED: {r['derived']}"))
+    cold = lives[0]["ready_s"]
+    say("[soak] a cold worker start (life 0: spawn to READY, with its "
+        "imports, CUDA context, kernels and engine): "
+        + ("READY not reached" if cold is None else f"{cold * 1e3:.1f} ms"))
     rec = [r["us_per_call"] / 1e3 for r in lives]
     say(f"[soak] {len(lives)} kills at {SOAK_ROWS} rows x 16 slots, batches "
         f"of {BATCH}, a snapshot every {SOAK_EVERY} observes, WAL fsync "
@@ -4784,18 +4852,69 @@ def phase_soak(seed):
 # phase 8c: the three chain examples on the card
 # ---------------------------------------------------------------------------
 
-EXAMPLES = ("telecom_paging", "recommender_sessions", "quickstart")
+EXAMPLES = ("telecom_paging", "recommender_sessions", "quickstart",
+            "lm_speculative_serve")
 EXAMPLE_MASKS = (   # what differs from run to run: timings, a process id
     (r'(mcq_engine_\w+_seconds\{quantile="[0-9.]+"\}) \S+', r"\1 <seconds>"),
     (r"incident_(\d+)_\d+\.json", r"incident_\1_<pid>.json"),
+    # the LM example trains in bfloat16, whose rounding differs on the card
+    # from the CPU's: its losses, and so the tokens the drafter learns and
+    # how many it drafts right; the token count is not masked
+    (r"loss \S+ gnorm \S+ \(\S+s/step\)", "loss <loss> gnorm <gnorm> (<s>/step)"),
+    (r"loss: \S+ -> \S+", "loss: <first> -> <last>"),
+    (r"tokens in \S+s \(\S+ tok/s\), model calls \d+ vs (\d+) plain "
+     r"\(\S+x\), draft acceptance \S+%",
+     r"tokens in <s> (<tok/s>), model calls <calls> vs \1 plain (<ratio>), "
+     r"draft acceptance <acceptance>"),
 )
+#: threads of each example's process: eight share the host's cores with
+#: phase parity's checks; the LM example's runs take 4 (at 8 its CPU run
+#: slowed the checks beside it by half)
+EXAMPLE_THREADS = {"lm_speculative_serve": "4"}
+LM_EXAMPLE_PLAIN_CALLS = 6 * 47   # plain greedy's model calls, 6 requests
+LM_EXAMPLE_LOSS_STEPS = 10        # the first logged loss
+
+
+def lm_example_loss_bound():
+    """The card-vs-CPU bound of the LM example's first logged loss (step
+    10), from the CPU's own rounding: the example's training run on the CPU
+    in process at its bfloat16 compute and again at float32, the same
+    parameters and batches; the bound is the larger of 2e-3 (the CPU tests'
+    bound against the reference launcher) and twice the largest |bfloat16 -
+    float32| loss over the 10 steps, as phase lm's one rule bounds a
+    logit."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as t_train
+    losses = {}
+    real, threads = t_train.smoke_config, torch.get_num_threads()
+    torch.set_num_threads(2)   # beside the examples' processes
+    try:
+        for dtype in ("bfloat16", "float32"):
+            t_train.smoke_config = lambda a, d=dtype: dataclasses.replace(
+                smoke_config(a), dtype=d)
+            losses[dtype] = np.array(t_train.run(
+                "starcoder2-3b", smoke=True, steps=LM_EXAMPLE_LOSS_STEPS,
+                batch=8, seq=128, ckpt_dir=None, log_every=1_000,
+                device="cpu"))
+    finally:
+        t_train.smoke_config = real
+        torch.set_num_threads(threads)
+    spread = float(np.abs(losses["bfloat16"] - losses["float32"]).max())
+    return max(2e-3, 2 * spread), spread
 
 
 def phase_examples():
     """``examples/torch_*.py`` as a user runs them, on the card (their
-    default device), and again with ``--device cpu``, all six at once: each
-    exits 0, and every line a run prints (timings and a process id masked)
-    is the same on the card as on the CPU."""
+    default device), and again with ``--device cpu``, all eight at once:
+    each exits 0, and every line a run prints (timings and a process id
+    masked; the LM example's losses, rates, acceptance and model calls) is
+    the same on the card as on the CPU.  The LM example (trains 300 steps
+    into a fresh checkpoint directory of its own, then serves with the
+    drafter): its loss falls on both (the example asserts it), the card's
+    model calls are at most plain greedy's, and its first logged loss on
+    the card is within ``lm_example_loss_bound`` of the CPU's.  Starts the
+    eight runs and returns a function that waits for them and checks them:
+    phase parity's equality checks (no timing) run on the host meanwhile."""
     import re
     import threading
     root = Path(__file__).resolve().parent
@@ -4811,8 +4930,9 @@ def phase_examples():
         t0 = time.perf_counter()
         proc = subprocess.run(args + (["--device", "cpu"] if device == "cpu"
                                       else []),
-                              cwd=root, env=env, capture_output=True,
-                              text=True, timeout=600)
+                              cwd=root, env=dict(env, OMP_NUM_THREADS=(
+                                  EXAMPLE_THREADS.get(name, "2"))),
+                              capture_output=True, text=True, timeout=900)
         done[(name, device)] = time.perf_counter() - t0
         runs[(name, device)] = proc
 
@@ -4821,6 +4941,17 @@ def phase_examples():
                for name in EXAMPLES for device in ("cuda", "cpu")]
     for t in threads:
         t.start()
+    t_bound = time.perf_counter()
+    loss_bound, loss_spread = lm_example_loss_bound()
+    t_bound = time.perf_counter() - t_bound
+    return lambda: finish_examples(threads, t0, runs, done, loss_bound,
+                                   loss_spread, t_bound)
+
+
+def finish_examples(threads, t0, runs, done, loss_bound, loss_spread,
+                    t_bound):
+    """Wait for phase examples' runs; every check on their output."""
+    import re
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
@@ -4842,11 +4973,45 @@ def phase_examples():
                                  f"lines on the card than on the CPU: {diff}")
         say(f"[examples] torch_{name}.py: exit 0 on the card in "
             f"{done[(name, 'cuda')]:.1f} s and on the CPU in "
-            f"{done[(name, 'cpu')]:.1f} s (all six at once); its "
+            f"{done[(name, 'cpu')]:.1f} s (all eight at once); its "
             f"{len(card)} lines equal")
         for line in runs[(name, "cuda")].stdout.splitlines():
             say(f"[examples]   {line}")
-    say(f"[examples] three examples on the card and on the CPU in {wall:.1f} s")
+    lm_example_checks(runs, loss_bound, loss_spread, t_bound)
+    say(f"[examples] {len(EXAMPLES)} examples on the card and on the CPU in "
+        f"{wall:.1f} s (phase parity's equality checks beside them)")
+
+
+def lm_example_checks(runs, bound, spread, bound_s):
+    """The LM example's numbers the masks hid: the card's model calls at
+    most plain greedy's; its first logged loss against the CPU's."""
+    import re
+    out = {d: runs[("lm_speculative_serve", d)].stdout for d in ("cuda", "cpu")}
+    calls = re.search(r"model calls (\d+) vs (\d+) plain", out["cuda"])
+    if calls is None or int(calls.group(2)) != LM_EXAMPLE_PLAIN_CALLS or \
+            int(calls.group(1)) > LM_EXAMPLE_PLAIN_CALLS:
+        raise AssertionError(f"the LM example's model calls on the card: "
+                             f"{calls and calls.group(0)}")
+    first = {}
+    for d, text in out.items():
+        m = re.search(rf"step +{LM_EXAMPLE_LOSS_STEPS} loss (\S+)", text)
+        if m is None:
+            raise AssertionError(f"the LM example on {d} logged no step "
+                                 f"{LM_EXAMPLE_LOSS_STEPS} loss")
+        first[d] = float(m.group(1))
+    diff = abs(first["cuda"] - first["cpu"])
+    if diff > bound:
+        raise AssertionError(f"the LM example's step-{LM_EXAMPLE_LOSS_STEPS} "
+                             f"loss: card {first['cuda']} vs CPU "
+                             f"{first['cpu']}, |difference| {diff} > bound "
+                             f"{bound}")
+    say(f"[examples] torch_lm_speculative_serve.py: model calls on the card "
+        f"{calls.group(1)} <= plain greedy's {LM_EXAMPLE_PLAIN_CALLS}; its "
+        f"step-{LM_EXAMPLE_LOSS_STEPS} loss {first['cuda']:.4f} on the card, "
+        f"{first['cpu']:.4f} on the CPU: |difference| {diff:.4f} <= bound "
+        f"{bound:.4f} (max(2e-3, 2 x the CPU's own largest |bfloat16 - "
+        f"float32| loss over {LM_EXAMPLE_LOSS_STEPS} steps, {spread:.4f}), "
+        f"measured in process in {bound_s:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5040,15 +5205,21 @@ def equal_states(label, a, b):
             raise AssertionError(f"{label}: leaf {name} differs")
 
 
-#: batches of the chains held kernel-vs-plain in phase parity: the plain
-#: chain cut from 32 for the script's time; the dst-hash chain keeps 32
-#: (24 reach no rebuild of its row hashes on the card)
+#: batches of the chains held kernel-vs-plain in phase parity, at most: the
+#: plain chain cut from 32 for the script's time; the dst-hash chain keeps
+#: 32, room for its stream to reach a rebuild of its row hashes.  Each
+#: stream ends early once past its mid-stream decay every counter it must
+#: exercise has fired (a cut of depth, ``parity_chain``)
 PARITY_BATCHES, PARITY_HASH_BATCHES = 16, 32
 PARITY_SHARDED_BATCHES = 6     # the sharded chain and the reshard, from 8
                                # (a decay_ fires at the fifth)
 
 
-def phase_parity(seed, batches=PARITY_BATCHES):
+def phase_parity(seed, batches=PARITY_BATCHES, beside=None):
+    """The whole path kernels against plain versions at a small
+    configuration.  ``beside``: called once the equality checks are done
+    and before the timed kernel entries of ``parity_many_shards`` (phase
+    examples' processes run beside the checks, and end first)."""
     from repro_torch import core
     cfg = core.MCConfig(num_rows=512, capacity=32, sort_passes=1,
                         max_new_per_batch=192, decay_block_rows=128,
@@ -5071,6 +5242,8 @@ def phase_parity(seed, batches=PARITY_BATCHES):
         t0 = time.perf_counter()
         part()
         took(f"parity {name}", t0)
+    if beside is not None:
+        beside()
     t0 = time.perf_counter()
     entries = parity_many_shards(seed)
     took("parity many shards", t0)
@@ -5080,7 +5253,10 @@ def phase_parity(seed, batches=PARITY_BATCHES):
 def parity_chain(seed, cfg_k, batches, label):
     """One chain stream, once with the CUDA kernels and once with the plain
     versions: every state leaf equal after every batch, functional and
-    owner calls (with their row flags), fused and unfused answers equal."""
+    owner calls (with their row flags), fused and unfused answers equal.
+    At most ``batches`` batches: the stream stops after the first batch
+    past its mid-stream ``decay`` at which every counter it must exercise
+    (and, with the dst hash, a held tombstone) has fired."""
     from repro_torch import convert, core
     cfg_p = dataclasses.replace(cfg_k, impl="ref")
     unfused = [dataclasses.replace(c, fused_query=False, query_chunks=ch)
@@ -5094,6 +5270,15 @@ def parity_chain(seed, cfg_k, batches, label):
            for cfg in (cfg_k, cfg_p)}
     nodes, degree, size = 700, 96, 512
     most_tombs = 0
+    need = ["deferred_new", "evictions", "dropped_rows", "decay_steps"]
+    if cfg_k.use_dst_hash:
+        need.append("dh_rebuilds")
+
+    def exercised():
+        stats = core.counter_stats(sk)
+        return all(stats[key] > 0 for key in need) and (
+            most_tombs > 0 or not cfg_k.use_dst_hash)
+
     for i in range(batches):
         src = randint(gen, -2, nodes, (size,))          # a few negative ids
         hot = randint(gen, 0, 2, (size,)) == 1          # half on 16 hot nodes:
@@ -5133,17 +5318,18 @@ def parity_chain(seed, cfg_k, batches, label):
                     fused)
             compare(f"{label} unfused query_topk {cfg_u.impl} batch {i}",
                     core.query_topk(st, q, cfg=cfg_u, k=5), fused_top)
+        if i > batches // 2 and exercised():
+            break
     stats = core.counter_stats(sk)
-    say(f"[{label}] {batches} batches at {cfg_k.num_rows}x{cfg_k.capacity}"
+    say(f"[{label}] {i + 1} of up to {batches} batches at "
+        f"{cfg_k.num_rows}x{cfg_k.capacity}"
         + (f", row hashes of {cfg_k.resolved_dst_table_size()} lanes"
            if cfg_k.use_dst_hash else "")
         + f": all {len(convert.LEAF_NAMES)} state leaves and all query "
         f"answers, fused and unfused, equal after every batch, and the owner "
         f"calls' states and row flags ({int(own['cuda'][1].sum())} rows "
         f"flagged) too; counters {stats}; most tombstones held {most_tombs}")
-    need = ["deferred_new", "evictions", "dropped_rows", "decay_steps"]
     if cfg_k.use_dst_hash:
-        need.append("dh_rebuilds")
         if most_tombs <= 0:
             raise AssertionError(f"{label}: no decay ever left a tombstone")
     for key in need:
@@ -5231,8 +5417,9 @@ def parity_drafter(seed, batches=24):
 #: launcher's default arch) and one of each family of queue A 8d that fits
 #: one 80 GB card (moonshot-v1-16b-a3b, 113.6 GB of float32, does not)
 LM_ARCHS = ("qwen2-7b", "deepseek-moe-16b", "mamba2-130m", "recurrentgemma-9b")
-LM_LAUNCHER_ARCH = "deepseek-moe-16b"   # the launcher check: the largest
-LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 4, 2, 64, 32
+LM_LAUNCHER_ARCH = "mamba2-130m"   # the launcher check: the smallest, a cut
+                                   # of depth (every arch is served in process)
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 3, 2, 64, 32   # 3: a cut of depth
 LM_DRAFT = 4             # the reference launcher's --draft-len
 LM_LOGIT_TOL = {          # |card - CPU| of a logit at depth 2, by dtype; a
     "float32": 0.01,       # wrong computation moves a logit by about its
@@ -5310,10 +5497,10 @@ def lm_serve_config(draft_len):
 
 
 def lm_prompts(seed, vocab):
-    """R prompts of 2 x 64 tokens: a random one, the same one again (the
-    drafter has learned its continuation: drafts accepted whole), that one
-    with its last 8 tokens replaced (drafts accepted in part), and a new
-    random one."""
+    """LM_REQUESTS prompts of 2 x 64 tokens: a random one, the same one
+    again (the drafter has learned its continuation: drafts accepted
+    whole), that one with its last 8 tokens replaced (drafts accepted in
+    part); a new random fourth one is left out, a cut of depth."""
     rng = np.random.default_rng(seed)
 
     def draw(shape):
@@ -5322,7 +5509,8 @@ def lm_prompts(seed, vocab):
     first = draw((LM_BATCH, LM_PROMPT))
     edited = first.copy()
     edited[:, -8:] = draw((LM_BATCH, 8))
-    return [first, first.copy(), edited, draw((LM_BATCH, LM_PROMPT))]
+    return [first, first.copy(), edited,
+            draw((LM_BATCH, LM_PROMPT))][:LM_REQUESTS]
 
 
 def lm_serve(model, params, draft_len, prompts):
@@ -5546,7 +5734,7 @@ def lm_against_cpu(arch, seed):
 
 
 def lm_launcher():
-    """``python -m repro_torch.launch.serve --arch deepseek-moe-16b`` as a
+    """``python -m repro_torch.launch.serve --arch LM_LAUNCHER_ARCH`` as a
     user runs it (2 requests, the launcher's other defaults), on the card:
     exit 0 and its three lines."""
     import re
@@ -5635,6 +5823,7 @@ def lm_arch(arch, seed, card, profile, warm):
         f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms; a {LM_DRAFT}-token "
         f"extension == {LM_DRAFT} decode steps, logits and caches bit for "
         f"bit ({card})")
+    lm_roofline(model, params, prompts[0], model_ms["decode_step"], card)
     if profile:
         cur = torch.as_tensor(toks[0, :, :1], device="cuda")
         _, caches = model.prefill(params, {"tokens": torch.as_tensor(
@@ -5681,9 +5870,55 @@ def lm_arch(arch, seed, card, profile, warm):
     return launches, engine, histories, ctx, draft
 
 
+def device_busy_ms(fn, rounds=3):
+    """Device milliseconds per ``fn()`` by torch.profiler (the kernels'
+    device time summed over ``rounds`` calls), or None when the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(ev, "self_device_time_total", 0)
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / rounds if busy_us > 0 else None
+
+
+def lm_roofline(model, params, prompt, latency_ms, card):
+    """The decode step's roofline at this phase's batch and context
+    (``launch/roofline.py``): the time of its memory floor (the weights
+    read once in bfloat16 and the cache of ``LM_PROMPT + LM_NEW``
+    positions) beside the step's measured device time and latency, and the
+    floor's share of each."""
+    from repro_torch.launch import cells, roofline
+    cfg = model.cfg
+    cell = cells.Cell(cfg.name, "lm_decode", "decode", LM_BATCH,
+                      LM_PROMPT + LM_NEW)
+    floor_ms = roofline.memory_floor_bytes(cfg, cell) / roofline.HBM_BW * 1e3
+    _, caches = model.prefill(params, {"tokens": torch.as_tensor(
+        prompt, device="cuda")}, LM_PROMPT + LM_NEW + 8)
+    cur = torch.zeros((LM_BATCH, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32,
+                     device="cuda")
+    dev_ms = device_busy_ms(lambda: model.decode_step(params, caches, cur,
+                                                      pos))
+    del caches
+    dev = ("not measured (no device record)" if dev_ms is None else
+           f"{dev_ms:.3f} ms (floor share {floor_ms / dev_ms:.4f})")
+    say(f"[lm] {cfg.name} roofline of a decode step (batch {LM_BATCH}, "
+        f"context {cell.seq}): memory floor "
+        f"{roofline.memory_floor_bytes(cfg, cell) / 1e9:.3f} GB = "
+        f"{floor_ms:.3f} ms at {roofline.HBM_BW / 1e12:g} TB/s; device "
+        f"{dev} by torch.profiler over 3 steps; latency {latency_ms:.3f} ms "
+        f"(floor share {floor_ms / latency_ms:.4f}) ({card})")
+
+
 def phase_lm(seed, card, profile=False):
     """The LM serving path at full width for each of LM_ARCHS: the
-    launcher as a user runs it (``deepseek-moe-16b``); each arch served
+    launcher as a user runs it (``mamba2-130m``); each arch served
     plain and speculative (``lm_arch``), its model against the CPU at a
     small depth; the drafter's kernels at the path's shapes (the first
     arch's drafter and histories), tagged ``[lm]``, their launches the sum
@@ -5857,7 +6092,7 @@ def lm_kernel_entries(engine, histories, ctx, draft, launches, seed, vocab):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "mamba2-130m"     # the reference launcher's default arch
-TRAIN_STEPS, TRAIN_RESTART_AT = 20, 10
+TRAIN_STEPS, TRAIN_RESTART_AT = 12, 6   # a cut of depth: 20, 10 before
 TRAIN_GRAD_TOL = 2e-3          # |card - CPU| of a gradient, per leaf, as a
                                # share of its largest |gradient| (the CPU
                                # tests' bound against jax.grad)
@@ -5869,54 +6104,81 @@ TRAIN_GRAD_BATCH = {TRAIN_ARCH: 8, "whisper-base": 2}
 TRAIN_GRAD_TOKENS = 128        # tokens a sequence (the launcher's --seq)
 
 
-def train_launcher(runs):
+def train_launcher(runs, log_every=10):
     """``python -m repro_torch.launch.train --arch mamba2-130m`` with the
     reference launcher's defaults (``--batch 8 --seq 128``) as a user runs
     it, once per ``(label, steps, ckpt_dir)`` of ``runs``, all at the same
-    time: their lines, and the first and last losses each printed."""
-    import re
+    time, a loss printed every ``log_every`` steps: their lines, the first
+    and last losses each printed, and the median seconds a step between two
+    printed steps, on the host clock at each line's arrival (``None`` with
+    fewer than two printed steps).  With ``log_every=1`` that is the median
+    step after the process's first: a step's time without the start-up."""
+    import threading
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         TRAIN_ARCH, "--steps", str(steps), "--ckpt-dir", ckpt_dir],
+         TRAIN_ARCH, "--steps", str(steps), "--ckpt-dir", ckpt_dir,
+         "--log-every", str(log_every)],
         env=dict(os.environ, PYTHONPATH=str(repo / "src")), cwd=repo,
         text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         for _, steps, ckpt_dir in runs]
-    losses = []
-    for (label, _, _), proc in zip(runs, procs):
+
+    def read(stream, into, timed):
+        for line in stream:
+            into.append((time.perf_counter(), line) if timed else line)
+
+    outs, errs = [[] for _ in procs], [[] for _ in procs]
+    readers = [threading.Thread(target=read, args=args, daemon=True)
+               for proc, out, err in zip(procs, outs, errs)
+               for args in ((proc.stdout, out, True),
+                            (proc.stderr, err, False))]
+    for r in readers:
+        r.start()
+    results = []
+    for (label, _, _), proc, out, err in zip(runs, procs, outs, errs):
         try:
-            out, err = proc.communicate(timeout=600)
+            proc.wait(timeout=600)
         finally:
             proc.kill()
-        for line in out.splitlines():
-            say(f"[train] launcher {label}: {line}")
+        for r in readers:
+            r.join(timeout=10)
+        for _, line in out:
+            say(f"[train] launcher {label}: {line.rstrip()}")
         say(f"[train] launcher {label}: exit {proc.returncode}, "
             f"{time.perf_counter() - t0:.1f} s after the start")
-        m = re.search(r"first loss (\S+) -> last loss (\S+)", out)
+        text = "".join(line for _, line in out)
+        m = re.search(r"first loss (\S+) -> last loss (\S+)", text)
         if proc.returncode != 0 or m is None:
             raise AssertionError(f"the train launcher failed "
-                                 f"({proc.returncode}): {out[-2000:]} "
-                                 f"{err[-3000:]}")
-        losses.append((float(m.group(1)), float(m.group(2))))
-    return losses
+                                 f"({proc.returncode}): {text[-2000:]} "
+                                 f"{''.join(err)[-3000:]}")
+        at = [t for t, line in out if re.match(r"step\s+\d+ loss", line)]
+        gaps = [(b - a) / log_every for a, b in zip(at, at[1:])]
+        results.append((float(m.group(1)), float(m.group(2)),
+                        statistics.median(gaps) if gaps else None))
+    return results
 
 
 def train_restart(card):
-    """The launcher at full width: 20 steps in one run and, beside it, a run
-    to step 10 that checkpoints there; then a second process that resumes
-    that to step 20 (alone: its s/step is the launcher's own); the two final
+    """The launcher at full width: TRAIN_STEPS steps in one run and, beside
+    it, a run to TRAIN_RESTART_AT that checkpoints there; then a second
+    process that resumes that (alone: its s/step is the launcher's own);
+    the two final
     checkpoints equal leaf for leaf, bit for bit."""
     import shutil
     root = persist_dir(3 * 3 * 4 * 130_000_000, "train checkpoints")
     try:
         whole, cut = os.path.join(root, "whole"), os.path.join(root, "cut")
-        (first, last), _ = train_launcher([
+        (first, last, _), _ = train_launcher([
             (f"{TRAIN_STEPS} steps", TRAIN_STEPS, whole),
             (f"to step {TRAIN_RESTART_AT}", TRAIN_RESTART_AT, cut)])
         if not (np.isfinite(first) and np.isfinite(last)):
             raise AssertionError(f"train: losses {first} -> {last}")
-        train_launcher([(f"resumed to step {TRAIN_STEPS}", TRAIN_STEPS, cut)])
+        (_, _, s_step), = train_launcher(
+            [(f"resumed to step {TRAIN_STEPS}", TRAIN_STEPS, cut)],
+            log_every=1)
+        train_mfu(s_step, card)
         step = f"step_{TRAIN_STEPS:08d}"
         a = np.load(os.path.join(whole, step, "arrays.npz"))
         b = np.load(os.path.join(cut, step, "arrays.npz"))
@@ -5937,6 +6199,28 @@ def train_restart(card):
             f"{last:.4f} ({card})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def train_mfu(s_step, card):
+    """The launcher's step against the card's peak: ``model_flops`` of a
+    step (6·N·D at the launcher's batch 8 x 128, ``launch/roofline.py``)
+    over 989 TFLOP/s, and that time's share of the measured s/step (the
+    resumed run's, alone on the card: the median of its steps after its
+    first, each timed by its printed line's arrival): the model FLOPs
+    utilisation."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cells, roofline
+    cfg = get_config(TRAIN_ARCH)
+    cell = cells.Cell(TRAIN_ARCH, "launcher", "train", 8, TRAIN_GRAD_TOKENS)
+    flops = roofline.model_flops(cfg, cell)
+    ideal_s = flops / roofline.PEAK_FLOPS_BF16
+    say(f"[train] {TRAIN_ARCH} launcher mfu: model_flops {flops:.4e} a step "
+        f"(batch 8 x {TRAIN_GRAD_TOKENS}) = {ideal_s * 1e3:.4f} ms at "
+        f"{roofline.PEAK_FLOPS_BF16 / 1e12:g} TFLOP/s; measured "
+        + (f"{s_step:.4f} s/step (median of the resumed run's steps after "
+           f"its first): mfu {ideal_s / s_step:.6f}"
+           if s_step else "no s/step printed: mfu not measured")
+        + f" ({card})")
 
 
 def train_whisper(seed, card):
@@ -6087,7 +6371,7 @@ def model_params_cpu(params):
 
 def phase_train(seed, card):
     """The training path at full width: the launcher on ``mamba2-130m``
-    (20 steps, and a stop at step 10 resumed in another process, equal to
+    (12 steps, and a stop at step 6 resumed in another process, equal to
     the uninterrupted run bit for bit), ``whisper-base`` through
     ``make_train_step`` with microbatches and compression (its int8 codes
     == the CPU's on the same gradients), and depth-2 gradients card vs
@@ -6157,7 +6441,7 @@ def main(argv=None):
     ap.add_argument("--warm-batches", type=int, default=4400,
                     help="update batches of the main path's warm-up; the "
                          "drafter's warm-up observes a quarter as many, "
-                         "phase persist's chain half, phase sharded 3/8")
+                         "phase persist's chain half, phase sharded 1/8")
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="after the main, drafter and sharded phases, print "
@@ -6189,13 +6473,15 @@ def main(argv=None):
         seconds[name] = round(now - last[0], 1)
         last[0] = now
 
-    card = phase_device()
+    card, dryrun_done = phase_device()
     lap("device")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     kernels = []
     if "kernels" in phases:
         small_kernel_checks(gen)
+    dryrun_done()   # the dry run's processes ran on the host meanwhile
+    if "kernels" in phases:
         lap("kernels")
     if "main" in phases:
         state, cfg, traffic, launches, known = phase_main(
@@ -6293,12 +6579,13 @@ def main(argv=None):
     if "soak" in phases:
         kernels += phase_soak(args.seed)
         lap("soak")
-    if "examples" in phases:
-        phase_examples()
-        lap("examples")
+    examples_done = phase_examples() if "examples" in phases else None
     if "parity" in phases:
-        kernels += phase_parity(args.seed)
-        lap("parity")
+        kernels += phase_parity(args.seed, beside=examples_done)
+        lap("examples, parity" if examples_done else "parity")
+    elif examples_done:
+        examples_done()
+        lap("examples")
     torch.cuda.synchronize()
     say(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s; "
         f"seconds by phase {seconds}")

@@ -31,7 +31,13 @@ restored — fails the soak.
 Workers run on the GPU unless ``--device cpu`` is given (no fallback: with
 no GPU they fail as ``ShardedEngine(device=None)`` does).  The parent builds
 the CUDA kernels once before the first worker starts, so every worker loads
-the same library (``kernels/_build.py`` builds under a lock).  The kills are
+the same library (``kernels/_build.py`` builds under a lock).  Each life's
+worker but the first is started while the life before it runs and waits,
+warmed (the imports, the CUDA context, the kernels loaded), until that life
+is dead and verified: a worker's start-up is off the soak's critical path.
+The first life's worker starts cold, so its spawn to ``READY``
+(``cold_start_s``) is a whole start: imports, CUDA context, kernels and
+engine.  The kills are
 process kills: the page cache survives them, so the soak cannot see a lost
 fsync (``tests/test_torch_snapshot_commit.py`` holds the commit order).
 
@@ -121,8 +127,22 @@ def worker_main(args) -> None:
     """The killable serving loop: restore (or lay down the step-0 base
     snapshot), then observe deterministic batches forever, one WAL record
     per step, printing ``STEP <seq>`` after each durable+applied batch.
-    ``BOOT`` reports the seconds the imports and the engine took (the CUDA
-    context included on the GPU), ``RESTORED`` those of the restore."""
+    First the worker imports the port, makes the CUDA context and loads the
+    kernels, prints ``WARM`` with the wall clock's time and waits for a ``GO`` line on its standard
+    input before it touches the persisted state: the parent starts the next
+    life's worker while the current life runs, and lets it go once that
+    life is dead and verified.  ``BOOT`` reports the seconds the engine
+    took after the ``GO``, ``RESTORED`` those of the restore."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import engine  # noqa: F401  (the imports)
+    if args.device == "cuda":
+        torch.zeros(1, device="cuda")   # the CUDA context
+        _build.load()
+    print(f"WARM at={time.time():.6f}", flush=True)
+    if sys.stdin.readline().strip() != "GO":
+        return   # the parent ended the soak: this life never runs
     t0 = time.perf_counter()
     eng = _build_engine(args.dir, args.rows,
                         snapshot_every=args.snapshot_every, device=args.device)
@@ -156,6 +176,9 @@ def _spawn_worker(workdir: str, rows: int, batch: int, seed: int,
                   kill_hit: int, telemetry: bool = False,
                   poison: bool = False,
                   device: str = "cuda") -> subprocess.Popen:
+    """A worker for one life: it warms up and waits for :func:`_run_life`
+    to send ``GO`` (``worker_main``); ``spawned_at`` is its start on the
+    wall clock."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(REPO, "src"), env.get("PYTHONPATH", "")])
@@ -176,25 +199,39 @@ def _spawn_worker(workdir: str, rows: int, batch: int, seed: int,
         env["MCQ_FAILPOINTS"] = f"{kill_site}={action}@nth:{kill_hit}"
     else:
         env.pop("MCQ_FAILPOINTS", None)
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.chaos.soak", "--worker",
          "--dir", workdir, "--rows", str(rows), "--batch", str(batch),
          "--seed", str(seed), "--snapshot-every", str(snapshot_every),
          "--device", device],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, text=True)
+        cwd=REPO, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True)
+    proc.spawned_at = time.time()
+    return proc
 
 
 def _run_life(proc: subprocess.Popen, kill_after_steps: int) -> dict:
-    """Read worker progress until the kill moment (or the armed failpoint
-    fires); returns what the parent observed about the life: its steps,
-    whether a failpoint killed it, its exit code, and the seconds from the
-    spawn to ``READY`` (``start_s``) with the worker's own ``engine_s``
-    and ``restore_s`` inside them."""
+    """Let the warmed worker go, then read its progress until the kill
+    moment (or the armed failpoint fires); returns what the parent observed
+    about the life: its steps, whether a failpoint killed it, its exit
+    code, the seconds from its spawn to its ``WARM`` (``warm_s``, stamped
+    by the worker: its imports, CUDA context and kernels, not its wait for
+    the ``GO``), from the ``GO`` to ``READY``
+    (``start_s``) with the worker's own ``engine_s`` and ``restore_s``
+    inside them, and from its spawn to ``READY`` (``ready_s``: a cold start
+    when the worker was spawned just before this call)."""
+    times = {"warm_s": None, "start_s": None, "ready_s": None,
+             "engine_s": None, "restore_s": None}
+    for line in proc.stdout:   # the imports and the CUDA context first
+        if line.startswith("WARM "):
+            times["warm_s"] = float(line.split("=")[1]) - proc.spawned_at
+            break
     t0 = time.perf_counter()
+    proc.stdin.write("GO\n")
+    proc.stdin.flush()
     steps_seen = 0
     armed_death = False
     deadline_steps = kill_after_steps
-    times = {"start_s": None, "engine_s": None, "restore_s": None}
     for line in proc.stdout:
         if line.startswith("STEP "):
             steps_seen += 1
@@ -202,6 +239,7 @@ def _run_life(proc: subprocess.Popen, kill_after_steps: int) -> dict:
                 break
         elif line.startswith("READY "):
             times["start_s"] = time.perf_counter() - t0
+            times["ready_s"] = time.time() - proc.spawned_at
         elif line.startswith(("BOOT ", "RESTORED ")):
             for field in line.split()[1:]:
                 key, _, value = field.partition("=")
@@ -213,6 +251,7 @@ def _run_life(proc: subprocess.Popen, kill_after_steps: int) -> dict:
         proc.send_signal(signal.SIGKILL)
     proc.wait()
     proc.stdout.close()
+    proc.stdin.close()
     return {"steps_seen": steps_seen, "armed_death": armed_death,
             "exit": proc.returncode, **times}
 
@@ -353,19 +392,31 @@ def run_soak(kills: int, *, rows: int = 256, batch: int = 128, seed: int = 0,
     rows_out, all_ok = [], True
     recoveries = []
     n_poison = 0
+    lives = []   # (site, kill_hit, kill_after), drawn in the same order
+    for k in range(kills):
+        site = KILL_MODES[k % len(KILL_MODES)]
+        kill_hit = int(rng.integers(1, 8))
+        kill_after = int(rng.integers(min_steps, max_steps + 1))
+        if site is not None:
+            kill_after = MAX_STEPS_PER_LIFE   # fallback external kill
+        lives.append((site, kill_hit, kill_after))
+
+    def spawn(k):
+        site, kill_hit, _ = lives[k]
+        poison = telemetry and site == "wal.append.write"
+        return _spawn_worker(workdir, rows, batch, seed, snapshot_every,
+                             site, kill_hit, telemetry=telemetry,
+                             poison=poison, device=device)
+
+    ahead = []   # the next life's worker, warming while this life runs
     try:
         for k in range(kills):
-            site = KILL_MODES[k % len(KILL_MODES)]
-            kill_hit = int(rng.integers(1, 8))
-            kill_after = int(rng.integers(min_steps, max_steps + 1))
-            if site is not None:
-                kill_after = MAX_STEPS_PER_LIFE   # fallback external kill
+            site, _, kill_after = lives[k]
             poison = telemetry and site == "wal.append.write"
             n_poison += int(poison)
-            proc = _spawn_worker(workdir, rows, batch, seed,
-                                 snapshot_every, site, kill_hit,
-                                 telemetry=telemetry, poison=poison,
-                                 device=device)
+            proc = ahead.pop() if ahead else spawn(k)
+            if k + 1 < kills:
+                ahead.append(spawn(k + 1))
             life = _run_life(proc, kill_after)
             t_rec, durable, replayed, bad, t_oracle = _verify_recovery(
                 workdir, rows, batch, seed, device=device)
@@ -408,11 +459,17 @@ def run_soak(kills: int, *, rows: int = 256, batch: int = 128, seed: int = 0,
                             f"{max(recoveries) * 1e3:.1f} ms, "
                             f"all bit-exact={all_ok}"),
                 "kills": len(recoveries),
+                # life 0's worker was spawned cold, right before its life
+                "cold_start_s": rows_out[0]["ready_s"],
                 "mean_recovery_us": round(float(np.mean(recoveries)) * 1e6, 1),
                 "max_recovery_us": round(float(np.max(recoveries)) * 1e6, 1),
                 "bitexact": all_ok,
             })
     finally:
+        for proc in ahead:   # a soak that stopped early: its worker ends
+            proc.stdin.close()
+            proc.wait()
+            proc.stdout.close()
         if owns_dir:
             shutil.rmtree(workdir, ignore_errors=True)
     return {"rows": rows_out, "ok": all_ok}

@@ -30,7 +30,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -220,31 +220,39 @@ def _put(arr: np.ndarray, like, device, shared: set, bases: dict):
     return out.copy_(host)
 
 
-def restore(tree_like: PyTree, directory: str, step: Optional[int] = None,
-            device=None) -> Tuple[PyTree, int]:
-    """Restore into the structure of ``tree_like``: each leaf on ``device``
-    when given, else on the device of the matching leaf of ``tree_like`` (the
-    GPU for a leaf that is not a tensor, an error without one);
-    leaves that share a storage there share a new one (see the module
-    docstring).  ``tree_like`` itself is not written."""
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {directory}")
-    path = os.path.join(directory, f"step_{step:08d}")
-    failpoint("snapshot.restore_read", path=path, step=step)
+def read_arrays(path: str) -> Tuple[dict, Dict[str, np.ndarray]]:
+    """Read a step's manifest and each of its arrays once, from the disk
+    into host memory: ``(manifest, {key: array})``.  A torn manifest, a
+    missing or truncated npz, or an array whose shape is not the manifest's
+    raises."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    data = np.load(os.path.join(path, "arrays.npz"))
-    by_key = {k: data[f"a{i}"] for i, k in enumerate(manifest["keys"])}
+    arrays = {}
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for i, (key, shape) in enumerate(zip(manifest["keys"],
+                                             manifest["shapes"])):
+            arr = data[f"a{i}"]   # the whole read: a truncated zip raises
+            if tuple(arr.shape) != tuple(shape):
+                raise ValueError(f"{path}: {key} has shape {arr.shape}, "
+                                 f"the manifest says {tuple(shape)}")
+            arrays[key] = arr
+    return manifest, arrays
 
+
+def place(tree_like: PyTree, arrays: Dict[str, np.ndarray],
+          device=None) -> PyTree:
+    """The arrays of :func:`read_arrays` in the structure of ``tree_like``:
+    each leaf on ``device`` when given, else on the device of the matching
+    leaf of ``tree_like`` (the GPU for a leaf that is not a tensor, an
+    error without one); leaves that share a storage there share a new one
+    (see the module docstring).  ``tree_like`` itself is not written."""
     keys, leaves, rebuild = _paths_and_leaves(tree_like)
     shared, bases = _shared_storages(leaves), {}
     out = []
     for k, like in zip(keys, leaves):
-        if k not in by_key:
+        if k not in arrays:
             raise KeyError(f"checkpoint missing leaf {k}")
-        arr = by_key[k]
+        arr = arrays[k]
         if tuple(arr.shape) != tuple(np.shape(like)):
             raise ValueError(f"{k}: shape {arr.shape} != {tuple(np.shape(like))}")
         # cast only within a kind (f64 ckpt -> f32 leaf, i64 -> i32): a
@@ -262,4 +270,18 @@ def restore(tree_like: PyTree, directory: str, step: Optional[int] = None,
                 f"{like_dtype} without changing kind")
         out.append(_put(arr.astype(like_dtype, copy=False), like, device,
                         shared, bases))
-    return rebuild(out), step
+    return rebuild(out)
+
+
+def restore(tree_like: PyTree, directory: str, step: Optional[int] = None,
+            device=None) -> Tuple[PyTree, int]:
+    """Restore into the structure of ``tree_like`` (see :func:`place`),
+    each array read once (:func:`read_arrays`)."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    failpoint("snapshot.restore_read", path=path, step=step)
+    _, arrays = read_arrays(path)
+    return place(tree_like, arrays, device), step

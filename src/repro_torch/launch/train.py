@@ -10,6 +10,7 @@ trains ``mamba2-130m`` at full width on the GPU; ``--smoke --device cpu``
 trains its reduced config on the CPU.  Counterpart of
 ``repro.launch.train``, with its flags and defaults, and these
 differences: there is no mesh, so ``--model-axis`` other than 1 is refused;
+``--log-every`` sets ``run``'s ``log_every`` from the command line;
 the checkpoint (``checkpoint.ckpt``, the reference's files and key strings)
 restores onto the device; and a resumed run continues the data stream
 where the checkpoint left it (the reference's restarts it at its first
@@ -45,8 +46,9 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         compress: bool = False, model_axis: int = 1, log_every: int = 10,
         device=None):
     """Train ``steps`` steps on ``device`` (default: the GPU; an error
-    without one), the parameters random from seed 0.  Returns the losses
-    of the steps this call ran."""
+    without one), the parameters random from seed 0, drawn on the CPU so
+    that every device starts from the same ones.  Returns the losses of
+    the steps this call ran."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     if cfg.encoder_layers or cfg.frontend == "patch":
         raise SystemExit(f"{arch}: the token stream feeds no frames or patch "
@@ -69,8 +71,10 @@ def run(arch: str, smoke: bool, steps: int, batch: int, seq: int,
         state, start = ckpt.restore(like, ckpt_dir)
         print(f"restored checkpoint at step {start}")
     else:
-        state = init_state(model, torch.Generator(device=dev).manual_seed(0),
-                           tcfg, device=dev)
+        # drawn on the CPU and moved: the same parameters on any device,
+        # as the reference's jax.random.key(0) gives
+        state = init_state(model, torch.Generator().manual_seed(0), tcfg,
+                           device=dev)
 
     stream = token_stream(cfg.vocab_size, batch, seq, seed=1)
     for _ in range(start):   # the batches the checkpoint has seen
@@ -115,12 +119,15 @@ def main():
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print a step's loss every this many steps")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' for the CPU)")
     args = ap.parse_args()
     losses = run(args.arch, args.smoke, args.steps, args.batch, args.seq,
                  args.ckpt_dir, args.ckpt_every, args.microbatches,
-                 args.compress_grads, args.model_axis, device=args.device)
+                 args.compress_grads, args.model_axis, args.log_every,
+                 device=args.device)
     print(f"first loss {losses[0]:.4f} -> last loss {losses[-1]:.4f}")
 
 

@@ -136,11 +136,11 @@ def _flash_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_chunk = t
     n_chunks = max(1, t // kv_chunk)
     # one chunk is the whole of T, as in the reference (whisper's 1,500
-    # encoder frames at kv_chunk 1,024)
+    # encoder frames at kv_chunk 1,024); past it, chunks of kv_chunk and a
+    # last one that takes the rest: a ``local_attn`` ring of window +
+    # STEP_ROWS positions (2,056 for recurrentgemma) is no multiple of
+    # 1,024, where the reference's ring of the window is (queue C 30)
     ck = kv_chunk if n_chunks > 1 else t
-    if t % n_chunks or n_chunks * ck != t:
-        raise ValueError(f"{t} KV positions do not split into chunks of "
-                         f"{kv_chunk}")
 
     m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -148,11 +148,13 @@ def _flash_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, sq, kvh, g, hd), dtype=torch.float32,
                       device=q.device)
     for c in range(n_chunks):
-        kc, vc = k[:, c * ck:(c + 1) * ck], v[:, c * ck:(c + 1) * ck]
-        pc = kv_positions[:, c * ck:(c + 1) * ck]
+        end = t if c == n_chunks - 1 else (c + 1) * ck
+        kc, vc = k[:, c * ck:end], v[:, c * ck:end]
+        pc = kv_positions[:, c * ck:end]
         s = torch.einsum("bqkgd,bckd->bqkgc", qg.to(torch.float32),
                          kc.to(torch.float32))
-        mask = torch.ones((b, sq, ck), dtype=torch.bool, device=q.device)
+        mask = torch.ones((b, sq, end - c * ck), dtype=torch.bool,
+                          device=q.device)
         if causal:
             mask &= pc[:, None, :] <= q_positions[:, :, None]
         if window > 0:

@@ -26,9 +26,12 @@ commit, ``ckpt._write``), and the rename is fsynced before the save returns
 or ``on_complete`` runs, so the commit survives a power loss, not only a
 process kill (the reference does not fsync: the same bytes, a weaker
 commit).  A crash mid-snapshot leaves a directory without a valid manifest,
-so readers must use :func:`latest_complete_step`, which verifies every
-array actually loads before trusting a step, and falls back to the
-previous complete one.
+so readers must skip it: :func:`read_step` (behind ``restore_snapshot``
+and the engine's ``restore``) reads the newest step's sidecar and arrays
+once and falls back to the previous step when any of it fails to read, and
+:func:`latest_complete_step` names the step it would land on.  The
+reference reads every array three times per restore (the completeness
+check, the given step's check again, the restore); the port once.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import json
 import os
 import threading
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -119,40 +122,45 @@ def save_snapshot_async(state: PyTree, directory: str, step: int,
 # ---------------------------------------------------------------------------
 
 
+def _read(path: str, *, require_meta: bool = True
+          ) -> Tuple[Optional[dict], Dict[str, np.ndarray]]:
+    """The sidecar (when required) and each array of the step at ``path``,
+    read once (``ckpt.read_arrays``): ``(meta, arrays)``.  Raises when the
+    manifest or the sidecar does not parse, the npz is missing or truncated,
+    or an array's shape is not the manifest's: an aborted snapshot."""
+    meta = None
+    if require_meta:
+        with open(os.path.join(path, META_NAME)) as f:
+            meta = json.load(f)
+    _, arrays = ckpt.read_arrays(path)
+    return meta, arrays
+
+
 def _step_is_complete(path: str, *, require_meta: bool = True) -> bool:
-    """A step is complete iff the manifest parses, the sidecar parses (when
-    required) and every manifest key loads from the npz with its recorded
-    shape.  Anything else — missing files, torn json, truncated zip — is an
-    aborted snapshot and must be skipped, never half-restored."""
+    """A step is complete iff :func:`_read` reads it: anything else —
+    missing files, torn json, truncated zip — is an aborted snapshot and
+    must be skipped, never half-restored."""
     try:
-        with open(os.path.join(path, "manifest.json")) as f:
-            manifest = json.load(f)
-        keys = manifest["keys"]
-        shapes = manifest["shapes"]
-        if require_meta:
-            with open(os.path.join(path, META_NAME)) as f:
-                json.load(f)
-        with np.load(os.path.join(path, "arrays.npz")) as data:
-            for i, (key, shape) in enumerate(zip(keys, shapes)):
-                arr = data[f"a{i}"]  # forces the read; truncation raises
-                if tuple(arr.shape) != tuple(shape):
-                    return False
+        _read(path, require_meta=require_meta)
         return True
     except Exception:
         return False
+
+
+def _steps_newest_first(directory: str):
+    if not os.path.isdir(directory):
+        return []
+    return sorted(
+        (int(name.split("_")[1]) for name in os.listdir(directory)
+         if name.startswith("step_")),
+        reverse=True)
 
 
 def latest_complete_step(directory: str,
                          require_meta: bool = True) -> Optional[int]:
     """Newest step whose snapshot is fully readable (see
     :func:`_step_is_complete`); ``None`` when no complete snapshot exists."""
-    if not os.path.isdir(directory):
-        return None
-    steps = sorted(
-        (int(name.split("_")[1]) for name in os.listdir(directory)
-         if name.startswith("step_")),
-        reverse=True)
-    for step in steps:
+    for step in _steps_newest_first(directory):
         if _step_is_complete(step_dir(directory, step),
                              require_meta=require_meta):
             return step
@@ -164,6 +172,35 @@ def load_meta(directory: str, step: int) -> dict:
         return json.load(f)
 
 
+def read_step(directory: str, step: Optional[int] = None
+              ) -> Tuple[int, dict, Dict[str, np.ndarray]]:
+    """``(step, meta, arrays)`` of the newest complete snapshot (or of
+    ``step``), its sidecar first and then each array read once into host
+    memory (:func:`_read`).  With ``step=None`` a step whose
+    manifest, sidecar or arrays fail to read, or whose array shapes differ
+    from its manifest, is skipped for the next older one: the step
+    :func:`latest_complete_step` chooses.  A given ``step`` that fails to
+    read raises ``FileNotFoundError``, as does a directory with no complete
+    step."""
+    candidates = ([step] if step is not None
+                  else _steps_newest_first(directory))
+    if candidates:
+        failpoint("snapshot.restore_read",
+                  path=step_dir(directory, candidates[0]),
+                  step=candidates[0])
+    for s in candidates:
+        path = step_dir(directory, s)
+        try:
+            meta, arrays = _read(path)
+        except Exception:
+            continue   # an aborted snapshot: never half-restored
+        return s, meta, arrays
+    if step is not None:
+        raise FileNotFoundError(
+            f"snapshot step {step} under {directory} is incomplete")
+    raise FileNotFoundError(f"no complete snapshot under {directory}")
+
+
 def restore_snapshot(tree_like: PyTree, directory: str,
                      step: Optional[int] = None,
                      device=None,
@@ -172,18 +209,11 @@ def restore_snapshot(tree_like: PyTree, directory: str,
     """Restore the newest *complete* snapshot (or ``step``) into the
     structure of ``tree_like``, each leaf on ``device`` or on the device of
     its ``tree_like`` leaf; a chain's scalar leaves come back as views of
-    one tensor, as the owner calls need them (``ckpt.restore``).  Returns
+    one tensor, as the owner calls need them (``ckpt.place``).  Each array
+    is read from the disk once (:func:`read_step`).  Returns
     ``(state, meta, step)``."""
     metrics = metrics if metrics is not None else obs_metrics.GLOBAL
     with metrics.span("snapshot.restore", step=step):
-        if step is None:
-            step = latest_complete_step(directory)
-            if step is None:
-                raise FileNotFoundError(
-                    f"no complete snapshot under {directory}")
-        elif not _step_is_complete(step_dir(directory, step)):
-            raise FileNotFoundError(
-                f"snapshot step {step} under {directory} is incomplete")
-        meta = load_meta(directory, step)
-        state, _ = ckpt.restore(tree_like, directory, step, device=device)
+        step, meta, arrays = read_step(directory, step)
+        state = ckpt.place(tree_like, arrays, device=device)
         return state, meta, step

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.invariants import requires_lock
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import epoch
 from repro_torch.core import mcprioq as mc
 from repro_torch.core import sharded as sh
@@ -1249,26 +1250,28 @@ class ShardedEngine:
         # drain in-flight cadence/poison checkpoints first: the newest
         # snapshot may still be committing on a worker thread (a poison's
         # best-effort checkpoint-now races an immediate restore), and
-        # latest_complete_step must not scan past it
+        # the read below must not scan past it
         with self._write_lock:
             pending, self._io_threads = self._io_threads, []
         for t in pending:
             t.join()
-        if step is None:
-            step = snapshot_io.latest_complete_step(directory)
-            if step is None:
-                raise FileNotFoundError(
-                    f"no complete snapshot under {directory}")
-        meta = snapshot_io.load_meta(directory, step)
-        # the kernel dispatch is this engine's own, not the writer's
-        base_old = mc.MCConfig(**{**meta["base_cfg"],
-                                  "impl": self.cfg.sharded.base.impl})
-        n_old = int(meta["num_shards"])
         replayed = 0
         # one write-lock hold end to end: a concurrent observe() slipping
         # between publish and replay would be WAL-appended AND re-read by
         # the replay generator — applied twice
         with self._write_lock:
+            # the sidecar, then each array once (the newest complete step
+            # when ``step`` is None), placed into a template built from the
+            # sidecar: the snapshot's own config and shard count
+            with self.metrics.span("snapshot.restore", step=step):
+                step, meta, arrays = snapshot_io.read_step(directory, step)
+                # the kernel dispatch is this engine's own, not the writer's
+                base_old = mc.MCConfig(**{**meta["base_cfg"],
+                                          "impl": self.cfg.sharded.base.impl})
+                n_old = int(meta["num_shards"])
+                state = ckpt.place(self._stacked_like(base_old, n_old),
+                                   arrays, device=self.device)
+                del arrays   # the host copy, before a reshard's re-ingest
             scfg = self.cfg.sharded
             new_scfg = None
             if n_old == scfg.num_shards:
@@ -1286,18 +1289,9 @@ class ShardedEngine:
                     # engine must route future traffic the same way
                     new_scfg = dataclasses.replace(
                         scfg, base=base_old, ownership=snap_own)
-                like = self._stacked_like(base_old, n_old)
-                state, _, _ = snapshot_io.restore_snapshot(
-                    like, directory, step, device=self.device,
-                    metrics=self.metrics)
             else:
                 mode = "reshard"
-                like = self._stacked_like(base_old, n_old)
-                old_state, _, _ = snapshot_io.restore_snapshot(
-                    like, directory, step, device=self.device,
-                    metrics=self.metrics)
-                state = self._reingest(old_state, scfg)
-                del old_state
+                state = self._reingest(state, scfg)
             # swap: readers must never pair the new routing with the old
             # snapshot (or vice versa), so rebind + publish are atomic
             # with respect to their (program, snapshot) pairing; the new
@@ -1408,7 +1402,7 @@ class ShardedEngine:
 
     def _stacked_like(self, base: mc.MCConfig, num_shards: int):
         """Template with the stacked [num_shards, ...] shapes a snapshot at
-        that config was written with, for ``restore_snapshot``: every array
+        that config was written with, for ``ckpt.place``: every array
         leaf a broadcast int32 zero (no memory at any width), the scalars
         the columns of one ``[num_shards, 10]`` tensor, so that they restore
         as views of one storage, as the writer's owner calls need them.
