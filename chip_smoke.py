@@ -40,6 +40,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 to 300, tied, sparse, empty, src tables with lanes past the
                 rows, and 4 B off a 16 B boundary; outputs
                 must be EQUAL (tolerance 0, integers and float32 alike);
+                the LM launcher's and the engine launcher's processes run
+                beside these checks (phases lm and engine check them);
   3. main     — the main path at full width: a chain of 2**20 source rows x 128
                 slots, warmed by streaming ``update_batch_`` calls of 65,536
                 transitions; the owner calls held equal to the functional
@@ -100,8 +102,8 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 mamba2-130m`` as a user runs it (2 requests); then per
                 arch random float32 parameters made on the card from a
                 seeded generator, bfloat16 compute, the reference
-                launcher's sizes (drafter 8,192 x 64, draft_len 4); 4
-                requests of 2 x 64 prompt tokens and 32 new tokens served
+                launcher's sizes (drafter 8,192 x 64, draft_len 4); 3
+                requests of 2 x 64 prompt tokens and 24 new tokens served
                 with plain greedy decoding and then with speculation (the
                 arch's launch window), the tokens equal; a 4-token
                 extension's logits and caches equal to 4 decode steps';
@@ -282,7 +284,9 @@ it exits non-zero at once.  The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import functools
@@ -356,6 +360,35 @@ def call_ms(fn, reps=20, busy_cycles=4_000_000):
             end.synchronize()
             out.append(start.elapsed_time(end))
     return statistics.median(device), statistics.median(idle)
+
+
+def call_restored(fn, restore, flush, reps=20, busy_cycles=4_000_000):
+    """``call_ms`` for a call that writes into its inputs: the medians of
+    ``fn()``'s device time (a spin kernel queued ahead) and of its latency
+    on an idle device, in turns, each call after ``restore()`` and a
+    rewrite of ``flush`` (neither timed)."""
+    device, idle = [], []
+    for _ in range(reps):
+        for busy, out in ((True, device), (False, idle)):
+            restore()
+            flush.add_(1)
+            torch.cuda.synchronize()
+            if busy:
+                torch.cuda._sleep(busy_cycles)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return statistics.median(device), statistics.median(idle)
+
+
+def split_ms(fn, restore, flush):
+    """``{"device_ms", "latency_ms"}`` of ``fn()`` (``call_restored``)."""
+    device, idle = call_restored(fn, restore, flush)
+    return {"device_ms": device, "latency_ms": idle}
 
 
 def flat(outputs):
@@ -450,8 +483,61 @@ def dryrun_cells():
     return finish
 
 
+BASELINE_SOURCE = Path(__file__).resolve().parent / "scripts" / "baseline_kernels.cu"
+_baseline = {}
+
+
+def start_baseline_build():
+    """Start ``nvcc`` on ``scripts/baseline_kernels.cu`` (the odd-even
+    kernel and the catch-up the redesigns replaced) beside the package's
+    build; ``baseline_lib`` waits for it."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_DIR.parent / "baseline" / "libmcq_baseline.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    _baseline.update(path=out, proc=subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+         str(_build.CSRC), "-o", str(out), str(BASELINE_SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+
+def baseline_lib():
+    """The yardstick kernels' library (``mcq_base_oddeven``,
+    ``mcq_base_copy_dirty_rows``), built by ``start_baseline_build``."""
+    if "lib" not in _baseline:
+        out, _ = _baseline["proc"].communicate()
+        if _baseline["proc"].returncode != 0:
+            raise RuntimeError(f"nvcc failed on {BASELINE_SOURCE}:\n{out}")
+        lib = ctypes.CDLL(str(_baseline["path"]))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.mcq_base_oddeven.argtypes = [p, p, p, p, ll, i, i, p]
+        lib.mcq_base_copy_dirty_rows.argtypes = [p] * 19 + [ll, i, ll, i, i, p]
+        for fn in (lib.mcq_base_oddeven, lib.mcq_base_copy_dirty_rows):
+            fn.restype = ctypes.c_int
+        _baseline["lib"] = lib
+    return _baseline["lib"]
+
+
+def baseline_call(name, *args):
+    """Launch a yardstick kernel on the current stream; raise on an error."""
+    status = getattr(baseline_lib(), name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def old_oddeven(cnt, order, order_out, passes, dirty=None):
+    """The odd-even kernel the redesign replaced (one warp a row), into
+    ``order_out`` (a fresh tensor, returned, when None)."""
+    out = torch.empty_like(order) if order_out is None else order_out
+    baseline_call("mcq_base_oddeven", cnt.data_ptr(), order.data_ptr(),
+                  out.data_ptr(), None if dirty is None else dirty.data_ptr(),
+                  cnt.shape[0], cnt.shape[1], passes)
+    return out
+
+
 def phase_device():
     from repro_torch.kernels import _build
+    start_baseline_build()
     dryrun_done = dryrun_cells()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -612,6 +698,33 @@ def small_kernel_checks(gen):
                          ops.cdf_query, c_ord, d_ord, tot2[rows], t,
                          max_items=max_items)
 
+    # oddeven where its row geometry changes (a row's lanes 1, 2, 4, ...,
+    # 32, so 32 rows a warp down to 1), odd row counts, the tensors aligned
+    # (16-byte vectors) and 4 B off a 16 B boundary (int32 loads); both
+    # forms, the in-place one on the misaligned tensors themselves
+    for c in (1, 2, 3, 7, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65, 128, 1000):
+        for n in (1, 37, 2049):
+            _, cnt, _, _ = random_slabs(gen, n, c)
+            small = torch.where(cnt > 0, cnt % 4, 0).to(torch.int32)
+            perm = random_perm_rows(gen, n, c)
+            for place in (lambda x: x.clone(), misaligned):
+                for passes in (1, 3):
+                    tag = (f"oddeven C={c} N={n} passes={passes}"
+                           f"{'' if place is misaligned else ' aligned'}")
+                    both(tag, ops.oddeven_sort, place(small), place(perm),
+                         passes=passes)
+                    outs = []
+                    for impl in ("cuda", "ref"):
+                        order, dirty = place(perm), torch.zeros(
+                            n, dtype=torch.uint8, device="cuda")
+                        dirty[::5] = 1
+                        ops.oddeven_sort_(place(small), order, passes=passes,
+                                          dirty=dirty, impl=impl)
+                        outs.append([order, dirty])
+                    torch.cuda.synchronize()
+                    compare(tag + " (in place, flags)", *outs)
+                    checked += 1
+
     # probe: tombstone chains, wrap-around, saturated windows, padding rows,
     # the home slot alone; keys -1 (EMPTY: a miss without a read) and -2
     # (TOMB); the stacked mode (dh_find) beside the flat one (ht_find) with
@@ -633,8 +746,11 @@ def small_kernel_checks(gen):
                      ops.ht_find, q, keys[0].contiguous(),
                      vals[0].contiguous(), max_probes=max_probes, miss=miss)
 
-    # slow path: rows and slots running out, tiny table with a short window
+    # slow path: rows and slots running out, tiny table with a short window;
+    # the in-place form's table flags (a group of 32 slots, or a table of
+    # 16) held equal too
     from repro_torch.core import mcprioq as mc
+    from repro_torch.core.hashtable import flag_count
     for num_rows, c, table_size, max_probes in (
             (16, 4, 0, 64), (64, 8, 16, 2), (32, 3, 0, 8), (8, 1, 0, 4)):
         cfg = mc.MCConfig(num_rows=num_rows, capacity=c, table_size=table_size,
@@ -655,7 +771,11 @@ def small_kernel_checks(gen):
                  f"P={max_probes} step={step}", ops.slow_path, *args,
                  max_probes=max_probes)
             both_(f"slow_path N={num_rows} C={c} step={step}", ops.slow_path_,
-                  (0, 1, 2, 3, 4, 6), *args, max_probes=max_probes)
+                  (0, 1, 2, 3, 4, 6), *args, max_probes=max_probes,
+                  table_dirty=torch.zeros(
+                      flag_count(cfg.resolved_table_size()),
+                      dtype=torch.uint8, device="cuda"),
+                  written_kw=("table_dirty",))
             st = mc._slow_path(st, src, dsts, w, active, cfg)
             st = st._replace(slabs=st.slabs._replace(
                 order=random_perm_rows(gen, num_rows, c)))
@@ -747,43 +867,65 @@ def small_slab_cdf_checks(gen, both, both_):
 
 
 def small_copy_checks(gen):
-    """``copy_dirty_rows`` against its plain version: back buffers of random
-    rows, flags on some rows (none, all, a random share), tables of several
-    sizes; the back's tensors and the cleared flags equal."""
+    """The catch-up against its plain version: back buffers of random rows,
+    row flags scattered (a random share, none, all) or clustered (a run of
+    consecutive rows, as new rows take them), table flags on some slot
+    groups (a group of 32, or a whole table smaller than 32), row hashes
+    on (H 1 to 4,096) and off, stacked states of S = 1, 4, 40 and 257 (the rows,
+    tables and scalars of every shard flat); the functional wrapper and the
+    bound launch the learner makes, each equal to the plain version: the
+    back's tensors and both flags cleared."""
+    from repro_torch.core import hashtable as ht
     from repro_torch.kernels import ops
     cases = 0
-    for n, c, h, share, dh, k in (
-            (37, 1, 1, 0.3, 0, 10), (37, 5, 16, 0.0, 0, 10),
-            (40, 32, 64, 1.0, 0, 10), (41, 128, 1024, 0.3, 0, 10),
-            (1000, 300, 4096, 0.1, 0, 10), (37, 5, 16, 0.4, 1, 10),
-            (41, 128, 64, 0.3, 8, 10), (300, 128, 4096, 0.2, 512, 10),
-            (33, 7, 32, 1.0, 4096, 10),
-            # the scalars of 40 and 257 stacked shards: more than one
-            # block's threads, and more than the table's slots
-            (40, 5, 16, 0.3, 0, 400), (257, 3, 8, 0.5, 0, 2570)):
-        front = [*random_slabs(gen, n, c)]
-        back = [*random_slabs(gen, n, c)]
-        tables = [randint(gen, -2, 500, (h,)) for _ in range(4)]
-        scalars = [randint(gen, 0, 99, (k,)) for _ in range(2)]
-        hashes = [randint(gen, -2, 500, (n, dh)) for _ in range(4)] if dh else []
-        flags = (torch.rand(n, generator=gen, device="cuda") < share).to(torch.uint8)
+    for s_, n, c, t, share, dh, cluster in (
+            (1, 37, 1, 1, 0.3, 0, 0), (1, 37, 5, 16, 0.0, 0, 0),
+            (1, 40, 32, 64, 1.0, 0, 0), (1, 41, 128, 1024, 0.3, 0, 0),
+            (1, 1000, 300, 4096, 0.1, 0, 0), (1, 37, 5, 16, 0.4, 1, 0),
+            (1, 41, 128, 64, 0.3, 8, 0), (1, 300, 128, 4096, 0.2, 512, 0),
+            (1, 33, 7, 32, 1.0, 4096, 0), (1, 5000, 64, 32768, 0.0, 1, 188),
+            (1, 5000, 16, 8192, 0.02, 0, 700), (4, 3000, 128, 2048, 0.05, 1, 90),
+            (4, 1025, 16, 16, 0.3, 0, 0), (40, 300, 5, 16, 0.3, 0, 0),
+            (40, 257, 64, 1024, 0.1, 1, 40),
+            # 2,570 scalars: more than the scalar block's threads
+            (257, 8, 3, 8, 0.5, 0, 0)):
+        rows, slots = s_ * n, s_ * t
+        front = [*random_slabs(gen, rows, c)]
+        back = [*random_slabs(gen, rows, c)]
+        tables = [randint(gen, -2, 500, (slots,)) for _ in range(4)]
+        scalars = [randint(gen, 0, 99, (10 * s_,)) for _ in range(2)]
+        hashes = [randint(gen, -2, 500, (rows, dh)) for _ in range(4)] if dh else []
+        flags = (torch.rand(rows, generator=gen, device="cuda") < share).to(torch.uint8)
+        if cluster:   # new rows: a run of consecutive rows in one shard
+            at = int(torch.randint(0, n - cluster, (1,), generator=gen,
+                                   device="cuda"))
+            flags[at:at + cluster] = 1
+        groups = s_ * ht.flag_count(t)
+        table_flags = (torch.rand(groups, generator=gen, device="cuda")
+                       < 0.3).to(torch.uint8)
+        f = (front[1], front[0], front[3], front[2], *tables[:2], scalars[0],
+             *hashes[:2])
         outs = []
-        for impl in ("cuda", "ref"):
+        for how in ("cuda", "bound", "ref"):
             b = [x.clone() for x in back] + [x.clone() for x in tables[2:]] \
                 + [scalars[1].clone()] + [x.clone() for x in hashes[2:]]
-            dirty = flags.clone()
-            f = (front[1], front[0], front[3], front[2], *tables[:2], scalars[0],
-                 *hashes[:2])
-            ops.copy_dirty_rows(f, (b[1], b[0], b[3], b[2], *b[4:]), dirty,
-                                impl=impl)
-            outs.append(b + [dirty])
+            fl = (flags.clone(), table_flags.clone())
+            work = (b[1], b[0], b[3], b[2], *b[4:])
+            if how == "bound":
+                ops.copy_bound_rows(ops.bind_copy_dirty_rows(f, work, *fl))
+            else:
+                ops.copy_dirty_rows(f, work, *fl, impl=how)
+            outs.append(b + list(fl))
         torch.cuda.synchronize()
-        compare(f"copy_dirty_rows N={n} C={c} T={h} row hashes H={dh} "
-                f"flagged {share} scalars {k}", *outs)
+        for how, got in zip(("functional", "bound"), outs):
+            compare(f"copy_dirty_rows {how} S={s_} N={n} C={c} T={t} row "
+                    f"hashes H={dh} flagged {share} + a run of {cluster}",
+                    got, outs[2])
         cases += 1
-    say(f"[kernels] copy_dirty_rows: {cases} cases equal to the plain version "
-        f"(torch.equal, flags cleared), row hashes of width 1 to 4096 in 4, "
-        f"10 to 2,570 scalars")
+    say(f"[kernels] copy_dirty_rows: {cases} cases, the functional and the "
+        f"bound launch each equal to the plain version (torch.equal, both "
+        f"flags cleared): row flags scattered and clustered, table flags, "
+        f"row hashes of width 1 to 4,096 and none, S = 1, 4, 40 and 257")
 
 
 def small_decay_checks(gen, both, both_):
@@ -1238,6 +1380,9 @@ MAIN_KERNELS = ("probe_find", "slab_update", "oddeven", "cdf_query_fused",
 SIDE_ROUNDS = 3         # rounds the owner calls are held to functional ones
 COPY_OPS = ("aten::copy_", "aten::clone", "aten::_to_copy", "aten::cat",
             "aten::stack")
+# the profiler's tries in no_state_copies and kernels_per_call: how long
+# each trace stays open after the device has finished (seconds)
+PROFILE_PADS_S = (0.05, 0.25, 1.0, 2.0, 4.0)
 
 
 def no_state_copies(label, fn, rows, calls=3):
@@ -1247,28 +1392,35 @@ def no_state_copies(label, fn, rows, calls=3):
     a state leaf has at least one per row.  The copy kernels and memcpys it
     does launch — dtype casts, ``torch.sort``'s copy of its input and a
     slice assignment, all of the batch's items — are counted and
-    printed.  A trace that holds no device kernel at all (the profiler can
-    drop a short trace's few kernel records) is taken once more."""
+    printed.  The profiler can drop every kernel record of a short trace
+    (a few hand-written kernels, with other processes on the card and the
+    host's cores busy): each trace therefore stays open ``pad`` seconds
+    after the device has finished, and a trace that holds no device kernel
+    is taken again with a longer pad, up to ``len(PROFILE_PADS_S)`` times;
+    one with none in every try fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    def trace():
+    def trace(pad):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         return prof.events()
 
     def on_device(events):
         return [ev.name for ev in events
                 if ev.device_type == torch.autograd.DeviceType.CUDA]
 
-    events = trace()
-    if not on_device(events):
-        say(f"[kernels] {label}: the profiler recorded no device kernel; "
-            f"tracing again")
-        events = trace()
+    for attempt, pad in enumerate(PROFILE_PADS_S):
+        events = trace(pad)
+        if on_device(events):
+            break
+        say(f"[kernels] {label}: the profiler recorded no device kernel "
+            f"(try {attempt + 1} of {len(PROFILE_PADS_S)}, the trace held "
+            f"open {pad} s after the device finished)")
     big = sorted({f"{ev.name}{ev.input_shapes}" for ev in events
                   if ev.name in COPY_OPS and any(
                       shape and int(torch.tensor(shape).prod()) >= rows
@@ -1522,16 +1674,31 @@ def bound(bytes_moved, operations):
 
 
 def kernel_entry(entries, launches, flush, name, module, source, replaces, run,
-                 bytes_moved, operations, plain_reps=3, library=None, extra=None):
+                 bytes_moved, operations, plain_reps=3, library=None, extra=None,
+                 split=False, old=None):
     """Hold ``run("cuda")`` against ``run("ref")`` (equal), time both and the
     library call beside the bound, and append the kernel's line (with the
-    keys of ``extra`` added)."""
+    keys of ``extra`` added; ``split``: the kernel's device time and its
+    idle-device latency too, ``split_ms``; ``old()``: the kernel it
+    replaced, held equal too and timed in turns with it, ``old_*``)."""
     got = run("cuda")
     torch.cuda.synchronize()
     want = run("ref")
     err = compare(name, got, want)
+    if old is not None:
+        compare(f"{name} (the kernel it replaced)", old(), want)
     del got, want
     ms = time_ms(lambda: run("cuda"), reps=10, warm=2, flush=flush)
+    if split:
+        extra = {**split_ms(lambda: run("cuda"), lambda: None, flush),
+                 **(extra or {})}
+    if old is not None:
+        ms, old_ms = paired_restored((lambda: run("cuda"), old), lambda: None,
+                                     flush)
+        old_split = split_ms(old, lambda: None, flush)
+        extra = {**(extra or {}), "old_ms": old_ms,
+                 "old_device_ms": old_split["device_ms"],
+                 "old_latency_ms": old_split["latency_ms"]}
     plain_ms = time_ms(lambda: run("ref"), reps=plain_reps,
                        warm=1 if plain_reps > 1 else 0, flush=flush)
     library_ms = None if library is None else time_ms(library, flush=flush)
@@ -1585,25 +1752,27 @@ def probe_work(keys_q, keys, max_probes):
         "trips_mean": float(trips.double().mean()), "trips_max": int(trips.max())}
 
 
-def kernels_per_call(label, fn, modules, names, calls=20, sessions=3):
+def kernels_per_call(label, fn, modules, names, calls=20):
     """Device kernels per call of ``fn()``, counted by torch.profiler over
     ``calls`` calls, beside the launch counts of the wrappers in
     ``modules``.  Fails unless each wrapper launched its kernel once per
     call, every device kernel recorded is one of ``names`` (C kernel names)
     and there are at most ``len(names)`` per call.  The profiler can lose a
     kernel record (seen: 1 of 40, 2 of 20, 0 of 1), which only lowers the
-    count, so up to ``sessions`` sessions are run for an exact count and a
+    count, so up to ``len(PROFILE_PADS_S)`` sessions are run for an exact
+    count, each held open a longer pad after the device finished, and a
     short one is reported as lost records; fewer than half the expected
     records fails, so a profiler that records nothing cannot pass."""
     from torch.profiler import ProfilerActivity, profile
     expect = len(names) * calls
-    for _ in range(sessions):
+    for pad in PROFILE_PADS_S:
         torch.cuda.synchronize()
         before = [m.launches for m in modules]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad)
         kernels = [ev.name for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA]
         counted = [m.launches - b for m, b in zip(modules, before)]
@@ -1722,12 +1891,16 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
                  impl=impl),
              (slabs.order,),
              bytes_moved=lambda flagged: 4 * (2 * n * c + flagged * c) + flagged,
-             operations=cfg.sort_passes * n * c * 3)
+             operations=cfg.sort_passes * n * c * 3, split=True,
+             old=lambda work, dirty: old_oddeven(slabs.cnt, work[0], work[0],
+                                                 cfg.sort_passes, dirty))
     entry("oddeven", "functional", "oddeven.cu", "src/repro/kernels/oddeven.py:67",
           lambda impl: ops.oddeven_sort(slabs.cnt, slabs.order,
                                         passes=cfg.sort_passes, impl=impl),
           bytes_moved=4 * 3 * n * c,
-          operations=cfg.sort_passes * n * c * 3)
+          operations=cfg.sort_passes * n * c * 3, split=True,
+          old=lambda: old_oddeven(slabs.cnt, slabs.order, None,
+                                  cfg.sort_passes))
 
     # the decay: the rolling wrapper as decay launches it, then the kernel
     # alone on a block (and, on the main path, over the whole table as
@@ -1837,7 +2010,7 @@ def path_shape_kernels(state, cfg, src, dst, q, launches, path=None,
 
 def inplace_entry(entries, launches, flush, name, module, source, replaces,
                   run, written, bytes_moved, operations, plain_reps=3,
-                  flags=None, extra=None, library=None):
+                  flags=None, extra=None, library=None, split=False, old=None):
     """An in-place form: ``run(impl, work, dirty)`` writes into ``work``
     (copies of the tensors ``written``) and into ``dirty`` (uint8, one per
     row; a copy of ``flags``, or zeros).  Held equal to its plain version on
@@ -1845,7 +2018,10 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
     copies are restored (not timed).  ``bytes_moved(flagged rows)`` gives
     the bound: the rows flagged in ``flags``, or by the call.
     ``library()``, where given, computes the same tensors with PyTorch
-    calls (held equal too) and is timed as ``library_ms``."""
+    calls (held equal too) and is timed as ``library_ms``.  ``split``: the
+    kernel's device time and its idle-device latency too (``split_ms``).
+    ``old(work, dirty)``: the kernel it replaced, held equal too, timed in
+    turns with it (``old_*``)."""
     rows = next(x.shape[0] for x in written if x.dim() == 2)
     if flags is None:
         flags = torch.zeros(rows, dtype=torch.uint8, device="cuda")
@@ -1857,6 +2033,11 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
         outs.append(work + [dirty])
         torch.cuda.synchronize()
     err = compare(f"{name} (in place, flags)", *outs)
+    if old is not None:
+        work, dirty = [x.clone() for x in written], flags.clone()
+        old(work, dirty)
+        compare(f"{name} (the kernel it replaced, in place)", work + [dirty],
+                outs[1])
     if library is not None:
         compare(f"{name} (the library calls)", library(), outs[0][:-1])
     flagged = int(torch.maximum(flags, outs[1][-1]).sum())
@@ -1869,6 +2050,16 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
         dirty.copy_(flags)
 
     ms = time_restored(lambda: run("cuda", work, dirty), restore, flush)
+    if split:
+        extra = {**split_ms(lambda: run("cuda", work, dirty), restore, flush),
+                 **(extra or {})}
+    if old is not None:
+        ms, old_ms = paired_restored((lambda: run("cuda", work, dirty),
+                                      lambda: old(work, dirty)), restore, flush)
+        old_split = split_ms(lambda: old(work, dirty), restore, flush)
+        extra = {**(extra or {}), "old_ms": old_ms,
+                 "old_device_ms": old_split["device_ms"],
+                 "old_latency_ms": old_split["latency_ms"]}
     plain_ms = time_restored(lambda: run("ref", work, dirty), restore, flush,
                              reps=plain_reps, warm=1 if plain_reps > 1 else 0)
     library_ms = None if library is None else time_ms(library, flush=flush)
@@ -1884,30 +2075,142 @@ def inplace_entry(entries, launches, flush, name, module, source, replaces,
     say(f"[kernels] {name}: in place {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), library "
         f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}; "
-        f"{flagged} rows flagged; equal, flags included")
+        f"{flagged} rows flagged; equal, flags included"
+        + "".join(f"; {k} {v:.4f}" if isinstance(v, float) else f"; {k} {v}"
+                  for k, v in (extra or {}).items()))
 
 
-def catch_up_leaves(chain):
-    """A chain's 7 tensors in ``copy_dirty_rows``' order."""
-    from repro_torch import core
-    return (chain.slabs.cnt, chain.slabs.dst, chain.slabs.order,
-            chain.slabs.tot, *chain.src_table, core.scalars_of(chain))
-
-
-#: positions of ``copy_dirty_rows``' tuple copied by row (the slabs, the
-#: row hashes); the src table and the scalars are copied whole
-CATCH_UP_ROW_LEAVES = (0, 1, 2, 3, 7, 8)
-
-
-def catch_up_library(front, back, flags):
-    """What ``copy_dirty_rows`` computes, one PyTorch call per leaf:
-    ``torch.where(flags, front, back)`` on each leaf copied by row (the
-    flags broadcast over its other dims), a copy of each leaf copied whole
-    (for ``library_ms``)."""
-    mask = flags.bool()
-    return [torch.where(mask.view((-1,) + (1,) * (f.dim() - 1)), f, b)
-            if i in CATCH_UP_ROW_LEAVES else f.clone()
+def catch_up_library(front, back, flags, table_flags):
+    """What the catch-up computes, one PyTorch call per leaf (for
+    ``library_ms``): ``torch.where(flags, front, back)`` on each leaf copied
+    by row (the flags broadcast over its other dims), on the src table's
+    keys and vals by its slot groups' flags, and a copy of the scalars."""
+    rows, groups = flags.bool(), table_flags.bool().view(-1, 1)
+    group = front[4].numel() // table_flags.numel()
+    return [f.clone() if i == 6 else
+            torch.where(groups, f.view(-1, group), b.view(-1, group)).view(-1)
+            if i in (4, 5) else
+            torch.where(rows.view((-1,) + (1,) * (f.dim() - 1)), f, b)
             for i, (f, b) in enumerate(zip(front, back))]
+
+
+def paired_restored(fns, restore, flush, reps=10, warm=2):
+    """Medians of each of ``fns`` by CUDA events, called in turns (one of
+    each per round), each call after ``restore()`` and a rewrite of
+    ``flush`` (neither timed)."""
+    times = [[] for _ in fns]
+    for rep in range(warm + reps):
+        for fn, out in zip(fns, times):
+            restore()
+            flush.add_(1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if rep >= warm:
+                out.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def catch_up_entry(entries, launches, name, front, back, flags, table_flags,
+                   extra=None):
+    """The catch-up at a path's shapes as the learner launches it: bound
+    once (``ops.bind_copy_dirty_rows``), one ``ops.copy_bound_rows`` a
+    call, from ``front`` into copies of ``back`` (9-tuples, ``epoch._copied``)
+    by copies of the row and table flags.  Held equal to the plain version
+    (both flags cleared alike) and to the library calls; timed beside the
+    plain version, the library calls and the whole-table kernel it replaced
+    (``old_*``, in turns with the kernel: same call, same inputs), its
+    device time and idle-device latency split for both.  The bound counts
+    what the flags of this run ask for: the flags read, each flagged row
+    and table group read and written, the scalars."""
+    from repro_torch.kernels import ops
+    outs = []
+    for impl in ("cuda", "ref"):
+        work = [x.clone() for x in back]
+        fl = (flags.clone(), table_flags.clone())
+        if impl == "cuda":
+            ops.copy_bound_rows(ops.bind_copy_dirty_rows(front, work, *fl))
+        else:
+            ops.copy_dirty_rows(front, work, *fl, impl="ref")
+        outs.append(work + list(fl))
+        torch.cuda.synchronize()
+    err = compare(f"{name} (bound, both flags)", *outs)
+    compare(f"{name} (the library calls)",
+            catch_up_library(front, back, flags, table_flags), outs[0][:-2])
+    work, fl = outs[0][:-2], outs[0][-2:]
+    del outs
+
+    def restore():
+        for w, x in zip(work, back):
+            w.copy_(x)
+        fl[0].copy_(flags)
+        fl[1].copy_(table_flags)
+
+    bound_args = ops.bind_copy_dirty_rows(front, work, *fl)
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    n, c = front[0].shape
+    h = front[7].shape[1]
+    t, k = front[4].numel(), front[6].numel()
+
+    def old():   # the whole-table kernel, as the learner launched it before
+        baseline_call("mcq_base_copy_dirty_rows",
+                      *(x.data_ptr() for x in front[:7]),
+                      *(x.data_ptr() for x in work[:7]),
+                      front[7].data_ptr(), front[8].data_ptr(),
+                      work[7].data_ptr(), work[8].data_ptr(),
+                      fl[0].data_ptr(), n, c, t, k, h)
+
+    ms, old_ms = paired_restored(
+        (lambda: ops.copy_bound_rows(bound_args), old), restore, flush)
+    new_split = split_ms(lambda: ops.copy_bound_rows(bound_args), restore,
+                         flush)
+    old_split = split_ms(old, restore, flush)
+    plain_ms = time_restored(
+        lambda: ops.copy_dirty_rows(front, work, *fl, impl="ref"), restore,
+        flush, reps=3, warm=1)
+    library_ms = time_ms(lambda: catch_up_library(front, back, flags,
+                                                  table_flags),
+                         flush=flush)
+    rows, groups = int(flags.sum()), int(table_flags.sum())   # on the card
+    group = t // table_flags.numel()
+    bound_ms, bound_by = bound(
+        n + table_flags.numel() + rows + groups
+        + rows * 8 * (3 * c + 1 + 2 * h) + groups * 16 * group + 8 * k, 0)
+    entries.append({
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/copy_rows.cu",
+        "replaces": "none: the back-buffer learner's catch-up",
+        "launches": launches["copy_dirty_rows"],
+        "max_abs_err": err, "max_abs_diff": err, "equal": True,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        **new_split, "old_ms": old_ms, "old_device_ms": old_split["device_ms"],
+        "old_latency_ms": old_split["latency_ms"], "in_place": True,
+        "bound_once": True, "rows": n, "rows_flagged": rows,
+        "table_slots": t, "table_groups_flagged": groups,
+        "slots_per_group": group, **(extra or {})})
+    say(f"[kernels] {name}: bound {ms:.4f} ms (device {new_split['device_ms']:.4f}, "
+        f"idle-device latency {new_split['latency_ms']:.4f}); the whole-table "
+        f"kernel it replaced {old_ms:.4f} ms (device "
+        f"{old_split['device_ms']:.4f}, latency {old_split['latency_ms']:.4f}); "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); {rows} of {n} rows and {groups} of "
+        f"{table_flags.numel()} table groups flagged; equal, flags included")
+
+
+def learner_catch_up_entry(entries, launches, name, learner, extra=None):
+    """``catch_up_entry`` on a ``BackBufferLearner``'s own tensors: from
+    its front into copies of its back, by copies of the flags its last
+    write left (what its next write copies)."""
+    from repro_torch.core import epoch
+    front, back = (epoch._copied(epoch._chain(x))
+                   for x in (learner._front, learner._back))
+    catch_up_entry(entries, launches, name, front, back,
+                   learner._dirty.view(-1).clone(),
+                   learner._table_dirty.view(-1).clone(), extra)
 
 
 def time_restored(fn, restore, flush, reps=10, warm=2):
@@ -1960,7 +2263,7 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
     (and, where ``sequential``, to the sequential plain version); timed in
     place and by launch, and the functional wrapper (its copies included)
     beside it; the bound of each from the bytes it must move."""
-    from repro_torch.core.hashtable import hash_u32
+    from repro_torch.core.hashtable import flag_count, hash_u32
     from repro_torch.kernels import ops, ref
     n, c = slabs.cnt.shape
     h = table.keys.shape[0]
@@ -1975,24 +2278,30 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
         return dict(zip(("dh_keys", "dh_vals"), args[7:]))
 
     def on_copies(fn):
+        """``fn(work, dirty, table_dirty)`` on copies; the written tensors
+        and both flags."""
         work = [x.clone() if i in written else x for i, x in enumerate(state)]
         dirty = torch.zeros(n, dtype=torch.uint8, device="cuda")
-        fn(work, dirty)
+        table_dirty = torch.zeros(flag_count(h), dtype=torch.uint8,
+                                  device="cuda")
+        fn(work, dirty, table_dirty)
         torch.cuda.synchronize()
-        return [work[i] for i in written] + [dirty]
+        return [work[i] for i in written] + [table_dirty, dirty]
 
-    got = on_copies(lambda w, d: ops.slow_path_(
-        *w[:7], *items, max_probes=probes, dirty=d, impl="cuda", **dh(w)))
+    got = on_copies(lambda w, d, t: ops.slow_path_(
+        *w[:7], *items, max_probes=probes, dirty=d, impl="cuda",
+        table_dirty=t, **dh(w)))
     t0 = time.perf_counter()
-    want = on_copies(lambda w, d: ref.slow_path_rows_ref_(
-        *w[:7], *items, probes, d, *w[7:]))
+    want = on_copies(lambda w, d, t: ref.slow_path_rows_ref_(
+        *w[:7], *items, probes, d, *w[7:], table_dirty=t))
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = compare(name, got, want)
+    err = compare(f"{name} (both flags)", got, want)
     sequential_ms = None
     if sequential:
         t0 = time.perf_counter()
         compare(f"{name} vs the sequential plain version", got, on_copies(
-            lambda w, d: ref.slow_path_ref_(*w[:7], *items, probes, d, *w[7:])))
+            lambda w, d, t: ref.slow_path_ref_(*w[:7], *items, probes, d,
+                                               *w[7:], table_dirty=t)))
         sequential_ms = (time.perf_counter() - t0) * 1e3
     rows = int(want[-1].sum())       # every row an item is applied to
     counts = want[5] - counters
@@ -2019,15 +2328,18 @@ def slow_path_entry(entries, launches, flush, name, cfg, table, slabs,
     originals = [state[i] for i in written]
     work = [x.clone() for x in originals]
     dirty = torch.zeros(n, dtype=torch.uint8, device="cuda")
+    table_dirty = torch.zeros(flag_count(h), dtype=torch.uint8, device="cuda")
 
     def restore_all():
         for dst_t, src_t in zip(work, originals):
             dst_t.copy_(src_t)
         dirty.zero_()
+        table_dirty.zero_()
 
     def kernel():
         ops.slow_path_(*work[:5], slabs.order, work[5], *items,
                        max_probes=probes, dirty=dirty, impl="cuda",
+                       table_dirty=table_dirty,
                        **dict(zip(("dh_keys", "dh_vals"), work[6:])))
 
     ms = time_restored(kernel, restore_all, flush)
@@ -2207,9 +2519,11 @@ def phase_hash(seed, warm_batches, rounds):
         for _ in range(4):
             src, dst = traffic.batch(BATCH)
             learned.append(timed(times, "learner write", no_sync, learner.write,
-                                 lambda s, dirty, src=src, dst=dst:
-                                 core.maybe_decay_(core.update_batch_(
-                                     s, src, dst, cfg=cfg, dirty=dirty),
+                                 lambda s, dirty, table_dirty, src=src,
+                                 dst=dst: core.maybe_decay_(
+                                     core.update_batch_(
+                                         s, src, dst, cfg=cfg, dirty=dirty,
+                                         table_dirty=table_dirty),
                                      cfg=cfg, total_threshold=decay_threshold,
                                      dirty=dirty)))
     launches["copy_dirty_rows"] = learner_launches["copy_dirty_rows"]
@@ -2369,24 +2683,17 @@ def hash_path_kernels(state, cfg, src, dst, launches):
                   extra=dict(rows=n, live_slots=live))
 
     # the learner's catch-up: a back buffer one update behind the front
+    from repro_torch.core import epoch
+    from repro_torch.core import hashtable as ht
     back = mc.private_copy(state)
     dirty = torch.zeros(n, dtype=torch.uint8, device="cuda")
-    mc.update_batch_(state, src, dst, cfg=cfg, dirty=dirty)
-    front = (slabs.cnt, slabs.dst, slabs.order, slabs.tot, *table,
-             mc.scalars_of(state), state.dh_keys, state.dh_vals)
-    t_size = table.keys.numel()
-    backs = (back.slabs.cnt, back.slabs.dst, back.slabs.order,
-             back.slabs.tot, *back.src_table, mc.scalars_of(back),
-             back.dh_keys, back.dh_vals)
-    inplace_entry(entries, launches, flush, "copy_dirty_rows[hash]",
-                  "copy_dirty_rows", "copy_rows.cu", "none (port-only learner)",
-                  lambda impl, work, flags: ops.copy_dirty_rows(
-                      front, work, flags, impl=impl), backs,
-                  bytes_moved=lambda flagged: n + flagged * 8 * (3 * c + 1 + 2 * h)
-                  + 16 * t_size + 80,
-                  operations=n, flags=dirty,
-                  extra=dict(rows_flagged_before=int(dirty.sum())),
-                  library=lambda: catch_up_library(front, backs, dirty))
+    table_dirty = torch.zeros(ht.flag_count(table.keys.numel()),
+                              dtype=torch.uint8, device="cuda")
+    mc.update_batch_(state, src, dst, cfg=cfg, dirty=dirty,
+                     table_dirty=table_dirty)
+    catch_up_entry(entries, launches, "copy_dirty_rows[hash]",
+                   epoch._copied(state), epoch._copied(back), dirty,
+                   table_dirty)
     del back
     return entries
 
@@ -2525,8 +2832,9 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
     def learn(toks, ncfg=cfg, key="observe"):
         """One learner write through the back buffer: catch the back up,
         observe_ + maintain_ into it, publish it."""
-        def step(st, dirty):
-            timed(times, key, spec.observe_, st, toks, cfg=ncfg, dirty=dirty)
+        def step(st, dirty, table_dirty):
+            timed(times, key, spec.observe_, st, toks, cfg=ncfg, dirty=dirty,
+                  table_dirty=table_dirty)
             timed(times, f"maintain_{'' if ncfg is cfg else '[decay]'}",
                   spec.maintain_, st, cfg=ncfg, dirty=dirty)
             return st
@@ -2678,23 +2986,8 @@ def phase_drafter(seed, warm_batches, rounds, profile=False):
                     lambda: learn(next(batches)), cfg.mc.num_rows)
     # copy_dirty_rows at the drafter's shapes, on the flags the last write
     # left: what the next write copies
-    front, back = (catch_up_leaves(x) for x in (learner._front.chain,
-                                                learner._back.chain))
-    flags = learner._dirty.clone()
-    n, c = cfg.mc.num_rows, cfg.mc.capacity
-    h = front[4].shape[0]
-    inplace_entry(
-        entries, launches, flush, "copy_dirty_rows[drafter]", "copy_dirty_rows",
-        "copy_rows.cu", "none: the back-buffer learner's catch-up",
-        lambda impl, work, dirty: ops.copy_dirty_rows(
-            front, tuple(work), dirty, impl=impl), back,
-        # the flags read and cleared, each flagged row read and written,
-        # the table and the scalars read and written whole
-        bytes_moved=lambda flagged: n + flagged * (1 + 8 * (3 * c + 1))
-        + 8 * (2 * h + len(core.SCALAR_FIELDS)),
-        operations=0, flags=flags, extra=dict(rows=n, table_slots=h),
-        library=lambda: catch_up_library(front, back, flags))
-    del front, back, flags
+    learner_catch_up_entry(entries, launches, "copy_dirty_rows[drafter]",
+                           learner)
     # the walk on the windows of the last round, over the state published now
     state = current()
     chain = state.chain
@@ -3184,36 +3477,70 @@ def pct(values, q):
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
 
 
-def engine_launcher(root):
-    """Step 0: ``python -m repro_torch.launch.serve`` as a user runs it, with
-    a snapshot directory and a WAL, then again with ``--restore``; returns
-    the first run's printed rate (edges/s)."""
+def start_engine_launcher():
+    """Step 0 of phase engine, started early: ``python -m
+    repro_torch.launch.serve`` as a user runs it, with a snapshot directory
+    and a WAL of its own, then again with ``--restore``, both in a thread
+    beside phase kernels (correctness checks, nothing timed).  Returns the
+    function that waits for them, checks them and returns the first run's
+    printed rate (edges/s, measured beside phase kernels)."""
     import re
+    import shutil
+    import tempfile
+    import threading
     repo = Path(__file__).resolve().parent
+    root = tempfile.mkdtemp(prefix="mcq_launcher_")
     env = dict(os.environ, PYTHONPATH=str(repo / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--num-shards",
            "4", "--requests", "20", "--snapshot-dir",
            os.path.join(root, "launcher_snap"), "--wal",
            os.path.join(root, "launcher_wal")]
-    outs = {}
-    for run, extra in (("first", []), ("restore", ["--restore"])):
-        t0 = time.perf_counter()
-        out = subprocess.run(cmd + extra, env=env, cwd=repo, text=True,
-                             capture_output=True, timeout=600)
-        for line in out.stdout.splitlines():
-            say(f"[engine] launcher ({run}): {line}")
-        say(f"[engine] launcher ({run}): exit {out.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        if out.returncode != 0:
-            raise AssertionError(f"the launcher ({run}) exited "
-                                 f"{out.returncode}: {out.stderr[-3000:]}")
-        outs[run] = out.stdout
-    restored = re.search(r"restored step (\d+) \(exact\), replayed (\d+) WAL "
-                         r"batches through seq (\d+)", outs["restore"])
-    if not restored:
-        raise AssertionError("the launcher's --restore run reported no "
-                             "restored snapshot step and replayed batches")
-    return float(re.search(r"\((\d+) edges/s\)", outs["first"]).group(1))
+    outs, errors, procs = {}, [], []
+    # a failure before the check stops the runs too
+    atexit.register(lambda: [p.kill() for p in procs])
+
+    def runs():
+        try:
+            for run, extra in (("first", []), ("restore", ["--restore"])):
+                t0 = time.perf_counter()
+                proc = subprocess.Popen(cmd + extra, env=env, cwd=repo,
+                                        text=True, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE)
+                procs.append(proc)
+                stdout, stderr = proc.communicate(timeout=600)
+                outs[run] = (proc.returncode, stdout, stderr,
+                             time.perf_counter() - t0)
+                if proc.returncode != 0:
+                    return
+        except BaseException as exc:   # raised again by the check
+            errors.append(exc)
+
+    thread = threading.Thread(target=runs, name="engine launcher",
+                              daemon=True)
+    thread.start()
+
+    def finish():
+        thread.join()
+        shutil.rmtree(root, ignore_errors=True)
+        if errors:
+            raise errors[0]
+        for run, (code, stdout, stderr, secs) in outs.items():
+            for line in stdout.splitlines():
+                say(f"[engine] launcher ({run}): {line}")
+            say(f"[engine] launcher ({run}): exit {code} in {secs:.1f} s "
+                f"(beside phase kernels)")
+            if code != 0:
+                raise AssertionError(f"the launcher ({run}) exited {code}: "
+                                     f"{stderr[-3000:]}")
+        restored = re.search(r"restored step (\d+) \(exact\), replayed (\d+) "
+                             r"WAL batches through seq (\d+)",
+                             outs["restore"][1])
+        if not restored:
+            raise AssertionError("the launcher's --restore run reported no "
+                                 "restored snapshot step and replayed batches")
+        return float(re.search(r"\((\d+) edges/s\)",
+                               outs["first"][1]).group(1))
+    return finish
 
 
 def engine_meta(scfg):
@@ -3367,10 +3694,10 @@ class ObserveClock:
 
 @contextlib.contextmanager
 def catch_up_events():
-    """CUDA events around every ``ops.copy_dirty_rows`` the learner launches
+    """CUDA events around every ``ops.copy_bound_rows`` the learner launches
     (its catch-up), read after the block: yields the list of ms."""
     from repro_torch.kernels import ops
-    real, events, out = ops.copy_dirty_rows, [], []
+    real, events, out = ops.copy_bound_rows, [], []
 
     def timed_copy(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
@@ -3380,11 +3707,11 @@ def catch_up_events():
         end.record()
         events.append((start, end))
 
-    ops.copy_dirty_rows = timed_copy
+    ops.copy_bound_rows = timed_copy
     try:
         yield out
     finally:
-        ops.copy_dirty_rows = real
+        ops.copy_bound_rows = real
         torch.cuda.synchronize()
         out.extend(s.elapsed_time(e) for s, e in events)
 
@@ -3430,14 +3757,15 @@ def published(engine):
     return snap.state
 
 
-def phase_engine(state, scfg, seed):
+def phase_engine(state, scfg, seed, launcher=None):
     """The serving engine (``repro_torch.serve.engine.ShardedEngine``) at
     phase sharded's full width, on ``state`` (phase sharded's final state,
     left as it is): the launcher as a user runs it; the state snapshotted
     and restored into the engine; 20 observes served while a query reader
     and a top-n reader loop; every leaf against an engine-free oracle; a
     crash and its recovery; the fault ladder; the stacked catch-up as a
-    kernels entry; a live reassign with a reader running."""
+    kernels entry; a live reassign with a reader running.  ``launcher``:
+    step 0's check, its runs started earlier (``start_engine_launcher``)."""
     import gc
     import shutil
     from repro_torch import core, faults
@@ -3454,7 +3782,7 @@ def phase_engine(state, scfg, seed):
     entries = []
     try:
         # step 0: the launcher, as a user runs it
-        launcher_rate = engine_launcher(root)
+        launcher_rate = (launcher or start_engine_launcher())()
 
         # step 1: phase sharded's state, snapshotted, restored into the engine
         cfg = engine_config(root, scfg)
@@ -3643,33 +3971,18 @@ def phase_engine(state, scfg, seed):
         # its last write here): the stacked catch-up at full width
         lrn = engine._writer
         front, back = epoch._copied(lrn._front), epoch._copied(lrn._back)
-        flags = lrn._dirty.view(-1).clone()
         caught = [x.clone() for x in back]
-        ops.copy_dirty_rows(front, caught, flags.clone(), impl="cuda")
+        # the flags the last write left are all that differs: the back
+        # caught up by them is the front, every tensor
+        ops.copy_dirty_rows(front, caught, lrn._dirty.view(-1).clone(),
+                            lrn._table_dirty.view(-1).clone(), impl="cuda")
         for i, (x, y) in enumerate(zip(caught, front)):
             if not torch.equal(x, y):
                 raise AssertionError(f"stacked catch-up: tensor {i} is not "
                                      f"the front after it")
-        del caught
-        rows, c = front[0].shape
-        t_size, h = front[4].numel(), front[7].shape[1]
-        flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-        inplace_entry(
-            entries, launches, flush, "copy_dirty_rows[engine]",
-            "copy_dirty_rows", "copy_rows.cu",
-            "none: the back-buffer learner's catch-up",
-            lambda impl, work, dirty: ops.copy_dirty_rows(
-                front, tuple(work), dirty, impl=impl),
-            back,
-            # the flags read and cleared, each flagged row (and its row-hash
-            # lane) read and written, the S tables and scalars whole
-            bytes_moved=lambda flagged: rows + flagged * (1 + 8 * (
-                3 * c + 1 + 2 * h)) + 8 * (2 * t_size + front[6].numel()),
-            operations=0, flags=flags,
-            extra=dict(rows=rows, shards=SHARDS, table_slots=t_size,
-                       rows_flagged_by_last_write=int(flags.sum())),
-            library=lambda: catch_up_library(front, back, flags))
-        del front, back, flush
+        del caught, front, back
+        learner_catch_up_entry(entries, launches, "copy_dirty_rows[engine]",
+                               lrn, extra=dict(shards=SHARDS))
 
         # step 5: the fault ladder on the card
         src, dst = host_batch()
@@ -4840,6 +5153,12 @@ def phase_soak(seed):
     entries = path_shape_kernels(sh.shard_state(state, 0), scfg.base, src, dst,
                                  q, launches, path="soak", reads=((0.9, 16),),
                                  unfused=False)
+    # the catch-up at the soak's shapes: one more observe through the
+    # recovered engine's learner leaves the flags the next write copies
+    engines["cuda"].observe(*soak.batch_for(seed, engines["cuda"]._seq + 2,
+                                            SOAK_ROWS, BATCH))
+    learner_catch_up_entry(entries, launches, "copy_dirty_rows[soak]",
+                           engines["cuda"]._writer)
     engines["cuda"].close()
     del engines, state, card, cpu
     import shutil
@@ -5076,26 +5395,8 @@ def parity_many_shards(seed):
 
     entries = []
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    lrn = engines["cuda"]._writer
-    front, back = epoch._copied(lrn._front), epoch._copied(lrn._back)
-    flags = lrn._dirty.view(-1).clone()
-    rows, c = front[0].shape
-    t_size = front[4].numel()
-    inplace_entry(
-        entries, launches, flush, f"copy_dirty_rows[S={s}]",
-        "copy_dirty_rows", "copy_rows.cu",
-        "none: the back-buffer learner's catch-up",
-        lambda impl, work, dirty: ops.copy_dirty_rows(front, tuple(work), dirty,
-                                                      impl=impl),
-        back,
-        # the flags read and cleared, each flagged row read and written,
-        # the S tables and the S·10 scalars whole
-        bytes_moved=lambda flagged: rows + flagged * (1 + 8 * (3 * c + 1))
-        + 8 * (2 * t_size + front[6].numel()),
-        operations=0, flags=flags,
-        extra=dict(rows=rows, shards=s, scalars=front[6].numel()),
-        library=lambda: catch_up_library(front, back, flags))
-    del front, back
+    learner_catch_up_entry(entries, launches, f"copy_dirty_rows[S={s}]",
+                           engines["cuda"]._writer, extra=dict(shards=s))
 
     def merge_entry(label, probs, dsts, srcs, n, launches):
         from repro_torch.kernels import topn_merge
@@ -5357,9 +5658,10 @@ def parity_learner(seed, cfg, writes=16):
         functional = core.maybe_decay(core.update_batch(
             functional, src, dst, cfg=cfg_p), cfg=cfg_p, total_threshold=8)
         published = learner.write(
-            lambda s, dirty: core.maybe_decay_(core.update_batch_(
-                s, src, dst, cfg=cfg, dirty=dirty), cfg=cfg,
-                total_threshold=8, dirty=dirty))
+            lambda s, dirty, table_dirty: core.maybe_decay_(
+                core.update_batch_(s, src, dst, cfg=cfg, dirty=dirty,
+                                   table_dirty=table_dirty),
+                cfg=cfg, total_threshold=8, dirty=dirty))
         equal_states(f"parity learner write {i}", published, functional)
     stats = core.maintenance_stats(functional)
     say(f"[parity] back-buffer learner with row hashes: {writes} writes equal "
@@ -5419,7 +5721,7 @@ def parity_drafter(seed, batches=24):
 LM_ARCHS = ("qwen2-7b", "deepseek-moe-16b", "mamba2-130m", "recurrentgemma-9b")
 LM_LAUNCHER_ARCH = "mamba2-130m"   # the launcher check: the smallest, a cut
                                    # of depth (every arch is served in process)
-LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 3, 2, 64, 32   # 3: a cut of depth
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 3, 2, 64, 24   # 3, 24: cuts of depth
 LM_DRAFT = 4             # the reference launcher's --draft-len
 LM_LOGIT_TOL = {          # |card - CPU| of a logit at depth 2, by dtype; a
     "float32": 0.01,       # wrong computation moves a logit by about its
@@ -5632,7 +5934,13 @@ def lm_against_cpu(arch, seed):
         ones by about a logit's size;
       * the greedy tokens equal wherever the CPU's top-2 margin exceeds
         twice the position's largest |card - CPU|; the check fails when no
-        position of a dtype has such a margin."""
+        position of a dtype has such a margin.
+
+    The card's calls run here; the CPU's in a thread, which goes on beside
+    whatever the caller runs next on the card (phase lm: the arch's serve).
+    Returns the function that waits for the CPU's calls and makes the
+    checks."""
+    import threading
     from repro_torch.models import Model
     from repro_torch.models.common import lm_logits
     layers = lm_check_layers(arch)
@@ -5648,12 +5956,7 @@ def lm_against_cpu(arch, seed):
     names = ("prefill", "decode_step", f"extend_step[{LM_DRAFT}]",
              f"forward[{LM_PROMPT}]")
     logits = {}
-
-    def gaps(a, b):
-        return [((x - y).abs().max().item(), (x - y).abs().mean().item())
-                for x, y in zip(a, b)]
-
-    fed = {}
+    fed, fed_ready, cpu_error, walls = {}, threading.Event(), [], {}
 
     def run(model, p, dev):
         """The four calls' logits (float32, on the CPU)."""
@@ -5665,6 +5968,7 @@ def lm_against_cpu(arch, seed):
                                                dim=1),
                        pos=torch.full((LM_BATCH,), npre + LM_PROMPT,
                                       dtype=torch.int32))
+            fed_ready.set()
         pos = fed["pos"].to(dev)
         step, _ = model.decode_step(p, caches, fed["cur"].to(dev), pos)
         ext, _ = model.extend_step(p, caches, fed["feed"].to(dev), pos)
@@ -5673,12 +5977,49 @@ def lm_against_cpu(arch, seed):
         whole = lm_logits(p["emb"], x[:, npre:], model.cfg)
         return [x.float().cpu() for x in (first, step, ext, whole)]
 
+    def cpu_side():
+        try:
+            for dtype in LM_LOGIT_TOL:   # float32 first: it decides the feed
+                t0 = time.perf_counter()
+                logits[dtype, "cpu"] = run(
+                    Model(dataclasses.replace(base, dtype=dtype)),
+                    params["cpu"], "cpu")
+                walls[dtype, "cpu"] = time.perf_counter() - t0
+        except BaseException as exc:   # raised again by the checks
+            cpu_error.append(exc)
+        finally:
+            fed_ready.set()
+
+    thread = threading.Thread(target=cpu_side, name=f"lm cpu {arch}",
+                              daemon=True)
+    thread.start()
+    fed_ready.wait()
+    if not cpu_error:
+        for dtype in LM_LOGIT_TOL:
+            t0 = time.perf_counter()
+            logits[dtype, "cuda"] = run(
+                Model(dataclasses.replace(base, dtype=dtype)),
+                params["cuda"], "cuda")
+            walls[dtype, "cuda"] = time.perf_counter() - t0
+    del params["cuda"]
+    torch.cuda.empty_cache()
+    return lambda: lm_cpu_checks(arch, base, layers, names, thread, cpu_error,
+                                 logits, walls)
+
+
+def lm_cpu_checks(arch, base, layers, names, thread, cpu_error, logits,
+                  walls):
+    """``lm_against_cpu``'s checks, once its CPU thread has ended."""
+    thread.join()
+    if cpu_error:
+        raise cpu_error[0]
+
+    def gaps(a, b):
+        return [((x - y).abs().max().item(), (x - y).abs().mean().item())
+                for x, y in zip(a, b)]
+
     for dtype in LM_LOGIT_TOL:   # float32 first
-        model = Model(dataclasses.replace(base, dtype=dtype))
-        t0 = time.perf_counter()
-        for dev in ("cpu", "cuda"):
-            logits[dtype, dev] = run(model, params[dev], dev)
-        wall = time.perf_counter() - t0
+        wall = walls[dtype, "cpu"] + walls[dtype, "cuda"]
         diffs = gaps(logits[dtype, "cuda"], logits[dtype, "cpu"])
         rounding = gaps(logits[dtype, "cpu"], logits["float32", "cpu"])
         card_rounding = gaps(logits[dtype, "cuda"], logits["float32", "cuda"])
@@ -5695,7 +6036,9 @@ def lm_against_cpu(arch, seed):
                         for n, (d, dm), (t, tm), (r, rm), (c, cm)
                         in zip(names, diffs, tols, rounding, card_rounding))
             + f"; largest |logit| {biggest:.3f}"
-            + ("; wq and wk / 8" if tamed(base) else "") + f"; {wall:.1f} s")
+            + ("; wq and wk / 8" if tamed(base) else "")
+            + f"; {wall:.1f} s (CPU {walls[dtype, 'cpu']:.1f} s in a thread "
+            f"beside the arch's serve, card {walls[dtype, 'cuda']:.1f} s)")
         compared = total = 0
         for name, want, got, (d, dm), (t, tm), (r, rm), (c, cm) in zip(
                 names, logits[dtype, "cpu"], logits[dtype, "cuda"], diffs,
@@ -5730,30 +6073,47 @@ def lm_against_cpu(arch, seed):
         if compared == 0:
             raise AssertionError(f"lm {arch}: {dtype} greedy tokens compared "
                                  f"at no position")
-    del params
 
 
-def lm_launcher():
-    """``python -m repro_torch.launch.serve --arch LM_LAUNCHER_ARCH`` as a
-    user runs it (2 requests, the launcher's other defaults), on the card:
-    exit 0 and its three lines."""
+def start_lm_launcher():
+    """Start ``python -m repro_torch.launch.serve --arch LM_LAUNCHER_ARCH``
+    as a user runs it (2 requests, the launcher's other defaults), on the
+    card, in a process of its own; returns the function that waits for it
+    and checks it: exit 0 and its three lines.  Started beside phase
+    kernels (correctness checks, nothing timed), it ends within it."""
     import re
+    import tempfile
     repo = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    out = subprocess.run(
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          LM_LAUNCHER_ARCH, "--requests", "2"],
         env=dict(os.environ, PYTHONPATH=str(repo / "src")),
-        cwd=repo, text=True, capture_output=True, timeout=600)
-    for line in out.stdout.splitlines():
-        say(f"[lm] launcher --arch {LM_LAUNCHER_ARCH}: {line}")
-    say(f"[lm] launcher --arch {LM_LAUNCHER_ARCH}: exit {out.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    if out.returncode != 0 or not re.search(
-            r"2 requests, 128 tokens in .*\(plain greedy would use 62\)"
-            r".*maintenance: decay_steps=", out.stdout, re.S):
-        raise AssertionError(f"the LM launcher failed ({out.returncode}): "
-                             f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+        cwd=repo, text=True, stdout=out, stderr=err)
+    atexit.register(proc.kill)   # a failure before its check stops it too
+
+    def finish():
+        try:
+            code = proc.wait(timeout=600)
+        finally:
+            proc.kill()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        for line in stdout.splitlines():
+            say(f"[lm] launcher --arch {LM_LAUNCHER_ARCH}: {line}")
+        say(f"[lm] launcher --arch {LM_LAUNCHER_ARCH}: exit {code} in "
+            f"{time.perf_counter() - t0:.1f} s after its start (beside phase "
+            f"kernels)")
+        if code != 0 or not re.search(
+                r"2 requests, 128 tokens in .*\(plain greedy would use 62\)"
+                r".*maintenance: decay_steps=", stdout, re.S):
+            raise AssertionError(f"the LM launcher failed ({code}): "
+                                 f"{stdout[-2000:]} {stderr[-3000:]}")
+    return finish
 
 
 def lm_arch(arch, seed, card, profile, warm):
@@ -5916,22 +6276,36 @@ def lm_roofline(model, params, prompt, latency_ms, card):
         f"(floor share {floor_ms / latency_ms:.4f}) ({card})")
 
 
-def phase_lm(seed, card, profile=False):
+def phase_lm(seed, card, profile=False, launcher=None):
     """The LM serving path at full width for each of LM_ARCHS: the
     launcher as a user runs it (``mamba2-130m``); each arch served
     plain and speculative (``lm_arch``), its model against the CPU at a
     small depth; the drafter's kernels at the path's shapes (the first
     arch's drafter and histories), tagged ``[lm]``, their launches the sum
-    over the archs' launch windows, each arch's beside it."""
+    over the archs' launch windows, each arch's beside it.  Each arch's
+    card-vs-CPU forwards (``lm_against_cpu``) come first: the CPU's run in a
+    thread beside that arch's serve on the card, on the host's cores but
+    two, and their checks follow the serve.  ``launcher``: the launcher's
+    check, started earlier (``start_lm_launcher``)."""
     t_phase = time.perf_counter()
-    lm_launcher()
+    (launcher or start_lm_launcher())()
     took("lm launcher", t_phase)
     counts, entries = {}, []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))   # two left for the card's host
+
+    def checks(pending):
+        t0 = time.perf_counter()
+        pending()
+        took("lm the card-vs-CPU checks, after the CPU's thread", t0)
+
     for i, arch in enumerate(LM_ARCHS):
         t0 = time.perf_counter()
+        pending = lm_against_cpu(arch, seed + 100 * i)
         launches, engine, histories, ctx, draft = lm_arch(
             arch, seed + 100 * i, card, profile, warm=i == 0)
         counts[arch] = dict(launches)
+        checks(pending)   # before the kernel entries' timings
         if i == 0:
             entries = lm_kernel_entries(engine, histories, ctx, draft,
                                         launches, seed,
@@ -5941,17 +6315,16 @@ def phase_lm(seed, card, profile=False):
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        lm_against_cpu(arch, seed + 100 * i)
-        torch.cuda.empty_cache()
         took(f"lm {arch}", t0)
     for i, arch in enumerate(LM_MODEL_ARCHS):
         t0 = time.perf_counter()
+        pending = lm_against_cpu(arch, seed + 100 * (len(LM_ARCHS) + i))
         lm_model_arch(arch, seed + 100 * (len(LM_ARCHS) + i), card)
         gc.collect()
         torch.cuda.empty_cache()
-        lm_against_cpu(arch, seed + 100 * (len(LM_ARCHS) + i))
-        torch.cuda.empty_cache()
+        checks(pending)
         took(f"lm {arch}", t0)
+    torch.set_num_threads(threads)
     say(f"[lm] kernel launches by arch: "
         + "; ".join(f"{a} " + ", ".join(f"{k} {c[k]}" for k in LM_KERNELS)
                     for a, c in counts.items()))
@@ -6053,21 +6426,8 @@ def lm_kernel_entries(engine, histories, ctx, draft, launches, seed, vocab):
                                  hist[:, 1:].reshape(-1), q, launches,
                                  path="lm", reads=(), unfused=False)
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.int32, device="cuda")
-    learner = engine._learner
-    front, back = (catch_up_leaves(x) for x in (learner._front.chain,
-                                                learner._back.chain))
-    flags = learner._dirty.clone()
-    n, c = ngram.mc.num_rows, ngram.mc.capacity
-    h = front[4].shape[0]
-    inplace_entry(
-        entries, launches, flush, "copy_dirty_rows[lm]", "copy_dirty_rows",
-        "copy_rows.cu", "none: the back-buffer learner's catch-up",
-        lambda impl, work, dirty: ops.copy_dirty_rows(
-            front, tuple(work), dirty, impl=impl), back,
-        bytes_moved=lambda flagged: n + flagged * (1 + 8 * (3 * c + 1))
-        + 8 * (2 * h + len(core.SCALAR_FIELDS)),
-        operations=0, flags=flags, extra=dict(rows=n, table_slots=h),
-        library=lambda: catch_up_library(front, back, flags))
+    learner_catch_up_entry(entries, launches, "copy_dirty_rows[lm]",
+                           engine._learner)
     chain = state.chain
     window = ctx[:, -ngram.order:].contiguous()
     walk_args = (window, chain.src_table.keys, chain.src_table.vals,
@@ -6475,6 +6835,9 @@ def main(argv=None):
 
     card, dryrun_done = phase_device()
     lap("device")
+    # the launchers' processes run beside the kernels' checks
+    launcher = start_lm_launcher() if "lm" in phases else None
+    engine_launch = start_engine_launcher() if "engine" in phases else None
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     kernels = []
@@ -6521,7 +6884,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         lap("drafter")
     if "lm" in phases:
-        kernels += phase_lm(args.seed, card, args.profile)
+        kernels += phase_lm(args.seed, card, args.profile, launcher)
         torch.cuda.empty_cache()
         lap("lm")
     if "train" in phases:
@@ -6548,7 +6911,8 @@ def main(argv=None):
                                                            scfg=scfg))
         lap("sharded")
         if "engine" in phases:
-            kernels += phase_engine(state, scfg, args.seed)
+            kernels += phase_engine(state, scfg, args.seed,
+                                    engine_launch)
             lap("engine")
         if "persist" in phases:
             box = [state]
@@ -6561,7 +6925,8 @@ def main(argv=None):
     elif "persist" in phases or "engine" in phases:
         state, scfg = sharded_warm_state(args.seed, sharded_warm(args))
         if "engine" in phases:
-            kernels += phase_engine(state, scfg, args.seed)
+            kernels += phase_engine(state, scfg, args.seed,
+                                    engine_launch)
         box = [state]
         del state
         if "persist" in phases:

@@ -359,7 +359,7 @@ def _check_gen(state: FakeState, my_gen: int, what: str) -> None:
 def _fake_make_update_fn_(scfg):
     my_gen = _gen_of(scfg)
 
-    def fn(state, src, dst, w, *, dirty=None):
+    def fn(state, src, dst, w, *, dirty=None, table_dirty=None):
         _check_gen(state, my_gen, "update")
         marker = np.int32([int(np.asarray(src)[0])])
         return FakeState(
@@ -427,7 +427,7 @@ class CopyOnWriteWriter:
     def write(self, fn):
         snap = self.store.acquire()
         try:
-            new = fn(snap.state, dirty=None)
+            new = fn(snap.state, dirty=None, table_dirty=None)
         finally:
             self.store.release(snap)
         self.store.publish(new)

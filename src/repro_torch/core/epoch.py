@@ -19,9 +19,9 @@ holds: the functional calls of ``repro_torch.core`` return new tensors and
 never write into a tensor of the state they were given, which is what lets
 a reader go on using a snapshot while the learner builds the next one from
 it.  ``BackBufferLearner`` makes the copy of read-copy-update a copy of
-rows: it writes in place (the owner calls) into a second state that no
-reader holds any more, after catching that state up with the published one
-row by row.
+what changed: it writes in place (the owner calls) into a second state that
+no reader holds any more, after catching that state up with the published
+one by the rows and src-table slots the last write flagged.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.analysis.invariants import requires_lock
+from repro_torch.core import hashtable as ht
 from repro_torch.core import mcprioq as mc
 from repro_torch.kernels import ops
 
@@ -171,19 +172,23 @@ class BackBufferLearner:
     readers may hold, and a private *back*, a version no reader holds any
     more.  :meth:`write` waits for the back's readers to leave (the store's
     reader accounting: ``synchronize``), catches the back up with the front
-    (``ops.copy_dirty_rows``: the rows the last write changed, flagged in
-    ``dirty``, their row hashes included, plus the src table and the
-    scalars), applies the owner's
-    in-place write to the back with the flags tracking it, publishes the
-    back and swaps the roles.  Two states' memory, and per write the rows
-    the last write changed instead of a copy of the table.
+    (the catch-up kernel: the rows the last write changed, flagged in
+    ``dirty``, their row hashes included, the src-table slot groups it
+    wrote, flagged in ``table_dirty``, and the scalars), applies the
+    owner's in-place write to the back with the flags tracking it,
+    publishes the back and swaps the roles.  Two states' memory, and per
+    write what the last write changed instead of a copy of the state.
+    The catch-up's tensors are checked once, here: it is bound for both
+    directions (``ops.bind_copy_dirty_rows``), and a write launches the
+    bound one (``ops.copy_bound_rows``).
 
     The store's current state must be one the learner owns from now on
     (built by ``init``: its scalar leaves are views of one tensor); the back
     starts as a ``mcprioq.private_copy`` of it.  A state is an ``MCState``
     or holds one as ``.chain``, or a stacked state of S shards
-    (``core.sharded``, any S): its flags are ``[S, N]`` and one catch-up
-    launch covers every shard.
+    (``core.sharded``, any S): its flags are ``[S, N]`` and ``[S, G]``
+    (``G = hashtable.flag_count(T)``), and one catch-up launch covers every
+    shard.
 
     Stream rule: a host ``release`` does not mean the device has finished
     reading.  Readers must launch on the learner's stream (the current
@@ -203,9 +208,21 @@ class BackBufferLearner:
         back = mc.private_copy(chain)
         self._back = (snap.state._replace(chain=back)
                       if hasattr(snap.state, "chain") else back)
+        device = chain.slabs.tot.device
         self._dirty = torch.zeros(chain.slabs.tot.shape, dtype=torch.uint8,
-                                  device=chain.slabs.tot.device)
-        self._stream = (torch.cuda.current_stream(self._dirty.device)
+                                  device=device)
+        keys = chain.src_table.keys
+        self._table_dirty = torch.zeros(
+            keys.shape[:-1] + (ht.flag_count(keys.shape[-1]),),
+            dtype=torch.uint8, device=device)
+        flags = (self._dirty.view(-1), self._table_dirty.view(-1))
+        a, b = _copied(chain), _copied(_chain(self._back))
+        # the catch-up before a write into the back: front -> back, and
+        # after the swap the other way
+        self._catch_up = (ops.bind_copy_dirty_rows(a, b, *flags),
+                          ops.bind_copy_dirty_rows(b, a, *flags))
+        self._turn = 0
+        self._stream = (torch.cuda.current_stream(device)
                         if self._dirty.is_cuda else None)
 
     def _check_stream(self, who: str) -> None:
@@ -222,21 +239,23 @@ class BackBufferLearner:
         return self.store.acquire()
 
     def write(self, fn: Callable, *args, **kwargs):
-        """Publish ``fn(back, *args, dirty=flags, **kwargs)``: an owner call
-        (``update_batch_``, ``decay_``, ``speculative.observe_`` ..., or a
-        function of several) that writes into the state it is given, flags
-        the rows it changes and returns that state.  Returns the state
-        published."""
+        """Publish ``fn(back, *args, dirty=flags, table_dirty=table_flags,
+        **kwargs)``: an owner call (``update_batch_``,
+        ``speculative.observe_``, ``sharded.update_`` ..., or a function of
+        several) that writes into the state it is given, flags the rows it
+        changes and the src-table slots it writes, and returns that state.
+        Returns the state published."""
         self._check_stream("the learner")
         self.store.synchronize()     # the back's version has no reader left
-        front, back = _chain(self._front), _chain(self._back)
-        ops.copy_dirty_rows(_copied(front), _copied(back),
-                            self._dirty.view(-1))
-        new = fn(self._back, *args, dirty=self._dirty, **kwargs)
+        ops.copy_bound_rows(self._catch_up[self._turn])
+        back = _chain(self._back)
+        new = fn(self._back, *args, dirty=self._dirty,
+                 table_dirty=self._table_dirty, **kwargs)
         if [x.data_ptr() for x in _leaves(_chain(new))] != \
                 [x.data_ptr() for x in _leaves(back)]:
             raise RuntimeError("the learner's write returned other tensors "
                                "than the back state's: it must write in place")
         self.store.publish(new)
         self._front, self._back = new, self._front
+        self._turn ^= 1
         return new

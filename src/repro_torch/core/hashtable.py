@@ -36,6 +36,22 @@ class HashTable(NamedTuple):
     vals: torch.Tensor  # int32[size]
 
 
+#: src-table slots one table flag stands for (the whole table when smaller):
+#: the new-edge pass flags the group of every slot it writes, and the
+#: back-buffer learner's catch-up copies the flagged groups
+FLAG_GROUP = 32
+
+
+def flag_group(size: int) -> int:
+    """Slots one flag stands for in a table of ``size`` slots."""
+    return min(FLAG_GROUP, size)
+
+
+def flag_count(size: int) -> int:
+    """Table flags (uint8) a table of ``size`` slots takes."""
+    return -(-size // flag_group(size))
+
+
 def make(size: int, device=None) -> HashTable:
     """Empty table on ``device`` (default: the current CUDA device; raises
     when there is none)."""

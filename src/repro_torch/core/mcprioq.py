@@ -43,11 +43,13 @@ copy): they write into its tensors and return that same state, with no copy
 (the port's counterpart of calling the reference's jitted functions with
 the state donated).  Each pair shares one body; only who owns the buffers
 differs.  An owner call takes ``dirty`` (None, or uint8 [N]) and flags every
-row whose ``cnt``, ``dst``, ``tot`` or ``order`` it changed
-(``core.epoch.BackBufferLearner`` catches its back buffer up by those
-flags).  On a CUDA state ``update_batch(_)``, the queries, ``decay(_)`` and
-``maybe_decay_`` launch their kernels without any device->host
-synchronisation.
+row whose ``cnt``, ``dst``, ``tot`` or ``order`` it changed; an update also
+takes ``table_dirty`` (None, or uint8 [``hashtable.flag_count(T)``]) and
+flags the group of every src-table slot its new-edge pass writes, the only
+write of the table (``core.epoch.BackBufferLearner`` catches its back
+buffer up by those flags).  On a CUDA state ``update_batch(_)``, the
+queries, ``decay(_)`` and ``maybe_decay_`` launch their kernels without any
+device->host synchronisation.
 
 The ten scalar leaves (``n_rows`` .. ``dh_tombstones``, in ``MCState``
 order) are views of one int32 tensor made by :func:`init`; an owner call
@@ -380,7 +382,7 @@ def _take_new_prefix(src, dst, w, pos, new_mask, limit: int):
 
 
 def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig,
-               dirty=None) -> MCState:
+               dirty=None, table_dirty=None) -> MCState:
     """Insert pass for new edges / new rows (the paper's rare case), through
     the kernel layer (``ops.slow_path_``), written into ``state``'s src
     table, ``dst``/``cnt``/``tot``, counters and, with the dst hash, the
@@ -394,7 +396,7 @@ def _slow_path(state: MCState, src, dst, w, active, cfg: MCConfig,
     ops.slow_path_(table.keys, table.vals, slabs.dst, slabs.cnt, slabs.tot,
                    slabs.order, scalars_of(state, _COUNTERS), src, dst, w,
                    active, max_probes=cfg.max_probes, dirty=dirty,
-                   impl=cfg.impl, **dh)
+                   table_dirty=table_dirty, impl=cfg.impl, **dh)
     return state
 
 
@@ -409,7 +411,7 @@ def _batch_inputs(state: MCState, src, dst, weights, mask):
 
 
 def _update(state: MCState, src, dst, weights, mask, cfg: MCConfig, *,
-            owner: bool, dirty=None) -> MCState:
+            owner: bool, dirty=None, table_dirty=None) -> MCState:
     """The body of :func:`update_batch` and :func:`update_batch_`: every
     kernel writes into ``state`` except the odd-even pass, which the
     functional twin lets write a fresh ``order`` (it writes every row then;
@@ -439,7 +441,7 @@ def _update(state: MCState, src, dst, weights, mask, cfg: MCConfig, *,
     p_src, p_dst, p_w, p_mask, overflow = _take_new_prefix(
         u_src, u_dst, u_w, u_pos, new_mask, limit)
     state.deferred_new.add_(overflow)
-    _slow_path(state, p_src, p_dst, p_w, p_mask, cfg, dirty)
+    _slow_path(state, p_src, p_dst, p_w, p_mask, cfg, dirty, table_dirty)
 
     # (5) lock-free bubble sort, through the kernel layer
     if cfg.sort_passes and owner:
@@ -476,13 +478,14 @@ def update_batch(
 
 
 def update_batch_(state: MCState, src, dst, weights=None, mask=None, *,
-                  cfg: MCConfig, dirty=None) -> MCState:
+                  cfg: MCConfig, dirty=None, table_dirty=None) -> MCState:
     """:func:`update_batch` for the state's owner: written into ``state``'s
     own tensors, which it returns (no copy; ``order`` rows that the odd-even
     pass leaves as they were are not rewritten).  ``dirty`` (uint8 [N]):
-    every row changed is flagged."""
+    every row changed is flagged; ``table_dirty`` (uint8
+    [``hashtable.flag_count(T)``]): every src-table slot group written."""
     return _update(state, src, dst, weights, mask, cfg, owner=True,
-                   dirty=dirty)
+                   dirty=dirty, table_dirty=table_dirty)
 
 
 def update_batch_reference(

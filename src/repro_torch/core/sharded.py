@@ -256,18 +256,20 @@ def _flags(dirty, s):
 
 
 def update_(state: mc.MCState, src, dst, w, *, scfg: ShardedConfig,
-            dirty=None) -> mc.MCState:
+            dirty=None, table_dirty=None) -> mc.MCState:
     """Route a global batch ``src[B], dst[B], w[B]`` (B a multiple of S,
     sender slices contiguous) to its owner shards and apply each shard's
     update in place (``update_batch_`` with ``mask = src != EMPTY``); each
     sender's bucket-overflow drops are added to its own shard's
     ``route_dropped``.  ``dirty`` (uint8 ``[S, N]``): every row changed is
-    flagged.  Returns ``state``."""
+    flagged; ``table_dirty`` (uint8 ``[S, hashtable.flag_count(T)]``):
+    every src-table slot group written.  Returns ``state``."""
     (rsrc, rdst, rw), _, _, _, dropped, _ = _route(scfg, state, src, (dst, w))
     for r in range(scfg.num_shards):
         mc.update_batch_(shard_state(state, r), rsrc[r], rdst[r], rw[r],
                          rsrc[r] != EMPTY, cfg=scfg.base,
-                         dirty=_flags(dirty, r))
+                         dirty=_flags(dirty, r),
+                         table_dirty=_flags(table_dirty, r))
     state.route_dropped.add_(dropped)
     return state
 
@@ -394,10 +396,12 @@ def make_update_fn(scfg: ShardedConfig):
 
 
 def make_update_fn_(scfg: ShardedConfig):
-    """``(state, src[B], dst[B], w[B], *, dirty=None) -> state``, the owner
-    program: :func:`update_` under ``scfg``, writing into ``state``."""
-    def fn(state, src, dst, w, *, dirty=None):
-        return update_(state, src, dst, w, scfg=scfg, dirty=dirty)
+    """``(state, src[B], dst[B], w[B], *, dirty=None, table_dirty=None) ->
+    state``, the owner program: :func:`update_` under ``scfg``, writing
+    into ``state``."""
+    def fn(state, src, dst, w, *, dirty=None, table_dirty=None):
+        return update_(state, src, dst, w, scfg=scfg, dirty=dirty,
+                       table_dirty=table_dirty)
     return fn
 
 

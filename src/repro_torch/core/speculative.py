@@ -110,12 +110,12 @@ def observe(state: DrafterState, tokens, *, cfg: NGramConfig) -> DrafterState:
 
 
 def observe_(state: DrafterState, tokens, *, cfg: NGramConfig,
-             dirty=None) -> DrafterState:
+             dirty=None, table_dirty=None) -> DrafterState:
     """:func:`observe` for the state's owner (``mcprioq.update_batch_``):
     written into ``state``, which it returns; ``dirty`` flags the rows
-    changed."""
+    changed, ``table_dirty`` the src-table slot groups written."""
     mc.update_batch_(state.chain, *_transitions(state, tokens, cfg.order),
-                     cfg=cfg.mc, dirty=dirty)
+                     cfg=cfg.mc, dirty=dirty, table_dirty=table_dirty)
     return state
 
 

@@ -43,13 +43,13 @@ SIGNATURES = {
     "mcq_cdf_query_fused": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                             _I, _I, _I, _P],
     "mcq_slow_path": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+                      _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "mcq_cdf_query": [_P, _P, _P, _F, _I, _P, _P, _P, _I, _I, _I, _P],
     "mcq_draft_walk": [_P, _LL, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _I,
                        _I, _P, _P, _I, _P],
     "mcq_decay_sort": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I,
                        _P, _P, _I, _P, _P],
-    "mcq_copy_dirty_rows": [_P] * 19 + [_LL, _I, _LL, _I, _I, _P],
+    "mcq_copy_dirty_rows": [_P, _P],
     "mcq_dh_rebuild": [_P] * 7 + [_LL, _I, _I, _I, _I, _P],
     "mcq_topn_merge": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "mcq_topn_merge_windows": [_P, _P] + [_I] * 6 + [_P] * 8,
@@ -155,12 +155,18 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: Optional[torch.device], *args,
+           stream: Optional[int] = None) -> None:
     """Call C entry point ``name`` with ``args`` + the current stream of
-    ``device``; raise if it reports a CUDA error at launch."""
+    ``device``, or + ``stream`` (a stream handle the caller keeps; the entry
+    point then makes its device current itself); raise if it reports a
+    CUDA error at launch."""
     fn = getattr(load(), name)
-    with torch.cuda.device(device):
-        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if stream is not None:
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 

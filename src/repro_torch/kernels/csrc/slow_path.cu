@@ -13,7 +13,10 @@
 // counters = {n_rows, dropped_rows, dropped_probes, evictions}.  The tables
 // are updated in place: the caller passes buffers it owns.  dirty (uint8 per
 // row, or null) is set for every row the pass writes, which takes in every
-// row it allocates: an item that gets a row is applied to it.
+// row it allocates: an item that gets a row is applied to it.  table_dirty
+// (uint8 per group of min(32, T) src-table slots, or null) is set for the
+// group of every slot the pass writes: the pass is the only writer of the
+// src table, so the back-buffer learner copies those groups and no other.
 //
 // An item depends on earlier ones in two ways only: a missing src takes the
 // next row (and a later item with that src finds it), and items on one row
@@ -112,6 +115,7 @@ __global__ void mcq_sp_chain_kernel(const int32_t* __restrict__ src,
                                     long long* __restrict__ with_row,
                                     volatile int32_t* tab_keys,
                                     volatile int32_t* tab_vals,
+                                    uint8_t* __restrict__ table_dirty,
                                     int table_size, int32_t* counters,
                                     int num_rows, int max_probes,
                                     int32_t* n_with_out) {
@@ -184,6 +188,8 @@ __global__ void mcq_sp_chain_kernel(const int32_t* __restrict__ src,
                   (pr.h0 + static_cast<uint32_t>(ins_p)) & mask;
               tab_keys[idx] = s;
               tab_vals[idx] = got;
+              if (table_dirty != nullptr)
+                table_dirty[idx / min(MCQ_WARP, table_size)] = 1;
             }
           }
           if (lane == 0) with_row[atomicAdd(&n_out, 1)] = mcq_sp_key(got, item);
@@ -375,8 +381,9 @@ static int mcq_next_pow2(int x) {
 }
 
 // keys, with_row: int64 scratch of n_items each; n_with: int32 scratch of
-// one; dirty: null, or uint8 per row; dh_keys/dh_vals: null, or the row
-// hashes [num_rows, dh_size] (dh_size a power of two).
+// one; dirty: null, or uint8 per row; table_dirty: null, or uint8 per group
+// of min(32, table_size) slots; dh_keys/dh_vals: null, or the row hashes
+// [num_rows, dh_size] (dh_size a power of two).
 extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
                              const void* active, int n_items, void* tab_keys,
                              void* tab_vals, int table_size, void* dst_slab,
@@ -385,7 +392,7 @@ extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
                              int capacity,
                              int max_probes, void* keys, void* with_row,
                              void* n_with, void* dh_keys, void* dh_vals,
-                             int dh_size, void* stream) {
+                             int dh_size, void* table_dirty, void* stream) {
   if (n_items <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   long long* k_items = static_cast<long long*>(keys);
@@ -399,7 +406,8 @@ extern "C" int mcq_slow_path(const void* src, const void* dst, const void* w,
   mcq_sp_chain_kernel<<<1, MCQ_SP_CHAIN_THREADS, 0, st>>>(
       static_cast<const int32_t*>(src), n_items, k_items, k0,
       static_cast<volatile int32_t*>(tab_keys),
-      static_cast<volatile int32_t*>(tab_vals), table_size,
+      static_cast<volatile int32_t*>(tab_vals),
+      static_cast<uint8_t*>(table_dirty), table_size,
       static_cast<int32_t*>(counters), num_rows, max_probes, nw);
 
   // how many keys have a row is known on the device only: the grids are

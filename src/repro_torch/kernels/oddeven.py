@@ -9,11 +9,17 @@ compare-exchange sweeps, descending, strict ``<`` (equal counts never swap).
 
 Bound on this card: bytes — ``cnt`` and ``order`` read, ``order`` written,
 3·N·C·4 B whatever ``passes`` is.  The design holds a row in shared memory
-for ALL passes (one warp per row, a lane per pair, ``__syncwarp`` between
-half-passes), so extra passes cost shared-memory sweeps and no global
-traffic.  In place (``oddeven_cuda_``, the state's owner) a row in which no
-pair swapped is not written back, and a row that changed sets its dirty
-flag, so the writes fall to the rows that changed.
+for ALL passes, so extra passes cost shared-memory sweeps and no global
+traffic.  A row takes only the lanes it uses (:func:`geometry`: a lane per
+compare-exchange pair up to C = 64, so a warp holds four rows at C = 16),
+loads its ``cnt`` and ``order`` together as independent 16-byte vectors
+and gathers the counts into priority order from shared memory, so no load
+waits on another (up to C = 64 a lane then sorts its pair in registers,
+its neighbour's by shuffles); a grid of the card's resident blocks walks the rows, a
+lane keeping the loads of the next one or two rows in flight while a row
+sorts, so no block is launched for a handful of rows.  In place (``oddeven_cuda_``, the state's owner) a row
+in which no pair swapped is not written back, and a row that changed sets
+its dirty flag, so the writes fall to the rows that changed.
 
 Source: ``csrc/oddeven.cu`` (entry ``mcq_oddeven``).  Plain versions:
 :func:`oddeven_sort_ref` (= order gather + :func:`oddeven_ref`) and
@@ -29,12 +35,29 @@ from repro_torch.kernels.ref import oddeven_ref, oddeven_sort_ref, oddeven_sort_
 
 # the plain versions are re-exported beside their kernel
 __all__ = ["oddeven_cuda", "oddeven_cuda_", "oddeven_ref", "oddeven_sort_ref",
-           "oddeven_sort_ref_", "launches"]
+           "oddeven_sort_ref_", "geometry", "MAX_CAPACITY", "launches"]
 
 launches = 0  # kernel launches made by this module's wrappers in this process
 
 _MAX_SHARED_BYTES = 232448  # dynamic shared memory one block can ask for
-_WARPS_PER_BLOCK = 4        # rows per block in csrc/oddeven.cu
+_WARP = 32
+_WARPS_PER_BLOCK = 8        # MCQ_OE_WARPS in csrc/oddeven.cu
+#: the widest row: one row of cnt + order in a block's shared memory
+MAX_CAPACITY = _MAX_SHARED_BYTES // (2 * 4)
+
+
+def geometry(capacity: int):
+    """``(lanes, rows_per_warp, warps_per_block)`` of ``csrc/oddeven.cu``
+    for rows of ``capacity`` slots: a row takes next_pow2(ceil(C/2)) lanes,
+    at most 32, a warp holds 32 / lanes rows, and a block as many warps (up
+    to 8) as its rows' cnt and order fit in its shared memory."""
+    half, lanes = (capacity + 1) // 2, 1
+    while lanes < half and lanes < _WARP:
+        lanes *= 2
+    per_warp = _WARP // lanes
+    warps = min(_WARPS_PER_BLOCK,
+                _MAX_SHARED_BYTES // (2 * capacity * 4 * per_warp))
+    return lanes, per_warp, warps
 
 
 def _launch(name, cnt, order, order_out, passes, dirty):
@@ -46,10 +69,10 @@ def _launch(name, cnt, order, order_out, passes, dirty):
     if passes < 0:
         raise ValueError(f"{name}: passes must be >= 0")
     n, cap = cnt.shape
-    if _WARPS_PER_BLOCK * 2 * cap * 4 > _MAX_SHARED_BYTES:
+    if cap > MAX_CAPACITY:
         raise ValueError(f"{name}: capacity {cap} does not fit a row "
-                         f"block in shared memory")
-    if n > (2 ** 31 - 1) * _WARPS_PER_BLOCK:
+                         f"in shared memory (at most {MAX_CAPACITY})")
+    if n > 2 ** 31 - 1:
         raise ValueError(f"{name}: too many rows for one launch")
     _build.require_flags(name, dirty, n)
     if n == 0 or cap == 0:

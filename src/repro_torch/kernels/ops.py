@@ -398,30 +398,59 @@ def slow_path_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                order: torch.Tensor, counters: torch.Tensor,
                src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                active: torch.Tensor, *, max_probes: int = 64, dirty=None,
-               dh_keys=None, dh_vals=None, impl: str = "auto") -> None:
+               dh_keys=None, dh_vals=None, table_dirty=None,
+               impl: str = "auto") -> None:
     """The new-edge pass written into the src table, ``dst_slab``, ``cnt``,
     ``tot``, ``counters`` and, when given, the row hashes; every row
-    written is flagged."""
+    written is flagged in ``dirty``, every src-table slot written in
+    ``table_dirty`` (by its group, ``hashtable.flag_group``)."""
     if _use_ref(impl, cnt):
         _ref.slow_path_ref_(tab_keys, tab_vals, dst_slab, cnt, tot, order,
                             counters, src, dst, w, active, max_probes, dirty,
-                            dh_keys, dh_vals)
+                            dh_keys, dh_vals, table_dirty)
     else:
         _sp.slow_path_cuda_(tab_keys, tab_vals, dst_slab, cnt, tot, order,
                             counters, src, dst, w, active.to(torch.int32),
                             max_probes=max_probes, dirty=dirty,
-                            dh_keys=dh_keys, dh_vals=dh_vals)
+                            dh_keys=dh_keys, dh_vals=dh_vals,
+                            table_dirty=table_dirty)
 
 
 @kernel_op(ref="copy_dirty_rows_ref")
 @_annotate
-def copy_dirty_rows(front, back, dirty: torch.Tensor, *,
-                    impl: str = "auto") -> None:
+def copy_dirty_rows(front, back, dirty: torch.Tensor,
+                    table_dirty: torch.Tensor, *, impl: str = "auto") -> None:
     """Catch ``back`` up with ``front``, each ``(cnt, dst, order, tot,
     table keys, table vals, scalars)`` and optionally ``(dh_keys,
     dh_vals)`` after them: the rows flagged in ``dirty`` (the row hashes'
-    rows too) and the rest whole; then clear the flags."""
+    rows too), the table slot groups flagged in ``table_dirty`` and the
+    scalars; then clear both flags.  Checks its tensors at every call."""
     row_hashes = tuple(front[7:]) + tuple(back[7:]) or None
     copy = _ref.copy_dirty_rows_ref if _use_ref(impl, dirty) \
         else _cr.copy_dirty_rows_cuda
-    copy(*front[:7], *back[:7], dirty, row_hashes=row_hashes)
+    copy(*front[:7], *back[:7], dirty, table_dirty, row_hashes=row_hashes)
+
+
+@kernel_op(composes=("copy_dirty_rows",))
+@_annotate
+def bind_copy_dirty_rows(front, back, dirty: torch.Tensor,
+                         table_dirty: torch.Tensor, *, impl: str = "auto"):
+    """:func:`copy_dirty_rows` with its tensors checked once: returns the
+    bound catch-up, which :func:`copy_bound_rows` launches (the kernel's
+    packed arguments, ``copy_rows.BoundCatchUp``, or the plain version
+    with its arguments for CPU tensors and ``impl='ref'``)."""
+    row_hashes = tuple(front[7:]) + tuple(back[7:]) or None
+    if _use_ref(impl, dirty):
+        return functools.partial(_ref.copy_dirty_rows_ref, *front[:7],
+                                 *back[:7], dirty, table_dirty,
+                                 row_hashes=row_hashes)
+    return _cr.BoundCatchUp(tuple(front[:7]), tuple(back[:7]), dirty,
+                            table_dirty, row_hashes)
+
+
+@kernel_op(composes=("copy_dirty_rows",))
+@_annotate
+def copy_bound_rows(bound) -> None:
+    """One catch-up bound by :func:`bind_copy_dirty_rows`: one launch on
+    CUDA tensors, nothing checked."""
+    bound()

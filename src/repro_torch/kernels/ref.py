@@ -19,7 +19,9 @@ from repro_torch.core.hashtable import EMPTY, TOMB, first_true
 
 # The in-place forms (a trailing underscore) write into the tensors they are
 # given, as the kernels do for the state's owner, and set ``dirty`` (None, or
-# uint8 [N], one flag per row) for the rows the kernel flags.  They neither
+# uint8 [N], one flag per row) for the rows the kernel flags; the new-edge
+# pass also sets ``table_dirty`` (None, or uint8, one flag per group of
+# ``hashtable.flag_group`` src-table slots) for the slots it writes.  They neither
 # clone a tensor they are given nor read one on the host (the sequential
 # new-edge pass excepted), and take ``fire`` (a 0-dim bool tensor: write
 # only when it holds) without reading it.
@@ -29,6 +31,12 @@ def _flag(dirty, rows: torch.Tensor) -> None:
     """Set ``dirty`` where the bool ``rows`` [N] holds (no-op for None)."""
     if dirty is not None:
         dirty.bitwise_or_(rows.to(torch.uint8))
+
+
+def _flag_slot(table_dirty, slot: int, size: int) -> None:
+    """Set the table flag of src-table ``slot`` (no-op for None)."""
+    if table_dirty is not None:
+        table_dirty[slot // ht.flag_group(size)] = 1
 
 
 def _fired(new: torch.Tensor, old: torch.Tensor, fire) -> torch.Tensor:
@@ -700,7 +708,8 @@ def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                    order: torch.Tensor, counters: torch.Tensor,
                    src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
                    active: torch.Tensor, max_probes: int,
-                   dirty=None, dh_keys=None, dh_vals=None) -> None:
+                   dirty=None, dh_keys=None, dh_vals=None,
+                   table_dirty=None) -> None:
     """Sequential insert pass for new edges / new rows (the paper's rare case).
 
     Deterministic (batch order); inactive items are no-ops.  For each active
@@ -711,7 +720,8 @@ def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     (Space-Saving: the newcomer inherits the victim's count; ``evictions`` =
     ``counters[3]``).  A later item sees the rows and slots an earlier one
     made.  Writes ``tab_keys, tab_vals, dst_slab, cnt, tot, counters`` in
-    place and flags every row it writes.  Given the row hashes ``dh_keys/
+    place and flags every row it writes (and in ``table_dirty`` the group of
+    every src-table slot it writes).  Given the row hashes ``dh_keys/
     dh_vals [N, H]`` (paper §II.2), an item then edits its row's table: it
     deletes the evicted dst where it replaced the tail, then inserts ``dst
     -> slot`` where the dst was not in the row (the insert may reuse the
@@ -743,6 +753,7 @@ def slow_path_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
             row = n_rows
             tab_keys[int(slot)] = s
             tab_vals[int(slot)] = row
+            _flag_slot(table_dirty, int(slot), tab_keys.shape[0])
             n_rows += 1
         # --- dst slot (find / free / Space-Saving tail replace) ---------
         slot_eq, found_d = sl.find_slot(slabs, row, d)
@@ -777,7 +788,8 @@ def slow_path_rows_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                         counters: torch.Tensor, src: torch.Tensor,
                         dst: torch.Tensor, w: torch.Tensor,
                         active: torch.Tensor, max_probes: int,
-                        dirty=None, dh_keys=None, dh_vals=None) -> None:
+                        dirty=None, dh_keys=None, dh_vals=None,
+                        table_dirty=None) -> None:
     """The same pass as :func:`slow_path_ref_`, computed the way the CUDA
     kernel decomposes it (same arguments, same results).
 
@@ -818,6 +830,7 @@ def slow_path_rows_ref_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                 continue
             tab_keys[int(slot)] = src[i]
             tab_vals[int(slot)] = n_rows
+            _flag_slot(table_dirty, int(slot), tab_keys.shape[0])
             rows[i] = n_rows
             n_rows += 1
 
@@ -863,13 +876,15 @@ slow_path_rows_ref = _on_copies(slow_path_rows_ref_)
 
 def copy_dirty_rows_ref(f_cnt, f_dst, f_order, f_tot, f_keys, f_vals,
                         f_scalars, b_cnt, b_dst, b_order, b_tot, b_keys,
-                        b_vals, b_scalars, dirty, row_hashes=None) -> None:
+                        b_vals, b_scalars, dirty, table_dirty,
+                        row_hashes=None) -> None:
     """Catch the back state up with the front (plain version of
     ``copy_rows.py``): the ``cnt``/``dst``/``order`` rows and ``tot`` of
     every row flagged in ``dirty`` (and their row hashes, given
     ``row_hashes`` = front ``dh_keys, dh_vals``, back ``dh_keys,
-    dh_vals``), the src table ``keys``/``vals`` and the ``scalars`` whole;
-    then clear the flags."""
+    dh_vals``), the src table ``keys``/``vals`` slots of every group
+    flagged in ``table_dirty`` (a flag per ``T / len(table_dirty)`` slots)
+    and the ``scalars`` whole; then clear both flags."""
     rows = dirty != 0
     by_row = ((f_cnt, b_cnt), (f_dst, b_dst), (f_order, b_order))
     if row_hashes is not None:
@@ -877,6 +892,10 @@ def copy_dirty_rows_ref(f_cnt, f_dst, f_order, f_tot, f_keys, f_vals,
     for f, b in by_row:
         b.copy_(torch.where(rows.unsqueeze(1), f, b))
     b_tot.copy_(torch.where(rows, f_tot, b_tot))
-    for f, b in ((f_keys, b_keys), (f_vals, b_vals), (f_scalars, b_scalars)):
-        b.copy_(f)
+    slots = (table_dirty != 0).repeat_interleave(
+        f_keys.numel() // table_dirty.numel())
+    for f, b in ((f_keys, b_keys), (f_vals, b_vals)):
+        b.copy_(torch.where(slots, f, b))
+    b_scalars.copy_(f_scalars)
     dirty.zero_()
+    table_dirty.zero_()

@@ -28,7 +28,9 @@ synchronisation.  Plain mirror of this decomposition:
 Bound on this card: bytes — the items, their probe windows and the rows
 they touch.  The state's owner hands its own tensors (``slow_path_cuda_``):
 the pass writes the src table, ``dst_slab``, ``cnt``, ``tot`` and the
-counters in place and sets the dirty flag of every row it writes.  The
+counters in place, sets the dirty flag of every row it writes and, given
+``table_dirty``, the flag of the group of src-table slots
+(``hashtable.flag_group``) of every slot it writes.  The
 functional wrapper first copies what the pass writes — the src table,
 ``dst_slab``, ``cnt``/``tot`` and the counters, 2·(2·H + 2·N·C + N)·4 B read
 + written: an ``EpochStore`` reader may hold the tensors given.
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hashtable as ht
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import slow_path_ref, slow_path_ref_
 
@@ -62,17 +65,19 @@ def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                     counters: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor, w: torch.Tensor,
                     active: torch.Tensor, *, max_probes: int = 64,
-                    dirty=None, dh_keys=None, dh_vals=None) -> None:
+                    dirty=None, dh_keys=None, dh_vals=None,
+                    table_dirty=None) -> None:
     """The pass on the GPU, written into the given src table, ``dst_slab``,
     ``cnt``, ``tot``, ``counters`` and row hashes (the caller owns all of
     them); no copy.  ``dirty`` (uint8 [N]): the flag of every row written
-    set.  Arguments as :func:`slow_path_cuda`."""
+    set; ``table_dirty`` (uint8 [``hashtable.flag_count(H)``]): the flag of
+    every slot group written set.  Arguments as :func:`slow_path_cuda`."""
     global launches
     _build.require_cuda_int32(
-        "slow_path_cuda", flags=("dirty",), tab_keys=tab_keys,
+        "slow_path_cuda", flags=("dirty", "table_dirty"), tab_keys=tab_keys,
         tab_vals=tab_vals, dst_slab=dst_slab, cnt=cnt, tot=tot, order=order,
         counters=counters, src=src, dst=dst, w=w, active=active, dirty=dirty,
-        dh_keys=dh_keys, dh_vals=dh_vals)
+        dh_keys=dh_keys, dh_vals=dh_vals, table_dirty=table_dirty)
     size = tab_keys.shape[0]
     if tab_keys.dim() != 1 or tab_vals.shape != tab_keys.shape or size < 1 \
             or size & (size - 1):
@@ -93,6 +98,10 @@ def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
     if max_probes < 1:
         raise ValueError("slow_path_cuda: max_probes must be >= 1")
     _build.require_flags("slow_path_cuda", dirty, cnt.shape[0])
+    if table_dirty is not None and table_dirty.shape != (ht.flag_count(size),):
+        raise ValueError(f"slow_path_cuda: table_dirty must be uint8"
+                         f"[{ht.flag_count(size)}], one flag per "
+                         f"{ht.flag_group(size)} table slots")
     dh_size = _build.require_row_hashes("slow_path_cuda", dh_keys, dh_vals,
                                         cnt.shape[0])
     n_items = src.shape[0]
@@ -109,7 +118,7 @@ def slow_path_cuda_(tab_keys: torch.Tensor, tab_vals: torch.Tensor,
                   cnt.shape[0],
                   cnt.shape[1], max_probes, keys.data_ptr(),
                   with_row.data_ptr(), n_with.data_ptr(), _build.ptr(dh_keys),
-                  _build.ptr(dh_vals), dh_size)
+                  _build.ptr(dh_vals), dh_size, _build.ptr(table_dirty))
     launches += 1
 
 

@@ -198,8 +198,9 @@ class Engine:
         return out
 
     # ------------------------------------------------------------------
-    def _learn_step(self, state, toks, dirty=None):
-        spec.observe_(state, toks, cfg=self.cfg.ngram, dirty=dirty)
+    def _learn_step(self, state, toks, dirty=None, table_dirty=None):
+        spec.observe_(state, toks, cfg=self.cfg.ngram, dirty=dirty,
+                      table_dirty=table_dirty)
         return spec.maintain_(state, cfg=self.cfg.ngram, dirty=dirty)
 
     def _learn(self, history) -> None:
@@ -801,11 +802,13 @@ class ShardedEngine:
             batch = [torch.tensor(x, device=self.device)
                      for x in (src, dst, w)]
 
-            def step(back, *, dirty):
+            def step(back, *, dirty, table_dirty):
                 # the owner programs write the learner's back state; a fault
                 # here publishes nothing, and the next write's catch-up
-                # copies the flagged rows back from the published front
-                state = update(back, *batch, dirty=dirty)
+                # copies the flagged rows and table slots back from the
+                # published front
+                state = update(back, *batch, dirty=dirty,
+                               table_dirty=table_dirty)
                 state = maintain(state, dirty=dirty)
                 failpoint("engine.publish")
                 return state

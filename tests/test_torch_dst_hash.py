@@ -327,8 +327,9 @@ def test_back_buffer_learner_with_row_hashes_publishes_the_functional_states():
         snap = learner.acquire()
         held = convert.state_to_numpy(snap.state.chain)
         published = learner.write(
-            lambda s, t, dirty: tspec.maintain_(tspec.observe_(
-                s, t, cfg=NCFG, dirty=dirty), cfg=NCFG, dirty=dirty), tokens)
+            lambda s, t, dirty, table_dirty: tspec.maintain_(tspec.observe_(
+                s, t, cfg=NCFG, dirty=dirty, table_dirty=table_dirty),
+                cfg=NCFG, dirty=dirty), tokens)
         assert_same(functional.chain, published.chain, f"write {i}")
         now = convert.state_to_numpy(snap.state.chain)
         for name, value in held.items():
@@ -353,13 +354,14 @@ def test_copy_dirty_rows_copies_the_flagged_row_hashes_only():
     kept = [x.clone() for x in back]
     dirty = torch.from_numpy((rng.random(n) < 0.5).astype(np.uint8))
     rows = dirty.bool().clone()
-    ops.copy_dirty_rows(front, back, dirty)
+    ops.copy_dirty_rows(front, back, dirty, torch.zeros(1, dtype=torch.uint8))
     assert not dirty.any()
     for f, b, k in zip(front[7:], back[7:], kept[7:]):
         assert torch.equal(b[rows], f[rows]) and torch.equal(b[~rows], k[~rows])
     # without the row hashes they are not touched
     back2 = [x.clone() for x in kept]
-    ops.copy_dirty_rows(front[:7], back2[:7], rows.to(torch.uint8))
+    ops.copy_dirty_rows(front[:7], back2[:7], rows.to(torch.uint8),
+                        torch.zeros(1, dtype=torch.uint8))
     assert all(torch.equal(b, k) for b, k in zip(back2[7:], kept[7:]))
 
 

@@ -66,6 +66,10 @@ OPS = {
                    ()),
     "copy_dirty_rows": ("copy_rows", "copy_dirty_rows_cuda",
                         "copy_dirty_rows_ref", None, ()),
+    "bind_copy_dirty_rows": ("copy_rows", "BoundCatchUp", None, None,
+                             ("copy_dirty_rows",)),
+    "copy_bound_rows": ("copy_rows", "BoundCatchUp", None, None,
+                        ("copy_dirty_rows",)),
 }
 
 

@@ -264,15 +264,19 @@ def test_copy_dirty_rows_catches_the_back_up_and_clears_the_flags():
     dirty = torch.from_numpy((rng.random(N) < 0.4).astype(np.uint8))
     flagged = dirty.bool().clone()
     keep = {k: v.clone() for k, v in back.items()}
+    kept_table = [x.clone() for x in b_table]
+    # the 64-slot tables: two groups of 32 slots, the second flagged
+    table_dirty = torch.tensor([0, 1], dtype=torch.uint8)
     order = ("cnt", "dst", "order", "tot")
     ref.copy_dirty_rows_ref(*(front[k] for k in order), *f_table, f_sc,
-                            *(back[k] for k in order), *b_table, b_sc, dirty)
+                            *(back[k] for k in order), *b_table, b_sc, dirty,
+                            table_dirty)
     for k in order:
         assert torch.equal(back[k][flagged], front[k][flagged]), k
         assert torch.equal(back[k][~flagged], keep[k][~flagged]), k
-    assert torch.equal(b_table.keys, f_table.keys)
-    assert torch.equal(b_table.vals, f_table.vals)
-    assert torch.equal(b_sc, f_sc) and not dirty.any()
+    for f, b, k in zip(f_table, b_table, kept_table):
+        assert torch.equal(b[32:], f[32:]) and torch.equal(b[:32], k[:32])
+    assert torch.equal(b_sc, f_sc) and not dirty.any() and not table_dirty.any()
 
 
 # ---------------------------------------------------------------------------
@@ -284,8 +288,9 @@ NCFG = tspec.NGramConfig(order=2, decay_threshold=12, mc=tmc.MCConfig(
     max_new_per_batch=16, max_probes=16))
 
 
-def _learn(state, tokens, dirty):
-    return tspec.maintain_(tspec.observe_(state, tokens, cfg=NCFG, dirty=dirty),
+def _learn(state, tokens, dirty, table_dirty):
+    return tspec.maintain_(tspec.observe_(state, tokens, cfg=NCFG, dirty=dirty,
+                                          table_dirty=table_dirty),
                            cfg=NCFG, dirty=dirty)
 
 

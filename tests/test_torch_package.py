@@ -4,6 +4,7 @@ kernel module carries its wrapper, plain version, launch count and CUDA
 source (checked by reading the files: nothing can be compiled without nvcc)."""
 
 import ast
+import functools
 import importlib
 import pkgutil
 import re
@@ -132,7 +133,11 @@ def test_init_without_a_cuda_device_raises_and_never_returns_a_cpu_state():
                                          impl="cuda"),
     lambda x, v: ops.slow_path_(v, v, x, x, v, x, v, v, v, v, v, impl="cuda"),
     lambda x, v: ops.copy_dirty_rows((x, x, x, v, v, v, v), (x, x, x, v, v, v, v),
-                                     v.to(torch.uint8), impl="cuda"),
+                                     v.to(torch.uint8), v.to(torch.uint8),
+                                     impl="cuda"),
+    lambda x, v: ops.bind_copy_dirty_rows(
+        (x, x, x, v, v, v, v), (x, x, x, v, v, v, v), v.to(torch.uint8),
+        v.to(torch.uint8), impl="cuda"),
     lambda x, v: ops.dh_rebuild_(x, x, x, x, v[:2], threshold=0, impl="cuda"),
     lambda x, v: ops.topn_merge(x.float(), x, x, n=3, impl="cuda"),
     lambda x, v: ops.topn_windows(x.view(1, 4, 4), x.view(1, 4, 4), x[:1],
@@ -158,7 +163,7 @@ def test_cuda_wrapper_refuses_cpu_tensors_instead_of_falling_back(module):
             "cdf_query": (x, x, v, 0.5), "walk": (x, v, v, x, x, v),
             "decay_sort": (x, x, x),
             "copy_rows": (x, x, x, v, v, v, v, x, x, x, v, v, v, v,
-                          v.to(torch.uint8)),
+                          v.to(torch.uint8), v.to(torch.uint8)),
             "dh_rebuild": (x, x, x, x, v[:2]),
             "topn_merge": (x.float(), x, x),
             "topn_windows": (x.view(1, 4, 4), x.view(1, 4, 4), x[:1],
@@ -349,15 +354,15 @@ def _kernel_stand_ins(probe_calls, decay_calls):
                 if isinstance(a, torch.Tensor):
                     want = (torch.bool if i in bools else
                             torch.float32 if i in floats else
-                            torch.uint8 if name == "copy_rows" and i == 14
+                            torch.uint8 if name == "copy_rows" and i in (14, 15)
                             else torch.int32)
                     assert a.dtype == want, (name, i, a.dtype)
                     assert i in strided or a.is_contiguous(), (name, i)
             for key, value in kw.items():
                 for a in value if isinstance(value, tuple) else (value,):
                     if isinstance(a, torch.Tensor):
-                        want = {"fire": torch.bool, "dirty": torch.uint8}.get(
-                            key, torch.int32)
+                        want = {"fire": torch.bool, "dirty": torch.uint8,
+                                "table_dirty": torch.uint8}.get(key, torch.int32)
                         assert a.dtype == want and a.is_contiguous(), (name, key)
             return plain(*args, **kw)
         return wrapper
@@ -417,9 +422,9 @@ def _kernel_stand_ins(probe_calls, decay_calls):
                               dh_keys, dh_vals))),
         (slow_path, "slow_path_cuda_", check(
             "slow_path_", (), lambda *a, max_probes, dirty=None, dh_keys=None,
-            dh_vals=None: ref.slow_path_ref_(
+            dh_vals=None, table_dirty=None: ref.slow_path_ref_(
                 *a[:-1], a[-1].to(torch.bool), max_probes, dirty, dh_keys,
-                dh_vals))),
+                dh_vals, table_dirty))),
         (cdf_query, "cdf_query_cuda", check(
             "cdf_query", (), lambda *a, max_items: ref.cdf_query_ref(*a, max_items))),
         (walk, "draft_walk_cuda", check("walk", (0, 5), lambda *a, **kw: (
@@ -432,6 +437,10 @@ def _kernel_stand_ins(probe_calls, decay_calls):
             "decay_sort_rolling_", (), rolling_plain_)),
         (copy_rows, "copy_dirty_rows_cuda", check(
             "copy_rows", (), ref.copy_dirty_rows_ref)),
+        (copy_rows, "BoundCatchUp", lambda front, back, dirty, table_dirty,
+         row_hashes=None: functools.partial(
+             check("copy_rows", (), ref.copy_dirty_rows_ref), *front, *back,
+             dirty, table_dirty, row_hashes=row_hashes)),
         (dh_rebuild, "dh_rebuild_cuda_", check("dh_rebuild_", (), rebuild_plain_)),
         (topn_merge, "topn_merge_cuda", check(
             "topn_merge", (), lambda p, d, s, *, n: ref.topn_merge_ref(p, d, s, n),
@@ -491,8 +500,9 @@ def test_every_path_hands_its_kernels_what_their_wrappers_take(monkeypatch):
                              dirty=dirty)
     learner = BackBufferLearner(EpochStore(tspec.init(ncfg, device="cpu")))
     for _ in range(3):
-        learner.write(lambda s, dirty: tspec.maintain_(tspec.observe_(
-            s, toks, cfg=ncfg, dirty=dirty), cfg=ncfg, dirty=dirty))
+        learner.write(lambda s, dirty, table_dirty: tspec.maintain_(
+            tspec.observe_(s, toks, cfg=ncfg, dirty=dirty,
+                           table_dirty=table_dirty), cfg=ncfg, dirty=dirty))
     assert set(decay_calls) == {(32, 8), (32, None)}, set(decay_calls)
     # every src lookup (update, both reads, candidates) is the flat probe
     # with lookup_rows' miss value 0: one launch, nothing around it
@@ -536,8 +546,9 @@ def test_dst_hash_path_hands_its_kernels_what_their_wrappers_take(monkeypatch,
                              dirty=dirty)
     learner = BackBufferLearner(EpochStore(tspec.init(ncfg, device="cpu")))
     for _ in range(3):
-        learner.write(lambda s, dirty: tspec.maintain_(tspec.observe_(
-            s, toks, cfg=ncfg, dirty=dirty), cfg=ncfg, dirty=dirty))
+        learner.write(lambda s, dirty, table_dirty: tspec.maintain_(
+            tspec.observe_(s, toks, cfg=ncfg, dirty=dirty,
+                           table_dirty=table_dirty), cfg=ncfg, dirty=dirty))
     assert tmc.check_invariants(own, ncfg.mc)["dst_hash_consistent"]
     assert tmc.maintenance_stats(own)["dh_rebuilds"] > 0
     # every decay is followed by the rebuild's launch, decided on the device
