@@ -5,6 +5,8 @@
     python3 chip_smoke.py --phases device,kernels   # a subset, for debugging
     python3 chip_smoke.py --phases device,kernels,hash   # the dst-hash path
     python3 chip_smoke.py --phases device,kernels,sharded   # the sharded chain
+    python3 chip_smoke.py --phases device,ranks   # the chain one shard a
+                                                  # process rank
     python3 chip_smoke.py --phases device,persist   # durability (runs phase
                                                     # sharded's warm-up first)
     python3 chip_smoke.py --phases device,engine    # the serving engine (the
@@ -169,6 +171,27 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 floor, ``torch.topk`` / ``torch.sort`` and the plain
                 path's sort; a profiler check that ``sh.topn``
                 runs no sort and no op over the ``[S, N, k]`` windows;
+  6a. ranks   — the sharded chain one shard a process rank
+                (``sharding/ranks.py``, ``core/sharded.py``'s ``ranks=``
+                forms), the ranks spawned after the kernels are built here,
+                each group joined within 180 s or killed, naming the rank:
+                (a) one NCCL rank (world 1, S = 1, phase main's chain)
+                beside the one-card chain at S = 1 on the same card, 20
+                rounds of ``update_`` + query + ``maintain_`` + top-16
+                after one unguarded, every leaf, answer and top-16 equal,
+                the rank's calls under ``set_sync_debug_mode('error')``;
+                (b) 4 gloo ranks sharing the one card (host-staged through
+                pinned memory), each 2**20 x 128, phase sharded's traffic
+                (each rank its slice of every global batch), 32 warm-up
+                and 20 timed rounds (each rank's medians by events and the
+                collectives' share by events around them), a skewed round,
+                then ``gather_sharded`` to rank 0, which replays the same
+                batches through the one-card stacked chain: the stacked
+                leaves, every rank's queries and top-16s, ``counter_stats``
+                over the group and each rank's ``route_dropped`` (==
+                ``predict_route_overflow``) equal; (c) where the machine has
+                two cards or more, (b) over NCCL at world min(4, cards),
+                rank r on cuda:r, else one line says it was not run;
   6b. engine  — the serving engine (``serve.engine.ShardedEngine``) at
                 phase sharded's width: the launcher ``python -m
                 repro_torch.launch.serve --num-shards 4`` run twice, the
@@ -307,8 +330,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 INT_OPS_PER_S = 67e12         # non-tensor-core 32-bit rate (data sheet, fp32)
 PHASES = ("device", "kernels", "main", "hash", "drafter", "lm", "train",
-          "sharded", "engine", "persist", "monitor", "soak", "examples",
-          "parity")
+          "sharded", "ranks", "engine", "persist", "monitor", "soak",
+          "examples", "parity")
 
 
 def say(*parts):
@@ -3202,14 +3225,8 @@ def phase_sharded(seed, warm_batches, rounds):
 
     queue_c11_checks(state, scfg, traffic, w)
 
-    # a skewed round: sender 0 sends 60 % of its slice to shard 0 (fair
-    # share 25 %, capacity 50 %); its drops are what the host predicts
-    cands = randint(traffic.gen, 0, SHARD_NODES, (1 << 18,))
-    hot = cands[scfg.resolved_ownership().owner_of(cands) == 0]
-    src, _ = traffic.batch(batch)
-    k = int(0.6 * BATCH)
-    src[:k] = hot[randint(traffic.gen, 0, hot.numel(), (k,)).long()]
-    dst = traffic.dsts(src)
+    # a skewed round: its drops are what the host predicts
+    src, dst = skewed_batch(traffic, scfg, SHARD_NODES)
     predicted = sh.predict_route_overflow(scfg, src.cpu().numpy())
     before = state.route_dropped.clone()
     sh.update_(state, src, dst, w, scfg=scfg)
@@ -3248,6 +3265,17 @@ def phase_sharded(seed, warm_batches, rounds):
         f"{qdrop.tolist()}; top-n of the last round {top[2].tolist()[:4]}...; "
         f"counters {core.counter_stats(state)}")
     return state, scfg, traffic, launches
+
+
+def skewed_batch(traffic, scfg, nodes):
+    """A global batch whose sender 0 sends 60 % of its slice to shard 0
+    (fair share 1/S, bucket capacity 2/S): ``(src, dst)``."""
+    cands = randint(traffic.gen, 0, nodes, (1 << 18,))
+    hot = cands[scfg.resolved_ownership().owner_of(cands) == 0]
+    src, _ = traffic.batch(scfg.num_shards * BATCH)
+    k = int(0.6 * BATCH)
+    src[:k] = hot[randint(traffic.gen, 0, hot.numel(), (k,)).long()]
+    return src, traffic.dsts(src)
 
 
 def queue_c11_checks(state, scfg, traffic, w):
@@ -3445,6 +3473,423 @@ def topn_profile(state, scfg, windows, calls=10):
         raise AssertionError(f"sh.topn on the card ran a sort {sorts} or an "
                              f"op over the windows {over}, or no window "
                              f"kernel")
+
+
+# ---------------------------------------------------------------------------
+# phase 6a: the sharded chain one shard a process rank
+# ---------------------------------------------------------------------------
+
+RANKS_CALLS = 20       # (a): rounds held to the one-card chain after each call
+RANKS_WARM = 32        # (b), (c): warm-up rounds, then RANKS_CALLS timed ones
+RANKS_LIMIT_S = 180    # a rank group ends within this, or is killed
+RANKS_THRESHOLD = 64   # maintain_'s total threshold, as phase sharded's
+
+
+def ranks_config(world):
+    """Phase sharded's configuration at ``world`` shards, one a rank."""
+    return dataclasses.replace(sharded_config(), num_shards=world)
+
+
+def rank_launches(acc, fn, *args, **kw):
+    """``fn(*args, **kw)``, its kernel launches added to ``acc``: the rank
+    path's launches apart from the one-card chain's it is held to."""
+    mods = kernel_modules()
+    before = {name: mod.launches for name, mod in mods.items()}
+    out = fn(*args, **kw)
+    for name, mod in mods.items():
+        acc[name] = acc.get(name, 0) + mod.launches - before[name]
+    return out
+
+
+def rank_nccl_one(rank, world, rdv, out_dir, go, seed):
+    """Phase ranks (a), in a spawned process: one NCCL rank (world 1,
+    S = 1) beside the one-card stacked chain at S = 1 on the same card and
+    batches; after every ``update_`` and ``maintain_`` the 18 leaves
+    equal, every query and top-16 equal; the rank's owner calls, query and
+    top-n under ``set_sync_debug_mode('error')``."""
+    from repro_torch.core import sharded as sh
+    from repro_torch.sharding.ranks import init_ranks
+    torch.set_num_threads(1)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    group = init_ranks(rank, world, backend="nccl", init_method=rdv,
+                       device="cuda:0", timeout=60.0)
+    scfg = ranks_config(1)
+    mine, one = sh.init_sharded(scfg, ranks=group), sh.init_sharded(scfg)
+    traffic = Traffic(seed + 29)
+    w = torch.ones(BATCH, dtype=torch.int32, device="cuda")
+    group.psum(torch.zeros(1, device="cuda"))   # the communicator's first use
+    torch.cuda.synchronize()
+    ready_at = time.time()
+    go.wait(RANKS_LIMIT_S)
+    t0 = time.perf_counter()
+    launches = {}
+    # round 0 unguarded (first uses: the ownership table on the card ...),
+    # then RANKS_CALLS rounds under the sync guard
+    for i in range(RANKS_CALLS + 1):
+        guard = no_sync if i else (lambda fn, *a, **kw: fn(*a, **kw))
+        src, dst = traffic.batch(BATCH)
+        q = traffic.srcs(QUERIES)
+        rank_launches(launches, guard, sh.update_, mine, src, dst, w,
+                      scfg=scfg, ranks=group)
+        sh.update_(one, src, dst, w, scfg=scfg)
+        equal_states(f"[ranks] (a) round {i}: update_ on the rank vs one card",
+                     mine, one)
+        got = rank_launches(launches, guard, sh.query, mine, q, 0.9, 16,
+                            scfg=scfg, ranks=group)
+        compare(f"[ranks] (a) round {i}: query", got,
+                sh.query(one, q, 0.9, 16, scfg=scfg))
+        rank_launches(launches, guard, sh.maintain_, mine, scfg=scfg,
+                      total_threshold=RANKS_THRESHOLD, ranks=group)
+        sh.maintain_(one, scfg=scfg, total_threshold=RANKS_THRESHOLD)
+        equal_states(f"[ranks] (a) round {i}: maintain_", mine, one)
+        got = rank_launches(launches, guard, sh.topn, mine, TOP_N, scfg=scfg,
+                            ranks=group)
+        compare(f"[ranks] (a) round {i}: top-{TOP_N}", got,
+                sh.topn(one, TOP_N, scfg=scfg))
+    torch.cuda.synchronize()
+    group.close()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(
+        {"launches": launches, "ready_at": ready_at,
+         "rounds_s": time.perf_counter() - t0,
+         "n_rows": int(mine.n_rows.sum()),
+         "route_dropped": int(mine.route_dropped.sum())}))
+
+
+def rank_group_run(rank, world, rdv, out_dir, go, backend, seed):
+    """Phase ranks (b) and (c), in a spawned process: rank ``rank`` of
+    ``world`` at phase sharded's width and traffic (this rank's slice of
+    every global batch, drawn from the seed as every rank draws it),
+    ``RANKS_WARM`` rounds of ``update_`` + query + ``maintain_`` + top-16,
+    ``RANKS_CALLS`` timed ones (events, and events around each collective
+    for its share of the call),
+    a skewed round, ``gather_sharded`` to rank 0 with each rank's answers
+    and top-16s; rank 0 then replays the same batches through the one-card
+    stacked chain on its card and holds the gathered state, the answers,
+    the top-16s and each rank's ``route_dropped`` (also against
+    ``predict_route_overflow``) equal to it."""
+    from repro_torch import convert
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    from repro_torch.sharding.ranks import init_ranks
+    torch.set_num_threads(1)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    device = torch.device("cuda", 0 if backend == "gloo" else rank)
+    group = init_ranks(rank, world, backend=backend, init_method=rdv,
+                       device=device, timeout=60.0)
+    guard = no_sync if backend == "nccl" else (lambda fn, *a, **kw: fn(*a, **kw))
+    comm = []    # the event pairs around the collectives of one call
+
+    def clocked(fn):   # events around a collective, on the call's stream
+        def call(x):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = fn(x)
+            pair[1].record()
+            comm.append(pair)
+            return out
+        return call
+
+    scfg = ranks_config(world)
+    nodes = int(0.95 * world * NUM_NODES)
+    traffic = Traffic(seed + 31, nodes=nodes)
+    state = sh.init_sharded(scfg, ranks=group)
+    w = torch.ones(BATCH, dtype=torch.int32, device=device)
+    scfg.resolved_ownership().table(device)      # built before any guard
+    group.psum(torch.zeros(1, device=device))    # the group's first use
+    torch.cuda.synchronize()
+    ready_at = time.time()
+    go.wait(RANKS_LIMIT_S)
+    group.psum(torch.zeros(1, device=device))    # every rank past the wait
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = slice(rank * BATCH, (rank + 1) * BATCH)
+    qpart = slice(rank * QUERIES, (rank + 1) * QUERIES)
+    times, kept = {}, []
+    for i in range(RANKS_WARM + RANKS_CALLS):
+        src, dst = traffic.batch(world * BATCH)
+        q = traffic.srcs(world * QUERIES)
+        if i == RANKS_WARM:      # the timed rounds: launches and clocks
+            torch.cuda.synchronize()
+            for mod in kernel_modules().values():
+                mod.launches = 0
+            group.all_to_all = clocked(group.all_to_all)
+            group.all_gather = clocked(group.all_gather)
+        calls = (
+            ("update_", lambda: guard(sh.update_, state, src[part], dst[part],
+                                      w, scfg=scfg, ranks=group)),
+            ("query", lambda: guard(sh.query, state, q[qpart], 0.9, 16,
+                                    scfg=scfg, ranks=group)),
+            ("maintain_", lambda: guard(sh.maintain_, state, scfg=scfg,
+                                        total_threshold=RANKS_THRESHOLD,
+                                        ranks=group)),
+            ("topn", lambda: guard(sh.topn, state, TOP_N, scfg=scfg,
+                                   ranks=group)))
+        outs = {}
+        for key, fn in calls:
+            if i < RANKS_WARM:
+                outs[key] = fn()
+                continue
+            comm.clear()
+            outs[key] = timed(times, key, fn)
+            times.setdefault(key + "/comm", []).append(list(comm))
+        if i >= RANKS_WARM:
+            kept.append((outs["query"], outs["topn"]))
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    med = {}
+    for key in ("update_", "query", "maintain_", "topn"):
+        ms = [s.elapsed_time(e) for s, e in times[key]]
+        share = [sum(s.elapsed_time(e) for s, e in pairs) / m
+                 for pairs, m in zip(times[key + "/comm"], ms)]
+        med[key] = (statistics.median(ms), statistics.median(share))
+    src, dst = skewed_batch(traffic, scfg, nodes)   # as phase sharded's
+    sh.update_(state, src[part], dst[part], w, scfg=scfg, ranks=group)
+    answers = [torch.stack([a[x] for a, _ in kept]) for x in range(4)]
+    tops = [torch.stack([t[x] for _, t in kept]) for x in range(4)]
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    got = [group.gather(x.unsqueeze(0)) for x in answers + tops]
+    gathered = convert.gather_sharded(state, group, 0)
+    counters = mc.counter_stats(state, group)
+    group.close()
+    result = {"launches": launches, "ready_at": ready_at,
+              "rounds_s": rounds_s,
+              "gather_s": time.perf_counter() - t0 - rounds_s,
+              "median_ms": {k: v[0] for k, v in med.items()},
+              "comm_share": {k: v[1] for k, v in med.items()},
+              "counters": counters}
+    if rank == 0:
+        result["checks"] = rank_group_check(scfg, seed, world, gathered, got,
+                                            counters)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def rank_group_check(scfg, seed, world, gathered, got, counters):
+    """Rank 0's side of (b)/(c): the one-card stacked chain on the same
+    batches, replayed here; ``gathered`` (the group's state on the CPU) and
+    ``got`` (each rank's answers and top-16s, stacked by rank) equal to
+    it, each rank's ``route_dropped`` equal to ``predict_route_overflow``'s
+    count.  Returns what was held."""
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    t0 = time.perf_counter()
+    nodes = int(0.95 * world * NUM_NODES)
+    traffic = Traffic(seed + 31, nodes=nodes)
+    one = sh.init_sharded(scfg)
+    w = torch.ones(world * BATCH, dtype=torch.int32, device="cuda")
+    predicted = np.zeros(world, dtype=np.int64)
+    answers, tops = [], []
+    for i in range(RANKS_WARM + RANKS_CALLS):
+        src, dst = traffic.batch(world * BATCH)
+        q = traffic.srcs(world * QUERIES)
+        predicted += sh.predict_route_overflow(
+            scfg, src.cpu().numpy()).reshape(world, -1).sum(axis=1)
+        sh.update_(one, src, dst, w, scfg=scfg)
+        a = sh.query(one, q, 0.9, 16, scfg=scfg)
+        sh.maintain_(one, scfg=scfg, total_threshold=RANKS_THRESHOLD)
+        t = sh.topn(one, TOP_N, scfg=scfg)
+        if i >= RANKS_WARM:
+            answers.append(a)
+            tops.append(t)
+    src, dst = skewed_batch(traffic, scfg, nodes)
+    skewed = sh.predict_route_overflow(scfg, src.cpu().numpy()).reshape(
+        world, -1).sum(axis=1)
+    predicted += skewed
+    sh.update_(one, src, dst, w, scfg=scfg)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    equal_states("[ranks] the gathered state vs the one-card stacked chain",
+                 mc_to(gathered, one.slabs.cnt.device), one)
+    if counters != mc.counter_stats(one):
+        raise AssertionError(f"[ranks] counter_stats over the group {counters} "
+                             f"!= the one-card chain's")
+    rounds = len(answers)
+    for x in range(4):     # dsts, probs, n_needed, dropped of every round
+        want = torch.stack([a[x] for a in answers]).cpu()
+        per = got[x].view(world, rounds, *got[x].shape[2:])
+        mine = (torch.cat(list(per), dim=1) if x < 3
+                else per.squeeze(-1).transpose(0, 1))
+        if not torch.equal(mine, want):
+            raise AssertionError(f"[ranks] query output {x} differs from the "
+                                 f"one-card chain's")
+    for x in range(4):     # srcs, dsts, probs, dropped of every top-16
+        want = torch.stack([t[x] for t in tops]).cpu()
+        per = got[4 + x].view(world, rounds, *want.shape[1:])
+        for r in range(world):
+            if not torch.equal(per[r], want):
+                raise AssertionError(f"[ranks] rank {r}'s top-{TOP_N} output "
+                                     f"{x} differs from the one-card chain's")
+    drops = one.route_dropped.cpu().numpy()
+    if not np.array_equal(drops, predicted) or skewed[0] <= 0:
+        raise AssertionError(f"[ranks] route_dropped {drops.tolist()} != "
+                             f"predicted {predicted.tolist()}")
+    return {"replay_s": replay_s, "compare_s": time.perf_counter() - t0,
+            "route_dropped": drops.tolist(),
+            "predicted": predicted.tolist(), "rounds": rounds,
+            "top_probs": tops[-1][2].tolist()[:4]}
+
+
+def mc_to(state, device):
+    """A CPU state on ``device``, leaf by leaf (scalars kept as one
+    tensor's columns)."""
+    from repro_torch.core import mcprioq as mc
+    return mc.private_copy(mc.map_leaves(lambda x: x.to(device), state),
+                           table=False, slabs=(), dh=False)
+
+
+class RankRun:
+    """``world`` spawned processes ``target(rank, world, rdv, dir, go,
+    *extra)`` (a ``file://`` rendezvous in a fresh directory; ``go`` an
+    event the ranks wait on once set up, so that a group can start while
+    another runs); :meth:`wait` fails, naming the rank, when a rank fails or
+    the group outlives ``RANKS_LIMIT_S``; :meth:`close` kills what still
+    runs."""
+
+    def __init__(self, target, world, extra, label):
+        import multiprocessing
+        import tempfile
+        ctx = multiprocessing.get_context("spawn")
+        self.label, self.world = label, world
+        self.work = tempfile.mkdtemp(prefix="mcq_ranks_")
+        self.go = ctx.Event()
+        self.started = time.time()
+        self.procs = [ctx.Process(
+            target=target, args=(r, world, f"file://{self.work}/rendezvous",
+                                 self.work, self.go, *extra),
+            name=f"{label} rank {r}") for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.monotonic() + RANKS_LIMIT_S
+
+    def wait(self):
+        """Each rank's JSON result, with ``ready_s``: spawn to ready."""
+        while True:
+            bad = [(r, p.exitcode) for r, p in enumerate(self.procs)
+                   if p.exitcode not in (None, 0)]
+            if bad:
+                raise AssertionError(f"[ranks] {self.label}: rank {bad[0][0]} "
+                                     f"exited with {bad[0][1]}; its group "
+                                     f"killed")
+            if all(p.exitcode == 0 for p in self.procs):
+                break
+            if time.monotonic() > self.deadline:
+                late = [r for r, p in enumerate(self.procs)
+                        if p.exitcode is None]
+                raise AssertionError(f"[ranks] {self.label}: ranks {late} ran "
+                                     f"past {RANKS_LIMIT_S} s; the group "
+                                     f"killed")
+            time.sleep(0.05)
+        results = [json.loads(Path(self.work, f"rank{r}.json").read_text())
+                   for r in range(self.world)]
+        for res in results:
+            res["ready_s"] = res.pop("ready_at") - self.started
+        return results
+
+    def close(self):
+        import shutil
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_ranks(seed):
+    """The sharded chain one shard a process rank (``sharding.ranks``), on
+    the card: (a) one NCCL rank beside the one-card chain at S = 1; (b) 4
+    gloo ranks on the one card, host-staged; (c) NCCL across cards where
+    the machine has two or more.  The kernels are built here first, so
+    that no two ranks build at once; ranks are spawned (this process has a
+    CUDA context).  Every group starts at once and sets itself up; each
+    runs its rounds when the one before it has ended.  Returns the rank
+    path's launches by kernel and run."""
+    from repro_torch.kernels import _build
+    _build.load()
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    groups = [("(b)", "gloo", SHARDS,
+               "gloo, host-staged, 4 ranks on one card (not NCCL across "
+               "cards)")]
+    if cards >= 2:
+        groups.append(("(c)", "nccl", min(SHARDS, cards),
+                       f"NCCL across {min(SHARDS, cards)} cards"))
+    runs = []
+    try:
+        runs.append(RankRun(rank_nccl_one, 1, (seed,), "(a) NCCL world 1"))
+        runs += [RankRun(rank_group_run, world, (backend, seed), f"{tag} {what}")
+                 for tag, backend, world, what in groups]
+        out = phase_ranks_report(runs, groups)
+    finally:
+        for run in runs:
+            run.close()
+    if cards < 2:
+        say("[ranks] one card: NCCL across cards not run")
+    say(f"[ranks] phase wall {time.perf_counter() - t0:.1f} s (every group "
+        f"spawned at its start)")
+    return out
+
+
+def phase_ranks_report(runs, groups):
+    """Let each group of :func:`phase_ranks` run in turn, check its
+    launches and print what it held and measured."""
+    out = {}
+    runs[0].go.set()
+    t0 = time.perf_counter()
+    (one,) = runs[0].wait()
+    missing = [k for k in SHARDED_KERNELS if one["launches"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"[ranks] (a): the rank path never launched "
+                             f"{missing}")
+    out["nccl_world1"] = one["launches"]
+    base = ranks_config(1).base
+    say(f"[ranks] (a) NCCL, world 1, S = 1, {base.num_rows} rows x "
+        f"{base.capacity} slots on cuda:0: {RANKS_CALLS} rounds of update_ "
+        f"({BATCH} transitions) + query ({QUERIES} srcs) + maintain_ + "
+        f"top-{TOP_N} after one unguarded; after every update_ and maintain_ "
+        f"the 18 leaves torch.equal to the one-card chain at S = 1 on the "
+        f"same batches, every query and top-{TOP_N} equal; the rank's calls "
+        f"under set_sync_debug_mode('error'); rows {one['n_rows']}, "
+        f"route_dropped {one['route_dropped']}; spawn to ready "
+        f"{one['ready_s']:.1f} s, rounds with their checks "
+        f"{one['rounds_s']:.1f} s, the group's turn {time.perf_counter() - t0:.1f}"
+        f" s; the rank path's launches {one['launches']}")
+    for run, (tag, backend, world, what) in zip(runs[1:], groups):
+        run.go.set()
+        t0 = time.perf_counter()
+        results = run.wait()
+        for r, res in enumerate(results):
+            missing = [k for k in SHARDED_KERNELS
+                       if res["launches"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"[ranks] {tag} rank {r}: the rank path "
+                                     f"never launched {missing}")
+            say(f"[ranks] {tag} {what}, rank {r}: median ms (events, "
+                f"{RANKS_CALLS} rounds after {RANKS_WARM}) "
+                + ", ".join(f"{k} {v:.4f} (collectives "
+                            f"{100 * res['comm_share'][k]:.1f} %)"
+                            for k, v in res["median_ms"].items())
+                + f"; spawn to ready {res['ready_s']:.1f} s, rounds "
+                f"{res['rounds_s']:.1f} s, gathers {res['gather_s']:.1f} s; "
+                f"launches {res['launches']}")
+        checks = results[0]["checks"]
+        say(f"[ranks] {tag} {what}: S = {world}, each rank "
+            f"{NUM_NODES} x 128 ({world * BATCH} transitions a global update, "
+            f"{BATCH} a rank, bucket factor 2.0; {world * QUERIES} srcs a "
+            f"global query; top-{TOP_N}): the gathered state (18 stacked "
+            f"leaves), the {checks['rounds']} timed rounds' queries and "
+            f"top-{TOP_N}s of every rank and counter_stats over the group "
+            f"torch.equal to the one-card stacked chain on the same batches "
+            f"(replayed on rank 0 in {checks['replay_s']:.1f} s, compared in "
+            f"{checks['compare_s']:.1f} s); route_dropped per rank "
+            f"{checks['route_dropped']} == predict_route_overflow "
+            f"{checks['predicted']} (a skewed round last); top-{TOP_N} probs "
+            f"{checks['top_probs']}...; the group's turn "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[f"{backend}_world{world}"] = [r["launches"] for r in results]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6934,6 +7379,16 @@ def main(argv=None):
         del box
         torch.cuda.empty_cache()
         lap("engine, persist (reshard)")
+    if "ranks" in phases:
+        by_run = phase_ranks(args.seed)
+        for entry in kernels:     # the sharded path's entries
+            base, _, tags = entry["name"].partition("[")
+            if tags.startswith("sharded"):
+                entry["launches_ranks"] = {
+                    run: ([c.get(base, 0) for c in counts]
+                          if isinstance(counts, list) else counts.get(base, 0))
+                    for run, counts in by_run.items()}
+        lap("ranks")
     if "persist" in phases:
         phase_persist(args.seed, args.warm_batches // 2)
         torch.cuda.empty_cache()

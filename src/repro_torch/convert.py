@@ -5,7 +5,9 @@ The chain dict's keys are the leaf names of the reference's ``MCState``
 pytree (``src_table.keys``, ``slabs.cnt``, ``n_rows``, ...), 18 int32 arrays
 in all, so a state learned by either package can be continued by the other.
 The stacked pair does the same for a sharded chain (``core.sharded``): the
-same 18 leaves, each with a leading ``[S]``.  The model pair carries the
+same 18 leaves, each with a leading ``[S]``; and a sharded chain held one
+shard a process rank (``sharding.ranks``) goes to and from that layout by
+:func:`rank_state_from_numpy` and :func:`gather_sharded`.  The model pair carries the
 tree of the reference's ``Model.init`` (nested dicts and lists of numpy
 arrays: ``emb``, ``final_norm``, ``pre``, ``stack``, ``tail``; the
 ``moe``, ``ssm`` and ``rglru`` leaves among them) to the port's
@@ -15,14 +17,15 @@ never another framework's types.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.hashtable import HashTable
-from repro_torch.core.mcprioq import (MCConfig, MCState, private_copy,
-                                      resolve_device, stack_states)
+from repro_torch.core.mcprioq import (MCConfig, MCState, map_leaves,
+                                      private_copy, resolve_device,
+                                      stack_states)
 from repro_torch.core.slab import Slabs
 
 _NESTED = {"src_table": HashTable, "slabs": Slabs}
@@ -96,14 +99,43 @@ def sharded_state_from_numpy(leaves: Dict[str, np.ndarray], scfg,
     ``core.sharded.ShardedConfig``) on ``device`` (default: the GPU) from
     numpy leaves with a leading ``[S]``, each shard checked as
     :func:`state_from_numpy` checks a chain."""
-    s = scfg.num_shards
+    _check_leading(leaves, scfg.num_shards)
+    return stack_states([
+        state_from_numpy({k: np.asarray(v)[i] for k, v in leaves.items()},
+                         scfg.base, device) for i in range(scfg.num_shards)])
+
+
+def _check_leading(leaves: Dict[str, np.ndarray], s: int) -> None:
     for name, arr in leaves.items():
         if np.ndim(arr) < 1 or np.shape(arr)[0] != s:
             raise ValueError(f"leaf {name} has shape {np.shape(arr)}, a "
                              f"sharded state wants a leading {s}")
-    return stack_states([
-        state_from_numpy({k: np.asarray(v)[i] for k, v in leaves.items()},
-                         scfg.base, device) for i in range(s)])
+
+
+def rank_state_from_numpy(leaves: Dict[str, np.ndarray], scfg, rank: int,
+                          device=None) -> MCState:
+    """Shard ``rank`` of stacked numpy leaves (``[S, ...]``, the layout of
+    :func:`sharded_state_to_numpy`) as a rank's state of one shard
+    (leading dim 1) on ``device`` (default: the GPU), checked as
+    :func:`sharded_state_from_numpy` checks a stacked state."""
+    if not 0 <= rank < scfg.num_shards:
+        raise ValueError(f"rank {rank} is not a shard of {scfg.num_shards}")
+    _check_leading(leaves, scfg.num_shards)
+    return stack_states([state_from_numpy(
+        {k: np.asarray(v)[rank] for k, v in leaves.items()}, scfg.base,
+        device)])
+
+
+def gather_sharded(state: MCState, ranks, dst: int = 0) -> Optional[MCState]:
+    """The whole sharded chain of a rank group (``ranks`` a
+    ``sharding.ranks.RankGroup``, ``state`` this rank's one shard) as one
+    stacked state on the CPU on rank ``dst`` — the layout of the one-card
+    chain, its scalars the columns of one ``[S, 10]`` tensor — and None on
+    the other ranks.  Every rank calls it."""
+    stacked = map_leaves(lambda leaf: ranks.gather(leaf, dst), state)
+    if ranks.rank != dst:
+        return None
+    return private_copy(stacked, table=False, slabs=(), dh=False)
 
 
 def model_params_from_numpy(cfg, tree, device=None) -> Any:

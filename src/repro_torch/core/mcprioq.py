@@ -760,14 +760,20 @@ _COUNTER_FIELDS = ("n_rows", "dropped_rows", "dropped_probes", "evictions",
                    "dh_rebuilds", "dh_tombstones")
 
 
-def counter_stats(state: MCState) -> dict:
+def counter_stats(state: MCState, ranks=None) -> dict:
     """Every additive observability counter as a host-side int.
 
     Counters are summed over any leading dims, so the same helper reads a
     local ``MCState`` and a stacked per-shard state.  ``decay_cursor`` is a
     position, not a count, and is deliberately excluded.  The sums are
     stacked into one tensor and cross to the host in ONE device->host copy.
+    With ``ranks`` (a ``sharding.ranks.RankGroup``, ``state`` this rank's
+    shard) the sums are summed over the ranks too (``psum``): every rank
+    gets the whole chain's counters, as the one-card stacked state gives
+    them.
     """
-    vals = torch.stack(
-        [getattr(state, f).sum() for f in _COUNTER_FIELDS]).tolist()
+    vals = torch.stack([getattr(state, f).sum() for f in _COUNTER_FIELDS])
+    if ranks is not None:
+        vals = ranks.psum(vals)
+    vals = vals.tolist()
     return {f: int(v) for f, v in zip(_COUNTER_FIELDS, vals)}

@@ -43,6 +43,26 @@ write first and write nothing they are given, because an ``EpochStore``
 reader may hold the state.  On a CUDA state the owner calls and the query
 make no device->host synchronisation.
 
+**One shard per rank.**  Every call also takes ``ranks``, a
+:class:`repro_torch.sharding.ranks.RankGroup`, where the reference takes a
+mesh: then this process holds shard ``ranks.rank`` only, as the
+reference's ``shard_map`` body holds its block, and the shards exchange
+through the group's collectives.  The rank's state is a stacked state with
+a leading dim of 1 (``init_sharded(scfg, ranks=...)``), so ``shard_state(
+state, 0)`` and the owner calls serve it unchanged; ``scfg.num_shards``
+must equal the group's world size (the reference's body takes ``x[0]`` of
+its block: one shard a device).  A rank passes its contiguous slice of the
+global batch, ``[r·B/S, (r+1)·B/S)`` as ``P(axis)`` hands it out, and every
+rank passes a slice of the same length (unchecked: a check would cost a
+synchronisation).  ``update_`` builds the rank's ``[S, cap]`` buckets and
+exchanges the three leaves in one ``all_to_all`` (stacked ``[S, 3, cap]``);
+``query`` routes out, answers on its shard and routes ``d, p, need`` back
+in one more (``p``'s bits carried as int32); ``maintain_`` and ``decay_``
+are local; ``topn`` all_gathers each rank's own top-n list and its drop
+count in one ``[S, 3n+1]`` exchange, merges the lists with
+``ops.topn_merge`` (every rank the same answer) and sums the drops, the
+reference's ``psum``.  ``ranks=None`` is the stacked one-card chain above.
+
 Fixed per-destination bucket capacity keeps shapes static: overflowed items
 are dropped and counted — in the *sender's* ``route_dropped`` for updates,
 in the query's drop vector for reads.  torch has no ``mode="drop"``
@@ -62,6 +82,7 @@ from repro_torch.core import mcprioq as mc
 from repro_torch.core.hashtable import EMPTY
 from repro_torch.kernels import ops, ref
 from repro_torch.sharding.ownership import Ownership
+from repro_torch.sharding.ranks import RankGroup
 
 __all__ = [
     "ShardedConfig", "owner_of", "init_sharded", "shard_state",
@@ -76,7 +97,7 @@ __all__ = [
 class ShardedConfig:
     base: mc.MCConfig
     num_shards: int
-    axis: str = "shard"   # name parity only: nothing reads it on one card
+    axis: str = "shard"   # name parity only: a RankGroup plays the axis
     bucket_factor: float = 2.0  # capacity = factor * fair share
     # two-level hash -> virtual bucket -> shard map; None = the default
     # assignment
@@ -107,11 +128,34 @@ def owner_of(src: torch.Tensor, num_shards: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_sharded(scfg: ShardedConfig, device=None) -> mc.MCState:
+def _check_ranks(scfg: ShardedConfig, ranks: Optional[RankGroup],
+                 state: Optional[mc.MCState] = None) -> int:
+    """The number of shards this process holds: ``num_shards`` on one
+    card, 1 on a rank (whose world must be ``num_shards``, and whose state
+    holds one shard)."""
+    if ranks is None:
+        return scfg.num_shards
+    if ranks.world != scfg.num_shards:
+        raise ValueError(
+            f"a rank group of world {ranks.world} runs one shard a rank, but "
+            f"the config has num_shards={scfg.num_shards}")
+    if state is not None and state.slabs.cnt.shape[0] != 1:
+        raise ValueError(
+            f"a rank holds one shard, but the state stacks "
+            f"{state.slabs.cnt.shape[0]}")
+    return 1
+
+
+def init_sharded(scfg: ShardedConfig, device=None, *,
+                 ranks: Optional[RankGroup] = None) -> mc.MCState:
     """Empty stacked state of ``scfg.num_shards`` chains on ``device``
-    (default: the current CUDA device; raises when there is none)."""
-    one = mc.init(scfg.base, device=device)
-    return mc.stack_states([one] * scfg.num_shards)
+    (default: the current CUDA device; raises when there is none); with
+    ``ranks``, this rank's one shard (leading dim 1) on ``device``, by
+    default the group's device."""
+    shards = _check_ranks(scfg, ranks)
+    if ranks is not None and device is None:
+        device = ranks.device
+    return mc.stack_states([mc.init(scfg.base, device=device)] * shards)
 
 
 def shard_state(state: mc.MCState, s: int) -> mc.MCState:
@@ -131,10 +175,11 @@ def _as_int32(state: mc.MCState, x) -> torch.Tensor:
 
 
 def _build_buckets(vals, owner: torch.Tensor, num_shards: int, cap: int,
-                   active: torch.Tensor):
-    """Scatter the items of all S sender slices into ``[S_send, S_recv,
-    cap]`` send buckets grouped by owner: the reference's per-sender
-    ``_build_buckets`` for every sender in one pass.
+                   active: torch.Tensor, senders: Optional[int] = None):
+    """Scatter the items of ``senders`` (default S) contiguous sender
+    slices into ``[senders, S_recv, cap]`` send buckets grouped by owner:
+    the reference's per-sender ``_build_buckets`` for every sender in one
+    pass (one sender on a rank).
 
     One stable sort of the keys ``sender·(S+1) + owner`` orders each
     sender's items by owner (inactive items carry owner S: they sort last,
@@ -143,17 +188,18 @@ def _build_buckets(vals, owner: torch.Tensor, num_shards: int, cap: int,
     its rank in its group.  Items ranked ``>= cap`` are dropped.  Returns
     ``(buckets..., pos, dropped)``: ``pos[i]`` is item i's rank (garbage for
     inactive items, as in the reference: callers mask on ``active``),
-    ``dropped`` int32 ``[S]`` the drops of each sender.
+    ``dropped`` int32 ``[senders]`` the drops of each sender.
     """
     n = num_shards
+    m = n if senders is None else senders
     b = owner.shape[0]
-    local = b // n
+    local = b // m
     dev = owner.device
     owner = torch.where(active, owner, n).to(torch.int64)
-    sender = torch.arange(n, device=dev).repeat_interleave(local)
+    sender = torch.arange(m, device=dev).repeat_interleave(local)
     key_s, sort_idx = torch.sort(sender * (n + 1) + owner, stable=True)
     owner_s = key_s - sender * (n + 1)       # sorting keeps each sender's slice
-    groups = torch.arange(n * n, device=dev)
+    groups = torch.arange(m * n, device=dev)
     starts = torch.searchsorted(key_s, groups // n * (n + 1) + groups % n)
     pos_s = (torch.arange(b, device=dev)
              - starts[sender * n + owner_s.clamp(max=n - 1)])
@@ -164,30 +210,42 @@ def _build_buckets(vals, owner: torch.Tensor, num_shards: int, cap: int,
                        sender * n * (cap + 1) + cap)
     outs = []
     for v in vals:
-        buf = torch.full((n * n * (cap + 1),), EMPTY, dtype=torch.int32,
+        buf = torch.full((m * n * (cap + 1),), EMPTY, dtype=torch.int32,
                          device=dev)
         buf.scatter_(0, slot, v[sort_idx])
-        outs.append(buf.view(n, n, cap + 1)[:, :, :cap])
+        outs.append(buf.view(m, n, cap + 1)[:, :, :cap])
     pos = torch.empty((b,), dtype=torch.int32, device=dev).scatter_(
         0, sort_idx, pos_s.to(torch.int32))
-    dropped = ((pos_s >= cap) & real).view(n, local).sum(dim=1).to(torch.int32)
+    dropped = ((pos_s >= cap) & real).view(m, local).sum(dim=1).to(torch.int32)
     return outs, pos, dropped
 
 
-def _route(scfg: ShardedConfig, state: mc.MCState, src, vals=()):
-    """Owners, buckets and drops of a global batch; the buckets come back
-    as the receivers see them, ``[S_recv, S_send·cap]`` (contiguous)."""
+def _route(scfg: ShardedConfig, state: mc.MCState, src, vals=(),
+           ranks: Optional[RankGroup] = None):
+    """Owners, buckets and drops of a batch; the buckets come back as the
+    receivers see them, sender 0's bucket first.  On one card ``src`` is
+    the global batch, every sender's buckets are built at once and handed
+    over by a transpose: ``[S_recv, S_send·cap]`` each leaf.  On a rank
+    ``src`` is this rank's slice, its ``[S, cap]`` buckets of every leaf go
+    out in one ``all_to_all`` (stacked ``[S, L, cap]``), and this rank's
+    come back as ``[L, S_send·cap]``."""
     n = scfg.num_shards
+    senders = n if ranks is None else 1
     src = _as_int32(state, src)
-    if src.dim() != 1 or src.shape[0] % n:
+    if src.dim() != 1 or src.shape[0] % senders:
         raise ValueError(f"batch of {tuple(src.shape)} is not a multiple of "
                          f"num_shards={n}")
-    cap = scfg.bucket_capacity(src.shape[0] // n)
+    cap = scfg.bucket_capacity(src.shape[0] // senders)
     owner = scfg.resolved_ownership().owner_of(src)
     active = src >= 0
     bufs, pos, dropped = _build_buckets(
-        [src, *(_as_int32(state, v) for v in vals)], owner, n, cap, active)
-    received = [x.transpose(0, 1).reshape(n, n * cap) for x in bufs]
+        [src, *(_as_int32(state, v) for v in vals)], owner, n, cap, active,
+        senders)
+    if ranks is None:
+        received = [x.transpose(0, 1).reshape(n, n * cap) for x in bufs]
+    else:
+        got = ranks.all_to_all(torch.stack([x[0] for x in bufs], dim=1))
+        received = got.transpose(0, 1).reshape(len(bufs), n * cap)
     return received, owner, active, pos, dropped, cap
 
 
@@ -256,14 +314,26 @@ def _flags(dirty, s):
 
 
 def update_(state: mc.MCState, src, dst, w, *, scfg: ShardedConfig,
-            dirty=None, table_dirty=None) -> mc.MCState:
+            ranks: Optional[RankGroup] = None, dirty=None,
+            table_dirty=None) -> mc.MCState:
     """Route a global batch ``src[B], dst[B], w[B]`` (B a multiple of S,
     sender slices contiguous) to its owner shards and apply each shard's
     update in place (``update_batch_`` with ``mask = src != EMPTY``); each
     sender's bucket-overflow drops are added to its own shard's
     ``route_dropped``.  ``dirty`` (uint8 ``[S, N]``): every row changed is
     flagged; ``table_dirty`` (uint8 ``[S, hashtable.flag_count(T)]``):
-    every src-table slot group written.  Returns ``state``."""
+    every src-table slot group written.  With ``ranks``: this rank's slice
+    ``[B/S]`` of the global batch, its state and flags of one shard
+    (``[1, ...]``).  Returns ``state``."""
+    if ranks is not None:
+        _check_ranks(scfg, ranks, state)
+        (rsrc, rdst, rw), _, _, _, dropped, _ = _route(
+            scfg, state, src, (dst, w), ranks)
+        mc.update_batch_(shard_state(state, 0), rsrc, rdst, rw, rsrc != EMPTY,
+                         cfg=scfg.base, dirty=_flags(dirty, 0),
+                         table_dirty=_flags(table_dirty, 0))
+        state.route_dropped.add_(dropped)
+        return state
     (rsrc, rdst, rw), _, _, _, dropped, _ = _route(scfg, state, src, (dst, w))
     for r in range(scfg.num_shards):
         mc.update_batch_(shard_state(state, r), rsrc[r], rdst[r], rw[r],
@@ -275,13 +345,18 @@ def update_(state: mc.MCState, src, dst, w, *, scfg: ShardedConfig,
 
 
 def query(state: mc.MCState, src, threshold, max_items: int, *,
-          scfg: ShardedConfig):
+          scfg: ShardedConfig, ranks: Optional[RankGroup] = None):
     """Threshold query of a global batch ``src[B]``: routed to the owners,
     answered by each shard's fused read (``query_impl``), routed back and
     un-permuted.  Returns ``(dsts[B, max_items], probs[B, max_items],
     n_needed[B], dropped[S])``; ``dropped`` counts the queries each sender
-    could not route (their answers are EMPTY/0)."""
+    could not route (their answers are EMPTY/0).  With ``ranks``: this
+    rank's slice ``src[B/S]`` in, its answers ``[B/S, ...]`` and its
+    ``dropped[1]`` out."""
     n = scfg.num_shards
+    if ranks is not None:
+        _check_ranks(scfg, ranks, state)
+        return _query_rank(state, src, threshold, max_items, scfg, ranks)
     (rsrc,), owner, active, pos, dropped, cap = _route(scfg, state, src)
     outs = [mc.query_impl(shard_state(state, r), rsrc[r], threshold,
                           scfg.base, max_items) for r in range(n)]
@@ -300,12 +375,33 @@ def query(state: mc.MCState, src, threshold, max_items: int, *,
     return di, pi, ni, dropped
 
 
+def _query_rank(state, src, threshold, max_items, scfg, ranks):
+    """:func:`query` on a rank: out with one ``all_to_all``, the fused read
+    on this rank's shard, and ``d, p, need`` back in one more (``p``'s bits
+    as int32, so the answers travel unchanged)."""
+    n = scfg.num_shards
+    (rsrc,), owner, active, pos, dropped, cap = _route(scfg, state, src,
+                                                      ranks=ranks)
+    d, p, need = mc.query_impl(shard_state(state, 0), rsrc, threshold,
+                               scfg.base, max_items)
+    k = d.shape[1]
+    packed = torch.cat([d, p.view(torch.int32), need.unsqueeze(1)], dim=1)
+    back = ranks.all_to_all(packed.view(n, cap, 2 * k + 1)).view(n * cap, -1)
+    # un-permute: item i sits at [owner[i], pos[i]]
+    ok = (pos < cap) & (pos >= 0) & active
+    got = back[owner.to(torch.int64) * cap + pos.clamp(0, cap - 1)]
+    di = torch.where(ok.unsqueeze(1), got[:, :k], EMPTY)
+    pi = torch.where(ok.unsqueeze(1), got[:, k:2 * k].view(torch.float32), 0.0)
+    ni = torch.where(ok, got[:, 2 * k], 0)
+    return di, pi, ni, dropped
+
+
 def maintain_(state: mc.MCState, *, scfg: ShardedConfig, total_threshold: int,
-              dirty=None) -> mc.MCState:
+              ranks: Optional[RankGroup] = None, dirty=None) -> mc.MCState:
     """Per-shard maintenance in place: ``maybe_decay_`` on every shard,
     each decided on the device by its own row totals and decaying its own
-    rolling block."""
-    for r in range(scfg.num_shards):
+    rolling block.  With ``ranks``: this rank's shard, no collective."""
+    for r in range(_check_ranks(scfg, ranks, state)):
         mc.maybe_decay_(shard_state(state, r), cfg=scfg.base,
                         total_threshold=total_threshold,
                         dirty=_flags(dirty, r))
@@ -313,9 +409,10 @@ def maintain_(state: mc.MCState, *, scfg: ShardedConfig, total_threshold: int,
 
 
 def decay_(state: mc.MCState, *, scfg: ShardedConfig,
-           dirty=None) -> mc.MCState:
-    """One unconditional decay step per shard, in place."""
-    for r in range(scfg.num_shards):
+           ranks: Optional[RankGroup] = None, dirty=None) -> mc.MCState:
+    """One unconditional decay step per shard, in place (with ``ranks``:
+    this rank's shard, no collective)."""
+    for r in range(_check_ranks(scfg, ranks, state)):
         mc.decay_(shard_state(state, r), cfg=scfg.base,
                   dirty=_flags(dirty, r))
     return state
@@ -361,7 +458,8 @@ def topn_lists(state: mc.MCState, n: int, *, scfg: ShardedConfig):
     return top_p, top_dst, top_src, dropped
 
 
-def topn(state: mc.MCState, n: int, *, scfg: ShardedConfig):
+def topn(state: mc.MCState, n: int, *, scfg: ShardedConfig,
+         ranks: Optional[RankGroup] = None):
     """The globally descending top-n edges of the whole sharded chain:
     ``(srcs[n], dsts[n], probs[n], dropped)``.
 
@@ -370,7 +468,13 @@ def topn(state: mc.MCState, n: int, *, scfg: ShardedConfig):
     state) ``ops.topn_windows`` reads every shard's windows in one pass
     and merges the blocks' lists: the same bits, no sort.
     ``dropped`` counts the live edges the shards could not expose to the
-    merge.  Reads ``state`` only."""
+    merge.  Reads ``state`` only.  With ``ranks``: this rank's own list
+    (the same two paths at S = 1), every rank's gathered, the S lists
+    merged by ``ops.topn_merge`` and the drops summed; the same answer on
+    every rank."""
+    if ranks is not None:
+        _check_ranks(scfg, ranks, state)
+        return _topn_rank(state, n, scfg, ranks)
     slabs = state.slabs
     impl = scfg.base.impl
     if not ops._use_ref(impl, slabs.cnt):
@@ -380,70 +484,100 @@ def topn(state: mc.MCState, n: int, *, scfg: ShardedConfig):
     return (*ops.topn_merge(probs, dsts, srcs, n=n, impl=impl), dropped)
 
 
+def _topn_rank(state, n, scfg, ranks):
+    """:func:`topn` on a rank: its list and drop count in one
+    ``all_gather`` (``[S, 3n+1]`` int32, the probabilities' bits), the
+    merge of the S lists (the lowest rank first on ties) and the drops'
+    sum."""
+    slabs = state.slabs
+    impl = scfg.base.impl
+    if not ops._use_ref(impl, slabs.cnt):
+        srcs, dsts, probs, dropped = ops.topn_windows(
+            slabs.cnt, slabs.order, slabs.tot, slabs.dst, *state.src_table,
+            n=n, impl=impl)
+    else:
+        probs, dsts, srcs, dropped = topn_lists(state, n, scfg=scfg)
+    mine = torch.cat([probs.reshape(n).view(torch.int32), dsts.reshape(n),
+                      srcs.reshape(n), dropped.to(torch.int32).reshape(1)])
+    every = ranks.all_gather(mine)
+    lists = (every[:, :n].contiguous().view(torch.float32),
+             every[:, n:2 * n].contiguous(), every[:, 2 * n:3 * n].contiguous())
+    return (*ops.topn_merge(*lists, n=n, impl=impl),
+            every[:, 3 * n].sum().to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
-# functional callables (the reference's ``make_*_fn``, no mesh)
+# functional callables (the reference's ``make_*_fn``; a RankGroup for its
+# mesh)
 # ---------------------------------------------------------------------------
 
 
-def make_update_fn(scfg: ShardedConfig):
+def make_update_fn(scfg: ShardedConfig, ranks: Optional[RankGroup] = None):
     """``(state, src[B], dst[B], w[B]) -> state``, functional: the src
     tables, slabs, scalars and (with the dst hash) row hashes are copied,
     then :func:`update_` writes the copy."""
     def fn(state, src, dst, w):
         own = mc.private_copy(state, dh=scfg.base.use_dst_hash)
-        return update_(own, src, dst, w, scfg=scfg)
+        return update_(own, src, dst, w, scfg=scfg, ranks=ranks)
     return fn
 
 
-def make_update_fn_(scfg: ShardedConfig):
+def make_update_fn_(scfg: ShardedConfig, ranks: Optional[RankGroup] = None):
     """``(state, src[B], dst[B], w[B], *, dirty=None, table_dirty=None) ->
     state``, the owner program: :func:`update_` under ``scfg``, writing
     into ``state``."""
     def fn(state, src, dst, w, *, dirty=None, table_dirty=None):
-        return update_(state, src, dst, w, scfg=scfg, dirty=dirty,
-                       table_dirty=table_dirty)
+        return update_(state, src, dst, w, scfg=scfg, ranks=ranks,
+                       dirty=dirty, table_dirty=table_dirty)
     return fn
 
 
-def make_maintain_fn_(scfg: ShardedConfig, total_threshold: int):
+def make_maintain_fn_(scfg: ShardedConfig, total_threshold: int,
+                      ranks: Optional[RankGroup] = None):
     """``(state, *, dirty=None) -> state``, the owner program:
     :func:`maintain_` under ``scfg``, writing into ``state``."""
     def fn(state, *, dirty=None):
         return maintain_(state, scfg=scfg, total_threshold=total_threshold,
-                         dirty=dirty)
+                         ranks=ranks, dirty=dirty)
     return fn
 
 
-def make_query_fn(scfg: ShardedConfig, threshold: float, max_items: int):
+def make_query_fn(scfg: ShardedConfig, threshold: float, max_items: int,
+                  ranks: Optional[RankGroup] = None):
     """``(state, src[B]) -> (dsts[B, max_items], probs[B, max_items],
-    n_needed[B], dropped[num_shards])``."""
+    n_needed[B], dropped[num_shards])`` (with ``ranks``: this rank's
+    slice in, its answers and ``dropped[1]`` out)."""
     def fn(state, src):
-        return query(state, src, threshold, max_items, scfg=scfg)
+        return query(state, src, threshold, max_items, scfg=scfg, ranks=ranks)
     return fn
 
 
-def make_maintain_fn(scfg: ShardedConfig, total_threshold: int):
+def make_maintain_fn(scfg: ShardedConfig, total_threshold: int,
+                     ranks: Optional[RankGroup] = None):
     """``state -> state``, functional: the per-shard rolling maintenance
     step (decay one block on every shard whose row totals crossed
     ``total_threshold``) on a copy."""
     def fn(state):
         own = mc.private_copy(state, table=False, dh=scfg.base.use_dst_hash)
-        return maintain_(own, scfg=scfg, total_threshold=total_threshold)
+        return maintain_(own, scfg=scfg, total_threshold=total_threshold,
+                         ranks=ranks)
     return fn
 
 
-def make_decay_fn(scfg: ShardedConfig):
+def make_decay_fn(scfg: ShardedConfig, ranks: Optional[RankGroup] = None):
     """``state -> state``, functional: one unconditional decay step per
     shard on a copy."""
     def fn(state):
         own = mc.private_copy(state, table=False, dh=scfg.base.use_dst_hash)
-        return decay_(own, scfg=scfg)
+        return decay_(own, scfg=scfg, ranks=ranks)
     return fn
 
 
-def make_topn_fn(scfg: ShardedConfig, n: int):
+def make_topn_fn(scfg: ShardedConfig, n: int,
+                 ranks: Optional[RankGroup] = None):
     """``state -> (srcs[n], dsts[n], probs[n], dropped)``: the globally
-    descending top-n edges and the live edges not exposed to the merge."""
+    descending top-n edges and the live edges not exposed to the merge
+    (with ``ranks``: the same on every rank)."""
     def fn(state):
-        return topn(state, n, scfg=scfg)
+        return topn(state, n, scfg=scfg, ranks=ranks)
     return fn

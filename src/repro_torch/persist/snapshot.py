@@ -32,6 +32,14 @@ once and falls back to the previous step when any of it fails to read, and
 :func:`latest_complete_step` names the step it would land on.  The
 reference reads every array three times per restore (the completeness
 check, the given step's check again, the restore); the port once.
+
+A rank group (``sharding.ranks``: one shard a process, ``core.sharded``'s
+rank forms) snapshots in the stacked layout of the one-card chain: with
+``ranks``, ``save_snapshot`` gathers every shard to rank 0, which writes
+(the same commit, the same fsyncs), and ``restore_snapshot`` reads on rank
+0 and scatters shard r to rank r.  The files are those of the one-card
+stacked chain in the same state, byte for byte, so either restores the
+other's and ``persist/reshard.py`` takes both.
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+import torch
+
+from repro_torch import convert
 from repro_torch.checkpoint import ckpt
 from repro_torch.faults import failpoint
 from repro_torch.obs import metrics as obs_metrics
@@ -71,18 +82,43 @@ def _write_meta(path: str, meta: dict) -> None:
 
 def save_snapshot(state: PyTree, directory: str, step: int,
                   meta: dict,
-                  metrics: Optional[obs_metrics.Registry] = None) -> str:
+                  metrics: Optional[obs_metrics.Registry] = None, *,
+                  ranks=None) -> str:
     """Write ``step_<n>/{chain.json, arrays.npz, manifest.json}``.
 
     ``chain.json`` lands before ``ckpt.save`` commits the manifest, so a
     committed manifest implies the sidecar exists.  Returns the step path.
+    With ``ranks`` (a ``sharding.ranks.RankGroup``; ``state`` this rank's
+    shard of a sharded chain; every rank calls): the shards gathered to
+    rank 0 (``convert.gather_sharded``), rank 0 writes the stacked chain,
+    and every rank returns once rank 0's commit is durable, or raises when
+    rank 0's write failed.
     """
+    if ranks is not None:
+        return _save_ranks(state, directory, step, meta, metrics, ranks)
     metrics = metrics if metrics is not None else obs_metrics.GLOBAL
     with metrics.span("snapshot.save", step=step):
         path = step_dir(directory, step)
         os.makedirs(path, exist_ok=True)
         _write_meta(path, meta)
         return ckpt.save(state, directory, step)
+
+
+def _save_ranks(state, directory, step, meta, metrics, ranks) -> str:
+    stacked = convert.gather_sharded(state, ranks, 0)
+    failed = None
+    if ranks.rank == 0:
+        try:
+            save_snapshot(stacked, directory, step, meta, metrics)
+        except Exception as exc:   # every rank must hear of it, then raise
+            failed = exc
+    said = ranks.broadcast_object(None if failed is None else repr(failed))
+    if failed is not None:
+        raise failed
+    if said is not None:
+        raise RuntimeError(f"rank 0 failed to write snapshot step {step}: "
+                           f"{said}")
+    return step_dir(directory, step)
 
 
 def save_snapshot_async(state: PyTree, directory: str, step: int,
@@ -204,16 +240,51 @@ def read_step(directory: str, step: Optional[int] = None
 def restore_snapshot(tree_like: PyTree, directory: str,
                      step: Optional[int] = None,
                      device=None,
-                     metrics: Optional[obs_metrics.Registry] = None
-                     ) -> Tuple[PyTree, dict, int]:
+                     metrics: Optional[obs_metrics.Registry] = None, *,
+                     ranks=None) -> Tuple[PyTree, dict, int]:
     """Restore the newest *complete* snapshot (or ``step``) into the
     structure of ``tree_like``, each leaf on ``device`` or on the device of
     its ``tree_like`` leaf; a chain's scalar leaves come back as views of
     one tensor, as the owner calls need them (``ckpt.place``).  Each array
     is read from the disk once (:func:`read_step`).  Returns
-    ``(state, meta, step)``."""
+    ``(state, meta, step)``.  With ``ranks`` (every rank calls;
+    ``tree_like`` this rank's shard, leading dim 1): rank 0 reads the
+    stacked snapshot and sends shard r to rank r; a snapshot that does not
+    read, or whose leaves are not ``world`` shards of ``tree_like``'s,
+    raises on every rank."""
     metrics = metrics if metrics is not None else obs_metrics.GLOBAL
     with metrics.span("snapshot.restore", step=step):
+        if ranks is not None:
+            return _restore_ranks(tree_like, directory, step, device, ranks)
         step, meta, arrays = read_step(directory, step)
         state = ckpt.place(tree_like, arrays, device=device)
         return state, meta, step
+
+
+def _restore_ranks(tree_like, directory, step, device, ranks):
+    keys, likes, _ = ckpt._paths_and_leaves(tree_like)
+    arrays, found = {}, None
+    if ranks.rank == 0:
+        try:
+            step, meta, arrays = read_step(directory, step)
+            for key, like in zip(keys, likes):
+                want = (ranks.world * like.shape[0], *like.shape[1:])
+                have = arrays[key] if key in arrays else None
+                if have is None or have.shape != want or \
+                        have.dtype != ckpt._np_dtype(like):
+                    raise ValueError(
+                        f"snapshot leaf {key} is "
+                        f"{None if have is None else (have.dtype, have.shape)}"
+                        f", {ranks.world} shards of "
+                        f"{(ckpt._np_dtype(like), tuple(like.shape))} wanted")
+            found = (step, meta, None)
+        except (OSError, ValueError) as exc:
+            found = (None, None, f"{type(exc).__name__}: {exc}")
+    step, meta, failed = ranks.broadcast_object(found)
+    if failed is not None:
+        raise FileNotFoundError(f"rank 0 could not restore a {ranks.world}-"
+                                f"shard snapshot from {directory}: {failed}")
+    local = {key: ranks.scatter(
+        torch.from_numpy(arrays[key]) if ranks.rank == 0 else None,
+        like).cpu().numpy() for key, like in zip(keys, likes)}
+    return ckpt.place(tree_like, local, device=device), meta, step
