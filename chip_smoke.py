@@ -5,7 +5,8 @@
     python3 chip_smoke.py --phases device,kernels   # a subset, for debugging
     python3 chip_smoke.py --phases device,kernels,hash   # the dst-hash path
     python3 chip_smoke.py --phases device,kernels,sharded   # the sharded chain
-    python3 chip_smoke.py --phases device,ranks   # the chain one shard a
+    python3 chip_smoke.py --phases device,ranks   # the chain and the
+                                                  # engine one shard a
                                                   # process rank
     python3 chip_smoke.py --phases device,persist   # durability (runs phase
                                                     # sharded's warm-up first)
@@ -191,11 +192,24 @@ Builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` from source, then
                 over the group and each rank's ``route_dropped`` (==
                 ``predict_route_overflow``) equal; (c) where the machine has
                 two cards or more, (b) over NCCL at world min(4, cards),
-                rank r on cuda:r, else one line says it was not run;
+                rank r on cuda:r, else one line says it was not run; then
+                each group serves through ``ShardedEngine(cfg,
+                ranks=group)`` at that width: two reader lanes (16,384-src
+                queries, top-16s) reading while 20 observes of world x
+                65,536 transitions run, an async checkpoint after 10, a
+                crash and a fresh engine's restore with WAL replay, and at
+                2^16 rows a shard a reassign and an elastic restore onto
+                half the ranks; every rank's answers equal, rank 0 holding
+                each lane read to an engine-free oracle at the versions its
+                ranks pinned, the recovered state and counters to the
+                oracle, the small runs to the one-card engine; each rank's
+                observe and lane p50/p99 (the collectives' share), restore,
+                replay and reassign times printed beside the card;
   6b. engine  — the serving engine (``serve.engine.ShardedEngine``) at
                 phase sharded's width: the launcher ``python -m
                 repro_torch.launch.serve --num-shards 4`` run twice, the
-                second time with ``--restore``; phase sharded's final state
+                second time with ``--restore``, then with ``--ranks gloo``
+                (4 rank processes on the card); phase sharded's final state
                 snapshotted and restored into the engine; 20 observes of
                 262,144 transitions (WAL, back-buffer writes, ``maintain_``
                 decaying) while a query reader (16,384 srcs) and a top-16
@@ -3501,12 +3515,13 @@ def rank_launches(acc, fn, *args, **kw):
     return out
 
 
-def rank_nccl_one(rank, world, rdv, out_dir, go, seed):
+def rank_nccl_one(rank, world, rdv, out_dir, go, seed, root):
     """Phase ranks (a), in a spawned process: one NCCL rank (world 1,
     S = 1) beside the one-card stacked chain at S = 1 on the same card and
     batches; after every ``update_`` and ``maintain_`` the 18 leaves
     equal, every query and top-16 equal; the rank's owner calls, query and
-    top-n under ``set_sync_debug_mode('error')``."""
+    top-n under ``set_sync_debug_mode('error')``; then the ranked serving
+    engine (:func:`rank_engine`, its files under ``root``)."""
     from repro_torch.core import sharded as sh
     from repro_torch.sharding.ranks import init_ranks
     torch.set_num_threads(1)
@@ -3547,15 +3562,20 @@ def rank_nccl_one(rank, world, rdv, out_dir, go, seed):
         compare(f"[ranks] (a) round {i}: top-{TOP_N}", got,
                 sh.topn(one, TOP_N, scfg=scfg))
     torch.cuda.synchronize()
-    group.close()
-    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(
-        {"launches": launches, "ready_at": ready_at,
-         "rounds_s": time.perf_counter() - t0,
-         "n_rows": int(mine.n_rows.sum()),
-         "route_dropped": int(mine.route_dropped.sum())}))
+    result = {"launches": launches, "ready_at": ready_at,
+              "rounds_s": time.perf_counter() - t0,
+              "n_rows": int(mine.n_rows.sum()),
+              "route_dropped": int(mine.route_dropped.sum())}
+    del mine, one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result.update(rank_engine(group, seed, root))
+    result["engine_s"] = time.perf_counter() - t0
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+    rank_exit(group)
 
 
-def rank_group_run(rank, world, rdv, out_dir, go, backend, seed):
+def rank_group_run(rank, world, rdv, out_dir, go, backend, seed, root):
     """Phase ranks (b) and (c), in a spawned process: rank ``rank`` of
     ``world`` at phase sharded's width and traffic (this rank's slice of
     every global batch, drawn from the seed as every rank draws it),
@@ -3566,7 +3586,8 @@ def rank_group_run(rank, world, rdv, out_dir, go, backend, seed):
     and top-16s; rank 0 then replays the same batches through the one-card
     stacked chain on its card and holds the gathered state, the answers,
     the top-16s and each rank's ``route_dropped`` (also against
-    ``predict_route_overflow``) equal to it."""
+    ``predict_route_overflow``) equal to it; then the ranked serving engine
+    (:func:`rank_engine`, its files under ``root``)."""
     from repro_torch import convert
     from repro_torch.core import mcprioq as mc
     from repro_torch.core import sharded as sh
@@ -3614,8 +3635,9 @@ def rank_group_run(rank, world, rdv, out_dir, go, backend, seed):
             torch.cuda.synchronize()
             for mod in kernel_modules().values():
                 mod.launches = 0
-            group.all_to_all = clocked(group.all_to_all)
-            group.all_gather = clocked(group.all_gather)
+            all_to_all, all_gather = group.all_to_all, group.all_gather
+            group.all_to_all = clocked(all_to_all)
+            group.all_gather = clocked(all_gather)
         calls = (
             ("update_", lambda: guard(sh.update_, state, src[part], dst[part],
                                       w, scfg=scfg, ranks=group)),
@@ -3653,17 +3675,34 @@ def rank_group_run(rank, world, rdv, out_dir, go, backend, seed):
     got = [group.gather(x.unsqueeze(0)) for x in answers + tops]
     gathered = convert.gather_sharded(state, group, 0)
     counters = mc.counter_stats(state, group)
-    group.close()
     result = {"launches": launches, "ready_at": ready_at,
               "rounds_s": rounds_s,
               "gather_s": time.perf_counter() - t0 - rounds_s,
               "median_ms": {k: v[0] for k, v in med.items()},
               "comm_share": {k: v[1] for k, v in med.items()},
               "counters": counters}
+    del state, answers, tops, kept
+    group.all_to_all, group.all_gather = all_to_all, all_gather
     if rank == 0:
         result["checks"] = rank_group_check(scfg, seed, world, gathered, got,
                                             counters)
+    del gathered, got
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    result.update(rank_engine(group, seed, root))
+    result["engine_s"] = time.perf_counter() - t0
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+    rank_exit(group)
+
+
+def rank_exit(group):
+    """End a rank's process once every rank is past its last collective,
+    without tearing the groups down: a rank's teardown racing its peers'
+    exits can abort the process (SIGABRT) after its work is done."""
+    group.agree([0])
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def rank_group_check(scfg, seed, world, gathered, got, counters):
@@ -3732,6 +3771,355 @@ def rank_group_check(scfg, seed, world, gathered, got, counters):
             "top_probs": tops[-1][2].tolist()[:4]}
 
 
+ENGINE_LANE_READS = ENGINE_ROUNDS_RANKS = 20  # observes, and reads of each lane
+ENGINE_SMALL_ROWS = 2 ** 16   # rows a shard of the ranked reassign and the
+                              # elastic restore (a cut of depth: queue B W9)
+ENGINE_SMALL_ROUNDS = 4       # observes before them, world x 16,384 each
+
+
+def rank_engine(group, seed, root):
+    """Phase ranks' serving engine, on every rank of ``group`` once its
+    chain rounds have ended: ``ShardedEngine(cfg, ranks=group)`` at phase
+    sharded's width (this rank's shard 2^20 x 128), two reader lanes; 20
+    observes of world x 65,536 transitions (every rank the same global
+    batches) while lane 0 queries 16,384 srcs and lane 1 reads the top-16,
+    each read started after the writer's next observe on this rank, an
+    async checkpoint after round 10; a crash (the engine closed) and a
+    fresh engine's restore with WAL replay; then, at 2^16 rows a shard, 4
+    observes, a reassign onto a map rotated by one shard, a checkpoint and
+    the elastic restore onto half the ranks.  Every rank's answers equal
+    rank 0's (digests); rank 0 holds them, the recovered state and the
+    counters to an engine-free oracle and the small runs to the one-card
+    engine (:func:`rank_engine_check`).  Returns this rank's figures, its
+    launches over the 20 observes and their reads."""
+    import datetime
+    import hashlib
+    import threading
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.serve.engine import ShardedEngine
+    from repro_torch.sharding.ranks import RankGroup
+    rank, world, device = group.rank, group.world, group.device
+    scfg = ranks_config(world)
+    cfg = dataclasses.replace(engine_config(os.path.join(root, "full"), scfg),
+                              read_lanes=2)
+    traffic = Traffic(seed + 37, nodes=int(0.95 * world * NUM_NODES))
+    batches = [tuple(x.cpu().numpy() for x in traffic.batch(world * BATCH))
+               for _ in range(ENGINE_ROUNDS_RANKS)]
+    q = traffic.srcs(ENGINE_QUERIES).cpu().numpy()
+    engine = ShardedEngine(cfg, ranks=group)
+    # the lanes' collectives timed by events on the lane's stream, and the
+    # version each read pinned
+    comm = {0: [], 1: []}
+
+    def clocked(lane, fn):
+        def call(*args, **kw):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = fn(*args, **kw)
+            pair[1].record()
+            comm[lane].append(pair)
+            return out
+        return call
+
+    for ln in engine._lanes:
+        for name in ("all_to_all", "all_gather", "agree"):
+            setattr(ln.group, name, clocked(ln.index, getattr(ln.group, name)))
+    local = threading.local()
+    acquire = engine.store.acquire
+
+    def pinned():
+        snap = acquire()
+        local.version = snap.version
+        return snap
+    engine.store.acquire = pinned
+    done, moved = [0], threading.Condition()
+    reads, errors = {0: [], 1: []}, []
+
+    def lane_loop(lane):
+        try:
+            for k in range(ENGINE_LANE_READS):
+                with moved:
+                    moved.wait_for(lambda: done[0] > k or done[0] < 0)
+                if done[0] < 0:      # the writer failed: its error is raised
+                    return
+                comm[lane].clear()
+                t0 = time.perf_counter()
+                out = (engine.query(q, lane=0) if lane == 0
+                       else engine.topn(TOP_N, lane=1))
+                ms = (time.perf_counter() - t0) * 1e3
+                share = sum(s.elapsed_time(e) for s, e in comm[lane]) / ms
+                host = [x.cpu().numpy() for x in out]
+                if lane == 1 and not (host[2][:-1] >= host[2][1:]).all():
+                    raise AssertionError("a ranked top-16 is not sorted")
+                reads[lane].append((local.version, ms, share, host))
+        except BaseException as exc:       # re-raised on the main thread
+            errors.append(exc)
+
+    for mod in kernel_modules().values():
+        mod.launches = 0
+    threads = [threading.Thread(target=lane_loop, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    observe_ms = []
+    try:
+        for i, (src, dst) in enumerate(batches):
+            t0 = time.perf_counter()
+            engine.observe(src, dst)
+            observe_ms.append((time.perf_counter() - t0) * 1e3)
+            if i + 1 == ENGINE_CHECKPOINT_AFTER:
+                engine.checkpoint(sync=False)
+            with moved:
+                done[0] = i + 1
+                moved.notify_all()
+    except BaseException:
+        with moved:
+            done[0] = -1
+            moved.notify_all()
+        raise
+    finally:
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize(device)
+    launches = {name: mod.launches for name, mod in kernel_modules().items()}
+    stats = engine.stats_snapshot()
+    digests = [[int.from_bytes(hashlib.blake2b(b"".join(
+        np.ascontiguousarray(x).tobytes() for x in r[3]), digest_size=8)
+        .digest(), "little", signed=True) for r in reads[lane]]
+        for lane in (0, 1)]
+    table = group.agree([r[0] for r in reads[0]] + [r[0] for r in reads[1]]
+                        + digests[0] + digests[1])
+    n = ENGINE_LANE_READS
+    bad = [r for r in range(world)
+           if (table[r, 2 * n:] != table[0, 2 * n:]).any()]
+    if bad:
+        raise AssertionError(f"[ranks] engine: ranks {bad}' answers differ "
+                             f"from rank 0's")
+    # a crash after round 20: a fresh engine restores and replays
+    engine.close()
+    del engine, acquire
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = ShardedEngine(cfg, ranks=group)
+    group.agree([0])
+    t0 = time.perf_counter()
+    info = engine.restore()
+    torch.cuda.synchronize(device)
+    restore_s = time.perf_counter() - t0
+    want = {"step": ENGINE_CHECKPOINT_AFTER, "mode": "exact",
+            "replayed": ENGINE_ROUNDS_RANKS - ENGINE_CHECKPOINT_AFTER,
+            "wal_seq": ENGINE_ROUNDS_RANKS - 1}
+    if info != want:
+        raise AssertionError(f"[ranks] engine recovery: {info}, expected "
+                             f"{want}")
+    snap = engine.store.acquire()
+    recovered = convert.gather_sharded(snap.state, group, 0)
+    engine.store.release(snap)
+    recovered_stats = engine.stats_snapshot()
+    engine.close()
+    del engine, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reassign and the elastic restore at 2^16 rows a shard
+    small = dataclasses.replace(scfg, base=dataclasses.replace(
+        scfg.base, num_rows=ENGINE_SMALL_ROWS))
+    small_cfg = dataclasses.replace(
+        engine_config(os.path.join(root, "small"), small), wal_dir=None)
+    little = Traffic(seed + 41, nodes=int(0.95 * world * ENGINE_SMALL_ROWS))
+    small_batches = [tuple(x.cpu().numpy() for x in little.batch(
+        world * BATCH // 4)) for _ in range(ENGINE_SMALL_ROUNDS)]
+    qs = little.srcs(ENGINE_QUERIES).cpu().numpy()
+    own = small.resolved_ownership()
+    rotated = type(own)(num_shards=world, num_buckets=own.num_buckets,
+                        assignment=tuple((a + 1) % world
+                                         for a in own.resolved_assignment()))
+    eng = ShardedEngine(small_cfg, ranks=group)
+    for src, dst in small_batches:
+        eng.observe(src, dst)
+    top_before = [x.cpu() for x in eng.topn(TOP_N)]
+    group.agree([0])
+    t0 = time.perf_counter()
+    eng.reassign(rotated)
+    torch.cuda.synchronize(device)
+    reassign_s = time.perf_counter() - t0
+    small_answers = [x.cpu() for x in (*eng.query(qs), *eng.topn(TOP_N))]
+    snap = eng.store.acquire()
+    reassigned = convert.gather_sharded(snap.state, group, 0)
+    eng.store.release(snap)
+    eng.checkpoint()
+    eng.close()
+    del eng, snap
+    half, elastic = world // 2, None
+    if half:
+        sub = dist.new_group(ranks=list(range(half)), backend=group.backend,
+                             timeout=datetime.timedelta(seconds=group.timeout))
+        if rank < half:
+            part = RankGroup(sub, rank, half, device, group.backend,
+                             group.timeout)
+            half_cfg = dataclasses.replace(small_cfg, sharded=dataclasses.replace(
+                small, num_shards=half))
+            eng = ShardedEngine(half_cfg, ranks=part)
+            t0 = time.perf_counter()
+            info2 = eng.restore()
+            torch.cuda.synchronize(device)
+            elastic_s = time.perf_counter() - t0
+            if info2["mode"] != "reshard":
+                raise AssertionError(f"[ranks] elastic restore: {info2}")
+            got = [x.cpu() for x in (*eng.query(qs), *eng.topn(TOP_N))]
+            snap = eng.store.acquire()
+            state2 = convert.gather_sharded(snap.state, part, 0)
+            eng.store.release(snap)
+            eng.close()
+            del eng, snap
+            elastic = (elastic_s, got, state2)
+    group.agree([0])
+    out = {"engine_launches": launches, "observe_ms": observe_ms,
+           "lane_ms": [[r[1] for r in reads[lane]] for lane in (0, 1)],
+           "lane_share": [[r[2] for r in reads[lane]] for lane in (0, 1)],
+           "versions": [[r[0] for r in reads[lane]] for lane in (0, 1)],
+           "restore_s": restore_s, "replayed": info["replayed"],
+           "reassign_s": reassign_s,
+           "elastic_s": None if elastic is None else elastic[0]}
+    if rank == 0:
+        out["engine_checks"] = rank_engine_check(
+            scfg, small, small_cfg, rotated, batches, small_batches, q, qs,
+            table, reads, stats, recovered, recovered_stats, top_before,
+            small_answers, reassigned, elastic, device)
+    return out
+
+
+def rank_engine_check(scfg, small, small_cfg, rotated, batches, small_batches,
+                      q, qs, table, reads, stats, recovered, recovered_stats,
+                      top_before, small_answers, reassigned, elastic, device):
+    """Rank 0's side of :func:`rank_engine`: the engine-free oracle (the
+    one-card stacked chain through ``sh.update_`` + ``sh.maintain_``) on
+    the same batches; each lane read held to it at the versions its ranks
+    pinned (a query's src answered by its owner's version, a top-16 merged
+    from each shard's list at its rank's version, by the engine's own
+    merge); the recovered state and the counters equal to it after the 20
+    rounds; the reassign and the elastic restore equal to the one-card
+    engine's on the same calls.  Returns what was held."""
+    from repro_torch import core
+    from repro_torch.core import mcprioq as mc
+    from repro_torch.core import sharded as sh
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ShardedEngine
+    t0 = time.perf_counter()
+    world, n = scfg.num_shards, ENGINE_LANE_READS
+    vq, vt = table[:, :n], table[:, n:2 * n]
+    one = sh.init_sharded(scfg, device)
+    w = torch.ones(world * BATCH, dtype=torch.int32, device=device)
+    qd = torch.from_numpy(q).to(device)
+    owner = scfg.resolved_ownership().owner_of(torch.from_numpy(q)).numpy()
+    want_q = [[None] * 3 for _ in range(n)]
+    lists = [[None] * world for _ in range(n)]
+
+    def at_version(v):
+        if (vq == v).any():
+            got = [x.cpu().numpy() for x in sh.query(one, qd, 0.9, 16,
+                                                     scfg=scfg)[:3]]
+            for j, s in zip(*np.nonzero((vq == v).T)):
+                rows = owner == s
+                for x in range(3):
+                    if want_q[j][x] is None:
+                        want_q[j][x] = np.zeros_like(got[x])
+                    want_q[j][x][rows] = got[x][rows]
+        if (vt == v).any():
+            for s in range(world):
+                if not (vt[s] == v).any():
+                    continue
+                st = mc.map_leaves(lambda x: x[s:s + 1], one)  # a rank's
+                srcs, dsts, probs, _ = ops.topn_windows(
+                    st.slabs.cnt, st.slabs.order, st.slabs.tot, st.slabs.dst,
+                    *st.src_table, n=TOP_N)
+                for j in np.flatnonzero(vt[s] == v):
+                    lists[j][s] = (probs.reshape(TOP_N), dsts.reshape(TOP_N),
+                                   srcs.reshape(TOP_N))
+
+    at_version(0)
+    for v, (src, dst) in enumerate(batches, 1):
+        sh.update_(one, torch.from_numpy(src).to(device),
+                   torch.from_numpy(dst).to(device), w, scfg=scfg)
+        sh.maintain_(one, scfg=scfg, total_threshold=ENGINE_THRESHOLD)
+        at_version(v)
+    for j, (_, _, _, got) in enumerate(reads[0]):
+        for x in range(3):
+            if not np.array_equal(got[x], want_q[j][x]):
+                raise AssertionError(f"[ranks] engine lane 0 read {j} (versions "
+                                     f"{vq[:, j].tolist()}): output {x} differs "
+                                     f"from the oracle's")
+    for j, (_, _, _, got) in enumerate(reads[1]):
+        merged = ops.topn_merge(*(torch.stack([lists[j][s][x] for s in
+                                               range(world)])
+                                  for x in range(3)), n=TOP_N)
+        for x in range(3):
+            if not np.array_equal(got[x], merged[x].cpu().numpy()):
+                raise AssertionError(f"[ranks] engine lane 1 read {j} (versions "
+                                     f"{vt[:, j].tolist()}): output {x} differs "
+                                     f"from the oracle's merge")
+    equal_states("[ranks] the recovered ranked engine (gathered) vs the "
+                 "uninterrupted oracle", mc_to(recovered, device), one)
+    counters = core.counter_stats(one)
+    for label, st in (("after the 20 rounds", stats),
+                      ("after the restore", recovered_stats)):
+        if {k: st[k] for k in counters} != counters:
+            raise AssertionError(f"[ranks] engine counters {label} "
+                                 f"{ {k: st[k] for k in counters} } != the "
+                                 f"oracle's {counters}")
+    mixed = int((vq != vq[0]).any(axis=0).sum() + (vt != vt[0]).any(axis=0).sum())
+    top_probs = reads[1][-1][3][2][:4].tolist()
+    del one, recovered
+    torch.cuda.empty_cache()
+    oracle_s = time.perf_counter() - t0
+
+    # the small runs: the one-card engine over the same calls
+    t0 = time.perf_counter()
+    root = os.path.dirname(small_cfg.snapshot_dir)
+    one_cfg = dataclasses.replace(small_cfg,
+                                  snapshot_dir=os.path.join(root, "one_snap"))
+    eng = ShardedEngine(one_cfg, device=device)
+    for src, dst in small_batches:
+        eng.observe(src, dst)
+    one_top = [x.cpu() for x in eng.topn(TOP_N)]
+    for x in range(3):
+        if not torch.equal(top_before[x], one_top[x]):
+            raise AssertionError("[ranks] small engine: top-16 before the "
+                                 "reassign differs from the one-card engine's")
+    eng.reassign(rotated)
+    compare("[ranks] reassign: the ranked engine's query and top-16 vs the "
+            "one-card engine's", small_answers,
+            [x.cpu() for x in (*eng.query(qs), *eng.topn(TOP_N))])
+    equal_states("[ranks] reassign: the ranked engine (gathered) vs the "
+                 "one-card engine", mc_to(reassigned, device), published(eng))
+    if not torch.equal(top_before[2], small_answers[5]):
+        raise AssertionError("[ranks] reassign changed the top-16's "
+                             "probabilities")
+    eng.close()
+    del eng
+    checks = {"oracle_s": oracle_s, "mixed_reads": mixed,
+              "top_probs": top_probs}
+    if elastic is not None:
+        half = elastic[2].slabs.cnt.shape[0]
+        half_cfg = dataclasses.replace(small_cfg, sharded=dataclasses.replace(
+            small, num_shards=half))
+        eng = ShardedEngine(half_cfg, device=device)
+        info = eng.restore()
+        compare(f"[ranks] elastic {world} -> {half}: the ranked engine's query "
+                f"and top-16 vs the one-card engine's", elastic[1],
+                [x.cpu() for x in (*eng.query(qs), *eng.topn(TOP_N))])
+        equal_states(f"[ranks] elastic {world} -> {half}: the ranked engine "
+                     f"(gathered) vs the one-card engine",
+                     mc_to(elastic[2], device), published(eng))
+        eng.close()
+        checks["elastic"] = f"{world} -> {half} ({info['mode']})"
+    checks["small_s"] = time.perf_counter() - t0
+    return checks
+
+
 def mc_to(state, device):
     """A CPU state on ``device``, leaf by leaf (scalars kept as one
     tensor's columns)."""
@@ -3797,15 +4185,18 @@ class RankRun:
         shutil.rmtree(self.work, ignore_errors=True)
 
 
-def phase_ranks(seed):
+def phase_ranks(seed, card):
     """The sharded chain one shard a process rank (``sharding.ranks``), on
     the card: (a) one NCCL rank beside the one-card chain at S = 1; (b) 4
     gloo ranks on the one card, host-staged; (c) NCCL across cards where
-    the machine has two or more.  The kernels are built here first, so
+    the machine has two or more; each group then serves through the ranked
+    engine (:func:`rank_engine`).  The kernels are built here first, so
     that no two ranks build at once; ranks are spawned (this process has a
     CUDA context).  Every group starts at once and sets itself up; each
     runs its rounds when the one before it has ended.  Returns the rank
-    path's launches by kernel and run."""
+    path's launches by kernel and run (the chain's, and the engine's as
+    ``engine_<run>``)."""
+    import shutil
     from repro_torch.kernels import _build
     _build.load()
     t0 = time.perf_counter()
@@ -3816,15 +4207,24 @@ def phase_ranks(seed):
     if cards >= 2:
         groups.append(("(c)", "nccl", min(SHARDS, cards),
                        f"NCCL across {min(SHARDS, cards)} cards"))
+    # each engine's snapshot (once at full width, once at 2^16 rows) and
+    # its 20 WAL records
+    need = [(1.1 * world * 1.54 + 0.5) * 2 ** 30
+            for world in [1] + [g[2] for g in groups]]
+    roots = [persist_dir(x, f"ranks' engine {i}") for i, x in enumerate(need)]
     runs = []
     try:
-        runs.append(RankRun(rank_nccl_one, 1, (seed,), "(a) NCCL world 1"))
-        runs += [RankRun(rank_group_run, world, (backend, seed), f"{tag} {what}")
-                 for tag, backend, world, what in groups]
-        out = phase_ranks_report(runs, groups)
+        runs.append(RankRun(rank_nccl_one, 1, (seed, roots[0]),
+                            "(a) NCCL world 1"))
+        runs += [RankRun(rank_group_run, world, (backend, seed, root),
+                         f"{tag} {what}")
+                 for (tag, backend, world, what), root in zip(groups, roots[1:])]
+        out = phase_ranks_report(runs, groups, card)
     finally:
         for run in runs:
             run.close()
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
     if cards < 2:
         say("[ranks] one card: NCCL across cards not run")
     say(f"[ranks] phase wall {time.perf_counter() - t0:.1f} s (every group "
@@ -3832,7 +4232,7 @@ def phase_ranks(seed):
     return out
 
 
-def phase_ranks_report(runs, groups):
+def phase_ranks_report(runs, groups, card):
     """Let each group of :func:`phase_ranks` run in turn, check its
     launches and print what it held and measured."""
     out = {}
@@ -3856,6 +4256,8 @@ def phase_ranks_report(runs, groups):
         f"{one['ready_s']:.1f} s, rounds with their checks "
         f"{one['rounds_s']:.1f} s, the group's turn {time.perf_counter() - t0:.1f}"
         f" s; the rank path's launches {one['launches']}")
+    out["engine_nccl_world1"] = rank_engine_report("(a) NCCL world 1", 1,
+                                                   [one], card)
     for run, (tag, backend, world, what) in zip(runs[1:], groups):
         run.go.set()
         t0 = time.perf_counter()
@@ -3889,7 +4291,60 @@ def phase_ranks_report(runs, groups):
             f"{checks['top_probs']}...; the group's turn "
             f"{time.perf_counter() - t0:.1f} s")
         out[f"{backend}_world{world}"] = [r["launches"] for r in results]
+        out[f"engine_{backend}_world{world}"] = rank_engine_report(
+            f"{tag} {what}", world, results, card)
     return out
+
+
+def rank_engine_report(label, world, results, card):
+    """Check and print what :func:`rank_engine` did on each rank of one
+    group.  Returns each rank's launches over its 20 observes and reads
+    (a dict for world 1, else a list by rank)."""
+    for r, res in enumerate(results):
+        missing = [k for k in ENGINE_KERNELS
+                   if res["engine_launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"[ranks] {label} rank {r}: the ranked "
+                                 f"engine never launched {missing}")
+        lanes = "; ".join(
+            f"{kind} lane p50 {pct(res['lane_ms'][i], 50):.2f} ms p99 "
+            f"{pct(res['lane_ms'][i], 99):.2f} ms (collectives "
+            f"{100 * statistics.median(res['lane_share'][i]):.1f} % by "
+            f"events, median)"
+            for i, kind in enumerate(("query", f"top-{TOP_N}")))
+        elastic = ("" if res["elastic_s"] is None else
+                   f", elastic restore onto {world // 2} ranks "
+                   f"{res['elastic_s']:.2f} s")
+        say(f"[ranks] {label} engine rank {r} ({card}): observe "
+            f"({world * BATCH} transitions) p50 {pct(res['observe_ms'], 50):.2f}"
+            f" ms p99 {pct(res['observe_ms'], 99):.2f} ms; {lanes}; restore "
+            f"{res['restore_s']:.2f} s (read, scatter and replay of "
+            f"{res['replayed']} records: "
+            f"{res['replayed'] * world * BATCH / res['restore_s']:.0f} "
+            f"transitions/s over the whole restore); reassign at "
+            f"{ENGINE_SMALL_ROWS} rows a shard {res['reassign_s']:.2f} s"
+            f"{elastic}; versions read by lane {res['versions']}; the "
+            f"engine's turn {res['engine_s']:.1f} s; launches "
+            f"{res['engine_launches']}")
+    checks = results[0]["engine_checks"]
+    say(f"[ranks] {label} engine: ShardedEngine(ranks=) at {world} x "
+        f"{NUM_NODES} x 128, 2 reader lanes, {ENGINE_ROUNDS_RANKS} observes "
+        f"with an async checkpoint after {ENGINE_CHECKPOINT_AFTER}, a crash "
+        f"and a restore: every lane read ({ENGINE_LANE_READS} queries of "
+        f"{ENGINE_QUERIES} srcs, {ENGINE_LANE_READS} top-{TOP_N}s, "
+        f"{checks['mixed_reads']} of them pinned at versions that differ by "
+        f"rank) equal on every rank and to the engine-free oracle at the "
+        f"versions pinned, every top-{TOP_N} sorted; the recovered state (18 "
+        f"leaves, gathered) and counter_stats equal to the uninterrupted "
+        f"oracle's (checked in {checks['oracle_s']:.1f} s); at "
+        f"{ENGINE_SMALL_ROWS} rows a shard, the reassign"
+        + (f" and the elastic restore {checks['elastic']}"
+           if "elastic" in checks else "")
+        + f" equal to the one-card engine's (leaves, a query, the top-"
+        f"{TOP_N}; {checks['small_s']:.1f} s); top-{TOP_N} probs "
+        f"{checks['top_probs']}...")
+    launches = [res["engine_launches"] for res in results]
+    return launches[0] if world == 1 else launches
 
 
 # ---------------------------------------------------------------------------
@@ -3925,7 +4380,8 @@ def pct(values, q):
 def start_engine_launcher():
     """Step 0 of phase engine, started early: ``python -m
     repro_torch.launch.serve`` as a user runs it, with a snapshot directory
-    and a WAL of its own, then again with ``--restore``, both in a thread
+    and a WAL of its own, then again with ``--restore``, then one shard a
+    process rank (``--ranks gloo``: 4 ranks on this card), all in a thread
     beside phase kernels (correctness checks, nothing timed).  Returns the
     function that waits for them, checks them and returns the first run's
     printed rate (edges/s, measured beside phase kernels)."""
@@ -3946,9 +4402,10 @@ def start_engine_launcher():
 
     def runs():
         try:
-            for run, extra in (("first", []), ("restore", ["--restore"])):
+            for run, args in (("first", cmd), ("restore", cmd + ["--restore"]),
+                              ("ranks", cmd[:7] + ["--ranks", "gloo"])):
                 t0 = time.perf_counter()
-                proc = subprocess.Popen(cmd + extra, env=env, cwd=repo,
+                proc = subprocess.Popen(args, env=env, cwd=repo,
                                         text=True, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE)
                 procs.append(proc)
@@ -3983,6 +4440,9 @@ def start_engine_launcher():
         if not restored:
             raise AssertionError("the launcher's --restore run reported no "
                                  "restored snapshot step and replayed batches")
+        if "20 requests, 40960 edges over 4 shards" not in outs["ranks"][1]:
+            raise AssertionError("the launcher's --ranks gloo run printed no "
+                                 "rate line from rank 0")
         return float(re.search(r"\((\d+) edges/s\)",
                                outs["first"][1]).group(1))
     return finish
@@ -7380,10 +7840,10 @@ def main(argv=None):
         torch.cuda.empty_cache()
         lap("engine, persist (reshard)")
     if "ranks" in phases:
-        by_run = phase_ranks(args.seed)
-        for entry in kernels:     # the sharded path's entries
+        by_run = phase_ranks(args.seed, card)
+        for entry in kernels:     # the sharded path's and the engine's
             base, _, tags = entry["name"].partition("[")
-            if tags.startswith("sharded"):
+            if tags.startswith(("sharded", "engine")):
                 entry["launches_ranks"] = {
                     run: ([c.get(base, 0) for c in counts]
                           if isinstance(counts, list) else counts.get(base, 0))

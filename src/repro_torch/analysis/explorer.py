@@ -344,7 +344,7 @@ def _gen_of(scfg: sh.ShardedConfig) -> int:
     return int(scfg.resolved_ownership().num_buckets)
 
 
-def _fake_init(scfg, device=None) -> FakeState:
+def _fake_init(scfg, device=None, *, ranks=None) -> FakeState:
     return FakeState(np.int64(0), np.zeros((0,), np.int32), np.int64(0),
                      np.int32(_gen_of(scfg)))
 
@@ -356,7 +356,7 @@ def _check_gen(state: FakeState, my_gen: int, what: str) -> None:
             f"dispatched against snapshot generation {int(state.gen)}")
 
 
-def _fake_make_update_fn_(scfg):
+def _fake_make_update_fn_(scfg, ranks=None):
     my_gen = _gen_of(scfg)
 
     def fn(state, src, dst, w, *, dirty=None, table_dirty=None):
@@ -371,7 +371,7 @@ def _fake_make_update_fn_(scfg):
     return fn
 
 
-def _fake_make_maintain_fn_(scfg, total_threshold=0):
+def _fake_make_maintain_fn_(scfg, total_threshold=0, ranks=None):
     my_gen = _gen_of(scfg)
 
     def fn(state, *, dirty=None):
@@ -381,7 +381,8 @@ def _fake_make_maintain_fn_(scfg, total_threshold=0):
     return fn
 
 
-def _fake_make_query_fn(scfg, *, threshold, max_items):
+def _fake_make_query_fn(scfg, *, threshold, max_items, ranks=None,
+                        whole=False):
     my_gen = _gen_of(scfg)
 
     def fn(state, src):
@@ -395,7 +396,7 @@ def _fake_make_query_fn(scfg, *, threshold, max_items):
     return fn
 
 
-def _fake_make_topn_fn(scfg, n):
+def _fake_make_topn_fn(scfg, n, ranks=None):
     my_gen = _gen_of(scfg)
 
     def fn(state):
@@ -406,7 +407,7 @@ def _fake_make_topn_fn(scfg, n):
     return fn
 
 
-def _fake_counter_stats(state) -> Dict[str, int]:
+def _fake_counter_stats(state, ranks=None) -> Dict[str, int]:
     return {"fake_total": int(state.total),
             "fake_batches": int(state.n_applied)}
 

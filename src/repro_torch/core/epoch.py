@@ -196,6 +196,22 @@ class BackBufferLearner:
     the learner's next writes into the version they read; :meth:`acquire`
     and :meth:`write` check it.  Nothing here synchronises the host with
     the device.
+
+    Lane rule (a rank group's reader lanes, ``ShardedEngine(ranks=)``): a
+    reader whose collectives run on a communicator of their own must not
+    queue them on the learner's stream — two ranks could queue the
+    writer's and a lane's collectives there in different orders, and an
+    NCCL collective holds its stream until every peer joins.  Such a
+    reader launches on a stream of its own and pins with
+    :meth:`acquire_lane`: its stream waits on the event the learner
+    recorded after its writes into the version acquired (before the
+    publish), and the reader releases the version only after a host read
+    that follows every kernel of the read (the engine synchronises the
+    lane's stream before it releases).  So the learner's next write into
+    that version still comes after the read.
+    ``tests/test_torch_engine_ranks.py::test_a_lane_holds_its_version_
+    until_it_releases`` pins the host half; the card half runs in
+    ``chip_smoke.py``'s phase ranks.
     """
 
     def __init__(self, store: EpochStore):
@@ -224,6 +240,16 @@ class BackBufferLearner:
         self._turn = 0
         self._stream = (torch.cuda.current_stream(device)
                         if self._dirty.is_cuda else None)
+        # the event after the writes into each version (by its first
+        # leaf's storage): what a lane's stream waits on
+        self._ready = {}
+        self._mark_ready(self._front)
+
+    def _mark_ready(self, state) -> None:
+        if self._stream is not None:
+            event = torch.cuda.Event()
+            event.record(self._stream)
+            self._ready[_chain(state).slabs.cnt.data_ptr()] = event
 
     def _check_stream(self, who: str) -> None:
         if self._stream is not None and \
@@ -237,6 +263,21 @@ class BackBufferLearner:
         Leave with ``store.release``."""
         self._check_stream("a reader")
         return self.store.acquire()
+
+    def acquire_lane(self, stream=None) -> Snapshot:
+        """A lane reader's ``store.acquire`` (the lane rule above):
+        ``stream`` (a CUDA state's; current, checked) waits on the writes
+        into the version acquired.  Leave with ``store.release`` once the
+        host has read the read's last result."""
+        if self._stream is None:
+            return self.store.acquire()
+        if stream is None or stream == self._stream or \
+                torch.cuda.current_stream(self._dirty.device) != stream:
+            raise RuntimeError("a lane reader runs on a stream of its own, "
+                               "current while it reads")
+        snap = self.store.acquire()
+        stream.wait_event(self._ready[_chain(snap.state).slabs.cnt.data_ptr()])
+        return snap
 
     def write(self, fn: Callable, *args, **kwargs):
         """Publish ``fn(back, *args, dirty=flags, table_dirty=table_flags,
@@ -255,6 +296,7 @@ class BackBufferLearner:
                 [x.data_ptr() for x in _leaves(back)]:
             raise RuntimeError("the learner's write returned other tensors "
                                "than the back state's: it must write in place")
+        self._mark_ready(new)
         self.store.publish(new)
         self._front, self._back = new, self._front
         self._turn ^= 1

@@ -62,6 +62,11 @@ are local; ``topn`` all_gathers each rank's own top-n list and its drop
 count in one ``[S, 3n+1]`` exchange, merges the lists with
 ``ops.topn_merge`` (every rank the same answer) and sums the drops, the
 reference's ``psum``.  ``ranks=None`` is the stacked one-card chain above.
+``query(..., whole=True)`` takes the *global* batch on every rank instead
+and gives every rank the reference's whole answer: the rank's slice is
+answered as above, and the slices' answers and drops (packed as int32, as
+the answers come back) are all-gathered in one more exchange — the serving
+engine's form, whose callers pass the same global arguments on every rank.
 
 Fixed per-destination bucket capacity keeps shapes static: overflowed items
 are dropped and counted — in the *sender's* ``route_dropped`` for updates,
@@ -345,17 +350,21 @@ def update_(state: mc.MCState, src, dst, w, *, scfg: ShardedConfig,
 
 
 def query(state: mc.MCState, src, threshold, max_items: int, *,
-          scfg: ShardedConfig, ranks: Optional[RankGroup] = None):
+          scfg: ShardedConfig, ranks: Optional[RankGroup] = None,
+          whole: bool = False):
     """Threshold query of a global batch ``src[B]``: routed to the owners,
     answered by each shard's fused read (``query_impl``), routed back and
     un-permuted.  Returns ``(dsts[B, max_items], probs[B, max_items],
     n_needed[B], dropped[S])``; ``dropped`` counts the queries each sender
     could not route (their answers are EMPTY/0).  With ``ranks``: this
     rank's slice ``src[B/S]`` in, its answers ``[B/S, ...]`` and its
-    ``dropped[1]`` out."""
+    ``dropped[1]`` out; with ``ranks`` and ``whole``: the global ``src[B]``
+    in and, on every rank, the whole answer out, as on one card."""
     n = scfg.num_shards
     if ranks is not None:
         _check_ranks(scfg, ranks, state)
+        if whole:
+            return _query_whole(state, src, threshold, max_items, scfg, ranks)
         return _query_rank(state, src, threshold, max_items, scfg, ranks)
     (rsrc,), owner, active, pos, dropped, cap = _route(scfg, state, src)
     outs = [mc.query_impl(shard_state(state, r), rsrc[r], threshold,
@@ -394,6 +403,30 @@ def _query_rank(state, src, threshold, max_items, scfg, ranks):
     pi = torch.where(ok.unsqueeze(1), got[:, k:2 * k].view(torch.float32), 0.0)
     ni = torch.where(ok, got[:, 2 * k], 0)
     return di, pi, ni, dropped
+
+
+def _query_whole(state, src, threshold, max_items, scfg, ranks):
+    """:func:`query` of a global batch on a rank: this rank's slice
+    answered by :func:`_query_rank`, then every slice's ``d, p (bits),
+    need`` and drop count in one ``all_gather`` (``[S, L·(2k+1)+1]``
+    int32), unpacked into the reference's whole answer."""
+    n = scfg.num_shards
+    src = _as_int32(state, src)
+    if src.dim() != 1 or src.shape[0] % n:
+        raise ValueError(f"batch of {tuple(src.shape)} is not a multiple of "
+                         f"num_shards={n}")
+    local = src.shape[0] // n
+    mine = src[ranks.rank * local:(ranks.rank + 1) * local]
+    d, p, need, dropped = _query_rank(state, mine, threshold, max_items,
+                                      scfg, ranks)
+    k = d.shape[1]
+    packed = torch.cat([d, p.view(torch.int32), need.unsqueeze(1)], dim=1)
+    every = ranks.all_gather(torch.cat([packed.reshape(-1),
+                                        dropped.to(torch.int32).reshape(1)]))
+    got = every[:, :-1].reshape(n * local, 2 * k + 1)
+    return (got[:, :k].contiguous(),
+            got[:, k:2 * k].contiguous().view(torch.float32),
+            got[:, 2 * k].contiguous(), every[:, -1].contiguous())
 
 
 def maintain_(state: mc.MCState, *, scfg: ShardedConfig, total_threshold: int,
@@ -543,12 +576,14 @@ def make_maintain_fn_(scfg: ShardedConfig, total_threshold: int,
 
 
 def make_query_fn(scfg: ShardedConfig, threshold: float, max_items: int,
-                  ranks: Optional[RankGroup] = None):
+                  ranks: Optional[RankGroup] = None, whole: bool = False):
     """``(state, src[B]) -> (dsts[B, max_items], probs[B, max_items],
     n_needed[B], dropped[num_shards])`` (with ``ranks``: this rank's
-    slice in, its answers and ``dropped[1]`` out)."""
+    slice in, its answers and ``dropped[1]`` out; with ``whole`` too: the
+    global batch in, the whole answer out on every rank)."""
     def fn(state, src):
-        return query(state, src, threshold, max_items, scfg=scfg, ranks=ranks)
+        return query(state, src, threshold, max_items, scfg=scfg, ranks=ranks,
+                     whole=whole)
     return fn
 
 

@@ -28,6 +28,17 @@ recover (optionally at a different shard count) with --restore:
       --wal /tmp/mc-wal
   ... --num-shards 4 --snapshot-dir /tmp/mc-snap --wal /tmp/mc-wal --restore
 
+One shard a process rank — ``--ranks nccl`` (one card a rank) or
+``--ranks gloo`` (every rank on the current card, host-staged; with
+``--device cpu`` on the CPU) — spawns ``--num-shards`` rank processes that
+join one group by a ``file://`` rendezvous in a fresh directory, each
+serving its shard through ``ShardedEngine(cfg, ranks=group)``; rank 0
+alone prints, and the launcher exits non-zero naming the first rank that
+failed:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --num-shards 4 \
+      --ranks nccl
+
 Counterpart of ``repro.launch.serve``'s ``run``, ``run_sharded`` and
 ``main``.  Both serve on the GPU unless ``--device cpu`` asks for the CPU.
 """
@@ -35,6 +46,11 @@ Counterpart of ``repro.launch.serve``'s ``run``, ``run_sharded`` and
 from __future__ import annotations
 
 import argparse
+import functools
+import os
+import shutil
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,7 +126,7 @@ def run_sharded(num_shards: int, bucket_factor: float, requests: int,
                 health_strikes: int = 3, failpoints: str = "",
                 metrics_port: int = -1, metrics_dump: str = "",
                 metrics_every: float = 5.0, incident_dir: str = "",
-                metrics_linger: float = 0.0, device=None):
+                metrics_linger: float = 0.0, device=None, ranks=None):
     """Shard-parallel chain serving: route synthetic Zipf transition traffic
     through the ShardedEngine (observe + query per request) and report
     throughput plus the routing/overflow counters.  With a snapshot dir the
@@ -122,11 +138,16 @@ def run_sharded(num_shards: int, bucket_factor: float, requests: int,
     ``metrics_port >= 0`` serves Prometheus text at ``/metrics`` (0 picks an
     ephemeral port, printed at startup); ``metrics_dump`` writes JSONL images
     on a ``metrics_every`` cadence (DESIGN.md §13).  ``device=None`` serves
-    on the GPU (an error without one)."""
+    on the GPU (an error without one).  With ``ranks`` (a
+    ``sharding.ranks.RankGroup`` of world ``num_shards``; every rank calls
+    with the same arguments) this process serves shard ``ranks.rank``;
+    rank 0 alone prints and serves the metrics."""
+    lead = ranks is None or ranks.rank == 0
+    say = print if lead else _quiet
     if failpoints:
         from repro_torch.faults import arm_from_env
         n = arm_from_env(failpoints)
-        print(f"armed {n} failpoint(s): {failpoints}")
+        say(f"armed {n} failpoint(s): {failpoints}")
     telemetry = metrics_port >= 0 or bool(metrics_dump) or bool(incident_dir)
     if telemetry:
         obs_metrics.arm()
@@ -141,17 +162,17 @@ def run_sharded(num_shards: int, bucket_factor: float, requests: int,
         route_retry_budget=route_retry_budget,
         query_retry_budget=query_retry_budget,
         health_strikes=health_strikes,
-        incident_dir=incident_dir or None), device=device)
+        incident_dir=incident_dir or None), device=device, ranks=ranks)
     server = dumper = None
-    if metrics_port >= 0:
+    if metrics_port >= 0 and lead:
         server = MetricsServer(engine.metrics, port=metrics_port).start()
-        print(f"metrics: http://127.0.0.1:{server.port}/metrics", flush=True)
-    if metrics_dump:
+        say(f"metrics: http://127.0.0.1:{server.port}/metrics", flush=True)
+    if metrics_dump and lead:
         dumper = MetricsDumper(engine.metrics, metrics_dump,
                                every_s=metrics_every).start()
     if restore:
         info = engine.restore()
-        print(f"restored step {info['step']} ({info['mode']}), "
+        say(f"restored step {info['step']} ({info['mode']}), "
               f"replayed {info['replayed']} WAL batches "
               f"through seq {info['wal_seq']}")
     graph = MarkovGraphSampler(num_nodes=4096, out_degree=32, seed=seed)
@@ -169,13 +190,13 @@ def run_sharded(num_shards: int, bucket_factor: float, requests: int,
     edges = requests * route_batch
     srcs, dsts, probs = (x.cpu().numpy() for x in engine.topn())
     st = engine.stats_snapshot()
-    print(f"{requests} requests, {edges} edges over {num_shards} shards "
+    say(f"{requests} requests, {edges} edges over {num_shards} shards "
           f"in {dt:.1f}s ({edges / dt:.0f} edges/s)")
-    print(f"routing: route_dropped={st['route_dropped']} "
+    say(f"routing: route_dropped={st['route_dropped']} "
           f"query_dropped={st['query_dropped']} "
           f"dropped_rows={st['dropped_rows']} "
           f"deferred_new={st['deferred_new']}")
-    print(f"faults: wal_retries={st['wal_retries']} "
+    say(f"faults: wal_retries={st['wal_retries']} "
           f"apply_retries={st['apply_retries']} "
           f"dispatch_retries={st['dispatch_retries']} "
           f"write_errors={st['write_errors']} "
@@ -184,32 +205,99 @@ def run_sharded(num_shards: int, bucket_factor: float, requests: int,
           f"lost={st['route_lost']} "
           f"shards_down={st['shards_down']} "
           f"write_available={engine.write_available}")
-    print(f"maintenance: decay_steps={st['decay_steps']} "
+    say(f"maintenance: decay_steps={st['decay_steps']} "
           f"n_rows={st['n_rows']} snapshots={st['snapshots']}")
     if snapshot_dir:
         path = engine.checkpoint()
-        print(f"final checkpoint -> {path}")
+        say(f"final checkpoint -> {path}")
     head = ", ".join(
         f"{int(s_)}->{int(d_)}:{float(p_):.3f}"
         for s_, d_, p_ in zip(srcs[:5], dsts[:5], probs[:5]))
-    print(f"global top-{topn} head: {head} "
+    say(f"global top-{topn} head: {head} "
           f"(unexposed candidates {st['topn_dropped']})")
     if telemetry:
         snap = engine.metrics.snapshot()
         obs = snap["histograms"].get("engine.observe", {})
         qry = snap["histograms"].get("engine.query", {})
-        print(f"telemetry: observe p50={obs.get('p50', 0.0):.4f}s "
+        say(f"telemetry: observe p50={obs.get('p50', 0.0):.4f}s "
               f"p99={obs.get('p99', 0.0):.4f}s "
               f"query p50={qry.get('p50', 0.0):.4f}s "
               f"p99={qry.get('p99', 0.0):.4f}s")
     if metrics_linger > 0 and server is not None:
-        print(f"lingering {metrics_linger:.0f}s for scrapes...", flush=True)
+        say(f"lingering {metrics_linger:.0f}s for scrapes...", flush=True)
         time.sleep(metrics_linger)
     if dumper is not None:
         dumper.close()
     if server is not None:
         server.close()
     return engine
+
+
+def _quiet(*args, **kw):
+    """The ``print`` of a rank other than 0."""
+
+
+def _rank_main(rank: int, world: int, backend: str, rendezvous: str,
+               device, kwargs: dict) -> None:
+    """One spawned rank of :func:`serve_ranks`: join the group, serve
+    through :func:`run_sharded`, wait for every rank, end."""
+    from repro_torch.sharding.ranks import init_ranks
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    # the ranks share the host's cores: one thread pool each would
+    # oversubscribe them (spinning threads cost more than the work)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    group = init_ranks(rank, world, backend=backend, init_method=rendezvous,
+                       device=device)
+    engine = run_sharded(world, ranks=group, device=group.device, **kwargs)
+    engine.close()
+    group.agree([0])      # every rank past its last collective
+    # end without tearing the groups down: a rank's gloo teardown racing
+    # its peers' exits can abort the process after its work is done
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def serve_ranks(num_shards: int, backend: str, device=None, **kwargs) -> None:
+    """Spawn ``num_shards`` rank processes of :func:`run_sharded` (one shard
+    a rank; ``kwargs`` its arguments but the shard count and the device)
+    over ``backend`` and wait for them.  NCCL takes cards 0..N-1, one a
+    rank; gloo takes the current card (host-staged), or the CPU with
+    ``device='cpu'``.  Raises ``SystemExit`` naming the first rank that
+    failed, after killing the others."""
+    import multiprocessing
+    if backend == "nccl" and (device is not None and
+                              torch.device(device).type != "cuda"):
+        raise SystemExit("--ranks nccl serves one card a rank; drop --device")
+    if backend == "nccl" and torch.cuda.device_count() < num_shards:
+        raise SystemExit(f"--ranks nccl needs {num_shards} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    if backend == "nccl":
+        device = None    # cuda:<rank>
+    ctx = multiprocessing.get_context("spawn")
+    work = tempfile.mkdtemp(prefix="mcq_serve_ranks_")
+    procs = [ctx.Process(target=_rank_main, name=f"rank {r}", args=(
+        r, num_shards, backend, f"file://{work}/rendezvous", device, kwargs))
+        for r in range(num_shards)]
+    try:
+        for p in procs:
+            p.start()
+        while True:
+            bad = [(r, p.exitcode) for r, p in enumerate(procs)
+                   if p.exitcode not in (None, 0)]
+            if bad:
+                raise SystemExit(f"serve: rank {bad[0][0]} of {num_shards} "
+                                 f"({backend}) exited with {bad[0][1]}")
+            if all(p.exitcode == 0 for p in procs):
+                return
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main(argv=None):
@@ -231,6 +319,11 @@ def main(argv=None):
                     help="> 0 serves the node-sharded chain (ShardedEngine) "
                          "instead of the LM loop, that many logical shards "
                          "on one device")
+    ap.add_argument("--ranks", choices=("gloo", "nccl"), default=None,
+                    help="with --num-shards N: spawn N rank processes, one "
+                         "shard a rank, over this backend (nccl: one card a "
+                         "rank; gloo: the current card, or the CPU with "
+                         "--device cpu)")
     ap.add_argument("--bucket-factor", type=float, default=2.0,
                     help="all_to_all bucket capacity as a multiple of the "
                          "fair per-shard share (overflow drops are counted)")
@@ -282,24 +375,29 @@ def main(argv=None):
                     help="keep the metrics endpoint up this many seconds "
                          "after the run finishes (for scraping)")
     args = ap.parse_args(argv)
+    if args.ranks is not None and args.num_shards <= 0:
+        ap.error("--ranks serves the sharded chain: give --num-shards")
     if args.num_shards > 0:
-        run_sharded(args.num_shards, args.bucket_factor, args.requests,
-                    args.route_batch, args.topn,
-                    decay_threshold=args.decay_threshold,
-                    decay_block_rows=args.decay_block_rows,
-                    snapshot_dir=args.snapshot_dir,
-                    snapshot_every=args.snapshot_every,
-                    wal_dir=args.wal_dir, restore=args.restore,
-                    route_retry_budget=args.route_retry_budget,
-                    query_retry_budget=args.query_retry_budget,
-                    health_strikes=args.health_strikes,
-                    failpoints=args.failpoints,
-                    metrics_port=args.metrics_port,
-                    metrics_dump=args.metrics_dump,
-                    metrics_every=args.metrics_every,
-                    incident_dir=args.incident_dir,
-                    metrics_linger=args.metrics_linger,
-                    device=args.device)
+        serve = (functools.partial(serve_ranks, args.num_shards, args.ranks)
+                 if args.ranks is not None
+                 else functools.partial(run_sharded, args.num_shards))
+        serve(bucket_factor=args.bucket_factor, requests=args.requests,
+              route_batch=args.route_batch, topn=args.topn,
+              decay_threshold=args.decay_threshold,
+              decay_block_rows=args.decay_block_rows,
+              snapshot_dir=args.snapshot_dir,
+              snapshot_every=args.snapshot_every,
+              wal_dir=args.wal_dir, restore=args.restore,
+              route_retry_budget=args.route_retry_budget,
+              query_retry_budget=args.query_retry_budget,
+              health_strikes=args.health_strikes,
+              failpoints=args.failpoints,
+              metrics_port=args.metrics_port,
+              metrics_dump=args.metrics_dump,
+              metrics_every=args.metrics_every,
+              incident_dir=args.incident_dir,
+              metrics_linger=args.metrics_linger,
+              device=args.device)
         return
     run(args.arch, args.smoke, args.requests, args.prompt_len,
         args.new_tokens, args.draft_len,

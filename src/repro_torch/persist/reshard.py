@@ -79,6 +79,18 @@ def extract_edges(state: mc.MCState
                  for x in (srcs, dsts, cnts))
 
 
+def gather_edges(edges: Tuple[np.ndarray, np.ndarray, np.ndarray], ranks
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The edge lists of a rank group (``ranks`` a
+    ``sharding.ranks.RankGroup``; ``edges`` this rank's
+    :func:`extract_edges`, or none) concatenated in rank order on every
+    rank: with one shard a rank that is the one-card (shard, row, slot)
+    order, which decides the re-ingested bits.  Every rank calls."""
+    every = ranks.all_gather_cat(torch.from_numpy(
+        np.stack([np.asarray(x, np.int32) for x in edges], axis=1)))
+    return tuple(np.ascontiguousarray(every[:, i].numpy()) for i in range(3))
+
+
 def plan_batches(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                  owner: np.ndarray, num_shards: int, slice_len: int,
                  bucket_capacity: int

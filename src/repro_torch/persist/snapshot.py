@@ -261,22 +261,42 @@ def restore_snapshot(tree_like: PyTree, directory: str,
         return state, meta, step
 
 
-def _restore_ranks(tree_like, directory, step, device, ranks):
+def check_shards(tree_like, arrays, world: int) -> None:
+    """Raise ``ValueError`` unless every leaf of ``arrays`` is ``world``
+    shards of ``tree_like``'s (its leading dim ``world`` times the
+    template's, the rest and the dtype the template's)."""
     keys, likes, _ = ckpt._paths_and_leaves(tree_like)
+    for key, like in zip(keys, likes):
+        want = (world * like.shape[0], *like.shape[1:])
+        have = arrays[key] if key in arrays else None
+        if have is None or have.shape != want or \
+                have.dtype != ckpt._np_dtype(like):
+            raise ValueError(
+                f"snapshot leaf {key} is "
+                f"{None if have is None else (have.dtype, have.shape)}"
+                f", {world} shards of "
+                f"{(ckpt._np_dtype(like), tuple(like.shape))} wanted")
+
+
+def scatter_arrays(tree_like, arrays: Optional[Dict[str, np.ndarray]],
+                   ranks, device=None):
+    """This rank's shard of stacked snapshot ``arrays`` (read on rank 0
+    and given there only, checked by the caller), placed into
+    ``tree_like`` (this rank's shard, leading dim 1) on ``device``: each
+    leaf scattered from rank 0 (every rank calls)."""
+    keys, likes, _ = ckpt._paths_and_leaves(tree_like)
+    local = {key: ranks.scatter(
+        torch.from_numpy(arrays[key]) if ranks.rank == 0 else None,
+        like).cpu().numpy() for key, like in zip(keys, likes)}
+    return ckpt.place(tree_like, local, device=device)
+
+
+def _restore_ranks(tree_like, directory, step, device, ranks):
     arrays, found = {}, None
     if ranks.rank == 0:
         try:
             step, meta, arrays = read_step(directory, step)
-            for key, like in zip(keys, likes):
-                want = (ranks.world * like.shape[0], *like.shape[1:])
-                have = arrays[key] if key in arrays else None
-                if have is None or have.shape != want or \
-                        have.dtype != ckpt._np_dtype(like):
-                    raise ValueError(
-                        f"snapshot leaf {key} is "
-                        f"{None if have is None else (have.dtype, have.shape)}"
-                        f", {ranks.world} shards of "
-                        f"{(ckpt._np_dtype(like), tuple(like.shape))} wanted")
+            check_shards(tree_like, arrays, ranks.world)
             found = (step, meta, None)
         except (OSError, ValueError) as exc:
             found = (None, None, f"{type(exc).__name__}: {exc}")
@@ -284,7 +304,4 @@ def _restore_ranks(tree_like, directory, step, device, ranks):
     if failed is not None:
         raise FileNotFoundError(f"rank 0 could not restore a {ranks.world}-"
                                 f"shard snapshot from {directory}: {failed}")
-    local = {key: ranks.scatter(
-        torch.from_numpy(arrays[key]) if ranks.rank == 0 else None,
-        like).cpu().numpy() for key, like in zip(keys, likes)}
-    return ckpt.place(tree_like, local, device=device), meta, step
+    return scatter_arrays(tree_like, arrays, ranks, device), meta, step

@@ -47,6 +47,50 @@ and the S shards are logical shards of one device:
     state to the host, and re-ingest them through the owner ``sh.update_``
     into the fresh state, which no reader holds yet.
 
+**One shard a process rank** (``ShardedEngine(cfg, device=None, *,
+ranks=group)``, ``group`` a :class:`repro_torch.sharding.ranks.RankGroup`
+of world ``num_shards``): this process holds shard ``ranks.rank`` only
+(``sh.init_sharded(scfg, ranks=...)``) behind its own learner, on
+``ranks.device`` unless ``device`` says otherwise; ``ranks=None`` is the
+one-card engine above, unchanged.  The calls are SPMD: every rank calls
+the same methods in the same order with the same *global* arguments, as
+each process of a multi-controller program does; ``query`` and ``topn``
+return the reference's whole answer on every rank, and the
+``stats_snapshot`` counters are the same on every rank (the device
+counters summed over the group after each publish; ``stats_snapshot``
+itself makes no collective).  The rules:
+
+  * **a write is agreed before any rank applies it.**  Rank 0 owns the
+    WAL and the snapshot directory.  Every writer's call (``observe``,
+    ``checkpoint``, ``restore``, ``reassign``, ``mark_shard_down``,
+    ``heal_shard``) starts with one small exchange on the writer's group
+    (``RankGroup.agree``) carrying the call, a digest of its global
+    arguments and, for ``observe``, rank 0's WAL outcome, its ``seq`` and
+    rank 0's IO counters; ranks that disagree raise
+    :class:`RankDisagreement` (named) on every rank, poisoned when rank 0
+    had logged the batch.  A step that can fail on one rank alone (the
+    ``engine.apply`` and ``engine.publish`` failpoints, the watchdog's
+    timing, a snapshot written by rank 0) is agreed too: every rank raises
+    (:class:`RankPeerFault` where it failed elsewhere, classified as the
+    failing rank's), so the retry ladder and the health map move in step;
+  * **readers do not share a communicator** with the writer or with each
+    other: ``read_lanes`` groups (``RankGroup.lanes``), ``lane=`` on
+    ``query`` and ``topn``; a lane's calls come in the same order on every
+    rank.  On a card each lane reads on a stream of its own (the learner's
+    lane rule, ``core/epoch.py``);
+  * **a read never combines two ownership maps.**  Each read's first
+    exchange carries the rank's route epoch (bumped by every ``restore``
+    and ``reassign`` swap); ranks that disagree each wait until their own
+    epoch reaches the highest seen, then read again;
+  * ``checkpoint`` goes through the group save (rank 0 writes the one-card
+    engine's files); ``restore`` reads on rank 0, scatters the shards and
+    broadcasts each WAL record; ``reassign`` and the elastic restore gather
+    the live edge lists in rank order (``persist.reshard.gather_edges``);
+  * **a lost rank fails the group**: a collective that fails raises
+    ``RankGroupLost``; the call then raises ``EngineWriteUnavailable``
+    naming it and the engine is poisoned on every rank that survives
+    (recovery is a new group and ``restore()``).
+
 The kernel layer is resolved through module attributes at call time
 (``sh.init_sharded``, ``sh.make_update_fn_``, ``sh.make_maintain_fn_``,
 ``sh.make_query_fn``, ``sh.make_topn_fn``, ``mc.counter_stats`` and the
@@ -63,13 +107,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.analysis.invariants import requires_lock
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import epoch
@@ -87,13 +133,18 @@ from repro_torch.persist import snapshot as snapshot_io
 from repro_torch.persist.wal import WriteAheadLog
 from repro_torch.runtime.fault_tolerance import (EngineWriteUnavailable,
                                                  RetryPolicy, ShardHealth,
-                                                 StepWatchdog, WatchdogConfig,
+                                                 StepWatchdog,
+                                                 UnretryableIOError,
+                                                 WatchdogConfig,
                                                  call_with_retry,
+                                                 classify_io_error,
                                                  shard_from_exception)
 from repro_torch.serve import sampling
 from repro_torch.sharding.ownership import Ownership
+from repro_torch.sharding.ranks import RankGroupLost
 
-__all__ = ["ServeConfig", "Engine", "ShardedServeConfig", "ShardedEngine"]
+__all__ = ["ServeConfig", "Engine", "ShardedServeConfig", "ShardedEngine",
+           "RankDisagreement", "RankPeerFault"]
 
 
 def _host(x) -> np.ndarray:
@@ -338,6 +389,107 @@ class ShardedServeConfig:
     # telemetry (DESIGN.md §13): where armed flight-recorder incidents
     # dump; MCQ_METRICS_INCIDENT_DIR overrides when set in the process env
     incident_dir: Optional[str] = None
+    # reader lanes of a rank group (``ShardedEngine(ranks=)``): each its
+    # own communicator (and, on a card, stream); ``lane=`` picks one
+    read_lanes: int = 1
+
+
+class RankDisagreement(RuntimeError):
+    """The ranks of a group called the engine's writer with different calls
+    or arguments (two threads' ``observe`` calls taken in different orders
+    on two ranks, say); raised on every rank, before any rank applies
+    anything.  ``table`` holds each rank's side of the exchange."""
+
+    def __init__(self, message: str, table: np.ndarray):
+        super().__init__(message)
+        self.table = table
+
+
+class RankPeerFault(RuntimeError):
+    """A step failed on another rank of the group, and this rank raises
+    too, so that none goes on alone; ``rank`` is the rank where it failed,
+    ``shard`` the shard its fault named (if any)."""
+
+    def __init__(self, rank: int, shard: Optional[int] = None):
+        super().__init__(f"the step failed on rank {rank}")
+        self.rank = rank
+        if shard is not None:
+            self.shard = shard
+
+
+class _RankPeerIOFault(UnretryableIOError):
+    """:class:`RankPeerFault` of a fault the failing rank's ladder would
+    not retry (``classify_io_error``: persistent)."""
+
+    def __init__(self, rank: int, shard: Optional[int] = None):
+        super().__init__(f"the step failed on rank {rank} (not retried)")
+        self.rank = rank
+        if shard is not None:
+            self.shard = shard
+
+
+class _RouteMoved(BaseException):
+    """A lane's ranks read under different route epochs: every rank drops
+    the read, waits for ``epoch`` and reads again.  A ``BaseException``,
+    so that neither the retry ladder nor a degraded read takes it."""
+
+    def __init__(self, epoch: int):
+        super().__init__(epoch)
+        self.epoch = epoch
+
+
+class _Lane(NamedTuple):
+    """A reader lane of a rank group: its group and, on a card, its
+    stream."""
+    index: int
+    group: object
+    stream: Optional[object]
+
+
+#: the writer's calls, as the first exchange of each names them
+_WRITER_CALLS = ("observe", "checkpoint", "restore", "reassign",
+                 "mark_shard_down", "heal_shard")
+_AGREE_WIDTH = 8
+
+
+def _digest(*arrays) -> int:
+    """A signed 64-bit digest of arrays (dtype, shape and bytes)."""
+    h = hashlib.blake2b(digest_size=8)
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(repr((a.dtype.str, a.shape)).encode())
+        h.update(a.tobytes())
+    return int.from_bytes(h.digest(), "little", signed=True)
+
+
+def _agreed(group, fn, epoch: Optional[int] = None):
+    """Run ``fn`` (this rank's part of a step that can fail on one rank
+    alone) and agree on the outcome over ``group``: when it failed on any
+    rank, every rank raises — the lowest failing rank its own exception,
+    every other a :class:`RankPeerFault` classified and attributed as that
+    one — so that the retry ladder, the poison and the health map move in
+    step.  A read passes its route ``epoch``: ranks that disagree raise
+    :class:`_RouteMoved` with the highest."""
+    failed = None
+    try:
+        out = fn()
+    except Exception as exc:   # agreed below, raised on every rank
+        failed = exc
+    shard = shard_from_exception(failed) if failed is not None else None
+    table = group.agree([
+        0 if epoch is None else epoch, failed is not None,
+        failed is not None and classify_io_error(failed) == "persistent",
+        -1 if shard is None else shard])
+    if epoch is not None and (table[:, 0] != table[0, 0]).any():
+        raise _RouteMoved(int(table[:, 0].max()))
+    bad = np.flatnonzero(table[:, 1])
+    if bad.size == 0:
+        return out
+    first = int(bad[0])
+    if first == group.rank:
+        raise failed
+    cls = _RankPeerIOFault if table[first, 2] else RankPeerFault
+    raise cls(first, None if table[first, 3] < 0 else int(table[first, 3]))
 
 
 def _hash_u32_np(x: np.ndarray) -> np.ndarray:
@@ -389,20 +541,37 @@ class ShardedEngine:
         "_stats_lock": ("stats",),
     }
 
-    def __init__(self, cfg: ShardedServeConfig, device=None):
+    def __init__(self, cfg: ShardedServeConfig, device=None, *, ranks=None):
         scfg = cfg.sharded
         self.cfg = cfg
         # the S shards are logical shards of this one device (default: the
-        # GPU; an error without one)
+        # GPU; an error without one); with ``ranks`` this process holds
+        # shard ``ranks.rank`` on the group's device
+        self.ranks = ranks
+        if ranks is not None and device is None:
+            device = ranks.device
         self.device = resolve_device(device)
-        self.store = EpochStore(sh.init_sharded(scfg, self.device))
+        self.store = EpochStore(sh.init_sharded(scfg, self.device,
+                                                ranks=ranks))
         # the single writer: a back buffer behind the store (two stacked
         # states, one catch-up launch per write); rebuilt around the new
         # state by restore() and reassign()
         self._writer = epoch.BackBufferLearner(self.store)
-        self._update = sh.make_update_fn_(scfg)
+        self._update = sh.make_update_fn_(scfg, ranks=ranks)
         self._maintain = sh.make_maintain_fn_(
-            scfg, total_threshold=cfg.decay_threshold)
+            scfg, total_threshold=cfg.decay_threshold, ranks=ranks)
+        # a rank group's reader lanes (made in the same order on every
+        # rank) and the route epoch their reads agree on
+        self._lanes = [] if ranks is None else [
+            _Lane(i, g, torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+            for i, g in enumerate(ranks.lanes(cfg.read_lanes))]
+        self._route_epoch = 0
+        # reads a rank group ran again because its ranks had pinned states
+        # of two route epochs (not a metric of the reference's catalog)
+        self.read_route_retries = 0
+        # set when the rank group is lost: every later call raises
+        self._lost: Optional[str] = None
         # bounded, insertion-ordered caches of routed read programs keyed by
         # their static args; guarded by a lock so concurrent first-time
         # readers build one program, and capped so per-request float
@@ -422,6 +591,8 @@ class ShardedEngine:
         # versa).  Reads stay lock-free with respect to the learner; they
         # briefly serialise only against a rebalance swap.
         self._route_lock = threading.Lock()
+        # a rank group's reader waits on it for its route epoch to move
+        self._route_moved = threading.Condition(self._route_lock)
         # readers are lock-free on their snapshots, but the stats dict is
         # shared by all of them — unguarded read-modify-write of the drop
         # counters would silently undercount, defeating the observability
@@ -440,7 +611,7 @@ class ShardedEngine:
                       "write_errors": 0, "snapshot_failures": 0}
         snap = self._writer.acquire()
         try:
-            self.stats.update(mc.counter_stats(snap.state))
+            self.stats.update(mc.counter_stats(snap.state, ranks=ranks))
         finally:
             self.store.release(snap)
         # telemetry (DESIGN.md §13): a per-engine lock-free registry; the
@@ -454,16 +625,20 @@ class ShardedEngine:
         self.metrics = obs_metrics.Registry(
             vectors={"bucket_traffic": own0.num_buckets,
                      "shard_traffic": scfg.num_shards},
-            incident_dir=env_incident_dir or cfg.incident_dir)
+            incident_dir=(env_incident_dir or cfg.incident_dir)
+            if self._rank0 else None)
         self.metrics.register_provider(self.stats_snapshot)
         # durability (DESIGN.md §10): WAL position of the published state;
         # -1 = nothing applied.  The WAL resumes its sequence from disk, so
         # an engine pointed at an existing log must restore() before
         # observing or the snapshot/WAL positions drift apart.
         self._seq = -1
+        # on a rank group rank 0 alone logs; ``_wal_errors`` is rank 0's
+        # IO error count as the last write agreed it, on every rank
         self.wal = (WriteAheadLog(cfg.wal_dir, fsync=cfg.wal_fsync,
                                   metrics=self.metrics)
-                    if cfg.wal_dir else None)
+                    if cfg.wal_dir and self._rank0 else None)
+        self._wal_errors = 0
         # outstanding background snapshot IO threads (non-daemon: a
         # "committed" snapshot must never be torn by process exit); joined
         # by close() and pruned as they finish
@@ -472,8 +647,10 @@ class ShardedEngine:
         # loses nothing (runtime/fault_tolerance.py contract)
         self.watchdog = (StepWatchdog(
             WatchdogConfig(deadline_s=cfg.observe_deadline_s),
-            on_escalate=self._escalate_snapshot)
+            on_escalate=self._escalate_snapshot if ranks is None
+            else self._escalate_ranks)
             if cfg.snapshot_dir else None)
+        self._escalated = False
         # graceful degradation (DESIGN.md §12): per-shard health map — down
         # shards are excluded from routed reads, their writes defer bounded
         self.health = ShardHealth(scfg.num_shards,
@@ -491,6 +668,18 @@ class ShardedEngine:
         # engine: arming here makes subprocess harnesses (tools/chaos) work
         # without an API call into the serving process
         arm_from_env()
+
+    @property
+    def _logs(self) -> bool:
+        """True where a WAL logs every batch (on a rank group, rank 0's)."""
+        return self.wal is not None if self.ranks is None \
+            else bool(self.cfg.wal_dir)
+
+    @property
+    def _rank0(self) -> bool:
+        """True on one card and on rank 0 of a group (the WAL's and the
+        snapshots' owner)."""
+        return self.ranks is None or self.ranks.rank == 0
 
     # ------------------------------------------------------------------
     def _cached_fn(self, cache: Dict, key, build):
@@ -550,6 +739,14 @@ class ShardedEngine:
         w = (np.ones(src.shape, np.int32) if weights is None
              else np.asarray(weights, np.int32))
         t0 = time.monotonic()
+        if self.ranks is not None:
+            with self.metrics.span("engine.observe", items=int(src.size)):
+                with self._write_lock:
+                    try:
+                        self._observe_ranks_locked(src, dst, w, t0)
+                    except RankGroupLost as exc:
+                        raise self._lost_locked("observe", exc) from exc
+            return
         with self.metrics.span("engine.observe", items=int(src.size)):
             with self._write_lock:
                 if self._poisoned is not None:
@@ -574,6 +771,121 @@ class ShardedEngine:
         if self.watchdog is not None:
             self.watchdog.observe(time.monotonic() - t0)
 
+    @requires_lock("_write_lock")
+    def _observe_ranks_locked(self, src, dst, w, t0) -> None:
+        """:meth:`observe` on a rank group.  Rank 0 logs the batch; one
+        exchange then settles, on every rank, that every rank is in the
+        same call on the same batch, rank 0's WAL outcome and ``seq``, and
+        rank 0's IO counters (retries, errors, snapshot failures).  Then
+        every rank applies its slice, and the cadence snapshot and the
+        watchdog (timed by rank 0) decide alike."""
+        if self._poisoned is not None:
+            raise EngineWriteUnavailable(self._poisoned)
+        seq, logged, wal_exc = self._seq + 1, 0, None
+        if self.wal is not None:
+            try:
+                seq = call_with_retry(
+                    lambda: self.wal.append(src, dst, w),
+                    policy=self.cfg.retry,
+                    on_retry=self._count_retry("wal_retries"),
+                    metrics=self.metrics)
+                logged = 1
+            except Exception as exc:   # agreed below, raised on every rank
+                wal_exc, logged = exc, -1
+        with self._stats_lock:
+            io = [self.stats[k] for k in ("wal_retries", "snapshot_failures",
+                                          "snapshots")]
+        try:
+            table = self._agree_locked(
+                "observe", _digest(src, dst, w), logged, seq,
+                self.wal.io_errors if self.wal is not None else 0, *io)
+        except RankDisagreement as exc:
+            if exc.table[0, 0] == _WRITER_CALLS.index("observe") and \
+                    exc.table[0, 2] == 1:
+                # rank 0 logged a batch no rank applies: as an apply fault
+                # after a durable append, restore() replays it
+                self._poison_locked(f"ranks disagree after rank 0 logged "
+                                    f"seq {exc.table[0, 3]}: {exc}",
+                                    checkpoint=False)
+            raise
+        logged, seq, wal_errors = (int(x) for x in table[0, 2:5])
+        with self._stats_lock:
+            for key, val in zip(("wal_retries", "snapshot_failures",
+                                 "snapshots"), table[0, 5:8]):
+                self.stats[key] = int(val)
+            if logged == 1 and wal_errors:
+                self.stats["wal_errors"] = wal_errors
+        self._wal_errors = wal_errors
+        if logged == -1:
+            why = repr(wal_exc) if wal_exc is not None else "on rank 0"
+            self._poison_locked(f"WAL append failed: {why}")
+            raise EngineWriteUnavailable(
+                f"write path poisoned: WAL append failed: {why}") from wal_exc
+        self._apply_with_retry_locked(src, dst, w)
+        self._seq = seq
+        every = self.cfg.snapshot_every
+        if every and self.cfg.snapshot_dir and (self._seq + 1) % every == 0:
+            try:
+                self._snapshot_locked(sync=False)
+            except RankGroupLost:
+                raise
+            except Exception:
+                with self._stats_lock:
+                    self.stats["snapshot_failures"] += 1
+        if self.watchdog is not None:
+            # rank 0's clock decides for every rank
+            took = self.ranks.agree([int((time.monotonic() - t0) * 1e6)])
+            self.watchdog.observe(int(took[0, 0]) / 1e6)
+            if self._escalated:
+                self._escalated = False
+                self._snapshot_locked()
+
+    def _escalate_ranks(self) -> None:
+        # on a rank group the escalation checkpoints inside the observe
+        # that timed it, still under the write lock (every rank at once)
+        self._escalated = True
+
+    @requires_lock("_write_lock")
+    def _agree_locked(self, call: str, digest: int, *values) -> np.ndarray:
+        """The first exchange of a writer's call on a rank group: every
+        rank's ``(call, digest, *values)`` on every rank (``[world,
+        8]``).  Raises :class:`RankDisagreement` on every rank unless every
+        rank is in the same call with the same digest."""
+        row = [_WRITER_CALLS.index(call), digest, *values]
+        table = self.ranks.agree(row + [0] * (_AGREE_WIDTH - len(row)))
+        if (table[:, :2] != table[0, :2]).any():
+            said = ", ".join(
+                f"rank {r}: {_WRITER_CALLS[int(c)]} {d:#018x}"
+                for r, (c, d) in enumerate(table[:, :2].tolist()))
+            raise RankDisagreement(
+                f"ShardedEngine.{call} on rank {self.ranks.rank}: the ranks "
+                f"called the writer with different calls or arguments "
+                f"({said}); nothing was applied", table)
+        return table
+
+    @requires_lock("_write_lock")
+    def _agree_or_lose_locked(self, call: str, *args) -> np.ndarray:
+        """:meth:`_agree_locked` of a writer's call other than ``observe``
+        over a digest of ``args``; a lost group poisons."""
+        if self._lost is not None:
+            raise EngineWriteUnavailable(self._lost)
+        try:
+            return self._agree_locked(call, _digest(*args))
+        except RankGroupLost as exc:
+            raise self._lost_locked(call, exc) from exc
+
+    @requires_lock("_write_lock")
+    def _lost_locked(self, call: str, exc: BaseException
+                     ) -> EngineWriteUnavailable:
+        """The rank group failed under a writer's call: poison (no
+        checkpoint: it needs the group) and name the call."""
+        self._lost = (f"ShardedEngine.{call}: the rank group is lost ({exc}); "
+                      f"recover with a new group and restore()")
+        self._poisoned = self._lost
+        with self._stats_lock:
+            self.stats["write_errors"] += 1
+        return EngineWriteUnavailable(self._lost)
+
     def _count_retry(self, key: str):
         """An ``on_retry`` hook that tallies backoff rounds into stats."""
         def bump(attempt, exc):
@@ -594,7 +906,12 @@ class ShardedEngine:
         # nests health._mu inside _stats_lock, so nesting them here in the
         # opposite order would be a lock cycle
         health = self.health.stats()
-        wal_errors = self.wal.io_errors if self.wal is not None else None
+        if self.ranks is not None:
+            # rank 0's WAL count as the last write agreed it: the same on
+            # every rank
+            wal_errors = self._wal_errors if self.cfg.wal_dir else None
+        else:
+            wal_errors = self.wal.io_errors if self.wal is not None else None
         with self._stats_lock:
             out = dict(self.stats)
         out.update(health)
@@ -677,8 +994,10 @@ class ShardedEngine:
                 metrics=self.metrics)
             self.health.record_success_all()
         except Exception as exc:
+            if isinstance(exc, (RankGroupLost, RankDisagreement)):
+                raise
             self._record_dispatch_failure(exc)
-            if self.wal is not None:
+            if self._logs:
                 self._poison_locked(
                     f"apply failed after durable append: {exc!r}")
                 raise EngineWriteUnavailable(
@@ -686,12 +1005,13 @@ class ShardedEngine:
             raise
 
     @requires_lock("_write_lock")
-    def _poison_locked(self, reason: str) -> None:
+    def _poison_locked(self, reason: str, checkpoint: bool = True) -> None:
         """Escalation terminus for write-path faults (A13): writes raise
         until ``restore()`` heals, readers keep serving the last published
         epoch, and a best-effort checkpoint-now preserves everything that
         is already consistent (its failure is counted, not raised — the
-        disk that poisoned us is likely still broken)."""
+        disk that poisoned us is likely still broken; ``checkpoint=False``
+        skips it)."""
         self._poisoned = reason
         with self._stats_lock:
             self.stats["write_errors"] += 1
@@ -699,17 +1019,20 @@ class ShardedEngine:
         # dump the spans + metric deltas leading up to the poison BEFORE
         # the best-effort checkpoint below touches the broken disk
         self.metrics.incident("poison", why=reason)
-        if self.cfg.snapshot_dir:
+        if self.cfg.snapshot_dir and checkpoint:
             try:
                 self._snapshot_locked(sync=False)
+            except RankGroupLost:
+                raise
             except Exception:
                 with self._stats_lock:
                     self.stats["snapshot_failures"] += 1
 
     @property
     def write_available(self) -> bool:
-        """False while the write path is poisoned (reads still serve)."""
-        return self._poisoned is None
+        """False while the write path is poisoned (reads still serve) or
+        the rank group is lost."""
+        return self._poisoned is None and self._lost is None
 
     def _drain_plan(self, queue):
         """FIFO split of the retry queue into ``(drained, remaining)``
@@ -796,11 +1119,21 @@ class ShardedEngine:
                 src = np.where(drop, -1, src).astype(np.int32)
                 dst = np.where(drop, 0, dst).astype(np.int32)
                 w = np.where(drop, 0, w).astype(np.int32)
-        failpoint("engine.apply", items=int(src.size))
+        items = int(src.size)
+        if self.ranks is None:
+            failpoint("engine.apply", items=items)
+            rows = (src, dst, w)
+        else:
+            # a fault on one rank is every rank's, before the exchange
+            _agreed(self.ranks,
+                    lambda: failpoint("engine.apply", items=items))
+            local = src.size // n_shards
+            part = slice(self.ranks.rank * local,
+                         (self.ranks.rank + 1) * local)
+            rows = (src[part], dst[part], w[part])
         with self.metrics.span("engine.apply"):
             update, maintain = self._update, self._maintain
-            batch = [torch.tensor(x, device=self.device)
-                     for x in (src, dst, w)]
+            batch = [torch.tensor(x, device=self.device) for x in rows]
 
             def step(back, *, dirty, table_dirty):
                 # the owner programs write the learner's back state; a fault
@@ -810,7 +1143,10 @@ class ShardedEngine:
                 state = update(back, *batch, dirty=dirty,
                                table_dirty=table_dirty)
                 state = maintain(state, dirty=dirty)
-                failpoint("engine.publish")
+                if self.ranks is None:
+                    failpoint("engine.publish")
+                else:   # no rank publishes unless every rank does
+                    _agreed(self.ranks, lambda: failpoint("engine.publish"))
                 return state
 
             state = self._writer.write(step)
@@ -829,7 +1165,7 @@ class ShardedEngine:
                 deferred += int(qsrc.size)
             else:
                 lost_down += int(qsrc.size)
-        counters = mc.counter_stats(state)
+        counters = mc.counter_stats(state, ranks=self.ranks)
         with self._stats_lock:
             self.stats["updates"] += 1
             self.stats.update(counters)
@@ -844,7 +1180,7 @@ class ShardedEngine:
 
     # ------------------------------------------------------------------
     def query(self, src, threshold: Optional[float] = None,
-              max_items: Optional[int] = None):
+              max_items: Optional[int] = None, lane: int = 0):
         """Per-src cumulative-threshold read (the paper's §II.B query),
         answered by the owner shards.  Returns ``(dsts[B, k], probs[B, k],
         n_needed[B])``; routing drops land in ``stats['query_dropped']``.
@@ -858,87 +1194,163 @@ class ShardedEngine:
         re-dispatch against the same snapshot (spread round-robin across
         sender slices, so each round shrinks the per-slice owner groups);
         items still dropped after the budget count into ``query_lost``.
+        On a rank group the read runs on reader lane ``lane``.
         """
         t = float(self.cfg.threshold if threshold is None else threshold)
         k = int(self.cfg.max_items if max_items is None else max_items)
         span = self.metrics.span("engine.query")
         with span:
-            with self._route_lock:   # pair the program with its snapshot
-                fn = self._cached_fn(
-                    self._query_fns, (t, k),
-                    lambda: sh.make_query_fn(self.cfg.sharded,
-                                             threshold=t, max_items=k))
-                snap = self._writer.acquire()
-            # freshness gauge: how many epochs this read's snapshot lags
-            # the latest publish — the quantitative handle on the paper's
-            # "approximately correct during concurrent updates" semantics
-            self.metrics.gauge_set("read_epoch_lag",
-                                   self.store.version - snap.version)
-            src = torch.as_tensor(src, device=self.device).to(torch.int32)
-            src, b = self._pad(src)
-            degraded = retried = lost = 0
-            down = self.health.down
-            if down:
-                src_np = _host(src)
-                owner = self.cfg.sharded.resolved_ownership().owner_of(
-                    torch.from_numpy(src_np)).numpy()
-                hit = np.isin(owner, list(down)) & (src_np >= 0)
-                if hit.any():
-                    degraded = int(hit[:b].sum())
-                    src = torch.from_numpy(
-                        np.where(hit, -1, src_np).astype(np.int32)).to(
-                            self.device)
-            try:
-                try:
-                    d, p, n, dropped = call_with_retry(
-                        lambda: self._dispatch_query(fn, snap, src),
-                        policy=self.cfg.retry,
-                        on_retry=self._count_retry("dispatch_retries"),
-                        metrics=self.metrics)
-                    n_dropped = int(dropped.sum())
-                    self.health.record_success_all()
-                except Exception as exc:
-                    # the read path never raises for dispatch faults: the
-                    # whole call degrades to empty answers from zero shards
-                    # (counted) — still sorted-descending, trivially.  A
-                    # shard-attributable fault strikes its shard: after
-                    # health_strikes consecutive escalations it goes down
-                    # and later reads degrade without paying the dispatch.
-                    self._record_dispatch_failure(exc)
-                    bpad = int(src.shape[0])
-                    d = torch.full((bpad, k), -1, dtype=torch.int32,
-                                   device=self.device)
-                    p = torch.zeros((bpad, k), dtype=torch.float32,
-                                    device=self.device)
-                    n = torch.zeros((bpad,), dtype=torch.int32,
-                                    device=self.device)
-                    n_dropped = 0
-                    degraded = b
-                    self.metrics.incident("degraded_read", op="query",
-                                          error=repr(exc))
-                if self.cfg.query_retry_budget > 0 and n_dropped:
-                    d, p, n, retried, lost = self._query_overflow_retry(
-                        fn, snap, src, b, d, p, n)
-            finally:
-                self.store.release(snap)
-            with self._stats_lock:
-                self.stats["queries"] += 1
-                self.stats["query_dropped"] += n_dropped
-                if degraded:
-                    self.stats["degraded_answers"] += degraded
-                if retried:
-                    self.stats["query_retried"] += retried
-                if lost:
-                    self.stats["query_lost"] += lost
-            return d[:b], p[:b], n[:b]
+            return self._read(lane, "query",
+                              lambda ln: self._query_once(src, t, k, ln))
 
-    def _dispatch_query(self, fn, snap, src):
+    def _read(self, lane: int, call: str, body):
+        """``body(None)`` on one card.  On a rank group ``body(lane)`` on
+        reader lane ``lane`` (on a card: on the lane's stream, which waits
+        for the caller's, its answers handed back to the caller's stream);
+        a read whose ranks disagree on the route epoch runs again once this
+        rank's epoch reaches the highest seen, and a lost group raises
+        ``RankGroupLost`` naming the call."""
+        if self.ranks is None:
+            return body(None)
+        if not 0 <= lane < len(self._lanes):
+            raise ValueError(f"lane {lane}: the engine has "
+                             f"{len(self._lanes)} read lanes")
+        if self._lost is not None:
+            raise RankGroupLost(f"ShardedEngine.{call}: {self._lost}")
+        ln = self._lanes[lane]
+        while True:
+            try:
+                if ln.stream is None:
+                    return body(ln)
+                caller = torch.cuda.current_stream(self.device)
+                ln.stream.wait_stream(caller)
+                with torch.cuda.stream(ln.stream):
+                    out = body(ln)
+                for x in out:
+                    x.record_stream(caller)
+                return out
+            except _RouteMoved as moved:
+                with self._route_moved:
+                    self.read_route_retries += 1
+                    if not self._route_moved.wait_for(
+                            lambda: self._route_epoch >= moved.epoch,
+                            timeout=self.ranks.timeout):
+                        raise RankGroupLost(
+                            f"ShardedEngine.{call} on lane {lane}: route "
+                            f"epoch {moved.epoch} not reached here in "
+                            f"{self.ranks.timeout} s") from None
+            except RankGroupLost as exc:
+                self._lost = (f"ShardedEngine.{call} on lane {lane}: the rank "
+                              f"group is lost ({exc}); recover with a new "
+                              f"group and restore()")
+                raise RankGroupLost(self._lost) from exc
+
+    def _pin(self, cache: Dict, key, build, ln):
+        """The (program, snapshot) pair of a read, under the route lock:
+        on a rank group the lane's program and snapshot (the lane rule)
+        and the route epoch the read agrees on."""
+        with self._route_lock:
+            if ln is None:
+                return self._cached_fn(cache, key, build), \
+                    self._writer.acquire(), 0
+            fn = self._cached_fn(cache, (*key, ln.index), build)
+            return fn, self._writer.acquire_lane(ln.stream), self._route_epoch
+
+    def _release(self, snap, ln) -> None:
+        """Leave a read: a lane's stream first finishes what it queued."""
+        if ln is not None and ln.stream is not None:
+            ln.stream.synchronize()
+        self.store.release(snap)
+
+    def _query_once(self, src, t: float, k: int, ln):
+        group = None if ln is None else ln.group
+        fn, snap, route = self._pin(
+            self._query_fns, (t, k),
+            lambda: sh.make_query_fn(self.cfg.sharded, threshold=t,
+                                     max_items=k, ranks=group,
+                                     whole=True), ln)
+        # freshness gauge: how many epochs this read's snapshot lags
+        # the latest publish — the quantitative handle on the paper's
+        # "approximately correct during concurrent updates" semantics
+        self.metrics.gauge_set("read_epoch_lag",
+                               self.store.version - snap.version)
+        src = torch.as_tensor(src, device=self.device).to(torch.int32)
+        src, b = self._pad(src)
+        degraded = retried = lost = 0
+        down = self.health.down
+        if down:
+            src_np = _host(src)
+            owner = self.cfg.sharded.resolved_ownership().owner_of(
+                torch.from_numpy(src_np)).numpy()
+            hit = np.isin(owner, list(down)) & (src_np >= 0)
+            if hit.any():
+                degraded = int(hit[:b].sum())
+                src = torch.from_numpy(
+                    np.where(hit, -1, src_np).astype(np.int32)).to(
+                        self.device)
+        try:
+            try:
+                d, p, n, dropped = call_with_retry(
+                    lambda: self._dispatch_query(fn, snap, src, ln,
+                                                 route),
+                    policy=self.cfg.retry,
+                    on_retry=self._count_retry("dispatch_retries"),
+                    metrics=self.metrics)
+                n_dropped = int(dropped.sum())
+                self.health.record_success_all()
+            except Exception as exc:
+                if isinstance(exc, RankGroupLost):
+                    raise
+                # the read path never raises for dispatch faults: the
+                # whole call degrades to empty answers from zero shards
+                # (counted) — still sorted-descending, trivially.  A
+                # shard-attributable fault strikes its shard: after
+                # health_strikes consecutive escalations it goes down
+                # and later reads degrade without paying the dispatch.
+                self._record_dispatch_failure(exc)
+                bpad = int(src.shape[0])
+                d = torch.full((bpad, k), -1, dtype=torch.int32,
+                               device=self.device)
+                p = torch.zeros((bpad, k), dtype=torch.float32,
+                                device=self.device)
+                n = torch.zeros((bpad,), dtype=torch.int32,
+                                device=self.device)
+                n_dropped = 0
+                degraded = b
+                self.metrics.incident("degraded_read", op="query",
+                                      error=repr(exc))
+            if self.cfg.query_retry_budget > 0 and n_dropped:
+                d, p, n, retried, lost = self._query_overflow_retry(
+                    fn, snap, src, b, d, p, n, ln, route)
+        finally:
+            self._release(snap, ln)
+        with self._stats_lock:
+            self.stats["queries"] += 1
+            self.stats["query_dropped"] += n_dropped
+            if degraded:
+                self.stats["degraded_answers"] += degraded
+            if retried:
+                self.stats["query_retried"] += retried
+            if lost:
+                self.stats["query_lost"] += lost
+        return d[:b], p[:b], n[:b]
+
+    def _dispatch_query(self, fn, snap, src, ln=None, route=0):
         """Single routed query dispatch; the failpoint sits inside so a
-        retry round re-traverses it (nth-hit triggers model transients)."""
-        failpoint("engine.query_dispatch", items=int(src.shape[0]))
+        retry round re-traverses it (nth-hit triggers model transients).
+        On a rank group the read's first exchange agrees on the failpoint's
+        outcome and the route epoch."""
+        items = int(src.shape[0])
+        if ln is None:
+            failpoint("engine.query_dispatch", items=items)
+        else:
+            _agreed(ln.group,
+                    lambda: failpoint("engine.query_dispatch", items=items),
+                    epoch=route)
         return fn(snap.state, src)
 
-    def _query_overflow_retry(self, fn, snap, src, b, d, p, n):
+    def _query_overflow_retry(self, fn, snap, src, b, d, p, n, ln=None,
+                              route=0):
         """In-call overflow retry: re-dispatch the items the router would
         drop for skew against the SAME snapshot.  Retry item j lands at
         slice ``j % S``, slot ``j // S`` — round-robin across sender
@@ -964,11 +1376,14 @@ class ShardedEngine:
             try:
                 rd, rp, rn, _ = call_with_retry(
                     lambda: self._dispatch_query(
-                        fn, snap, torch.from_numpy(retry_src).to(self.device)),
+                        fn, snap, torch.from_numpy(retry_src).to(self.device),
+                        ln, route),
                     policy=self.cfg.retry,
                     on_retry=self._count_retry("dispatch_retries"),
                     metrics=self.metrics)
             except Exception as exc:
+                if isinstance(exc, RankGroupLost):
+                    raise
                 self._record_dispatch_failure(exc)
                 break   # keep what we have; the rest counts as lost
             retried += int(idx.size)
@@ -984,7 +1399,7 @@ class ShardedEngine:
                   for x in (d_np, p_np, n_np)), retried, int(drop.sum()))
 
     # ------------------------------------------------------------------
-    def topn(self, n: Optional[int] = None):
+    def topn(self, n: Optional[int] = None, lane: int = 0):
         """Globally descending top-n edges across every shard (the
         cross-shard merge read).  Returns ``(srcs[n], dsts[n], probs[n])``;
         candidates the shards could not expose are counted in
@@ -992,30 +1407,33 @@ class ShardedEngine:
         property of the current state, not a running total).  Rows owned
         by down shards are filtered from the merge (degraded reads,
         DESIGN.md §12); a dispatch fault retries and, exhausted, the call
-        degrades to an empty merge rather than raising."""
+        degrades to an empty merge rather than raising.  On a rank group
+        the read runs on reader lane ``lane``."""
         n = int(self.cfg.topn if n is None else n)
         with self.metrics.span("engine.topn"):
-            return self._topn_inner(n)
+            return self._read(lane, "topn", lambda ln: self._topn_inner(n, ln))
 
-    def _topn_inner(self, n: int):
-        with self._route_lock:   # pair the program with its snapshot
-            fn = self._cached_fn(
-                self._topn_fns, n,
-                lambda: sh.make_topn_fn(self.cfg.sharded, n))
-            snap = self._writer.acquire()
+    def _topn_inner(self, n: int, ln=None):
+        group = None if ln is None else ln.group
+        # pair the program with its snapshot
+        fn, snap, route = self._pin(
+            self._topn_fns, (n,),
+            lambda: sh.make_topn_fn(self.cfg.sharded, n, ranks=group), ln)
         self.metrics.gauge_set("read_epoch_lag",
                                self.store.version - snap.version)
         degraded = 0
         try:
             try:
                 srcs, dsts, probs, dropped = call_with_retry(
-                    lambda: self._dispatch_topn(fn, snap),
+                    lambda: self._dispatch_topn(fn, snap, ln, route),
                     policy=self.cfg.retry,
                     on_retry=self._count_retry("dispatch_retries"),
                     metrics=self.metrics)
                 n_dropped = int(dropped)
                 self.health.record_success_all()
             except Exception as exc:
+                if isinstance(exc, RankGroupLost):
+                    raise
                 # read path never raises for dispatch faults: empty merge
                 self._record_dispatch_failure(exc)
                 srcs = torch.full((n,), -1, dtype=torch.int32,
@@ -1029,7 +1447,7 @@ class ShardedEngine:
                 self.metrics.incident("degraded_read", op="topn",
                                       error=repr(exc))
         finally:
-            self.store.release(snap)
+            self._release(snap, ln)
         down = self.health.down
         if down and not degraded:
             # degraded merge: filter rows owned by down shards out of the
@@ -1058,10 +1476,14 @@ class ShardedEngine:
                 self.stats["degraded_answers"] += degraded
         return srcs, dsts, probs
 
-    def _dispatch_topn(self, fn, snap):
+    def _dispatch_topn(self, fn, snap, ln=None, route=0):
         """Single cross-shard merge dispatch (failpoint inside: retries
-        re-traverse it)."""
-        failpoint("engine.topn_dispatch")
+        re-traverse it; agreed with the route epoch on a rank group)."""
+        if ln is None:
+            failpoint("engine.topn_dispatch")
+        else:
+            _agreed(ln.group, lambda: failpoint("engine.topn_dispatch"),
+                    epoch=route)
         return fn(snap.state)
 
     # ------------------------------------------------------------------
@@ -1081,7 +1503,15 @@ class ShardedEngine:
         if not self.cfg.snapshot_dir:
             raise ValueError("ShardedServeConfig.snapshot_dir not set")
         with self._write_lock:
-            return self._snapshot_locked(step=step, sync=sync)
+            if self.ranks is None:
+                return self._snapshot_locked(step=step, sync=sync)
+            self._agree_or_lose_locked(
+                "checkpoint", np.int64(-1 if step is None else step),
+                np.int64(sync))
+            try:
+                return self._snapshot_locked(step=step, sync=sync)
+            except RankGroupLost as exc:
+                raise self._lost_locked("checkpoint", exc) from exc
 
     @requires_lock("_write_lock")
     def _snapshot_locked(self, step: Optional[int] = None,
@@ -1121,7 +1551,10 @@ class ShardedEngine:
               if self.wal is not None else None)
         snap = self._writer.acquire()
         try:
-            if sync:
+            if self.ranks is not None:
+                path = self._snapshot_ranks_locked(snap.state, step, meta,
+                                                   gc, sync)
+            elif sync:
                 path = snapshot_io.save_snapshot(
                     snap.state, self.cfg.snapshot_dir, step, meta,
                     metrics=self.metrics)
@@ -1140,6 +1573,34 @@ class ShardedEngine:
         with self._stats_lock:
             self.stats["snapshots"] += 1
         return path
+
+    @requires_lock("_write_lock")
+    def _snapshot_ranks_locked(self, state, step: int, meta: dict, gc,
+                               sync: bool) -> str:
+        """:meth:`_snapshot_locked` on a rank group (every rank): the
+        shards gathered to rank 0, which writes the one-card engine's files
+        (``sync``) or hands them to its worker thread; a failure of rank
+        0's raises on every rank."""
+        if sync:
+            path = snapshot_io.save_snapshot(state, self.cfg.snapshot_dir,
+                                             step, meta, metrics=self.metrics,
+                                             ranks=self.ranks)
+            if gc is not None:
+                gc()
+            return path
+        # the gather here, under the write lock; the file IO on rank 0's
+        # worker thread
+        stacked = convert.gather_sharded(state, self.ranks, 0)
+
+        def start():
+            if stacked is None:
+                return
+            self._io_threads = [t for t in self._io_threads if t.is_alive()]
+            self._io_threads.append(snapshot_io.save_snapshot_async(
+                stacked, self.cfg.snapshot_dir, step, meta, on_complete=gc,
+                on_error=self._snapshot_io_error, metrics=self.metrics))
+        _agreed(self.ranks, start)
+        return snapshot_io.step_dir(self.cfg.snapshot_dir, step)
 
     def _snapshot_io_error(self, exc) -> None:
         """Worker-thread snapshot IO fault: count it and move on — the
@@ -1170,6 +1631,15 @@ class ShardedEngine:
             raise ValueError(
                 f"shard {shard} out of range for "
                 f"{self.cfg.sharded.num_shards} shards")
+        if self.ranks is not None:
+            # a collective call: the health map moves on every rank at once
+            with self._write_lock:
+                self._agree_or_lose_locked("mark_shard_down", np.int64(shard))
+                self._mark_down(shard)
+            return
+        self._mark_down(shard)
+
+    def _mark_down(self, shard: int) -> None:
         self.health.mark_down(shard)
         with self._stats_lock:
             self.stats["shards_down"] = self.health.stats()["shards_down"]
@@ -1187,6 +1657,8 @@ class ShardedEngine:
         the fault propagates — a mid-heal fault never drops writes.
         Returns the number of re-applied batches."""
         with self._write_lock:
+            if self.ranks is not None:
+                self._agree_or_lose_locked("heal_shard", np.int64(shard))
             batches = self.health.heal(shard)
             done = 0
             try:
@@ -1199,9 +1671,11 @@ class ShardedEngine:
                         on_retry=self._count_retry("apply_retries"),
                         metrics=self.metrics)
                     done += 1
-            except Exception:
+            except Exception as exc:
                 self.health.mark_down(shard)
                 self.health.requeue(shard, batches[done:])
+                if isinstance(exc, RankGroupLost):
+                    raise self._lost_locked("heal_shard", exc) from exc
                 raise
             finally:
                 health = self.health.stats()
@@ -1258,106 +1732,201 @@ class ShardedEngine:
             pending, self._io_threads = self._io_threads, []
         for t in pending:
             t.join()
-        replayed = 0
         # one write-lock hold end to end: a concurrent observe() slipping
         # between publish and replay would be WAL-appended AND re-read by
         # the replay generator — applied twice
         with self._write_lock:
-            # the sidecar, then each array once (the newest complete step
-            # when ``step`` is None), placed into a template built from the
-            # sidecar: the snapshot's own config and shard count
-            with self.metrics.span("snapshot.restore", step=step):
+            if self.ranks is None:
+                return self._restore_locked(directory, step, replay)
+            self._agree_or_lose_locked(
+                "restore", np.int64(-1 if step is None else step),
+                np.int64(replay))
+            try:
+                return self._restore_locked(directory, step, replay)
+            except RankGroupLost as exc:
+                raise self._lost_locked("restore", exc) from exc
+
+    @requires_lock("_write_lock")
+    def _restore_locked(self, directory: str, step: Optional[int],
+                        replay: bool) -> dict:
+        replayed, edges = 0, None
+        # the sidecar, then each array once (the newest complete step when
+        # ``step`` is None), placed into a template built from the sidecar:
+        # the snapshot's own config and shard count (on a rank group: read
+        # on rank 0, and this rank's shard scattered, or the edges of a
+        # snapshot at another shard count broadcast)
+        with self.metrics.span("snapshot.restore", step=step):
+            if self.ranks is None:
                 step, meta, arrays = snapshot_io.read_step(directory, step)
-                # the kernel dispatch is this engine's own, not the writer's
-                base_old = mc.MCConfig(**{**meta["base_cfg"],
-                                          "impl": self.cfg.sharded.base.impl})
-                n_old = int(meta["num_shards"])
-                state = ckpt.place(self._stacked_like(base_old, n_old),
-                                   arrays, device=self.device)
+                state = ckpt.place(
+                    self._stacked_like(self._base_of(meta),
+                                       int(meta["num_shards"])),
+                    arrays, device=self.device)
                 del arrays   # the host copy, before a reshard's re-ingest
-            scfg = self.cfg.sharded
-            new_scfg = None
-            if n_old == scfg.num_shards:
-                mode = "exact"
-                snap_own = Ownership(
-                    num_shards=n_old,
-                    num_buckets=int(meta["ownership"]["num_buckets"]),
-                    assignment=tuple(meta["ownership"]["assignment"]))
-                own_now = scfg.resolved_ownership()
-                if (snap_own.resolved_assignment()
-                        != own_now.resolved_assignment()
-                        or dataclasses.asdict(base_old)
-                        != dataclasses.asdict(scfg.base)):
-                    # rows live where the snapshot's map routed them; the
-                    # engine must route future traffic the same way
-                    new_scfg = dataclasses.replace(
-                        scfg, base=base_old, ownership=snap_own)
             else:
-                mode = "reshard"
-                state = self._reingest(state, scfg)
-            # swap: readers must never pair the new routing with the old
-            # snapshot (or vice versa), so rebind + publish are atomic
-            # with respect to their (program, snapshot) pairing; the new
-            # state gets a writer of its own (readers that still hold the
-            # old state keep it alive)
-            with self._route_lock:
-                if new_scfg is not None:
-                    self._rebind(new_scfg)
-                self.store.publish(state)
-                self._writer = epoch.BackBufferLearner(self.store)
-            self._seq = int(meta["wal_seq"])
-            # the overflow-retry carry-over is recovery state: the replay
-            # below re-plans each step from the same queue the pre-crash
-            # pipeline saw (snapshots from older builds simply have none)
-            self._retry_queue = [
-                tuple(np.asarray(a, np.int32) for a in chunk)
-                for chunk in meta.get("retry_queue", [])]
-            # so is the health map (A15): the snapshot's down-set and
-            # deferred queue replace the live one BEFORE replay — an
-            # in-process restore must not replay down-shard records on
-            # top of deferrals the snapshot already captured (that would
-            # double-apply them on heal), and the deferred batches'
-            # original WAL records may be GC'd, so the meta image is
-            # authoritative.  Replayed tail records owned by a restored
-            # down shard re-defer exactly as they did pre-crash.
-            health_image = meta.get("health", {})
-            self.health.load(health_image if mode == "exact" else {})
-            hstats = self.health.stats()
-            with self._stats_lock:
-                self.stats.update(mc.counter_stats(state))
-                self.stats["shards_down"] = hstats["shards_down"]
-                self.stats["deferred_writes"] = hstats["deferred_writes"]
-            if mode != "exact":
-                # reshard: old shard ids are meaningless under the new
-                # topology — start healthy (loaded empty above) and fold
-                # the snapshot's deferred batches straight into the state
-                # (they precede every tail record in seq order)
-                for _, dsrc, ddst, dw in health_image.get("deferred", ()):
-                    dsrc = np.asarray(dsrc, np.int32)
-                    self._apply_locked(
-                        dsrc, np.asarray(ddst, np.int32),
-                        np.ones_like(dsrc) if dw is None
-                        else np.asarray(dw, np.int32))
-            if replay and self.wal is not None:
-                for seq, src, dst, w in self.wal.replay(
-                        after_seq=self._seq):
-                    # apply BEFORE advancing: a fault mid-replay must not
-                    # leave _seq past unapplied records (same contract as
-                    # observe)
-                    self._apply_locked(src, dst, w)
-                    self._seq = seq
-                    replayed += 1
-            if self.wal is not None:
-                # snapshot GC may have unlinked every segment: a fresh
-                # process's WAL scan then restarts at 0, colliding with
-                # seqs the snapshot covers — the meta wal_seq is the
-                # durable authority
-                self.wal.resume_at(self._seq + 1)
-            # restore is the escalation ladder's terminus: snapshot + log
-            # agree with the published state again, so writes re-open
-            self._poisoned = None
+                step, meta, state, edges = self._read_ranks(directory, step)
+        base_old = self._base_of(meta)
+        n_old = int(meta["num_shards"])
+        scfg = self.cfg.sharded
+        new_scfg = None
+        if n_old == scfg.num_shards:
+            mode = "exact"
+            snap_own = Ownership(
+                num_shards=n_old,
+                num_buckets=int(meta["ownership"]["num_buckets"]),
+                assignment=tuple(meta["ownership"]["assignment"]))
+            own_now = scfg.resolved_ownership()
+            if (snap_own.resolved_assignment()
+                    != own_now.resolved_assignment()
+                    or dataclasses.asdict(base_old)
+                    != dataclasses.asdict(scfg.base)):
+                # rows live where the snapshot's map routed them; the
+                # engine must route future traffic the same way
+                new_scfg = dataclasses.replace(
+                    scfg, base=base_old, ownership=snap_own)
+        else:
+            mode = "reshard"
+            state = (self._reingest(state, scfg) if edges is None
+                     else self._ingest(*edges, scfg))
+        # swap: readers must never pair the new routing with the old
+        # snapshot (or vice versa), so rebind + publish are atomic
+        # with respect to their (program, snapshot) pairing; the new
+        # state gets a writer of its own (readers that still hold the
+        # old state keep it alive)
+        with self._route_lock:
+            if new_scfg is not None:
+                self._rebind(new_scfg)
+            self.store.publish(state)
+            self._writer = epoch.BackBufferLearner(self.store)
+            self._moved()
+        self._seq = int(meta["wal_seq"])
+        # the overflow-retry carry-over is recovery state: the replay
+        # below re-plans each step from the same queue the pre-crash
+        # pipeline saw (snapshots from older builds simply have none)
+        self._retry_queue = [
+            tuple(np.asarray(a, np.int32) for a in chunk)
+            for chunk in meta.get("retry_queue", [])]
+        # so is the health map (A15): the snapshot's down-set and
+        # deferred queue replace the live one BEFORE replay — an
+        # in-process restore must not replay down-shard records on
+        # top of deferrals the snapshot already captured (that would
+        # double-apply them on heal), and the deferred batches'
+        # original WAL records may be GC'd, so the meta image is
+        # authoritative.  Replayed tail records owned by a restored
+        # down shard re-defer exactly as they did pre-crash.
+        health_image = meta.get("health", {})
+        self.health.load(health_image if mode == "exact" else {})
+        hstats = self.health.stats()
+        counters = mc.counter_stats(state, ranks=self.ranks)
+        with self._stats_lock:
+            self.stats.update(counters)
+            self.stats["shards_down"] = hstats["shards_down"]
+            self.stats["deferred_writes"] = hstats["deferred_writes"]
+        if mode != "exact":
+            # reshard: old shard ids are meaningless under the new
+            # topology — start healthy (loaded empty above) and fold
+            # the snapshot's deferred batches straight into the state
+            # (they precede every tail record in seq order)
+            for _, dsrc, ddst, dw in health_image.get("deferred", ()):
+                dsrc = np.asarray(dsrc, np.int32)
+                self._apply_locked(
+                    dsrc, np.asarray(ddst, np.int32),
+                    np.ones_like(dsrc) if dw is None
+                    else np.asarray(dw, np.int32))
+        if replay and self._logs:
+            for seq, src, dst, w in self._wal_tail():
+                # apply BEFORE advancing: a fault mid-replay must not
+                # leave _seq past unapplied records (same contract as
+                # observe)
+                self._apply_locked(src, dst, w)
+                self._seq = seq
+                replayed += 1
+        if self.wal is not None:
+            # snapshot GC may have unlinked every segment: a fresh
+            # process's WAL scan then restarts at 0, colliding with
+            # seqs the snapshot covers — the meta wal_seq is the
+            # durable authority
+            self.wal.resume_at(self._seq + 1)
+        # restore is the escalation ladder's terminus: snapshot + log
+        # agree with the published state again, so writes re-open
+        self._poisoned = None
         return {"step": step, "mode": mode, "replayed": replayed,
                 "wal_seq": self._seq}
+
+    def _base_of(self, meta: dict) -> mc.MCConfig:
+        """A snapshot's chain config; the kernel dispatch is this
+        engine's own, not the writer's."""
+        return mc.MCConfig(**{**meta["base_cfg"],
+                              "impl": self.cfg.sharded.base.impl})
+
+    def _read_ranks(self, directory: str, step: Optional[int]):
+        """Restore's read on a rank group (every rank): rank 0 reads the
+        step once; at this group's shard count each rank gets its shard
+        (``state``), at another every rank gets the snapshot's live edges
+        in the one-card (shard, row, slot) order (``edges``).  A read
+        that fails on rank 0 raises on every rank.  Returns ``(step,
+        meta, state or None, edges or None)``."""
+        ranks = self.ranks
+        arrays, found, failed = None, None, None
+        if ranks.rank == 0:
+            try:
+                step, meta, arrays = snapshot_io.read_step(directory, step)
+                if int(meta["num_shards"]) == ranks.world:
+                    snapshot_io.check_shards(
+                        self._stacked_like(self._base_of(meta), 1), arrays,
+                        ranks.world)
+                found = (step, meta, None)
+            except (OSError, ValueError, KeyError) as exc:
+                failed, found = exc, (None, None, repr(exc))
+        step, meta, said = ranks.broadcast_object(found)
+        if failed is not None:
+            raise failed
+        if said is not None:
+            raise OSError(f"rank 0 could not restore from {directory}: "
+                          f"{said}")
+        base_old, n_old = self._base_of(meta), int(meta["num_shards"])
+        if n_old == ranks.world:
+            return step, meta, snapshot_io.scatter_arrays(
+                self._stacked_like(base_old, 1), arrays, ranks,
+                self.device), None
+        listed = None
+        if ranks.rank == 0:
+            old = ckpt.place(self._stacked_like(base_old, n_old), arrays,
+                             device=self.device)
+            del arrays
+            listed = torch.from_numpy(np.stack(rs.extract_edges(old), axis=1))
+            del old
+        got = ranks.broadcast(listed)
+        return step, meta, None, tuple(np.ascontiguousarray(got[:, i].numpy())
+                                       for i in range(3))
+
+    def _wal_tail(self):
+        """The WAL records after ``_seq``: the log's own on one card; on a
+        rank group rank 0's, each broadcast to every rank as it is read
+        (a read that fails on rank 0 raises on every rank)."""
+        if self.ranks is None:
+            yield from self.wal.replay(after_seq=self._seq)
+            return
+        tail = (self.wal.replay(after_seq=self._seq)
+                if self.wal is not None else None)
+        while True:
+            item, failed = None, None
+            if tail is not None:
+                try:
+                    rec = next(tail, None)
+                    item = None if rec is None else (
+                        int(rec[0]), *(np.asarray(x, np.int32)
+                                       for x in rec[1:]))
+                except Exception as exc:   # every rank must hear of it
+                    failed, item = exc, repr(exc)
+            item = self.ranks.broadcast_object(item)
+            if failed is not None:
+                raise failed
+            if isinstance(item, str):
+                raise OSError(f"rank 0 could not replay the WAL: {item}")
+            if item is None:
+                return
+            yield item
 
     def reassign(self, ownership: Ownership) -> dict:
         """Live rebalancing: install a new bucket -> shard assignment and
@@ -1372,20 +1941,29 @@ class ShardedEngine:
                 f"{ownership.num_shards}, engine has {scfg.num_shards}")
         new_scfg = dataclasses.replace(scfg, ownership=ownership)
         with self._write_lock:
-            # migrate FIRST, against local programs for the new map;
-            # readers keep pairing the old routing with the old snapshot
-            # until the atomic swap below
-            snap = self._writer.acquire()
+            if self.ranks is not None:
+                self._agree_or_lose_locked(
+                    "reassign", np.int64(ownership.num_buckets),
+                    np.asarray(ownership.resolved_assignment(), np.int64))
             try:
-                state = self._reingest(snap.state, new_scfg)
-            finally:
-                self.store.release(snap)
-            with self._route_lock:
-                self._rebind(new_scfg)
-                self.store.publish(state)
-                self._writer = epoch.BackBufferLearner(self.store)
+                # migrate FIRST, against local programs for the new map;
+                # readers keep pairing the old routing with the old
+                # snapshot until the atomic swap below
+                snap = self._writer.acquire()
+                try:
+                    state = self._reingest(snap.state, new_scfg)
+                finally:
+                    self.store.release(snap)
+                with self._route_lock:
+                    self._rebind(new_scfg)
+                    self.store.publish(state)
+                    self._writer = epoch.BackBufferLearner(self.store)
+                    self._moved()
+                counters = mc.counter_stats(state, ranks=self.ranks)
+            except RankGroupLost as exc:
+                raise self._lost_locked("reassign", exc) from exc
             with self._stats_lock:
-                self.stats.update(mc.counter_stats(state))
+                self.stats.update(counters)
         return {"num_buckets": ownership.num_buckets,
                 "version": self.store.version}
 
@@ -1396,12 +1974,20 @@ class ShardedEngine:
         """Swap the static sharded config and rebuild every routed program
         (ownership/base changes are baked into them as constants)."""
         self.cfg = dataclasses.replace(self.cfg, sharded=scfg)
-        self._update = sh.make_update_fn_(scfg)
+        self._update = sh.make_update_fn_(scfg, ranks=self.ranks)
         self._maintain = sh.make_maintain_fn_(
-            scfg, total_threshold=self.cfg.decay_threshold)
+            scfg, total_threshold=self.cfg.decay_threshold, ranks=self.ranks)
         with self._compile_lock:
             self._query_fns.clear()
             self._topn_fns.clear()
+
+    def _moved(self) -> None:
+        """A swap published a new state: bump the route epoch a rank
+        group's reads agree on and wake the reads waiting for it (the
+        caller holds ``_route_lock``, the condition's lock)."""
+        self._route_epoch += 1
+        if self.ranks is not None:
+            self._route_moved.notify_all()
 
     def _stacked_like(self, base: mc.MCConfig, num_shards: int):
         """Template with the stacked [num_shards, ...] shapes a snapshot at
@@ -1437,8 +2023,19 @@ class ShardedEngine:
         Deliberately independent of the engine's installed routing, so
         callers can migrate before swapping.  The edges are listed on the
         device (only the live triples reach the host); the owner
-        ``sh.update_`` writes the fresh state, which no reader holds."""
-        src, dst, cnt = rs.extract_edges(old_state)
+        ``sh.update_`` writes the fresh state, which no reader holds.  On
+        a rank group each rank lists its shard's edges and the lists are
+        gathered in rank order, the one-card (shard, row, slot) order
+        (every rank calls)."""
+        edges = rs.extract_edges(old_state)
+        if self.ranks is not None:
+            edges = rs.gather_edges(edges, self.ranks)
+        return self._ingest(*edges, scfg)
+
+    def _ingest(self, src, dst, cnt, scfg: sh.ShardedConfig) -> mc.MCState:
+        """Live edges (the same global lists on every rank of a group) into
+        a fresh chain under ``scfg``: :meth:`_reingest`'s plan and
+        ingestion, each rank its slice of every planned batch."""
         owner = scfg.resolved_ownership().owner_of(
             torch.from_numpy(src).to(self.device)).cpu().numpy()
         slice_len = max(scfg.num_shards, self.cfg.reingest_slice_len)
@@ -1448,10 +2045,13 @@ class ShardedEngine:
         # gets its own program with the bound lifted (shapes are identical)
         ingest_scfg = dataclasses.replace(
             scfg, base=dataclasses.replace(scfg.base, max_new_per_batch=0))
-        state = sh.init_sharded(scfg, self.device)
+        state = sh.init_sharded(scfg, self.device, ranks=self.ranks)
+        part = (slice(None) if self.ranks is None else
+                slice(self.ranks.rank * slice_len,
+                      (self.ranks.rank + 1) * slice_len))
         for bsrc, bdst, bw in rs.plan_batches(
                 src, dst, cnt, owner, scfg.num_shards, slice_len, cap):
-            sh.update_(state, *(torch.from_numpy(x).to(self.device)
+            sh.update_(state, *(torch.from_numpy(x[part]).to(self.device)
                                 for x in (bsrc, bdst, bw)),
-                       scfg=ingest_scfg)
+                       scfg=ingest_scfg, ranks=self.ranks)
         return rs.settle_order_(state)

@@ -16,7 +16,14 @@ the reference's three collectives:
 
 and, for carrying a state to one process and back (``convert``,
 ``persist/snapshot.py``), ``gather``, ``scatter`` and
-``broadcast_object``.
+``broadcast_object``.  The serving engine (``serve/engine.py`` with
+``ranks=``) adds three of its own: :meth:`RankGroup.agree` (every rank's
+few integers on every rank: the small exchange that settles a write or a
+read before any rank acts on it), :meth:`RankGroup.broadcast` (a tensor of
+one rank on every rank) and :meth:`RankGroup.all_gather_cat` (tensors of
+any length, concatenated in rank order on every rank); and
+:meth:`RankGroup.lanes`, sub-groups over the same ranks, so that readers
+exchange on communicators of their own, beside the writer's.
 
 Backends.  NCCL: one rank per card (NCCL refuses two ranks on one GPU in
 one communicator); the rank's card tensors are exchanged directly, ordered
@@ -32,29 +39,40 @@ same shapes, as ``shard_map``'s ``P(axis)`` guarantees the reference (a
 rank handed a local batch of another length would make the sizes disagree;
 nothing checks it per call, which would cost a synchronisation).  A group
 is joined with a bounded timeout, so that a lost rank fails the others'
-collectives instead of hanging them.
+collectives instead of hanging them: a collective that fails raises
+:class:`RankGroupLost`, an IO error no retry ladder retries.
 """
 
 from __future__ import annotations
 
 import datetime
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["BACKENDS", "RankGroup", "init_ranks"]
+from repro_torch.runtime.fault_tolerance import UnretryableIOError
+
+__all__ = ["BACKENDS", "RankGroup", "RankGroupLost", "init_ranks"]
 
 BACKENDS = ("nccl", "gloo")
 P2P_PIECE_BYTES = 8 << 20   # one point-to-point message of gather / scatter
 
 
+class RankGroupLost(UnretryableIOError):
+    """A collective of the group failed: a rank died, or the group's
+    timeout ran out.  Every later collective of the group fails too, so a
+    retry cannot help (``classify_io_error`` calls it persistent)."""
+
+
 class RankGroup:
     """One rank's view of a process group: ``group``, ``rank``, ``world``,
-    ``device`` (where this rank's state lives) and ``backend``."""
+    ``device`` (where this rank's state lives), ``backend`` and the
+    ``timeout`` (seconds) of its collectives."""
 
     def __init__(self, group: Any, rank: int, world: int,
-                 device: torch.device, backend: str):
+                 device: torch.device, backend: str, timeout: float = 60.0):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got "
                              f"{backend!r}")
@@ -67,6 +85,19 @@ class RankGroup:
         self.world = world
         self.device = torch.device(device)
         self.backend = backend
+        self.timeout = float(timeout)
+
+    def _run(self, what: str, fn, *args, **kw):
+        """``fn(*args, **kw)``, a collective: its failure raises
+        :class:`RankGroupLost` naming it."""
+        try:
+            return fn(*args, **kw)
+        except RankGroupLost:
+            raise
+        except RuntimeError as exc:
+            raise RankGroupLost(
+                f"rank {self.rank} of {self.world} ({self.backend}): {what} "
+                f"failed: {exc}") from exc
 
     @property
     def staged(self) -> bool:
@@ -107,20 +138,23 @@ class RankGroup:
                              f"the world size {self.world}")
         send = self._out(x)
         recv = self._empty(send.shape, send.dtype)
-        dist.all_to_all_single(recv, send, group=self.group)
+        self._run("all_to_all", dist.all_to_all_single, recv, send,
+                  group=self.group)
         return self._back(recv)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[world, *x.shape]``: every rank's ``x`` in rank order."""
         send = self._out(x)
         out = self._empty((self.world, *send.shape), send.dtype)
-        dist.all_gather(list(out.unbind(0)), send, group=self.group)
+        self._run("all_gather", dist.all_gather, list(out.unbind(0)), send,
+                  group=self.group)
         return self._back(out)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x`` (``x`` itself is not written)."""
         out = self._out(x) if self.staged else x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        self._run("psum", dist.all_reduce, out, op=dist.ReduceOp.SUM,
+                  group=self.group)
         return self._back(out)
 
     # -- carrying a state to one process and back ---------------------------
@@ -143,9 +177,11 @@ class RankGroup:
         ops = [dist.P2POp(op, piece, peer, self.group)
                for op, pairs in ((dist.isend, sends), (dist.irecv, recvs))
                for x, peer in pairs for piece in pieces(x)]
-        if ops:
+        def run():
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+        if ops:
+            self._run("point-to-point", run)
 
     def gather(self, x: torch.Tensor, dst: int = 0) -> Optional[torch.Tensor]:
         """Every rank's ``x`` (at least 1-d) concatenated along dim 0, on
@@ -182,8 +218,76 @@ class RankGroup:
         """``obj`` of rank ``src`` on every rank (pickled: only this
         program's own objects)."""
         box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self.group)
+        self._run("broadcast_object", dist.broadcast_object_list, box,
+                  src=src, group=self.group)
         return box[0]
+
+    # -- the serving engine's exchanges -------------------------------------
+
+    def agree(self, values: Sequence[int]) -> np.ndarray:
+        """Every rank's ``values`` (the same count of int64 on every rank)
+        on every rank, as a host array ``[world, len(values)]`` in rank
+        order: one small ``all_gather`` (on the card for NCCL), read on the
+        host."""
+        x = torch.tensor([int(v) for v in values], dtype=torch.int64)
+        if self.backend == "nccl":
+            x = x.to(self.device)
+        out = [torch.empty_like(x) for _ in range(self.world)]
+        self._run("agree", dist.all_gather, out, x, group=self.group)
+        return torch.stack(out).cpu().numpy()
+
+    def broadcast(self, x: Optional[torch.Tensor], src: int = 0
+                  ) -> torch.Tensor:
+        """Rank ``src``'s ``x`` (given there only) on every rank, on the
+        CPU: its shape and dtype first, then the data (on the card for
+        NCCL)."""
+        head = self.broadcast_object(
+            (tuple(x.shape), str(x.dtype).split(".")[-1])
+            if self.rank == src else None, src)
+        shape, dtype = head[0], getattr(torch, head[1])
+        buf = (self._wire(x) if self.rank == src else
+               self._wire(torch.empty(shape, dtype=dtype)))
+        if buf.numel():
+            self._run("broadcast", dist.broadcast, buf, src=src,
+                      group=self.group)
+        return buf.cpu()
+
+    def all_gather_cat(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (any length along dim 0, the same trailing
+        shape and dtype on every rank) concatenated in rank order, on every
+        rank, on the CPU: the lengths agreed first, then one ``all_gather``
+        of the tensors padded to the longest."""
+        sizes = self.agree([x.shape[0]])[:, 0]
+        most = int(sizes.max())
+        if most == 0:
+            return x.cpu()
+        pad = self._wire(torch.zeros((most, *x.shape[1:]), dtype=x.dtype))
+        pad[:x.shape[0]].copy_(x)
+        out = self._wire(torch.empty((self.world, most, *x.shape[1:]),
+                                     dtype=x.dtype))
+        self._run("all_gather", dist.all_gather, list(out.unbind(0)), pad,
+                  group=self.group)
+        out = out.cpu()
+        return torch.cat([out[r, :int(n)] for r, n in enumerate(sizes)])
+
+    def lanes(self, count: int) -> List["RankGroup"]:
+        """``count`` new groups over this group's ranks, each a
+        :class:`RankGroup` of its own (the same rank, world, device,
+        backend and timeout), made in the same order on every rank (every
+        rank calls).  Each is used once here, so that an NCCL communicator
+        is set up before any thread runs collectives beside it."""
+        members = dist.get_process_group_ranks(self.group)
+        out = []
+        for _ in range(count):
+            group = self._run(
+                "new_group", dist.new_group, ranks=members,
+                backend=self.backend,
+                timeout=datetime.timedelta(seconds=self.timeout))
+            lane = RankGroup(group, self.rank, self.world, self.device,
+                             self.backend, self.timeout)
+            lane.agree([0])
+            out.append(lane)
+        return out
 
     def close(self) -> None:
         """Leave the group (every rank)."""
@@ -225,4 +329,4 @@ def init_ranks(rank: int, world: int, *, backend: str, init_method: str,
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout), **kw)
-    return RankGroup(dist.group.WORLD, rank, world, device, backend)
+    return RankGroup(dist.group.WORLD, rank, world, device, backend, timeout)

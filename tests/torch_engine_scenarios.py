@@ -391,8 +391,9 @@ def mark_down(pkg, tmp, rec, shards=2):
     """``test_faults.py::test_mark_shard_down_degrades_reads_and_defers_
     writes`` (two shards): a down shard's items answer empty, the top-n
     filters its rows, its writes defer and ``heal_shard`` re-applies
-    them."""
-    eng = fault_engine(pkg, tmp, shards=shards)
+    them.  Past two shards the buckets grow with S, so that the small
+    batches route without a drop."""
+    eng = fault_engine(pkg, tmp, shards=shards, factor=max(2.0, shards))
     src = np.arange(16, dtype=np.int32)
     eng.observe(src, (src + 1) % 64)
     own = eng.cfg.sharded.resolved_ownership()
@@ -474,9 +475,10 @@ def wal_segment_open_transient(pkg, tmp, rec):
 
 
 @scenario
-def wal_enospc_poisons(pkg, tmp, rec):
-    """A persistent WAL fault mid-observe poisons without publishing."""
-    eng = fault_engine(pkg, tmp)
+def wal_enospc_poisons(pkg, tmp, rec, shards=1):
+    """A persistent WAL fault mid-observe poisons without publishing (past
+    two shards the buckets grow with S: no read drops an item)."""
+    eng = fault_engine(pkg, tmp, shards=shards, factor=max(2.0, shards))
     eng.observe(*batch(0))
     before_q = answers(pkg, eng, rec, "before")
     before_stats = dict(eng.stats)
@@ -596,11 +598,11 @@ def publish_transient_retried(pkg, tmp, rec):
 
 
 @scenario
-def publish_fault_then_more_batches(pkg, tmp, rec):
+def publish_fault_then_more_batches(pkg, tmp, rec, shards=1):
     """The back-buffer trap: a publish fault on every third write (each
     retried), interleaved with reads, over ten batches; every leaf equals
     an engine that never faulted."""
-    eng = fault_engine(pkg, tmp, snap=False, decay_threshold=6)
+    eng = fault_engine(pkg, tmp, snap=False, decay_threshold=6, shards=shards)
     batches = [batch(seed, n=48) for seed in range(10)]
     pkg.faults.arm("engine.publish", RuntimeError("flake"),
                    trigger=lambda hit: hit % 3 == 1)
@@ -612,7 +614,8 @@ def publish_fault_then_more_batches(pkg, tmp, rec):
     assert eng.stats["decay_steps"] > 0
     record(pkg, eng, rec, "end")
     eng.close()
-    _oracle_answers(pkg, tmp, batches, rec, snap=False, decay_threshold=6)
+    _oracle_answers(pkg, tmp, batches, rec, snap=False, decay_threshold=6,
+                    shards=shards)
     for k in rec:
         if k.startswith("end/state/"):
             assert np.array_equal(rec[k], rec["oracle" + k[3:]]), k
@@ -861,10 +864,11 @@ def route_overflow_prediction(pkg, tmp, rec):
 
 
 @scenario
-def route_retry_requeues_and_drains(pkg, tmp, rec):
+def route_retry_requeues_and_drains(pkg, tmp, rec, shards=1):
     def mk(budget):
         return fault_engine(pkg, tmp + f"_{budget}", snap=False, factor=0.5,
-                            route_retry_budget=budget, route_retry_slice=8)
+                            route_retry_budget=budget, route_retry_slice=8,
+                            shards=shards)
     src, dst = np.zeros(24, np.int32), np.arange(24, dtype=np.int32)
     eng0 = mk(0)
     eng0.observe(src, dst)
@@ -906,14 +910,14 @@ def route_retry_queue_survives_restore(pkg, tmp, rec):
 
 
 @scenario
-def query_overflow_retry(pkg, tmp, rec):
+def query_overflow_retry(pkg, tmp, rec, shards=1):
     cfg0 = dict(num_rows=64, capacity=8)
     src_w = np.arange(32, dtype=np.int32) % 64
-    eng0 = pkg.engine(pkg.config(cfg0, 1, 0.5))
+    eng0 = pkg.engine(pkg.config(cfg0, shards, 0.5))
     eng0.observe(src_w, (src_w + 1) % 64)
     _, _, n0 = answers(pkg, eng0, rec, "off", np.zeros(32, np.int32))
     eng0.close()
-    eng = pkg.engine(pkg.config(cfg0, 1, 0.5, query_retry_budget=4,
+    eng = pkg.engine(pkg.config(cfg0, shards, 0.5, query_retry_budget=4,
                                 retry=pkg.FAST))
     eng.observe(src_w, (src_w + 1) % 64)
     _, _, n1 = answers(pkg, eng, rec, "on", np.zeros(32, np.int32))
@@ -995,14 +999,14 @@ def _states_equal(pkg, a, b):
 
 
 @scenario
-def checkpoint_restore_exact_with_replay(pkg, tmp, rec):
-    eng = persist_engine(pkg, tmp)
+def checkpoint_restore_exact_with_replay(pkg, tmp, rec, shards=1):
+    eng = persist_engine(pkg, tmp, num_shards=shards)
     eng.observe(*distinct_count_batch())
     eng.checkpoint()
     eng.observe(*distinct_count_batch(seed=1))
     ref_q = answers(pkg, eng, rec, "live", np.arange(12, dtype=np.int32))
     ref_stats = dict(eng.stats)
-    eng2 = persist_engine(pkg, tmp)
+    eng2 = persist_engine(pkg, tmp, num_shards=shards)
     info = eng2.restore()
     assert info["mode"] == "exact" and info["replayed"] == 1
     _same(ref_q, answers(pkg, eng2, rec, "restored",
@@ -1134,10 +1138,13 @@ def reassign_preserves_answers(pkg, tmp, rec, shards=1):
 
 
 @scenario
-def elastic_restore(pkg, tmp, rec, shards=4):
+def elastic_restore(pkg, tmp, rec, shards=4, targets=(2, 8), write=True):
     """``test_elastic_reshard_restore_8dev``: a 4-shard engine's snapshot
     (+ one WAL record after it) restored onto 2 and 8 shards (elastic, the
-    answers and top-16 of one chain) and onto 4 (exact, every leaf)."""
+    answers and top-16 of one chain) and onto 4 (exact, every leaf).
+    ``targets`` are the shard counts restored onto; ``write=False``
+    restores what another run left in ``tmp`` (the 4-shard writer's part
+    and its exact restore skipped)."""
     srcs, dsts = [], []
     for s in range(40):
         for d in range(6):
@@ -1154,16 +1161,18 @@ def elastic_restore(pkg, tmp, rec, shards=4):
             snapshot_dir=os.path.join(tmp, "snap"),
             wal_dir=os.path.join(tmp, "wal"), wal_fsync="always"))
 
-    e4 = engine_at(shards)
-    e4.observe(src, dst)
-    e4.checkpoint()
     src2, dst2 = np.arange(40, dtype=np.int32), np.full(40, 17, np.int32)
-    e4.observe(src2, dst2)
     q = np.arange(40, dtype=np.int32)
     oracle = _local_oracle(pkg, base, [(src, dst), (src2, dst2)], q)
-    _, d4, p4 = top(pkg, e4, rec, "top4", 16)
-    record(pkg, e4, rec, "e4")
-    for m in (2, 8):
+    d4 = p4 = None
+    if write:
+        e4 = engine_at(shards)
+        e4.observe(src, dst)
+        e4.checkpoint()
+        e4.observe(src2, dst2)
+        _, d4, p4 = top(pkg, e4, rec, "top4", 16)
+        record(pkg, e4, rec, "e4")
+    for m in targets:
         em = engine_at(m)
         info = em.restore()
         assert info["mode"] == "reshard" and info["replayed"] == 1, info
@@ -1171,8 +1180,11 @@ def elastic_restore(pkg, tmp, rec, shards=4):
         assert em.stats["deferred_new"] == 0
         _same(oracle, answers(pkg, em, rec, f"q{m}", q))
         _, md, mp = top(pkg, em, rec, f"top{m}", 16)
-        assert np.array_equal(mp, p4) and np.array_equal(md, d4)
+        if write:
+            assert np.array_equal(mp, p4) and np.array_equal(md, d4)
         record(pkg, em, rec, f"e{m}")
+    if not write:
+        return
     e4b = engine_at(shards)
     info = e4b.restore()
     assert info["mode"] == "exact"
@@ -1202,22 +1214,28 @@ _SUBPROCESS = textwrap.dedent(
         es.SCENARIOS[name](pkg, tmp, rec, shards=shards, **(kw[0] if kw else {}))
         np.savez(os.path.join(out_dir, f"{name}_s{shards}.npz"), **rec)
 
+    # scenarios that arm failpoints run alone: a failpoint is the process's
+    serial = set(json.loads(sys.argv[4]))
     with ThreadPoolExecutor(4) as pool:
-        list(pool.map(run, items))
+        list(pool.map(run, [i for i in items if i[0] not in serial]))
+    for item in items:
+        if item[0] in serial:
+            run(item)
     print("JAX-ENGINE-OK")
     """)
 
 
-def run_reference_subprocess(out_dir, items, timeout=600):
+def run_reference_subprocess(out_dir, items, timeout=600, serial=()):
     """Run ``[(scenario, shards), ...]`` (or ``(scenario, shards, kwargs)``)
-    through the reference with 8 fake devices; returns ``{(scenario,
-    shards): record}``."""
+    through the reference with 8 fake devices, four at a time but the
+    scenarios named in ``serial`` (those that arm failpoints), which run
+    one by one after them; returns ``{(scenario, shards): record}``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
                                          env.get("PYTHONPATH", "")])
     out = subprocess.run(
         [sys.executable, "-c", _SUBPROCESS, str(out_dir), json.dumps(items),
-         str(ROOT / "tests")],
+         str(ROOT / "tests"), json.dumps(list(serial))],
         env=env, capture_output=True, text=True, timeout=timeout)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "JAX-ENGINE-OK" in out.stdout
@@ -1247,6 +1265,27 @@ def soak_stream(pkg, tmp, rec, shards=1, steps=0, rows=256, batch=128,
     answers(pkg, eng, rec, "q", np.arange(min(rows, 64), dtype=np.int32))
     top(pkg, eng, rec, "top", 8)
     eng.close()
+
+
+# -- the serving launcher ---------------------------------------------------
+
+
+def mask_timings(text: str):
+    """The launcher's printed lines with its timings masked."""
+    import re
+    text = re.sub(r"in [0-9.]+s \([0-9]+ edges/s\)", "in <s> (<rate>)", text)
+    return [line for line in text.splitlines() if line.strip()]
+
+
+@scenario
+def serve_lines(pkg, tmp, rec, shards=4):
+    """``launch/serve.py``'s ``run_sharded`` at ``main``'s defaults over
+    ``shards`` shards: the lines it prints, timings masked."""
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pkg.serve.run_sharded(shards, 2.0, 4, 2048, 16)
+    rec["lines"] = np.array(mask_timings(out.getvalue()))
 
 
 # -- snapshots and WALs across the packages ---------------------------------
